@@ -36,3 +36,5 @@ def rng():
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running gates (big-shape memory analysis, campaign fixtures)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (the PyTorch port's kernels); skips without one")
