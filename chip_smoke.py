@@ -1,24 +1,34 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port (`tpuasr_torch`) through its serving path on one
-NVIDIA card and hold its hand-written kernels against their plain versions.
+"""Drive the PyTorch port (`tpuasr_torch`) through its serving path and its
+training step on one NVIDIA card, and hold its hand-written kernels against
+their plain versions.
 
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero):
 1. Device: require CUDA; print torch's CUDA version, nvcc's version and the
    card's name and power limit (nvidia-smi).
-2. Build: compile every kernel of tpuasr_torch/csrc at once (one nvcc per
-   source, started together) and print the time and ptxas' register lines.
+2. Build: compile every kernel source of tpuasr_torch/csrc at once (one nvcc
+   per source, started together) and print the time and ptxas' register
+   lines.
 3. Kernels against their plain versions on the card, at the flagship's
    shapes: fbank on the 16 waves of fixtures/example1.npz (48 kHz) and on
-   a seeded 8 s batch, in both precisions; rel-pos attention at
+   a seeded 8 s batch, in both precisions, and on the training batch of
+   phase 6b (12 waves, 9,216 frames) in precision "default"; rel-pos attention at
    [4, 187, 256] (8 s after subsampling) and [16, 63, 256] (the fixture
-   requests), fp32 and bf16, with a fully masked row. Max abs error, its
-   tolerance and the reason, kernel ms, plain ms, and for attention the ms
-   of one `scaled_dot_product_attention` call on [q+u | q+v], [k | p], v.
+   requests), fp32 and bf16, with a fully masked row; the fused RNN-T joint
+   forward and backward (#4/#5) and the CTC alpha and beta sweeps (#6/#7)
+   at the training step's shapes (B 12, T' 191, U+1 33, S 65, D 256,
+   V 412) and at a ragged shape with a t_len = 0 and a label_len = 0 row.
+   Max abs error, its tolerance and the reason, kernel ms, plain ms, bound,
+   and the ms of one PyTorch call computing the same function where there
+   is one (attention: `scaled_dot_product_attention` on [q+u | q+v],
+   [k | p], v; CTC: `torch.nn.functional.ctc_loss` forward, and its
+   backward; the fused joint: none). Kernels are timed by CUDA events;
+   the plain CTC sweeps and F.ctc_loss by the profiler (`timing`).
 4. Offline serving: the full-width flagship (12 causal conformer blocks,
    d256, 4 heads, FFN 1024, conv 31, LSTM-256 predictor, tanh joint over
-   412 tokens) with seeded random weights, through
+   412 tokens, `fused_attention=True`) with seeded random weights, through
    `make_offline_decoder("rnnt_greedy")`. The blank logit is raised until
    greedy search emits as many tokens per encoder frame as the fixture's
    transcripts hold (texts/text_lens), so the emission loop runs as often as
@@ -29,9 +39,24 @@ Phases (any failure exits non-zero):
 5. Streaming serving: `streaming_greedy_decode` (chunk 32, 6 left chunks)
    must give the tokens of offline greedy over the chunk-masked full-context
    encoder; `measure_rtf` greedy p50/p90.
-6. The kernels line: one JSON object with every kernel's launches on the
-   serving run of phases 4-5 (counts reset just before), error, times and
-   bound.
+6. Training (`fused_joint_loss=True`, `fused_attention=False`):
+   a. card against CPU: the full-width fp32 flagship on a batch of 2 x 256
+      feature frames x 16 tokens, no dropout, static chunk 32: the loss
+      dict, the gradient norm, every gradient leaf (max error relative to
+      the leaf's max |g|); the GuardedAdam step alone (the CPU's optimizer
+      on the card's gradients: count, moments, weights) and end to end
+      (each side's update; no entry whose sign is certain moves the other
+      way);
+   b. the bench protocol (bench.py): batch 12 x 768 frames of seeded 48 kHz
+      waves with 24-30 tokens each, bf16, fbank precision "default",
+      dropout 0.1, dynamic chunk, ten steps of `make_train_step`: every
+      loss finite, synced step ms, audio seconds per second, peak memory,
+      and the device's busy time against wall from torch.profiler over one
+      step. Kernels #1 and #4-#7 must launch during this run.
+7. The kernels line: one JSON object with an entry per kernel and run
+   (the serving run of phases 4-5, the training run of phase 6b; counts
+   reset just before each and read just after): that run's launches, and
+   the error, times and bound at the shape that run gives the kernel.
 
 TF32 is off throughout (cuBLAS and cuDNN), so every fp32 comparison is fp32.
 The last line is {"ok": true, "device": {...}}. The script imports nothing
@@ -109,22 +134,43 @@ def main() -> dict:
     print("== phase 3: kernels against their plain versions")
     data = _requests()
     checks = _kernel_checks(torch, dev, data)
+    checks.update(_train_kernel_checks(torch, dev))
 
     # ---------------------------------------------------------------- 4-5
     from tpuasr_torch.ops import LAUNCHES, reset_launch_counts
 
     reset_launch_counts()
     serving = _serve(torch, dev, data)
-    launches = dict(LAUNCHES)
-    print(f"launches on the serving run: {launches}")
+    serve_launches = dict(LAUNCHES)
+    print(f"launches on the serving run: {serve_launches}")
 
     # ---------------------------------------------------------------- 6
+    print("== phase 6a: training step, card against CPU (fp32)")
+    training = {"card_vs_cpu": _train_card_vs_cpu(torch, dev)}
+    print("== phase 6b: training at the bench protocol")
+    training["bench"], train_launches = _train_bench(torch, dev)
+    print(f"launches on the training run: {train_launches}")
+
+    # ---------------------------------------------------------------- 7
+    # one entry per kernel and run that launches it, with the record taken
+    # at the shape that run gives it: fbank appears twice (the serving
+    # requests in fp32, the training batch in "default" precision)
     kernels = []
-    for name, rec in (("fbank", checks["fbank"]), ("relpos_attention", checks["attention"])):
-        require(launches[name] > 0, f"the serving run never launched the {name} kernel")
-        kernels.append(dict(rec, launches=launches[name]))
-    print(json.dumps({"kernels": kernels}))
+    for name, run, check in (("fbank", "serving", "fbank"),
+                             ("fbank", "training", "fbank_training"),
+                             ("relpos_attention", "serving", "attention"),
+                             ("rnnt_fused_fwd", "training", "rnnt_fused_fwd"),
+                             ("rnnt_fused_bwd", "training", "rnnt_fused_bwd"),
+                             ("ctc_alpha", "training", "ctc_alpha"),
+                             ("ctc_beta_grad", "training", "ctc_beta_grad")):
+        launches = (serve_launches if run == "serving" else train_launches)[name]
+        require(launches > 0, f"the {run} run never launched {name}")
+        kernels.append(dict(checks[check], run=run, launches=launches,
+                            launches_serving=serve_launches[name],
+                            launches_training=train_launches[name]))
     print(json.dumps({"serving": serving}))
+    print(json.dumps({"training": training}))
+    print(json.dumps({"kernels": kernels}))
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}
 
@@ -145,17 +191,41 @@ def _requests() -> dict:
             "synthetic": (waves, np.array([n, int(6.5 * 48000), n, 5 * 48000], np.int32))}
 
 
-def _time_ms(torch, fn, iters: int = 30, warmup: int = 3) -> float:
-    """Mean device time of fn over `iters` calls, by CUDA events. A sleep
-    kernel holds the stream while the host enqueues all the calls, so the
+def _time_ms(torch, fn, iters: int = 30, warmup: int = 3, method: str = "events") -> float:
+    """Mean device time of fn over `iters` calls.
+
+    method "events": CUDA events around the calls, queued behind a sleep
+    kernel that holds the stream while the host enqueues all of them, so the
     events time the device's work back to back and not the host's launch
-    rate (the wrappers take longer to launch than the small kernels run)."""
+    rate (the wrappers take longer to launch than the small kernels run).
+    The sleep is sized from one timed enqueue, and the run fails if the
+    host's enqueue outlasted it. method "profiler": torch.profiler's sum of
+    the device's kernel time per call, for calls that cannot be queued
+    behind a sleep (they wait for the device, or enqueue more launches than
+    the launch queue holds: the plain CTC sweeps loop over frames, and
+    F.ctc_loss copies its host lengths to the card)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    if method == "profiler":
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        return sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA) / 1e3 / iters
+    require(method == "events", f"unknown timing method {method}")
+    t0 = time.perf_counter()
+    fn()
+    one = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles = max(SLEEP_CYCLES, int(3 * iters * one * 2e9))
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
     ev[0].record()
-    torch.cuda._sleep(SLEEP_CYCLES)
+    torch.cuda._sleep(cycles)
     ev[1].record()
     t0 = time.perf_counter()
     for _ in range(iters):
@@ -163,9 +233,10 @@ def _time_ms(torch, fn, iters: int = 30, warmup: int = 3) -> float:
     host_ms = (time.perf_counter() - t0) * 1e3
     ev[2].record()
     torch.cuda.synchronize()
-    require(host_ms < ev[0].elapsed_time(ev[1]),
-            f"the stream-holding sleep ({ev[0].elapsed_time(ev[1]):.1f} ms) ended before "
-            f"the host had enqueued the timed calls ({host_ms:.1f} ms)")
+    sleep_ms = ev[0].elapsed_time(ev[1])
+    require(host_ms < sleep_ms, f"the host took {host_ms:.1f} ms to enqueue {iters} calls, "
+                                f"longer than the {sleep_ms:.1f} ms sleep: the events would "
+                                f"time the host")
     return ev[1].elapsed_time(ev[2]) / iters
 
 
@@ -185,11 +256,17 @@ def _kernel_checks(torch, dev, data) -> dict:
     cfg = FeatureConfig()
     ops = _operands(astuple(cfg), str(dev))
     n_fft, n_freq, n_mels = cfg.n_fft, cfg.n_fft // 2 + 1, cfg.n_mels
-    for src in ("fixture", "synthetic"):
-        waves = decode_wire(torch.as_tensor(data[src][0]).to(dev))
-        frames = frame_signal(waves, n_fft, cfg.hop_length, True).reshape(-1, n_fft).contiguous()
+    both = (("highest", PEAK_FP32), ("default", PEAK_BF16))
+    # the serving requests in both precisions, and the training step's
+    # batch (phase 6b: bench.py's 12 waves) in the precision it trains with
+    for src, wire, precs in (("fixture", data["fixture"][0], both),
+                             ("synthetic", data["synthetic"][0], both),
+                             ("bench", _bench_batch(torch, dev)["waves"], both[1:])):
+        waves = decode_wire(torch.as_tensor(wire).to(dev))
+        frames = frame_signal(waves, n_fft, cfg.hop_length, cfg.center)
+        frames = frames.reshape(-1, n_fft).contiguous()
         rows = frames.shape[0]
-        for prec, peak in (("highest", PEAK_FP32), ("default", PEAK_BF16)):
+        for prec, peak in precs:
             got = fbank_frames(frames, *ops, cfg.amin, prec)
             torch.cuda.synchronize()
             ref = fbank_frames_plain(frames, *ops, cfg.amin, prec)
@@ -233,6 +310,8 @@ def _kernel_checks(torch, dev, data) -> dict:
             require(ok, f"fbank kernel disagrees with its plain version ({src}, {prec})")
             if src == "fixture" and prec == "highest":  # the serving run's call
                 out["fbank"] = rec
+            if src == "bench":  # the training run's call
+                out["fbank_training"] = rec
 
     g = torch.Generator().manual_seed(SEED)
     for b, t, lens in ((4, 187, (187, 150, 187, 100)), (16, 63, None)):
@@ -289,27 +368,35 @@ def _kernel_checks(torch, dev, data) -> dict:
 
 
 def _record(torch, name, source, replaces, err, flops, peak, nbytes, kernel, plain,
-            library) -> dict:
+            library, plain_iters: int = 30, plain_timing: str = "events") -> dict:
+    """One kernel's record for the kernels line. The kernel is always timed
+    by events; `plain_timing` says how its plain version and the library
+    call are timed, and `timing` records it beside the numbers."""
     t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BPS * 1e3
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "max_abs_err": err, "ms": _time_ms(torch, kernel),
-        "plain_ms": _time_ms(torch, plain),
+        "plain_ms": _time_ms(torch, plain, plain_iters, method=plain_timing),
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None if library is None else _time_ms(torch, library),
+        "library_ms": None if library is None else _time_ms(torch, library,
+                                                            method=plain_timing),
+        "timing": {"ms": "events", "plain_ms": plain_timing,
+                   "library_ms": None if library is None else plain_timing},
     }
 
 
 def _flagship(dtype: str):
     """The reference flagship (__graft_entry__._flagship_config on an
-    accelerator): causal dynamic-chunk conformer, static chunk 32."""
+    accelerator): causal dynamic-chunk conformer, static chunk 32, the
+    rel-pos attention kernel on the full-context path."""
     from tpuasr_torch.config import Config
 
     cfg = Config()
     cfg.model.compute_dtype = dtype
     enc = cfg.model.encoder
     enc.causal, enc.use_dynamic_chunk, enc.static_chunk_size = True, True, 32
+    enc.fused_attention = True
     return cfg
 
 
@@ -553,6 +640,437 @@ def _stream_stages(torch, model, cfg, feats) -> dict:
           f"{res['encode_chunk_ms_median']:.2f} ms, greedy {res['greedy_ms_median']:.2f} ms; "
           f"{steps[0]} emission steps in all")
     return res
+
+
+# ---------------------------------------------------------------------------
+# training: kernels #4-#7 and phase 6
+# ---------------------------------------------------------------------------
+
+BENCH_B, BENCH_FRAMES, BENCH_TOKENS = 12, 768, 32  # bench.py's protocol
+HOP, SR = 512, 48000
+
+
+def _bench_lengths(r):
+    """Token counts (24-30) and wave lengths of bench.py's synthetic batch:
+    (frames - 6) * hop // 30 samples per token, padded to (frames-1) * hop."""
+    ntok = r.integers(24, 31, size=BENCH_B)
+    per_token = (BENCH_FRAMES - 6) * HOP // 30
+    return ntok, ntok * per_token
+
+
+def _enc_len(wave_lens):
+    """Encoder frames of waves: fbank frames 1 + n // hop, then rate-4
+    subsampling."""
+    f = 1 + wave_lens // HOP
+    return ((f - 1) // 2 - 1) // 2
+
+
+def _rel_err(got, ref) -> float:
+    return float((got.float() - ref.float()).abs().max() / ref.float().abs().max().clamp(min=1e-30))
+
+
+def _train_kernel_checks(torch, dev) -> dict:
+    """Kernels #4-#7 against their plain versions at the training step's
+    shapes (and a ragged shape); -> {name: record at the bench shape}."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from tpuasr_torch.losses.ctc import lattice_inputs
+    from tpuasr_torch.losses.rnnt import (
+        mask_lattice_inputs, rnnt_alphas, rnnt_log_likelihood, rnnt_occupancies,
+    )
+    from tpuasr_torch.ops import (
+        ctc_alpha, ctc_alpha_plain, ctc_beta_grad, ctc_beta_grad_plain, rnnt_fused_grads,
+        rnnt_fused_grads_plain, rnnt_fused_lp, rnnt_fused_lp_plain,
+    )
+
+    out = {}
+    blank = 5
+    r = np.random.default_rng(SEED + 7)
+    ntok, wave_lens = _bench_lengths(r)
+    bench_t = int(_enc_len(np.array([(BENCH_FRAMES - 1) * HOP]))[0])
+    shapes = (("bench", BENCH_B, bench_t, BENCH_TOKENS, 256, 412, _enc_len(wave_lens), ntok),
+              ("ragged", 3, 37, 5, 256, 97, np.array([37, 0, 20]), np.array([5, 3, 0])))
+    g = torch.Generator().manual_seed(SEED)
+    for tag, b, t, u, d, v, t_lens, u_lens in shapes:
+        u1 = u + 1
+        enc = torch.randn(b, t, d, generator=g).to(dev)
+        pred = torch.randn(b, u1, d, generator=g).to(dev)
+        w = (torch.randn(d, v, generator=g) / math.sqrt(d)).to(dev)
+        bias = (0.1 * torch.randn(v, generator=g)).to(dev)
+        lab = torch.randint(0, v - 1, (b, u), generator=g)
+        lab = (lab + (lab >= blank).long()).to(torch.int32).to(dev)  # never the blank
+        tl = torch.as_tensor(t_lens, dtype=torch.int32).to(dev)
+        ul = torch.as_tensor(u_lens, dtype=torch.int32).to(dev)
+        rows = b * t * u1
+
+        # #4: blank/label log-probs and the logsumexp
+        got = rnnt_fused_lp(enc, pred, w, bias, lab, blank)
+        torch.cuda.synchronize()
+        ref = rnnt_fused_lp_plain(enc, pred, w, bias, lab, blank)
+        err = max(float((x - y).abs().max()) for x, y in zip(got, ref))
+        tol = 5e-4
+        flops = 2.0 * rows * d * v
+        nbytes = 4 * (b * t * d + b * u1 * d + d * v + v + b * u + 3 * rows)
+        rec = _record(torch, "rnnt_fused_fwd", "tpuasr_torch/csrc/rnnt_fused.cu",
+                      "tpuasr/ops/rnnt_fused_pallas.py:38", err, flops, PEAK_FP32, nbytes,
+                      lambda: rnnt_fused_lp(enc, pred, w, bias, lab, blank),
+                      lambda: rnnt_fused_lp_plain(enc, pred, w, bias, lab, blank), None)
+        print(f"rnnt_fused_fwd {tag} [B {b}, T {t}, U+1 {u1}, D {d}, V {v}]: max_abs_err "
+              f"{err:.3g} (tol {tol}: fp32 sums of {d} products in another order on logits "
+              f"up to ~10, ~1e-5 expected; the online logsumexp against torch's) ms {rec['ms']:.4f} plain_ms "
+              f"{rec['plain_ms']:.4f} bound_ms {rec['bound_ms']:.5f} ({rec['bound_by']}: "
+              f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB); library_ms none (no single "
+              f"PyTorch call fuses joint, log-softmax and gather)")
+        require(err <= tol, f"rnnt_fused_fwd disagrees with its plain version ({tag})")
+        if tag == "bench":
+            out["rnnt_fused_fwd"] = rec
+
+        # #5: gradients from the real lattice's occupancies (mean over B)
+        blank_lp, label_full, lse = got
+        bm, lm, pad_t, lv = mask_lattice_inputs(blank_lp, label_full[:, :, :-1], tl, ul)
+        alpha = rnnt_alphas(bm, lm)
+        occ_b, occ_l = rnnt_occupancies(bm, lm, ul, alpha, rnnt_log_likelihood(alpha, bm, ul))
+        zero = torch.zeros((), device=dev)
+        gb = torch.where(pad_t, zero, -occ_b / b).contiguous()
+        gl = F.pad(torch.where(lv, -occ_l / b, zero), (0, 1)).contiguous()
+        args = (enc, pred, w, bias, lab, lse, gb, gl, blank)
+        got = rnnt_fused_grads(*args)
+        torch.cuda.synchronize()
+        ref = rnnt_fused_grads_plain(*args)
+        rels = [_rel_err(x, y) for x, y in zip(got, ref)]
+        err = max(float((x - y).abs().max()) for x, y in zip(got, ref))
+        tol = 1e-4
+        flops = 3 * 2.0 * rows * d * v
+        nbytes = 4 * (2 * (b * t * d + b * u1 * d + d * v + v) + b * u + 3 * rows)
+        rec = _record(torch, "rnnt_fused_bwd", "tpuasr_torch/csrc/rnnt_fused.cu",
+                      "tpuasr/ops/rnnt_fused_pallas.py:71", err, flops, PEAK_FP32, nbytes,
+                      lambda: rnnt_fused_grads(*args), lambda: rnnt_fused_grads_plain(*args),
+                      None)
+        print(f"rnnt_fused_bwd {tag}: max_abs_err {err:.3g}; error / max|ref| for d_enc, "
+              f"d_pred, dW, db {[f'{x:.2e}' for x in rels]} (tol {tol} relative: fp32 sums "
+              f"in another order, added with atomics in an order that changes between "
+              f"runs) ms {rec['ms']:.4f} plain_ms {rec['plain_ms']:.4f} bound_ms "
+              f"{rec['bound_ms']:.5f} ({rec['bound_by']}: {flops / 1e9:.2f} GFLOP); "
+              f"library_ms none")
+        require(max(rels) <= tol, f"rnnt_fused_bwd disagrees with its plain version ({tag})")
+        if tag == "bench":
+            out["rnnt_fused_bwd"] = rec
+
+        # #6 / #7: the CTC lattice over log-softmaxed logits
+        logits = torch.randn(b, t, v, generator=g).to(dev)
+        lp = torch.log_softmax(logits, dim=-1)
+        lp_states, skip, final = lattice_inputs(lp, lab, ul, blank)
+        lp_states = lp_states.contiguous()
+        s = lp_states.shape[2]
+        ga, gll = ctc_alpha(lp_states, skip, tl, final)
+        torch.cuda.synchronize()
+        ra, rll = ctc_alpha_plain(lp_states, skip, tl, final)
+        live = ra > -1e29
+        require(torch.equal(live, ga > -1e29) and torch.equal(rll > -1e29, gll > -1e29),
+                f"ctc_alpha: reachable states differ from the plain version ({tag})")
+        err = max(float((ga - ra)[live].abs().max()), float((gll - rll).abs().max()))
+        ok = bool(((ga - ra).abs() <= 1e-3 + 1e-5 * ra.abs())[live].all())
+        ok = ok and bool(((gll - rll).abs() <= 1e-3 + 1e-5 * rll.abs()).all())
+        active = int(torch.clamp(tl, max=t).sum()) * s
+        nbytes = 4 * (2 * b * t * s + b + b) + 2 * b * s
+        lib_in = (lp.transpose(0, 1), lab.long(), tuple(int(x) for x in t_lens),
+                  tuple(int(x) for x in u_lens))
+        rec = _record(torch, "ctc_alpha", "tpuasr_torch/csrc/ctc_lattice.cu",
+                      "tpuasr/ops/ctc_pallas.py:56", err, 13.0 * active, PEAK_FP32, nbytes,
+                      lambda: ctc_alpha(lp_states, skip, tl, final),
+                      lambda: ctc_alpha_plain(lp_states, skip, tl, final),
+                      (lambda: F.ctc_loss(*lib_in, blank=blank, reduction="sum",
+                                          zero_infinity=True)) if tag == "bench" else None,
+                      plain_iters=5, plain_timing="profiler")
+        print(f"ctc_alpha {tag} [B {b}, T {t}, S {s}]: max_abs_err {err:.3g} over reachable "
+              f"states (tol 1e-3 + 1e-5*|ref|: fp32 log-adds whose exp/log1p may differ from "
+              f"torch's by an ulp, over {t} steps on values up to ~1e3) ms {rec['ms']:.4f} "
+              f"plain_ms (profiler) {rec['plain_ms']:.4f} library_ms (F.ctc_loss forward, "
+              f"profiler) "
+              f"{rec['library_ms']} bound_ms {rec['bound_ms']:.6f} ({rec['bound_by']}; "
+              f"the {t} dependent steps bind in fact)")
+        require(ok, f"ctc_alpha disagrees with its plain version ({tag})")
+        if tag == "bench":
+            out["ctc_alpha"] = rec
+
+        gvec = torch.ones(b, device=dev)
+        bargs = (lp_states, skip, tl, final, ra.contiguous(), rll.contiguous(), gvec)
+        got = ctc_beta_grad(*bargs)
+        torch.cuda.synchronize()
+        ref = ctc_beta_grad_plain(*bargs)
+        diff = (got - ref).abs()
+        err = float(diff.max())
+        ok = bool((diff <= 2e-3 * ref.abs() + 1e-5).all())
+        lib = None
+        if tag == "bench":  # F.ctc_loss's backward alone, on a retained graph
+            lp_req = lp.detach().transpose(0, 1).requires_grad_()
+            lib_loss = F.ctc_loss(lp_req, *lib_in[1:], blank=blank, reduction="sum",
+                                  zero_infinity=True)
+            lib = lambda: torch.autograd.grad(lib_loss, lp_req, retain_graph=True)
+        rec = _record(torch, "ctc_beta_grad", "tpuasr_torch/csrc/ctc_lattice.cu",
+                      "tpuasr/ops/ctc_pallas.py:83", err, 19.0 * active, PEAK_FP32,
+                      4 * (3 * b * t * s + 3 * b) + 2 * b * s,
+                      lambda: ctc_beta_grad(*bargs), lambda: ctc_beta_grad_plain(*bargs), lib,
+                      plain_iters=5, plain_timing="profiler")
+        print(f"ctc_beta_grad {tag}: max_abs_err {err:.3g} (tol 2e-3*|ref| + 1e-5: the "
+              f"gradient is exp of a log-domain sum carrying alpha's error) ms "
+              f"{rec['ms']:.4f} plain_ms (profiler) {rec['plain_ms']:.4f} library_ms "
+              f"(F.ctc_loss backward, profiler) {rec['library_ms']} bound_ms {rec['bound_ms']:.6f} "
+              f"({rec['bound_by']})")
+        require(ok, f"ctc_beta_grad disagrees with its plain version ({tag})")
+        if tag == "ragged":
+            require(bool((got[1] == 0).all()), "ctc_beta_grad: a t_len = 0 row has gradient")
+        if tag == "bench":
+            out["ctc_beta_grad"] = rec
+    return out
+
+
+def _train_cfg(dtype: str, dropout: bool):
+    """The flagship as the bench trains it: causal, static chunk 32, fused
+    joint loss, the plain attention formula (its kernel's backward is not
+    ported); with `dropout`, the JAX defaults (0.1) and dynamic chunks, else
+    no dropout and the static chunk."""
+    from tpuasr_torch.config import Config
+
+    cfg = Config()
+    cfg.model.compute_dtype = dtype
+    cfg.model.fused_joint_loss = True
+    enc = cfg.model.encoder
+    enc.causal, enc.static_chunk_size, enc.fused_attention = True, 32, False
+    enc.use_dynamic_chunk = dropout
+    if not dropout:
+        enc.dropout_rate = enc.positional_dropout_rate = 0.0
+        cfg.model.ctc_dropout_rate = 0.0
+        cfg.model.predictor.dropout = 0.0
+    return cfg
+
+
+def _train_card_vs_cpu(torch, dev) -> dict:
+    """Phase 6a: one forward, backward and GuardedAdam step of the fp32
+    flagship on the card and on the CPU, same weights and batch."""
+    import numpy as np
+
+    from tpuasr_torch.models import Transducer, init_weights
+    from tpuasr_torch.train import make_optimizer
+
+    cfg = _train_cfg("float32", dropout=False)
+    r = np.random.default_rng(SEED + 11)
+    b, t, u = 2, 256, 16  # the shape of __graft_entry__.entry()
+    host = (torch.from_numpy(r.standard_normal((b, t, 80)).astype(np.float32)),
+            torch.tensor([t, 200], dtype=torch.int32),
+            torch.from_numpy(r.integers(6, cfg.model.vocab_size, (b, u))),
+            torch.tensor([u, 11], dtype=torch.int32))
+    tx = make_optimizer(cfg.optim)
+    res = {}
+    for side, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        model = init_weights(Transducer(cfg.model, device=device), SEED)
+        model.train()
+        out = model(*(x.to(device) for x in host))
+        out["loss"].backward()
+        params = list(model.parameters())
+        p0 = [p.detach().cpu().clone() for p in params]
+        grads = [p.grad.detach().clone() for p in params]
+        gn = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        st = tx.update_guarded(grads, tx.init(params), params, torch.isfinite(gn), 1.0, gn)
+        res[side] = {"losses": {k: float(v.detach()) for k, v in out.items()},
+                     "gn": float(gn), "grads": [g.cpu() for g in grads], "p0": p0,
+                     "p1": [p.detach().cpu() for p in params],
+                     "state": [None if x is None else x.cpu() for x in st]}
+    card, cpu = res["card"], res["cpu"]
+    (lc, gc, grads_c), (lh, gh, grads_h) = ((x["losses"], x["gn"], x["grads"])
+                                            for x in (card, cpu))
+    require(all(torch.equal(x, y) for x, y in zip(card["p0"], cpu["p0"])),
+            "the card's and the CPU's initial weights differ")
+    names = [n for n, _ in init_weights(Transducer(cfg.model, device="cpu"),
+                                        SEED).named_parameters()]
+    loss_ok = all(abs(lc[k] - lh[k]) <= 1e-4 * abs(lh[k]) + 1e-4 for k in lh)
+    scale = max(float(g.abs().max()) for g in grads_h)
+    # the key projection's bias gets no gradient in exact arithmetic (it adds
+    # q.b_k to every score of a query: softmax is shift-invariant), so its
+    # gradient is rounding noise on both sides; it is held to that instead
+    shift_free = [i for i, n in enumerate(names) if n.endswith("self_attn.linear_k.bias")]
+    noise = max(max(float(grads_c[i].abs().max()), float(grads_h[i].abs().max()))
+                for i in shift_free)
+    rels = [float((a - b_).abs().max() / b_.abs().max().clamp(min=1e-30))
+            for a, b_ in zip(grads_c, grads_h)]
+    held = [i for i in range(len(names)) if i not in shift_free]
+    order = sorted(held, key=lambda i: -rels[i])
+    worst = order[0]
+    print(f"fp32 training step, card vs CPU on [2, 256, 80] x 16 tokens: losses card "
+          f"{lc} cpu {lh} (tol 1e-4 relative); grad norm {gc:.6g} vs {gh:.6g} (tol 1e-4 "
+          f"relative); gradient error / the leaf's max|g|, the three worst: "
+          f"{[(names[i], f'{rels[i]:.3g}') for i in order[:3]]} (tol 1e-3: fp32 sums in "
+          f"another order through 12 blocks, the lattice and the fused joint's atomics); "
+          f"the {len(shift_free)} key-projection biases (zero gradient in exact arithmetic) "
+          f"reach {noise:.3g} against a largest gradient entry of {scale:.4g} (tol 1e-6 of "
+          f"it: rounding noise)")
+    require(loss_ok and abs(gc - gh) <= 1e-4 * gh, "card and CPU training losses differ")
+    require(rels[worst] <= 1e-3, "card and CPU gradients differ")
+    require(noise <= 1e-6 * scale, "a key-projection bias has more than rounding noise")
+    adam = _adam_card_vs_cpu(torch, tx, card, cpu)
+    return {"losses_card": lc, "losses_cpu": lh, "grad_norm_card": gc, "grad_norm_cpu": gh,
+            "worst_grad_rel_err": rels[worst], **adam}
+
+
+def _adam_card_vs_cpu(torch, tx, card: dict, cpu: dict) -> dict:
+    """The GuardedAdam step of phase 6a, held two ways.
+
+    1. The optimizer alone: the CPU's GuardedAdam on the card's own
+       gradients, grad norm and initial weights must give the card's count,
+       moments and weights. The same fp32 operations on the same inputs:
+       mu and nu within 4 ulps (4 eps relative); nu_max and the weights'
+       update within 1e-5 relative, because the bias correction 1 - b2**t
+       cancels (one ulp of 0.98 is 3e-6 of 0.02, and powf may be off by
+       two); the weights also within one ulp of their own, where p + update
+       rounds.
+    2. The step end to end, each side from its own gradients: the update
+       p_after - p_before. A first Adam step moves an entry by
+       -lr*warmup * u / (|u| + eps), u the clipped, decayed gradient
+       (mu / (1 - b1) after a first step), so where u is not near zero the
+       update is +-lr*warmup by u's sign. Not near zero: |u| at least ten
+       times the largest card-vs-CPU difference of u in its leaf (so the
+       two sides' u have one sign) and >= 1e-6 (100 x Adam's eps). There
+       the two updates must agree within 1e-2 of a step plus one ulp of
+       the weight, where p + update rounds, and no entry may move by the
+       other sign. Near zero, any two first steps lie within two steps of
+       each other."""
+    c = tx.cfg
+    step = c.lr * min(1.0, 1.0 / max(c.warmup_steps, 1))
+    eps32 = torch.finfo(torch.float32).eps
+
+    # 1. the optimizer alone, on the card's inputs
+    ps = [p.clone() for p in card["p0"]]
+    ref = tx.update_guarded(card["grads"], tx.init(ps), ps, torch.tensor(True), 1.0,
+                            torch.tensor(card["gn"], dtype=torch.float32))
+    count_c, mu_c, nu_c, nm_c = card["state"]
+    rel = lambda a, b_: float(((a - b_).abs() / b_.abs().clamp(min=1e-30)).max())
+    m_err = {"mu": rel(mu_c, ref.mu), "nu": rel(nu_c, ref.nu)}
+    if nm_c is not None:
+        m_err["nu_max"] = rel(nm_c, ref.nu_max)
+    p_bad = sum(int(((a - b_).abs() > eps32 * b_.abs() + 1e-5 * step).sum())
+                for a, b_ in zip(card["p1"], ps))
+    print(f"GuardedAdam alone (the CPU's on the card's gradients): count card "
+          f"{int(count_c)} cpu {int(ref.count)}; moments' max relative error "
+          f"{ {k: f'{v:.3g}' for k, v in m_err.items()} } (tol mu, nu 4 ulps = "
+          f"{4 * eps32:.3g}, nu_max 1e-5: the bias correction cancels); weights off by "
+          f"more than one ulp + 1e-5 of a step: {p_bad}")
+    require(int(count_c) == int(ref.count) == 1, "the card's Adam count is not 1 after a "
+                                                 "finite step, or differs from the CPU's")
+    require(m_err["mu"] <= 4 * eps32 and m_err["nu"] <= 4 * eps32
+            and m_err.get("nu_max", 0.0) <= 1e-5,
+            "the card's Adam moments differ from the CPU's on the same inputs")
+    require(p_bad == 0, "the card's Adam update differs from the CPU's on the same inputs")
+
+    # 2. the step end to end, each side from its own gradients
+    sizes = [p.numel() for p in cpu["p0"]]
+    u_c, u_h = ((x["state"][1] / (1.0 - c.betas[0])).split(sizes) for x in (card, cpu))
+    sure_n = near_n = flips_sure = flips_near = bad_sure = bad_near = 0
+    worst = 0.0
+    for p0, p1c, p1h, uc, uh in zip(cpu["p0"], card["p1"], cpu["p1"], u_c, u_h):
+        dc, dh = (p1c - p0).double().reshape(-1), (p1h - p0).double().reshape(-1)
+        ulp = eps32 * p1h.double().abs().reshape(-1)
+        sure = uh.abs() >= max(10 * float((uc - uh).abs().max()), 1e-6)
+        diff = (dc - dh).abs()
+        flip = dc * dh < 0
+        sure_n += int(sure.sum())
+        near_n += int((~sure).sum())
+        flips_sure += int((flip & sure).sum())
+        flips_near += int((flip & ~sure).sum())
+        bad_sure += int(((diff > 1e-2 * step + ulp) & sure).sum())
+        bad_near += int(((diff > 2 * step + ulp) & ~sure).sum())
+        if bool(sure.any()):
+            worst = max(worst, float(((diff - ulp).clamp(min=0))[sure].max()) / step)
+    print(f"GuardedAdam step end to end (step = lr*warmup = {step:.3g}): {sure_n} entries "
+          f"with u not near zero: updates apart by more than 1e-2 step + 1 ulp: {bad_sure}, "
+          f"worst excess {worst:.3g} step, other sign: {flips_sure} (tol 0); {near_n} near "
+          f"zero: apart by more than 2 steps + 1 ulp: {bad_near}, other sign: {flips_near}")
+    require(bad_sure == 0 and flips_sure == 0,
+            "card and CPU updates differ where the gradient's sign is certain")
+    require(bad_near == 0, "card and CPU updates differ by more than two steps")
+    return {"adam_moment_rel_err": m_err, "adam_entries_sure": sure_n,
+            "adam_entries_near_zero": near_n, "adam_sign_flips_sure": flips_sure,
+            "adam_sign_flips_near_zero": flips_near, "adam_update_worst_excess_steps": worst}
+
+
+def _bench_batch(torch, dev) -> dict:
+    """bench.py's batch shape from a seed: 12 waves of 24-30 tokens at
+    (frames-6)*hop//30 samples each, padded to (frames-1)*hop samples, and
+    the token ids padded with 0 to 32 slots."""
+    import numpy as np
+
+    r = np.random.default_rng(SEED + 3)
+    ntok, wave_lens = _bench_lengths(r)
+    n = (BENCH_FRAMES - 1) * HOP
+    waves = np.zeros((BENCH_B, n), np.float32)
+    texts = np.zeros((BENCH_B, BENCH_TOKENS), np.int64)
+    for i in range(BENCH_B):
+        tt = np.arange(wave_lens[i]) / SR
+        tone = 200.0 + 25.0 * r.integers(0, 40, size=ntok[i]).repeat(wave_lens[i] // ntok[i])
+        tone = np.pad(tone, (0, wave_lens[i] - tone.size), mode="edge")
+        waves[i, :wave_lens[i]] = 0.1 * np.sin(2 * np.pi * tone * tt) \
+            + 0.01 * r.standard_normal(wave_lens[i])
+        texts[i, :ntok[i]] = r.integers(6, 412, size=ntok[i])
+    return {"waves": torch.from_numpy(waves).to(dev),
+            "wave_lens": torch.from_numpy(wave_lens.astype(np.int64)).to(dev),
+            "texts": torch.from_numpy(texts).to(dev),
+            "text_lens": torch.from_numpy(ntok.astype(np.int64)).to(dev)}
+
+
+def _train_bench(torch, dev, n_steps: int = 10, warmup: int = 2) -> tuple[dict, dict]:
+    """Phase 6b: the bench protocol through `make_train_step`; -> (stats,
+    kernel launches during the steps)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpuasr_torch.models import Transducer, init_weights
+    from tpuasr_torch.ops import LAUNCHES, reset_launch_counts
+    from tpuasr_torch.train import TrainState, make_optimizer, make_train_step
+
+    cfg = _train_cfg("bfloat16", dropout=True)
+    cfg.feature.fbank_precision = "default"
+    model = init_weights(Transducer(cfg.model, device=dev), SEED)
+    tx = make_optimizer(cfg.optim)
+    state = TrainState.create(model, tx)
+    step = make_train_step(model, tx, cfg)
+    batch = _bench_batch(torch, dev)
+    audio_s = float(batch["wave_lens"].sum()) / SR
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    losses, ms = [], []
+    for i in range(warmup + n_steps):
+        (state, metrics), dt = _synced_ms(torch, lambda: step(state, batch, SEED))
+        require(bool(metrics["finite"]), f"training step {i} was not finite")
+        losses.append(float(metrics["loss"]))
+        if i >= warmup:
+            ms.append(dt)
+    launches = dict(LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        (state, metrics), wall = _synced_ms(torch, lambda: step(state, batch, SEED))
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    n_kern = sum(e.count for e in kern)
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:10]
+    ms_sorted = sorted(ms)
+    med = ms_sorted[len(ms) // 2]
+    stats = {"losses": losses, "step_ms": ms, "step_ms_median": med,
+             "audio_seconds_per_step": audio_s, "audio_s_per_s": audio_s / med * 1e3,
+             "max_memory_allocated": peak, "profiled_step_wall_ms": wall,
+             "profiled_step_device_busy_ms": busy, "profiled_step_device_ops": n_kern,
+             "skipped": int(state.skipped), "steps": state.step}
+    print(f"bench-protocol training (batch {BENCH_B} x {BENCH_FRAMES} frames, "
+          f"{audio_s:.2f} s of audio per step, bf16, dropout 0.1, dynamic chunk): losses "
+          f"{[round(x, 4) for x in losses]}; step ms median {med:.1f} (min {ms_sorted[0]:.1f}, "
+          f"max {ms_sorted[-1]:.1f}, {n_steps} steps after {warmup}); "
+          f"{stats['audio_s_per_s']:.1f} audio-s/s; peak memory {peak / 2**30:.2f} GiB; "
+          f"profiled step: device busy {busy:.2f} ms of {wall:.1f} ms wall "
+          f"({100 * (1 - busy / wall):.0f}% idle), {n_kern} device operations")
+    for e in top:
+        print(f"  {e.self_device_time_total / 1e3:8.3f} ms  {e.count:6d}x  {e.key[:90]}")
+    require(all(math.isfinite(x) for x in losses), "a training loss is not finite")
+    return stats, launches
 
 
 if __name__ == "__main__":

@@ -2,8 +2,8 @@
 
 The kernel's plain version is held against the Pallas `fused_relpos_attention`
 (interpret mode), and the port's module on converted weights against the JAX
-module: its one full-context path against both JAX paths (unfused and
-fused), and its KV-cache path. T = 21 is deliberately not a
+module: its full-context path (the plain formula, or with `fused` the
+kernel wrapper) against the matching JAX path, and its KV-cache path. T = 21 is deliberately not a
 multiple of the Pallas kernel's 16-row tile, and one query row is fully
 masked (it must give zeros). Tolerance rtol 2e-5, atol 2e-6 as in
 tests/test_fused_attention.py:38-39: fp32 sums in another order.
@@ -43,8 +43,8 @@ def inputs():
     return x, pe, _mask()
 
 
-def _port_module(params):
-    mod = RelPositionMultiHeadedAttention(H, D, 0.0, device="cpu")
+def _port_module(params, fused=False):
+    mod = RelPositionMultiHeadedAttention(H, D, 0.0, fused=fused, device="cpu")
     mod.load_state_dict(convert_params(jax.tree.map(np.asarray, params)))
     return mod
 
@@ -76,8 +76,8 @@ def test_module_matches_jax(inputs, fused):
     params = jmod.init(jax.random.PRNGKey(0), x, mask, pe)
     ref, _ = jmod.apply(params, x, mask, pe)
     before = LAUNCHES["relpos_attention"]
-    got, _ = _port_module(params)(torch.from_numpy(x), torch.from_numpy(mask),
-                                  torch.from_numpy(pe))
+    got, _ = _port_module(params, fused)(torch.from_numpy(x), torch.from_numpy(mask),
+                                         torch.from_numpy(pe))
     assert LAUNCHES["relpos_attention"] == before  # CPU tensors: plain version only
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(ref), rtol=RTOL, atol=ATOL)
 

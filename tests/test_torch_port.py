@@ -83,6 +83,25 @@ def test_wrappers_run_plain_only_on_cpu_tensors():
         fbank_frames(meta, meta[0, 0], meta, meta, meta, 1e-10)
 
 
+def test_training_wrappers_run_plain_only_on_cpu_tensors():
+    from tpuasr_torch.ops import ctc_alpha, ctc_beta_grad, rnnt_fused_grads, rnnt_fused_lp
+
+    meta = torch.empty(2, 5, 7, device="meta")
+    flags = torch.empty(2, 7, dtype=torch.bool, device="meta")
+    lens = torch.empty(2, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        ctc_alpha(meta, flags, lens, flags)
+    with pytest.raises(ValueError, match="unsupported device"):
+        ctc_beta_grad(meta, flags, lens, flags, meta, lens.float(), lens.float())
+    enc, pred = torch.empty(2, 5, 8, device="meta"), torch.empty(2, 3, 8, device="meta")
+    w, b = torch.empty(8, 11, device="meta"), torch.empty(11, device="meta")
+    lab = torch.empty(2, 2, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        rnnt_fused_lp(enc, pred, w, b, lab, 5)
+    with pytest.raises(ValueError, match="unsupported device"):
+        rnnt_fused_grads(enc, pred, w, b, lab, meta, meta, meta, 5)
+
+
 def test_measure_rtf_refuses_cpu():
     model = Transducer(_tiny_cfg(), device="cpu")
     with pytest.raises(RuntimeError, match="card"):
@@ -100,6 +119,33 @@ def test_unported_options_raise(bad):
         Transducer(_tiny_cfg(**bad), device="cpu")
 
 
+@pytest.mark.parametrize("where,key,value", [
+    ("model", "rnnt_prune_range", 4), ("encoder", "fused_ffn", True),
+    ("encoder", "attention_dropout_rate", 0.1), ("optim", "accum_steps", 2),
+    ("specaug", "enabled", True),
+])
+def test_unported_training_options_raise(where, key, value):
+    from tpuasr_torch.train import make_optimizer, make_train_step
+
+    cfg = Config()
+    cfg.model = _tiny_cfg()
+    target = {"model": cfg.model, "encoder": cfg.model.encoder, "optim": cfg.optim,
+              "specaug": cfg.specaug}[where]
+    setattr(target, key, value)
+    with pytest.raises(NotImplementedError):
+        model = Transducer(cfg.model, device="cpu")
+        make_train_step(model, make_optimizer(cfg.optim), cfg)
+
+
+def test_materialized_rnnt_loss_refuses_the_card_route():
+    from tpuasr_torch.losses import rnnt_loss_from_logits
+
+    meta = torch.empty(1, 3, 2, 5, device="meta")
+    lens = torch.ones(1, dtype=torch.int32, device="meta")
+    with pytest.raises(NotImplementedError, match="#8/#9"):
+        rnnt_loss_from_logits(meta, lens[:, None], lens, lens, 0)
+
+
 def test_config_round_trips_from_jax(tmp_path):
     jcfg = jax_config.Config()
     jcfg.model.encoder.fused_attention = True
@@ -115,7 +161,7 @@ def test_config_round_trips_from_jax(tmp_path):
 
     got = to_dict(cfg)
     assert held(got, full) and got["feature"]["fbank_precision"] == "default"
-    assert "fused_attention" not in got["model"]["encoder"]  # dropped, not ported
+    assert got["model"]["encoder"]["fused_attention"] is True  # held, the JAX value
     assert from_dict(Config, got) == cfg
 
 

@@ -1,13 +1,16 @@
 """Configuration tree for the PyTorch port.
 
 An own copy of the parts of ``tpuasr/config.py``'s dataclasses that the
-serving path reads or checks (features, model, streaming), with the same
-field names and defaults, so a ``train.yaml`` written by the JAX package
-loads here unchanged: `from_dict` drops every key this copy does not hold
-(training and loss settings, dropouts, TPU kernel switches, the scanned
-parameter layout, which `tpuasr_torch.convert` detects by itself, and the
-options of encoder and predictor families the port does not build, which
-their `*_type` fields already refuse).
+serving and training paths read or check (features, model, optimizer,
+SpecAugment switch, streaming, train seed), with the same field names and
+defaults, so a ``train.yaml`` written by the JAX package loads here
+unchanged: `from_dict` drops every key this copy does not hold (the data
+pipeline, checkpointing and loop settings, the scanned parameter layout,
+which `tpuasr_torch.convert` detects by itself, and the options of encoder
+and predictor families the port does not build, which their `*_type` fields
+already refuse). Values the port does not build raise NotImplementedError
+where they are read (`check_supported` in the encoder, `Transducer`,
+`make_optimizer`, `make_train_step`).
 
 The JAX package's ``adapt_to_backend`` is not copied: it strips TPU-only
 settings off the TPU, while the port runs its kernels whenever a tensor lies
@@ -55,11 +58,21 @@ class EncoderConfig:
     attention_heads: int = 4
     linear_units: int = 1024
     num_blocks: int = 12
-    attention_dropout_rate: float = 0.0  # must be 0: a training feature
+    dropout_rate: float = 0.1
+    positional_dropout_rate: float = 0.1
+    attention_dropout_rate: float = 0.0  # must be 0: not built
     input_layer: str = "conv2d"  # linear | conv2d | conv2d6 | conv2d8
     pos_enc_layer_type: str = "rel_pos"
     attention_type: str = ""  # "" derives from pos_enc_layer_type
     n_kv_head: int = 0  # 0 or attention_heads: no grouped K/V heads yet
+    # the full-context (serving and training) attention path: True = the
+    # rel-pos attention kernel (`tpuasr_torch.ops.relpos_attention`), False =
+    # the plain formula in torch ops (`relpos_attention_plain`, with
+    # autograd); the cached streaming path is plain
+    # either way. Training with True raises on the card until the kernel's
+    # backward is ported.
+    fused_attention: bool = False
+    fused_ffn: bool = False  # must be False: the fused FFN kernel is not ported
     normalize_before: bool = True
     macaron_style: bool = True
     use_cnn_module: bool = True
@@ -69,6 +82,8 @@ class EncoderConfig:
     activation_type: str = "swish"
     static_chunk_size: int = 0
     use_dynamic_chunk: bool = False
+    use_dynamic_left_chunk: bool = False
+    max_chunk_size: int = 25  # dynamic-chunk cap: 100 frames / subsampling 4
     max_len: int = 5000  # positional-encoding table length
     mlp_type: str = "position_wise_feed_forward"
     encoder_type: str = "conformer"
@@ -83,6 +98,8 @@ class PredictorConfig:
     hidden_size: int = 256
     output_size: int = 256
     num_layers: int = 1
+    embed_dropout: float = 0.0
+    dropout: float = 0.1  # between LSTM layers
 
 
 @dataclass
@@ -104,10 +121,44 @@ class ModelConfig:
     # computation dtype of matmuls/activations (parameters stay float32;
     # layer norms and softmaxes compute their statistics in float32)
     compute_dtype: str = "float32"
+    # fused joint + log-softmax + lattice inputs (kernels in
+    # tpuasr_torch/csrc/rnnt_fused.cu): [B, T, U+1, V] never exists
+    fused_joint_loss: bool = False
+    rnnt_prune_range: int = 0  # must be 0: the pruned loss is not ported
     ctc_weight: float = 0.3  # > 0 builds the CTC head
+    transducer_weight: float = 0.7
+    ctc_dropout_rate: float = 0.1
     encoder: EncoderConfig = field(default_factory=EncoderConfig)
     predictor: PredictorConfig = field(default_factory=PredictorConfig)
     joint: JointConfig = field(default_factory=JointConfig)
+
+
+@dataclass
+class SpecAugConfig:
+    enabled: bool = False  # must be False: SpecAugment is not ported yet
+
+
+@dataclass
+class OptimConfig:
+    """Adam + linear warmup + plateau decay (reference: run.py:29-45,
+    rnnt_train.py:44-56, rnnt_common.py:7-21)."""
+
+    lr: float = 1e-4
+    betas: tuple = (0.9, 0.98)
+    eps: float = 1e-8
+    weight_decay: float = 1e-4
+    amsgrad: bool = True
+    warmup_steps: int = 4000
+    grad_clip: float = 1.0
+    accum_steps: int = 1  # must be 1: gradient accumulation is not ported
+    plateau_factor: float = 0.5
+    plateau_patience: int = 2
+    min_lr: float = 1e-6
+
+
+@dataclass
+class TrainConfig:
+    seed: int = 2026
 
 
 @dataclass
@@ -124,7 +175,10 @@ class StreamingConfig:
 class Config:
     feature: FeatureConfig = field(default_factory=FeatureConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
+    specaug: SpecAugConfig = field(default_factory=SpecAugConfig)
+    optim: OptimConfig = field(default_factory=OptimConfig)
     streaming: StreamingConfig = field(default_factory=StreamingConfig)
+    train: TrainConfig = field(default_factory=TrainConfig)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 from tpuasr_torch.models.transducer import (
-    CTCHead, Transducer, init_weights, stream_output_len,
+    CTCHead, Transducer, add_blank, init_weights, stream_output_len,
 )
 
-__all__ = ["CTCHead", "Transducer", "init_weights", "stream_output_len"]
+__all__ = ["CTCHead", "Transducer", "add_blank", "init_weights", "stream_output_len"]

@@ -8,6 +8,12 @@ with A = chunk * num_left_chunks, cnn [L, B, lorder, D] — and a stream
 offset, so chunked output equals the full-context chunk-masked forward.
 The blocks are unrolled (`blocks.{i}`); `tpuasr_torch.convert` reads both
 the unrolled and the scanned JAX parameter layouts.
+
+Training: `forward` takes a chunk generator (the dynamic-chunk draw, on the
+host) and a dropout generator (on the model's device). Dropout sits where
+the JAX package has it: the FFN's inner activation, each block's residual
+branches (attention, conv, both FFNs) and the positional dropout of the
+scaled embedding; without a dropout generator (eval) there is none.
 """
 
 from __future__ import annotations
@@ -21,7 +27,7 @@ from tpuasr_torch.config import EncoderConfig
 from tpuasr_torch.nn.attention import RelPositionMultiHeadedAttention
 from tpuasr_torch.nn.convolution import ConvolutionModule
 from tpuasr_torch.nn.embedding import PositionalEncodingTable
-from tpuasr_torch.nn.layers import Dense, LayerNorm
+from tpuasr_torch.nn.layers import Dense, LayerNorm, dropout
 from tpuasr_torch.nn.masks import add_optional_chunk_mask, make_pad_mask
 from tpuasr_torch.nn.subsampling import SUBSAMPLE_CLASSES, subsampled_mask
 
@@ -46,30 +52,37 @@ def check_supported(c: EncoderConfig) -> None:
                                   "(ROADMAP: attention zoo)")
     if not (c.normalize_before and c.macaron_style and c.use_cnn_module):
         raise NotImplementedError("only the pre-norm macaron conformer block is ported")
+    if c.fused_ffn:
+        raise NotImplementedError("encoder.fused_ffn: the fused FFN kernels (TPU kernels "
+                                  "#10/#11) are not ported yet (ROADMAP)")
 
 
 class PositionwiseFeedForward(nn.Module):
-    """w_1 → swish → w_2 (dropout is a training feature)."""
+    """w_1 → swish → dropout → w_2 (tpuasr/nn/conformer.py:62-74)."""
 
-    def __init__(self, idim: int, hidden: int, device=None):
+    def __init__(self, idim: int, hidden: int, dropout_rate: float = 0.0, device=None):
         super().__init__()
+        self.dropout_rate = dropout_rate
         self.w_1 = Dense(idim, hidden, device=device)
         self.w_2 = Dense(hidden, idim, device=device)
 
-    def forward(self, x):
+    def forward(self, x, gen=None):
         y = self.w_1(x)
-        return self.w_2(y * torch.sigmoid(y))
+        return self.w_2(dropout(y * torch.sigmoid(y), self.dropout_rate, gen))
 
 
 class ConformerBlock(nn.Module):
     def __init__(self, c: EncoderConfig, device=None):
         super().__init__()
         d = c.output_size
-        self.feed_forward_macaron = PositionwiseFeedForward(d, c.linear_units, device)
+        self.dropout_rate = c.dropout_rate
+        self.feed_forward_macaron = PositionwiseFeedForward(d, c.linear_units,
+                                                            c.dropout_rate, device)
         self.norm_ff_macaron = LayerNorm(d, device=device)
-        self.feed_forward = PositionwiseFeedForward(d, c.linear_units, device)
+        self.feed_forward = PositionwiseFeedForward(d, c.linear_units, c.dropout_rate, device)
         self.self_attn = RelPositionMultiHeadedAttention(
-            c.attention_heads, d, c.attention_dropout_rate, device=device)
+            c.attention_heads, d, c.attention_dropout_rate, fused=c.fused_attention,
+            device=device)
         self.norm_mha = LayerNorm(d, device=device)
         self.norm_ff = LayerNorm(d, device=device)
         self.conv_module = ConvolutionModule(d, c.cnn_module_kernel, c.cnn_module_norm,
@@ -77,13 +90,17 @@ class ConformerBlock(nn.Module):
         self.norm_conv = LayerNorm(d, device=device)
         self.norm_final = LayerNorm(d, device=device)
 
-    def forward(self, x, att_mask, pos_emb, mask_pad=None, att_cache=None, cnn_cache=None):
-        x = x + 0.5 * self.feed_forward_macaron(self.norm_ff_macaron(x))
+    def forward(self, x, att_mask, pos_emb, mask_pad=None, att_cache=None, cnn_cache=None,
+                gen=None):
+        """gen: the dropout generator, None for no dropout (tpuasr/nn/
+        conformer.py:210-280: x + drop(branch) for every residual)."""
+        drop = lambda y: dropout(y, self.dropout_rate, gen)
+        x = x + 0.5 * drop(self.feed_forward_macaron(self.norm_ff_macaron(x), gen))
         x_att, new_att_cache = self.self_attn(self.norm_mha(x), att_mask, pos_emb, att_cache)
-        x = x + x_att
+        x = x + drop(x_att)
         y, new_cnn_cache = self.conv_module(self.norm_conv(x), mask_pad, cnn_cache)
-        x = x + y
-        x = x + 0.5 * self.feed_forward(self.norm_ff(x))
+        x = x + drop(y)
+        x = x + 0.5 * drop(self.feed_forward(self.norm_ff(x), gen))
         return self.norm_final(x), new_att_cache, new_cnn_cache
 
 
@@ -116,26 +133,33 @@ class ConformerEncoder(nn.Module):
         self.after_norm = LayerNorm(c.output_size, device=device)
 
     def forward(self, xs: torch.Tensor, xs_lens: torch.Tensor, decoding_chunk_size: int = 0,
-                num_decoding_left_chunks: int = -1):
+                num_decoding_left_chunks: int = -1, chunk_gen: torch.Generator | None = None,
+                gen: torch.Generator | None = None):
         """Full/chunk-masked forward: xs [B, T, F], xs_lens [B] ->
-        (ys [B, T', D], pad mask [B, 1, T'] True=valid)."""
+        (ys [B, T', D], pad mask [B, 1, T'] True=valid).
+
+        chunk_gen: a CPU generator for the dynamic-chunk draw (training);
+        gen: the dropout generator on the model's device, None for none."""
         c = self.cfg
         t = xs.shape[1]
         masks = ~make_pad_mask(xs_lens, t)[:, None, :]
         ys = self.embed(xs.to(self.dtype))
         masks = subsampled_mask(masks, c.input_layer)
         ys, pos_emb = self.pe.rel(ys, 0)
-        # serving without a chunk policy on a dynamic-chunk model means
-        # full context (the JAX package does the same without a chunk rng)
-        if c.use_dynamic_chunk and decoding_chunk_size == 0:
+        ys = dropout(ys, c.positional_dropout_rate, gen)
+        # a dynamic-chunk model without a chunk policy or generator runs with
+        # full context (tpuasr/nn/conformer.py:482)
+        if c.use_dynamic_chunk and decoding_chunk_size == 0 and chunk_gen is None:
             decoding_chunk_size = -1
         chunk_masks = add_optional_chunk_mask(
             masks, use_dynamic_chunk=c.use_dynamic_chunk,
             decoding_chunk_size=decoding_chunk_size,
             static_chunk_size=c.static_chunk_size,
-            num_decoding_left_chunks=num_decoding_left_chunks)
+            num_decoding_left_chunks=num_decoding_left_chunks,
+            use_dynamic_left_chunk=c.use_dynamic_left_chunk, chunk_gen=chunk_gen,
+            max_chunk_size=c.max_chunk_size)
         for blk in self.blocks:
-            ys, _, _ = blk(ys, chunk_masks, pos_emb, masks)
+            ys, _, _ = blk(ys, chunk_masks, pos_emb, masks, gen=gen)
         return self.after_norm(ys), masks
 
     # ------------------------------------------------------------------

@@ -27,6 +27,11 @@ class TransducerJoint(nn.Module):
         self.ffn_out_kernel = nn.Parameter(torch.zeros(cfg.join_dim, vocab_size, device=device))
         self.ffn_out_bias = nn.Parameter(torch.zeros(vocab_size, device=device))
 
+    def head_params(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(kernel [D, V], bias [V]) of the output projection, for the fused
+        joint loss."""
+        return self.ffn_out_kernel, self.ffn_out_bias
+
     def project_enc(self, enc_out: torch.Tensor) -> torch.Tensor:
         return self.enc_ffn(enc_out)
 

@@ -5,6 +5,9 @@ JAX package: `wx_l` is a Dense with bias ([E, 4H] there, [4H, E] here),
 `wh_l` a bias-free [H, 4H] matrix, gates in the order i, f, g, o.
 `forward_step` advances one token; a padding mask freezes the state of
 finished streams (the ApplyPadding contract, wenet predictor.py:185-210).
+Training: `forward` drops out the embeddings (`embed_dropout`) and the
+outputs of every LSTM layer but the last (`dropout`), as
+`tpuasr/nn/predictor.py:61-97` does, when given a dropout generator.
 """
 
 from __future__ import annotations
@@ -15,7 +18,7 @@ import torch
 from torch import nn
 
 from tpuasr_torch.config import PredictorConfig
-from tpuasr_torch.nn.layers import Dense
+from tpuasr_torch.nn.layers import Dense, dropout
 
 
 def _lstm_step(h, c, x_proj, wh):
@@ -54,10 +57,12 @@ class RNNPredictor(nn.Module):
         return (torch.zeros(shape, dtype=self.dtype, device=dev),
                 torch.zeros(shape, dtype=self.dtype, device=dev))
 
-    def forward(self, tokens: torch.Tensor, state: Optional[tuple] = None) -> torch.Tensor:
-        """[B, U] (blank-prepended labels) -> [B, U, output_size]."""
+    def forward(self, tokens: torch.Tensor, state: Optional[tuple] = None,
+                gen: Optional[torch.Generator] = None) -> torch.Tensor:
+        """[B, U] (blank-prepended labels) -> [B, U, output_size]; gen: the
+        dropout generator, None for no dropout."""
         b, u = tokens.shape
-        x = self.embed(tokens).to(self.dtype)
+        x = dropout(self.embed(tokens).to(self.dtype), self.cfg.embed_dropout, gen)
         hs, cs = self.init_state(b) if state is None else state
         for l in range(self.cfg.num_layers):
             x_proj = self.wx[l](x)  # [B, U, 4H]
@@ -68,6 +73,8 @@ class RNNPredictor(nn.Module):
                 h, c = _lstm_step(h, c, x_proj[:, i], wh)
                 outs.append(h)
             x = torch.stack(outs, dim=1)
+            if l < self.cfg.num_layers - 1:
+                x = dropout(x, self.cfg.dropout, gen)
         return self.projection(x)
 
     def forward_step(self, tokens: torch.Tensor, state: tuple[torch.Tensor, torch.Tensor],

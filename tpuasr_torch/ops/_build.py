@@ -6,8 +6,10 @@ root of the checkout and loaded with ``ctypes``; the library's file name
 carries a hash of its source, so an edited source is rebuilt. Nothing here
 runs at import time: the CPU tests import every module of the port.
 
-Every wrapper counts its kernel launches in `LAUNCHES`, so a run can show
-that its path went through the kernels.
+A source may hold several kernels (`ctc_lattice.cu`: the CTC alpha and
+beta sweeps; `rnnt_fused.cu`: the fused joint forward and backward), each
+with its own C entry point. Every wrapper counts its kernel launches in
+`LAUNCHES`, so a run can show that its path went through the kernels.
 """
 
 from __future__ import annotations
@@ -26,14 +28,19 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
-# each library's C entry point and its argument types (pointers and the
+# each kernel's source, C entry point and argument types (pointers and the
 # stream as c_void_p, so ctypes never cuts them to 32 bits)
 ENTRIES = {
-    "fbank": ("fbank_logmel", [_P] * 6 + [_I] * 4 + [_F, _I, _P]),
-    "relpos_attention": ("relpos_attention_fwd",
+    "fbank": ("fbank", "fbank_logmel", [_P] * 6 + [_I] * 4 + [_F, _I, _P]),
+    "relpos_attention": ("relpos_attention", "relpos_attention_fwd",
                          [_P] * 8 + [_I] * 5 + [_LL] * 3 + [_F, _I, _P]),
+    "rnnt_fused_fwd": ("rnnt_fused", "rnnt_fused_fwd", [_P] * 8 + [_I] * 6 + [_P]),
+    "rnnt_fused_bwd": ("rnnt_fused", "rnnt_fused_bwd", [_P] * 12 + [_I] * 6 + [_P]),
+    "ctc_alpha": ("ctc_lattice", "ctc_alpha", [_P] * 6 + [_I] * 3 + [_P]),
+    "ctc_beta_grad": ("ctc_lattice", "ctc_beta_grad", [_P] * 8 + [_I] * 3 + [_P]),
 }
 KERNELS = tuple(ENTRIES)
+SOURCES = tuple(dict.fromkeys(src for src, _, _ in ENTRIES.values()))
 
 LAUNCHES = {name: 0 for name in KERNELS}
 
@@ -84,12 +91,12 @@ def _finish(name: str, proc, out: Path, tmp) -> str:
 
 
 def build_all() -> dict[str, str]:
-    """Build every kernel at once (one nvcc per source, all started
-    together, all waited for) -> {name: compiler log} ('' when built)."""
+    """Build every kernel source at once (one nvcc per source, all started
+    together, all waited for) -> {source: compiler log} ('' when built)."""
     with _lock:
-        started = {name: _start(name) for name in KERNELS}
+        started = {name: _start(name) for name in SOURCES}
         logs, errors = {}, []
-        for name in KERNELS:
+        for name in SOURCES:
             try:
                 logs[name] = _finish(name, *started[name])
             except RuntimeError as e:
@@ -99,19 +106,20 @@ def build_all() -> dict[str, str]:
         return logs
 
 
-def _library(name: str) -> ctypes.CDLL:
-    """The loaded kernel library, built first if needed."""
+def _library(source: str) -> ctypes.CDLL:
+    """The loaded library of one source, built first if needed."""
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get(source)
         if lib is None:
-            _finish(name, *_start(name))
-            lib = ctypes.CDLL(str(_target(name)))
+            _finish(source, *_start(source))
+            lib = ctypes.CDLL(str(_target(source)))
             lib.tpuasr_cuda_error_string.argtypes = [_I]
             lib.tpuasr_cuda_error_string.restype = ctypes.c_char_p
-            symbol, argtypes = ENTRIES[name]
-            getattr(lib, symbol).argtypes = argtypes
-            getattr(lib, symbol).restype = _I
-            _libs[name] = lib
+            for src, symbol, argtypes in ENTRIES.values():
+                if src == source:
+                    getattr(lib, symbol).argtypes = argtypes
+                    getattr(lib, symbol).restype = _I
+            _libs[source] = lib
         return lib
 
 
@@ -119,8 +127,9 @@ def launch(name: str, *args) -> None:
     """Call kernel `name`'s C entry point, raise on the CUDA error it
     returns (its cudaGetLastError() right after the launch: a refused launch
     never runs and no later sync reports it), and count the launch."""
-    lib = _library(name)
-    err = getattr(lib, ENTRIES[name][0])(*args)
+    source, symbol, _ = ENTRIES[name]
+    lib = _library(source)
+    err = getattr(lib, symbol)(*args)
     if err != 0:
         msg = lib.tpuasr_cuda_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")

@@ -2,7 +2,9 @@
 (``csrc/relpos_attention.cu``) and its plain PyTorch version.
 
 Counterpart of the forward of ``tpuasr/ops/attention_pallas.py``
-(`fused_relpos_attention`); the backward comes with the training slice.
+(`fused_relpos_attention`). Its backward (TPU kernel #3, `_fused_bwd`) is
+not ported yet: on the card the wrapper raises when grad mode is on and an
+input requires grad, rather than return an output cut off from the graph.
 The wrapper runs the kernel for tensors on the card and the plain version for
 tensors on the CPU; a CUDA tensor never takes the plain path.
 """
@@ -50,6 +52,12 @@ def relpos_attention(q, k, p, v, u_bias, v_bias, mask, scale: float,
         return relpos_attention_plain(q, k, p, v, u_bias, v_bias, mask, scale, n_head)
     if q.device.type != "cuda":
         raise ValueError(f"relpos_attention: unsupported device {q.device}")
+    if torch.is_grad_enabled() and any(
+            x.requires_grad for x in (q, k, p, v, u_bias, v_bias)):
+        raise NotImplementedError(
+            "relpos_attention: the kernel's backward (TPU kernel #3, "
+            "tpuasr/ops/attention_pallas.py:191 _fused_bwd) is not ported yet; "
+            "train with model.encoder.fused_attention=False")
     b, t, d = q.shape
     s = k.shape[1]
     if d % n_head or d // n_head not in KERNEL_DKS:
