@@ -14,18 +14,23 @@ Phases (any failure exits non-zero):
 3. Kernels against their plain versions on the card, at the flagship's
    shapes: fbank on the 16 waves of fixtures/example1.npz (48 kHz) and on
    a seeded 8 s batch, in both precisions, and on the training batch of
-   phase 6b (12 waves, 9,216 frames) in precision "default"; rel-pos attention at
-   [4, 187, 256] (8 s after subsampling) and [16, 63, 256] (the fixture
-   requests), fp32 and bf16, with a fully masked row; the fused RNN-T joint
-   forward and backward (#4/#5) and the CTC alpha and beta sweeps (#6/#7)
-   at the training step's shapes (B 12, T' 191, U+1 33, S 65, D 256,
-   V 412) and at a ragged shape with a t_len = 0 and a label_len = 0 row.
-   Max abs error, its tolerance and the reason, kernel ms, plain ms, bound,
-   and the ms of one PyTorch call computing the same function where there
-   is one (attention: `scaled_dot_product_attention` on [q+u | q+v],
-   [k | p], v; CTC: `torch.nn.functional.ctc_loss` forward, and its
-   backward; the fused joint: none). Kernels are timed by CUDA events;
-   the plain CTC sweeps and F.ctc_loss by the profiler (`timing`).
+   phase 6b (bench.py's 12 waves, 9,216 frames) in precision "default";
+   rel-pos attention forward (#2) at [4, 187, 256] (8 s after subsampling)
+   and [16, 63, 256] (the fixture requests), fp32 and bf16, with a fully
+   masked row; the attention forward and backward (#2/#3) at the training
+   shape ([12, 191, 256] bf16, a dynamic-chunk mask), at an fp32 ragged
+   shape with a fully masked row and with a [B, 1, S] mask; the fused RNN-T
+   joint forward and backward (#4/#5), the RNN-T lattice (#8/#9) and the
+   CTC alpha and beta sweeps (#6/#7) at the training step's shapes (B 12,
+   T' 191, U+1 33, S 65, D 256, V 412) and at a ragged shape with a
+   t_len = 0 and a label_len = 0 row. Max abs error, its tolerance and the
+   reason, kernel ms, plain ms, bound, and the ms of one PyTorch call
+   computing the same function where there is one (attention:
+   `scaled_dot_product_attention` on [q+u | q+v], [k | p], v, and its
+   backward; CTC: `torch.nn.functional.ctc_loss` forward, and its backward;
+   the fused joint and the RNN-T lattice: none). Kernels are timed by CUDA
+   events; the plain lattices, F.ctc_loss and the SDPA backward by the
+   profiler (`timing`).
 4. Offline serving: the full-width flagship (12 causal conformer blocks,
    d256, 4 heads, FFN 1024, conv 31, LSTM-256 predictor, tanh joint over
    412 tokens, `fused_attention=True`) with seeded random weights, through
@@ -39,25 +44,32 @@ Phases (any failure exits non-zero):
 5. Streaming serving: `streaming_greedy_decode` (chunk 32, 6 left chunks)
    must give the tokens of offline greedy over the chunk-masked full-context
    encoder; `measure_rtf` greedy p50/p90.
-6. Training (`fused_joint_loss=True`, `fused_attention=False`):
+6. Training, `fused_attention=True` (kernels #2/#3 in every layer):
    a. card against CPU: the full-width fp32 flagship on a batch of 2 x 256
-      feature frames x 16 tokens, no dropout, static chunk 32: the loss
-      dict, the gradient norm, every gradient leaf (max error relative to
-      the leaf's max |g|); the GuardedAdam step alone (the CPU's optimizer
-      on the card's gradients: count, moments, weights) and end to end
-      (each side's update; no entry whose sign is certain moves the other
-      way);
-   b. the bench protocol (bench.py): batch 12 x 768 frames of seeded 48 kHz
-      waves with 24-30 tokens each, bf16, fbank precision "default",
-      dropout 0.1, dynamic chunk, ten steps of `make_train_step`: every
-      loss finite, synced step ms, audio seconds per second, peak memory,
-      and the device's busy time against wall from torch.profiler over one
-      step. Kernels #1 and #4-#7 must launch during this run.
+      feature frames x 16 tokens, no dropout, static chunk 32, once per
+      RNN-T loss route (`fused_joint_loss=True`, bench.py's, and False, the
+      JAX default): the loss dict, the gradient norm, every gradient leaf
+      (max error relative to the leaf's max |g|); the GuardedAdam step alone
+      (the CPU's optimizer on the card's gradients: count, moments, weights)
+      and end to end (each side's update; no entry whose sign is certain
+      moves the other way);
+   b. bench.py's configuration (bench.py:51-90): its batch, built by the
+      port's copies of `synth_corpus` and `make_batch` (12 utterances of
+      24-30 tokens plus SOS and EOS, 768 frames), bf16, fbank precision
+      "default", dropout 0.1, dynamic chunk, `fused_joint_loss=True`, ten
+      steps of `make_train_step`: every loss finite, synced step ms, audio
+      seconds per second, peak memory, and the device's busy time against
+      wall from torch.profiler over one step. Kernels #1-#9 must launch;
+   c. the same with `fused_joint_loss=False` (the joint's full logits and
+      the materialized loss), four steps: kernels #1-#3 and #6-#9 must
+      launch.
 7. The kernels line: one JSON object with an entry per kernel and run
-   (the serving run of phases 4-5, the training run of phase 6b; counts
-   reset just before each and read just after): that run's launches, and
-   the error, times and bound at the shape that run gives the kernel.
+   (the serving run of phases 4-5, the training runs of phases 6b and 6c;
+   counts reset just before each and read just after): that run's
+   launches, and the error, times and bound at the shape that run gives
+   the kernel.
 
+Each phase prints its seconds.
 TF32 is off throughout (cuBLAS and cuDNN), so every fp32 comparison is fp32.
 The last line is {"ok": true, "device": {...}}. The script imports nothing
 of JAX: the machine with the card need not have it.
@@ -105,6 +117,7 @@ def main() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
 
     # ---------------------------------------------------------------- 1
     print("== phase 1: device")
@@ -131,48 +144,72 @@ def main() -> dict:
                 print(f"  {name}: {line.strip()}")
 
     # ---------------------------------------------------------------- 3
-    print("== phase 3: kernels against their plain versions")
+    t_phase = _phase("3: kernels against their plain versions", t0)
     data = _requests()
-    checks = _kernel_checks(torch, dev, data)
-    checks.update(_train_kernel_checks(torch, dev))
+    bench = _bench_batch(torch, dev)
+    checks = _kernel_checks(torch, dev, data, bench)
+    checks.update(_attention_train_checks(torch, dev, bench))
+    checks.update(_train_kernel_checks(torch, dev, bench))
 
     # ---------------------------------------------------------------- 4-5
     from tpuasr_torch.ops import LAUNCHES, reset_launch_counts
 
+    t_phase = _phase("4-5: serving", t_phase)
     reset_launch_counts()
     serving = _serve(torch, dev, data)
-    serve_launches = dict(LAUNCHES)
-    print(f"launches on the serving run: {serve_launches}")
+    runs = {"serving": dict(LAUNCHES)}
+    print(f"launches on the serving run: {runs['serving']}")
 
     # ---------------------------------------------------------------- 6
-    print("== phase 6a: training step, card against CPU (fp32)")
-    training = {"card_vs_cpu": _train_card_vs_cpu(torch, dev)}
-    print("== phase 6b: training at the bench protocol")
-    training["bench"], train_launches = _train_bench(torch, dev)
-    print(f"launches on the training run: {train_launches}")
+    training = {}
+    for fused in (True, False):
+        t_phase = _phase(f"6a: training step, card against CPU (fp32, fused_joint_loss="
+                         f"{fused})", t_phase)
+        training[f"card_vs_cpu_fused_joint_loss_{fused}"] = _train_card_vs_cpu(torch, dev, fused)
+    t_phase = _phase("6b: training at bench.py's configuration", t_phase)
+    training["bench"], runs["training"] = _train_bench(torch, dev, bench, True)
+    print(f"launches on the training run: {runs['training']}")
+    t_phase = _phase("6c: training through the materialized loss", t_phase)
+    training["bench_materialized"], runs["training_materialized"] = _train_bench(
+        torch, dev, bench, False, n_steps=4, warmup=1)
+    print(f"launches on the materialized training run: {runs['training_materialized']}")
 
     # ---------------------------------------------------------------- 7
     # one entry per kernel and run that launches it, with the record taken
-    # at the shape that run gives it: fbank appears twice (the serving
-    # requests in fp32, the training batch in "default" precision)
+    # at the shape that run gives it (6b and 6c give the same shapes)
+    _phase("7: the kernels line", t_phase)
+    both = ("training", "training_materialized")
+    plan = [("fbank", ("serving",), "fbank"), ("fbank", both, "fbank_training"),
+            ("relpos_attention", ("serving",), "attention"),
+            ("relpos_attention", both, "attention_training"),
+            ("relpos_attention_bwd", both, "attention_bwd"),
+            ("rnnt_fused_fwd", ("training",), "rnnt_fused_fwd"),
+            ("rnnt_fused_bwd", ("training",), "rnnt_fused_bwd"),
+            ("ctc_alpha", both, "ctc_alpha"), ("ctc_beta_grad", both, "ctc_beta_grad"),
+            ("rnnt_alpha", both, "rnnt_alpha"), ("rnnt_beta_grad", both, "rnnt_beta_grad")]
     kernels = []
-    for name, run, check in (("fbank", "serving", "fbank"),
-                             ("fbank", "training", "fbank_training"),
-                             ("relpos_attention", "serving", "attention"),
-                             ("rnnt_fused_fwd", "training", "rnnt_fused_fwd"),
-                             ("rnnt_fused_bwd", "training", "rnnt_fused_bwd"),
-                             ("ctc_alpha", "training", "ctc_alpha"),
-                             ("ctc_beta_grad", "training", "ctc_beta_grad")):
-        launches = (serve_launches if run == "serving" else train_launches)[name]
-        require(launches > 0, f"the {run} run never launched {name}")
-        kernels.append(dict(checks[check], run=run, launches=launches,
-                            launches_serving=serve_launches[name],
-                            launches_training=train_launches[name]))
+    for name, run_names, check in plan:
+        for run in run_names:
+            launches = runs[run][name]
+            require(launches > 0, f"the {run} run never launched {name}")
+            kernels.append(dict(checks[check], run=run, launches=launches,
+                                **{f"launches_{r}": runs[r][name] for r in runs}))
+    require(runs["training_materialized"]["rnnt_fused_fwd"] == 0,
+            "the materialized run launched the fused joint")
+    print(f"phases took {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
     print(json.dumps({"kernels": kernels}))
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}
+
+
+def _phase(name: str, since: float) -> float:
+    """Print the last phase's seconds and the next phase's name; -> now."""
+    now = time.perf_counter()
+    print(f"(previous phase: {now - since:.1f} s)")
+    print(f"== phase {name}")
+    return now
 
 
 def _requests() -> dict:
@@ -201,9 +238,10 @@ def _time_ms(torch, fn, iters: int = 30, warmup: int = 3, method: str = "events"
     The sleep is sized from one timed enqueue, and the run fails if the
     host's enqueue outlasted it. method "profiler": torch.profiler's sum of
     the device's kernel time per call, for calls that cannot be queued
-    behind a sleep (they wait for the device, or enqueue more launches than
-    the launch queue holds: the plain CTC sweeps loop over frames, and
-    F.ctc_loss copies its host lengths to the card)."""
+    behind a sleep (they wait for the device, or 30 of them enqueue more
+    launches than the launch queue holds: the plain CTC and RNN-T lattices
+    loop over frames or diagonals, the plain attention backward is ~40
+    launches, and F.ctc_loss copies its host lengths to the card)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -240,7 +278,7 @@ def _time_ms(torch, fn, iters: int = 30, warmup: int = 3, method: str = "events"
     return ev[1].elapsed_time(ev[2]) / iters
 
 
-def _kernel_checks(torch, dev, data) -> dict:
+def _kernel_checks(torch, dev, data, bench) -> dict:
     from dataclasses import astuple
 
     import torch.nn.functional as F
@@ -261,7 +299,7 @@ def _kernel_checks(torch, dev, data) -> dict:
     # batch (phase 6b: bench.py's 12 waves) in the precision it trains with
     for src, wire, precs in (("fixture", data["fixture"][0], both),
                              ("synthetic", data["synthetic"][0], both),
-                             ("bench", _bench_batch(torch, dev)["waves"], both[1:])):
+                             ("bench", bench["waves"], both[1:])):
         waves = decode_wire(torch.as_tensor(wire).to(dev))
         frames = frame_signal(waves, n_fft, cfg.hop_length, cfg.center)
         frames = frames.reshape(-1, n_fft).contiguous()
@@ -364,6 +402,121 @@ def _kernel_checks(torch, dev, data) -> dict:
             require(zero_row, "a fully masked query row did not give zeros")
             if b == 4 and dtype == torch.bfloat16:  # the flagship's 8 s bf16 call
                 out["attention"] = rec
+    return out
+
+
+def _attention_train_checks(torch, dev, bench) -> dict:
+    """Kernels #2 and #3 against their plain versions at the training shape
+    (phase 6b's encoder: [12, 191, 256] bf16, its padding and a drawn
+    dynamic chunk), at an fp32 ragged shape with a fully masked query row,
+    and with a [B, 1, S] padding mask; -> {"attention_training",
+    "attention_bwd"}: the records at the training shape."""
+    import numpy as np
+    import torch.nn.functional as F
+
+    from tpuasr_torch.nn.masks import chunk_mask, draw_dynamic_chunk, dynamic_chunk_size
+    from tpuasr_torch.ops import (
+        relpos_attention, relpos_attention_bwd, relpos_attention_bwd_plain,
+        relpos_attention_plain,
+    )
+
+    out = {}
+    h, dk = 4, 64
+    d = h * dk
+    t_bench = int(_enc_len(np.array([(BENCH_FRAMES - 1) * HOP]))[0])
+    lens = torch.as_tensor(_enc_len(bench["wave_lens"].cpu().numpy()))
+    for seed in range(100):  # a draw that chunks (about half give full context)
+        cs, left = dynamic_chunk_size(*draw_dynamic_chunk(torch.Generator().manual_seed(seed),
+                                                          t_bench), t_bench, 25, False)
+        if cs < t_bench:
+            break
+    pad = torch.arange(t_bench)[None, None, :] < lens[:, None, None]  # [B, 1, T]
+    ragged = (torch.arange(37)[None, :] < torch.tensor([37, 20, 30])[:, None])[:, None, :]
+    ragged = ragged & chunk_mask(37, 8, 2)[None]
+    ragged[1, 5] = False  # a fully masked query row
+    bcast = torch.ones(4, 1, 60, dtype=torch.bool)
+    bcast[3, 0, 41:] = False
+    cases = (("training", torch.bfloat16, pad & chunk_mask(t_bench, cs, left)[None]),
+             ("ragged", torch.float32, ragged), ("broadcast", torch.bfloat16, bcast))
+    print(f"training-shape mask: the encoder's padding and a dynamic chunk of {cs} frames "
+          f"(left chunks {left})")
+    g = torch.Generator().manual_seed(SEED + 5)
+    for tag, dtype, mask in cases:
+        b, t = mask.shape[0], mask.shape[2]
+        mask = mask.to(dev)
+        q, k, v, do = (torch.randn(b, t, d, generator=g).to(dev, dtype) for _ in range(4))
+        p = torch.randn(1, t, d, generator=g).to(dev, dtype)
+        u_, v_ = ((0.1 * torch.randn(d, generator=g)).to(dev, dtype) for _ in range(2))
+        scale = 1.0 / math.sqrt(dk)
+        args = (q, k, p, v, u_, v_, mask, scale, h)
+        bargs = (q, k, p, v, u_, v_, mask, do, scale, h)
+        pairs = int(mask.expand(b, t, t).sum())  # unmasked (query, key) pairs per head
+        es = q.element_size()
+        peak = PEAK_FP32 if dtype == torch.float32 else PEAK_BF16
+        heads = lambda x: x.view(x.shape[0], -1, h, dk).transpose(1, 2)
+        sq = torch.cat([heads(q + u_), heads(q + v_)], dim=-1)
+        sk = torch.cat([heads(k), heads(p).expand(b, -1, -1, -1)], dim=-1)
+        sv, smask = heads(v), mask[:, None]
+
+        # #2 forward
+        tol = 1e-5 if dtype == torch.float32 else 1e-2
+        got = relpos_attention(*args)
+        torch.cuda.synchronize()
+        ref = relpos_attention_plain(*args)
+        diff = (got.float() - ref.float()).abs()
+        require(bool((diff <= tol + tol * ref.float().abs()).all()),
+                f"attention kernel disagrees with its plain version ({tag})")
+        if tag == "training":
+            rec = _record(
+                torch, "relpos_attention", "tpuasr_torch/csrc/relpos_attention.cu",
+                "tpuasr/ops/attention_pallas.py:72", float(diff.max()), pairs * h * 6 * dk,
+                peak, es * (4 * b * t * d + t * d + 2 * d) + mask.numel(),
+                lambda: relpos_attention(*args), lambda: relpos_attention_plain(*args),
+                lambda: F.scaled_dot_product_attention(sq, sk, sv, attn_mask=smask,
+                                                       scale=scale))
+            out["attention_training"] = rec
+            print(f"relpos_attention {tag} [{b}, {t}, {d}] {str(dtype)[6:]}: max_abs_err "
+                  f"{rec['max_abs_err']:.3g} (tol {tol} + {tol}*|ref|) ms {rec['ms']:.4f} "
+                  f"plain_ms {rec['plain_ms']:.4f} library_ms {rec['library_ms']:.4f} "
+                  f"bound_ms {rec['bound_ms']:.5f} ({rec['bound_by']})")
+
+        # #3 backward
+        rel = 1e-4 if dtype == torch.float32 else 2.0 ** -6
+        got = relpos_attention_bwd(*bargs)
+        torch.cuda.synchronize()
+        ref = relpos_attention_bwd_plain(*bargs)
+        rels = {n: _rel_err(x, y) for n, x, y in zip(("dq", "dk", "dv", "dp", "du", "dvb"),
+                                                     got, ref)}
+        err = max(float((x.float() - y.float()).abs().max()) for x, y in zip(got, ref))
+        zero_row = tag != "ragged" or bool((got[0][1, 5] == 0).all())
+        print(f"relpos_attention_bwd {tag} [{b}, {t}, {d}] {str(dtype)[6:]}: error / max|ref| "
+              f"{ {n: f'{x:.2e}' for n, x in rels.items()} } (tol {rel:.3g}: "
+              + ("fp32 sums in another order, dp/du/dvb added with atomics in an order that "
+                 "changes between runs" if dtype == torch.float32 else
+                 "ds rounds to bf16 before the products, a value on a rounding edge may round "
+                 "the other way, and the outputs round to bf16") + ")")
+        require(max(rels.values()) <= rel, f"attention backward kernel disagrees with its "
+                                           f"plain version ({tag})")
+        require(zero_row, "a fully masked query row got a gradient")
+        if tag == "training":
+            lib_in = [x.detach().requires_grad_() for x in (sq, sk, sv)]
+            lib_out = F.scaled_dot_product_attention(*lib_in, attn_mask=smask, scale=scale)
+            lib_g = heads(do)
+            # operations: 14 dk per head per unmasked pair (scores 4 dk, da, dv
+            # and dq 2 dk each, dk|dp 4 dk); bytes: q, k, v, p, do, the biases
+            # and the mask in, dq, dk, dv and the fp32 dp, du, dvb out
+            nbytes = es * (7 * b * t * d + t * d + 2 * d) + 4 * (t * d + 2 * d) + mask.numel()
+            rec = _record(
+                torch, "relpos_attention_bwd", "tpuasr_torch/csrc/relpos_attention.cu",
+                "tpuasr/ops/attention_pallas.py:87", err, pairs * h * 14 * dk, peak, nbytes,
+                lambda: relpos_attention_bwd(*bargs), lambda: relpos_attention_bwd_plain(*bargs),
+                lambda: torch.autograd.grad(lib_out, lib_in, lib_g, retain_graph=True),
+                plain_iters=10, plain_timing="profiler")
+            out["attention_bwd"] = rec
+            print(f"  ms {rec['ms']:.4f} plain_ms (profiler) {rec['plain_ms']:.4f} library_ms "
+                  f"(SDPA backward, profiler) {rec['library_ms']:.4f} bound_ms "
+                  f"{rec['bound_ms']:.5f} ({rec['bound_by']}: "
+                  f"{pairs * h * 14 * dk / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)")
     return out
 
 
@@ -646,16 +799,28 @@ def _stream_stages(torch, model, cfg, feats) -> dict:
 # training: kernels #4-#7 and phase 6
 # ---------------------------------------------------------------------------
 
-BENCH_B, BENCH_FRAMES, BENCH_TOKENS = 12, 768, 32  # bench.py's protocol
+BENCH_B, BENCH_FRAMES, BENCH_TOKENS = 12, 768, 32  # bench.py:78-80
 HOP, SR = 512, 48000
 
 
-def _bench_lengths(r):
-    """Token counts (24-30) and wave lengths of bench.py's synthetic batch:
-    (frames - 6) * hop // 30 samples per token, padded to (frames-1) * hop."""
-    ntok = r.integers(24, 31, size=BENCH_B)
-    per_token = (BENCH_FRAMES - 6) * HOP // 30
-    return ntok, ntok * per_token
+def _bench_batch(torch, dev) -> dict:
+    """bench.py's batch (bench.py:83-90) through the port's copies of
+    `synth_corpus` and `make_batch`: 12 utterances of 24-30 content tokens
+    plus SOS and EOS, (frames - 6) * hop // 30 samples per token, padded to
+    (frames - 1) * hop samples and 32 tokens; as tensors on `dev`."""
+    from tpuasr_torch.config import Config
+    from tpuasr_torch.data import BatchSpec, make_batch, synth_corpus, tensors
+
+    cfg = Config()
+    utts = synth_corpus(BENCH_B, cfg.model.vocab_size, seed=0, min_tokens=24, max_tokens=30,
+                        sample_rate=cfg.feature.sample_rate,
+                        samples_per_token=(BENCH_FRAMES - 6) * cfg.feature.hop_length // 30)
+    spec = BatchSpec(BENCH_B, (BENCH_FRAMES - 1) * cfg.feature.hop_length, BENCH_TOKENS)
+    batch = tensors(make_batch(utts, spec), dev)
+    print(f"bench.py's batch: {BENCH_B} waves of {spec.wave_samples} samples, "
+          f"{float(batch['wave_lens'].sum()) / SR:.2f} s of audio, label lengths "
+          f"{batch['text_lens'].tolist()}")
+    return batch
 
 
 def _enc_len(wave_lens):
@@ -669,27 +834,26 @@ def _rel_err(got, ref) -> float:
     return float((got.float() - ref.float()).abs().max() / ref.float().abs().max().clamp(min=1e-30))
 
 
-def _train_kernel_checks(torch, dev) -> dict:
-    """Kernels #4-#7 against their plain versions at the training step's
+def _train_kernel_checks(torch, dev, bench) -> dict:
+    """Kernels #4-#9 against their plain versions at the training step's
     shapes (and a ragged shape); -> {name: record at the bench shape}."""
     import numpy as np
     import torch.nn.functional as F
 
     from tpuasr_torch.losses.ctc import lattice_inputs
-    from tpuasr_torch.losses.rnnt import (
-        mask_lattice_inputs, rnnt_alphas, rnnt_log_likelihood, rnnt_occupancies,
-    )
     from tpuasr_torch.ops import (
-        ctc_alpha, ctc_alpha_plain, ctc_beta_grad, ctc_beta_grad_plain, rnnt_fused_grads,
+        ctc_alpha, ctc_alpha_plain, ctc_beta_grad, ctc_beta_grad_plain, rnnt_alpha,
+        rnnt_alpha_plain, rnnt_beta_grad, rnnt_beta_grad_plain, rnnt_fused_grads,
         rnnt_fused_grads_plain, rnnt_fused_lp, rnnt_fused_lp_plain,
     )
+    from tpuasr_torch.ops.rnnt_lattice import mask_lattice_inputs
 
     out = {}
     blank = 5
-    r = np.random.default_rng(SEED + 7)
-    ntok, wave_lens = _bench_lengths(r)
+    wave_lens = bench["wave_lens"].cpu().numpy()
     bench_t = int(_enc_len(np.array([(BENCH_FRAMES - 1) * HOP]))[0])
-    shapes = (("bench", BENCH_B, bench_t, BENCH_TOKENS, 256, 412, _enc_len(wave_lens), ntok),
+    shapes = (("bench", BENCH_B, bench_t, BENCH_TOKENS, 256, 412, _enc_len(wave_lens),
+               bench["text_lens"].cpu().numpy()),
               ("ragged", 3, 37, 5, 256, 97, np.array([37, 0, 20]), np.array([5, 3, 0])))
     g = torch.Generator().manual_seed(SEED)
     for tag, b, t, u, d, v, t_lens, u_lens in shapes:
@@ -726,12 +890,59 @@ def _train_kernel_checks(torch, dev) -> dict:
         if tag == "bench":
             out["rnnt_fused_fwd"] = rec
 
-        # #5: gradients from the real lattice's occupancies (mean over B)
+        # #8 / #9: the lattice over the fused route's masked log-probs (the
+        # materialized route hands the lattice the same [B, T, U+1] inputs)
         blank_lp, label_full, lse = got
         bm, lm, pad_t, lv = mask_lattice_inputs(blank_lp, label_full[:, :, :-1], tl, ul)
-        alpha = rnnt_alphas(bm, lm)
-        occ_b, occ_l = rnnt_occupancies(bm, lm, ul, alpha, rnnt_log_likelihood(alpha, bm, ul))
+        ga, gll = rnnt_alpha(bm, lm, ul)
+        torch.cuda.synchronize()
+        ra, rll = rnnt_alpha_plain(bm, lm, ul)
+        live = ra > -1e29
+        require(torch.equal(live, ga > -1e29) and torch.equal(rll > -1e29, gll > -1e29),
+                f"rnnt_alpha: reachable cells differ from the plain version ({tag})")
+        err = max(float((ga - ra)[live].abs().max()), float((gll - rll).abs().max()))
+        ok = bool(((ga - ra).abs() <= 1e-3 + 1e-5 * ra.abs())[live].all())
+        ok = ok and bool(((gll - rll).abs() <= 1e-3 + 1e-5 * rll.abs()).all())
+        cells = b * t * u1
+        nbytes = 4 * (2 * cells + b * t * u + 2 * b)
+        rec = _record(torch, "rnnt_alpha", "tpuasr_torch/csrc/rnnt_lattice.cu",
+                      "tpuasr/ops/rnnt_pallas.py:88", err, 10.0 * cells, PEAK_FP32, nbytes,
+                      lambda: rnnt_alpha(bm, lm, ul), lambda: rnnt_alpha_plain(bm, lm, ul),
+                      None, plain_iters=5, plain_timing="profiler")
+        print(f"rnnt_alpha {tag} [B {b}, T {t}, U+1 {u1}]: max_abs_err {err:.3g} over reachable "
+              f"cells (tol 1e-3 + 1e-5*|ref|: the plain version's log-adds, whose exp/log1p "
+              f"may differ from torch's by an ulp, over {t + u} diagonals) ms {rec['ms']:.4f} "
+              f"plain_ms (profiler) {rec['plain_ms']:.4f} bound_ms {rec['bound_ms']:.6f} "
+              f"({rec['bound_by']}; the {t + u} dependent diagonals bind in fact); library_ms "
+              f"none (no RNN-T loss in PyTorch)")
+        require(ok, f"rnnt_alpha disagrees with its plain version ({tag})")
+        if tag == "bench":
+            out["rnnt_alpha"] = rec
+
+        gvec = (0.5 + torch.rand(b, generator=g)).to(dev)
+        largs = (bm, lm, ul, ra.contiguous(), rll.contiguous(), gvec)
+        got_l = rnnt_beta_grad(*largs)
+        torch.cuda.synchronize()
+        ref_l = rnnt_beta_grad_plain(*largs)
+        err = max(float((x - y).abs().max()) for x, y in zip(got_l, ref_l))
+        ok = all(bool(((x - y).abs() <= 2e-3 * y.abs() + 1e-5).all())
+                 for x, y in zip(got_l, ref_l))
+        rec = _record(torch, "rnnt_beta_grad", "tpuasr_torch/csrc/rnnt_lattice.cu",
+                      "tpuasr/ops/rnnt_pallas.py:111", err, 20.0 * cells, PEAK_FP32,
+                      4 * (4 * cells + 2 * b * t * u + 3 * b),
+                      lambda: rnnt_beta_grad(*largs), lambda: rnnt_beta_grad_plain(*largs),
+                      None, plain_iters=5, plain_timing="profiler")
+        print(f"rnnt_beta_grad {tag}: max_abs_err {err:.3g} (tol 2e-3*|ref| + 1e-5: exp of a "
+              f"log-domain sum carrying alpha's error) ms {rec['ms']:.4f} plain_ms (profiler) "
+              f"{rec['plain_ms']:.4f} bound_ms {rec['bound_ms']:.6f} ({rec['bound_by']}); "
+              f"library_ms none")
+        require(ok, f"rnnt_beta_grad disagrees with its plain version ({tag})")
+        if tag == "bench":
+            out["rnnt_beta_grad"] = rec
+
+        # #5: gradients from the lattice's occupancies (mean over B)
         zero = torch.zeros((), device=dev)
+        occ_b, occ_l = rnnt_beta_grad_plain(bm, lm, ul, ra, rll, torch.ones(b, device=dev))
         gb = torch.where(pad_t, zero, -occ_b / b).contiguous()
         gl = F.pad(torch.where(lv, -occ_l / b, zero), (0, 1)).contiguous()
         args = (enc, pred, w, bias, lab, lse, gb, gl, blank)
@@ -826,18 +1037,19 @@ def _train_kernel_checks(torch, dev) -> dict:
     return out
 
 
-def _train_cfg(dtype: str, dropout: bool):
-    """The flagship as the bench trains it: causal, static chunk 32, fused
-    joint loss, the plain attention formula (its kernel's backward is not
-    ported); with `dropout`, the JAX defaults (0.1) and dynamic chunks, else
-    no dropout and the static chunk."""
+def _train_cfg(dtype: str, dropout: bool, fused_joint_loss: bool = True):
+    """The flagship as bench.py trains it (bench.py:51-76): causal, static
+    chunk 32, the rel-pos attention kernels, the fused joint loss (or with
+    `fused_joint_loss=False` the materialized one); with `dropout`, the JAX
+    defaults (0.1) and dynamic chunks, else no dropout and the static
+    chunk."""
     from tpuasr_torch.config import Config
 
     cfg = Config()
     cfg.model.compute_dtype = dtype
-    cfg.model.fused_joint_loss = True
+    cfg.model.fused_joint_loss = fused_joint_loss
     enc = cfg.model.encoder
-    enc.causal, enc.static_chunk_size, enc.fused_attention = True, 32, False
+    enc.causal, enc.static_chunk_size, enc.fused_attention = True, 32, True
     enc.use_dynamic_chunk = dropout
     if not dropout:
         enc.dropout_rate = enc.positional_dropout_rate = 0.0
@@ -846,7 +1058,7 @@ def _train_cfg(dtype: str, dropout: bool):
     return cfg
 
 
-def _train_card_vs_cpu(torch, dev) -> dict:
+def _train_card_vs_cpu(torch, dev, fused_joint_loss: bool) -> dict:
     """Phase 6a: one forward, backward and GuardedAdam step of the fp32
     flagship on the card and on the CPU, same weights and batch."""
     import numpy as np
@@ -854,7 +1066,7 @@ def _train_card_vs_cpu(torch, dev) -> dict:
     from tpuasr_torch.models import Transducer, init_weights
     from tpuasr_torch.train import make_optimizer
 
-    cfg = _train_cfg("float32", dropout=False)
+    cfg = _train_cfg("float32", dropout=False, fused_joint_loss=fused_joint_loss)
     r = np.random.default_rng(SEED + 11)
     b, t, u = 2, 256, 16  # the shape of __graft_entry__.entry()
     host = (torch.from_numpy(r.standard_normal((b, t, 80)).astype(np.float32)),
@@ -897,11 +1109,13 @@ def _train_card_vs_cpu(torch, dev) -> dict:
     held = [i for i in range(len(names)) if i not in shift_free]
     order = sorted(held, key=lambda i: -rels[i])
     worst = order[0]
-    print(f"fp32 training step, card vs CPU on [2, 256, 80] x 16 tokens: losses card "
+    print(f"fp32 training step (fused_joint_loss={fused_joint_loss}), card vs CPU on "
+          f"[2, 256, 80] x 16 tokens: losses card "
           f"{lc} cpu {lh} (tol 1e-4 relative); grad norm {gc:.6g} vs {gh:.6g} (tol 1e-4 "
           f"relative); gradient error / the leaf's max|g|, the three worst: "
           f"{[(names[i], f'{rels[i]:.3g}') for i in order[:3]]} (tol 1e-3: fp32 sums in "
-          f"another order through 12 blocks, the lattice and the fused joint's atomics); "
+          f"another order through 12 blocks, the attention backward's and the fused "
+          f"joint's atomics, the lattice); "
           f"the {len(shift_free)} key-projection biases (zero gradient in exact arithmetic) "
           f"reach {noise:.3g} against a largest gradient entry of {scale:.4g} (tol 1e-6 of "
           f"it: rounding noise)")
@@ -993,33 +1207,11 @@ def _adam_card_vs_cpu(torch, tx, card: dict, cpu: dict) -> dict:
             "adam_sign_flips_near_zero": flips_near, "adam_update_worst_excess_steps": worst}
 
 
-def _bench_batch(torch, dev) -> dict:
-    """bench.py's batch shape from a seed: 12 waves of 24-30 tokens at
-    (frames-6)*hop//30 samples each, padded to (frames-1)*hop samples, and
-    the token ids padded with 0 to 32 slots."""
-    import numpy as np
-
-    r = np.random.default_rng(SEED + 3)
-    ntok, wave_lens = _bench_lengths(r)
-    n = (BENCH_FRAMES - 1) * HOP
-    waves = np.zeros((BENCH_B, n), np.float32)
-    texts = np.zeros((BENCH_B, BENCH_TOKENS), np.int64)
-    for i in range(BENCH_B):
-        tt = np.arange(wave_lens[i]) / SR
-        tone = 200.0 + 25.0 * r.integers(0, 40, size=ntok[i]).repeat(wave_lens[i] // ntok[i])
-        tone = np.pad(tone, (0, wave_lens[i] - tone.size), mode="edge")
-        waves[i, :wave_lens[i]] = 0.1 * np.sin(2 * np.pi * tone * tt) \
-            + 0.01 * r.standard_normal(wave_lens[i])
-        texts[i, :ntok[i]] = r.integers(6, 412, size=ntok[i])
-    return {"waves": torch.from_numpy(waves).to(dev),
-            "wave_lens": torch.from_numpy(wave_lens.astype(np.int64)).to(dev),
-            "texts": torch.from_numpy(texts).to(dev),
-            "text_lens": torch.from_numpy(ntok.astype(np.int64)).to(dev)}
-
-
-def _train_bench(torch, dev, n_steps: int = 10, warmup: int = 2) -> tuple[dict, dict]:
-    """Phase 6b: the bench protocol through `make_train_step`; -> (stats,
-    kernel launches during the steps)."""
+def _train_bench(torch, dev, batch, fused_joint_loss: bool, n_steps: int = 10,
+                 warmup: int = 2) -> tuple[dict, dict]:
+    """Phases 6b/6c: bench.py's configuration (6c: the materialized loss)
+    on bench.py's batch through `make_train_step`; -> (stats, kernel
+    launches during the steps)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1027,13 +1219,12 @@ def _train_bench(torch, dev, n_steps: int = 10, warmup: int = 2) -> tuple[dict, 
     from tpuasr_torch.ops import LAUNCHES, reset_launch_counts
     from tpuasr_torch.train import TrainState, make_optimizer, make_train_step
 
-    cfg = _train_cfg("bfloat16", dropout=True)
+    cfg = _train_cfg("bfloat16", dropout=True, fused_joint_loss=fused_joint_loss)
     cfg.feature.fbank_precision = "default"
     model = init_weights(Transducer(cfg.model, device=dev), SEED)
     tx = make_optimizer(cfg.optim)
     state = TrainState.create(model, tx)
     step = make_train_step(model, tx, cfg)
-    batch = _bench_batch(torch, dev)
     audio_s = float(batch["wave_lens"].sum()) / SR
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1059,17 +1250,20 @@ def _train_bench(torch, dev, n_steps: int = 10, warmup: int = 2) -> tuple[dict, 
              "audio_seconds_per_step": audio_s, "audio_s_per_s": audio_s / med * 1e3,
              "max_memory_allocated": peak, "profiled_step_wall_ms": wall,
              "profiled_step_device_busy_ms": busy, "profiled_step_device_ops": n_kern,
-             "skipped": int(state.skipped), "steps": state.step}
-    print(f"bench-protocol training (batch {BENCH_B} x {BENCH_FRAMES} frames, "
-          f"{audio_s:.2f} s of audio per step, bf16, dropout 0.1, dynamic chunk): losses "
-          f"{[round(x, 4) for x in losses]}; step ms median {med:.1f} (min {ms_sorted[0]:.1f}, "
-          f"max {ms_sorted[-1]:.1f}, {n_steps} steps after {warmup}); "
+             "skipped": int(state.skipped), "steps": state.step,
+             "top_device_items": [[e.key, e.count, e.self_device_time_total / 1e3] for e in top]}
+    route = "fused joint loss" if fused_joint_loss else "materialized loss (full logits)"
+    print(f"bench.py's configuration, {route} (batch {BENCH_B} x {BENCH_FRAMES} frames, "
+          f"{audio_s:.2f} s of audio per step, bf16, dropout 0.1, dynamic chunk, fused "
+          f"attention): losses {[round(x, 4) for x in losses]}; step ms median {med:.1f} "
+          f"(min {ms_sorted[0]:.1f}, max {ms_sorted[-1]:.1f}, {n_steps} steps after {warmup}); "
           f"{stats['audio_s_per_s']:.1f} audio-s/s; peak memory {peak / 2**30:.2f} GiB; "
           f"profiled step: device busy {busy:.2f} ms of {wall:.1f} ms wall "
           f"({100 * (1 - busy / wall):.0f}% idle), {n_kern} device operations")
     for e in top:
         print(f"  {e.self_device_time_total / 1e3:8.3f} ms  {e.count:6d}x  {e.key[:90]}")
     require(all(math.isfinite(x) for x in losses), "a training loss is not finite")
+    require(int(state.skipped) == 0, "a training step was skipped")
     return stats, launches
 
 

@@ -5,9 +5,12 @@ flagship path does not reach: rows not a multiple of the fbank tile, T and
 S not multiples of the attention tiles, T != S, dk 16, 32 and 64, a broadcast
 [B, 1, S] padding mask, a fully masked query row; for the fused RNN-T joint
 (#4/#5) and the CTC lattice (#6/#7): U = 0, t_len = 0, an infeasible CTC
-row, B = 1, V = 412 and V = 64, bf16 enc_p/pred_p from a bf16 model; and
-the attention wrapper's refusal to run without its backward when a gradient
-is asked for. This file imports no JAX, so it runs on a machine without it:
+row, B = 1, V = 412 and V = 64, bf16 enc_p/pred_p from a bf16 model; the
+attention backward (#3) in fp32 and bf16 at dk 16, 32 and 64 with a fully
+masked row and a broadcast mask, and through autograd; the RNN-T lattice
+(#8/#9) at U+1 = 1, 33 and 257 with a t_len = 0 row, and the materialized
+RNN-T loss card against CPU. This file imports no JAX, so it runs on a
+machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
@@ -22,7 +25,13 @@ atomics); bf16 gradients one bf16 ulp of that max (2**-8). CTC: alpha and ll
 1e-3 + 1e-5*|ref| (log-adds whose exp/log1p may differ by an ulp over T
 steps), gradients 2e-3*|ref| + 1e-5; the whole CTC loss card vs CPU,
 gradient w.r.t. the logits atol 1e-4 (alpha and beta ~ -100 carry an ulp
-of 7.6e-6 into the posterior).
+of 7.6e-6 into the posterior). Attention backward: fp32 1e-4 of each
+output's max (sums in another order; dp, du and dvb added with atomics), bf16
+2**-6 of it (ds is rounded to bf16 before the products, and a value on a
+rounding edge may round the other way on the other side; the outputs round
+to bf16 too). RNN-T lattice: as CTC's (the kernel repeats the plain
+version's log-adds; exp/log1p may differ by an ulp); the materialized loss
+card vs CPU: loss rtol 1e-5, gradient atol 1e-4, as the CTC loss.
 """
 
 from dataclasses import astuple
@@ -34,12 +43,16 @@ from tpuasr_torch.audio.fbank import _operands
 from tpuasr_torch.config import FeatureConfig
 import torch.nn.functional as F
 
+from tpuasr_torch.losses import rnnt_loss_from_logits
 from tpuasr_torch.losses.ctc import ctc_loss_from_logits, lattice_inputs
 from tpuasr_torch.ops import (
     LAUNCHES, ctc_alpha, ctc_alpha_plain, ctc_beta_grad, ctc_beta_grad_plain, fbank_frames,
-    fbank_frames_plain, relpos_attention, relpos_attention_plain, rnnt_fused_grads,
-    rnnt_fused_grads_plain, rnnt_fused_lp, rnnt_fused_lp_plain, rnnt_loss_fused_mean,
+    fbank_frames_plain, relpos_attention, relpos_attention_bwd, relpos_attention_bwd_plain,
+    relpos_attention_plain, rnnt_alpha, rnnt_alpha_plain, rnnt_beta_grad,
+    rnnt_beta_grad_plain, rnnt_fused_grads, rnnt_fused_grads_plain, rnnt_fused_lp,
+    rnnt_fused_lp_plain, rnnt_loss_fused_mean,
 )
+from tpuasr_torch.ops.rnnt_lattice import mask_lattice_inputs
 
 pytestmark = pytest.mark.cuda
 
@@ -71,12 +84,13 @@ def test_fbank_kernel_matches_plain(card, rows, n_fft, sr, precision, atol):
     torch.testing.assert_close(got[1], torch.full_like(got[1], -100.0))  # log floor
 
 
-@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
-@pytest.mark.parametrize("b,t,s,h,dk,mask_kind", [
+ATTENTION_SHAPES = [
     (3, 21, 21, 2, 32, "chunk"), (2, 40, 70, 4, 64, "pad"), (1, 187, 187, 4, 64, "chunk"),
     (3, 21, 21, 2, 16, "chunk"),
-])
-def test_relpos_attention_kernel_matches_plain(card, dtype, tol, b, t, s, h, dk, mask_kind):
+]
+
+
+def _attention_inputs(card, dtype, b, t, s, h, dk, mask_kind):
     g = torch.Generator().manual_seed(t * s)
     d = h * dk
     q, k, v = (torch.randn(n, r, d, generator=g).to(card, dtype)
@@ -92,15 +106,53 @@ def test_relpos_attention_kernel_matches_plain(card, dtype, tol, b, t, s, h, dk,
         j = torch.arange(s)[None, :]
         mask = ((j // 4 <= i // 4) & (j >= i - 8)).expand(b, t, s).clone()
         mask[0, t - 1] = False  # fully masked row -> zeros
-    mask = mask.to(card)
-    scale = dk ** -0.5
-    got = relpos_attention(q, k, p, v, ub, vb, mask, scale, h)
+    do = torch.randn(b, t, d, generator=g).to(card, dtype)
+    return (q, k, p, v, ub, vb, mask.to(card), dk ** -0.5, h), do
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("b,t,s,h,dk,mask_kind", ATTENTION_SHAPES)
+def test_relpos_attention_kernel_matches_plain(card, dtype, tol, b, t, s, h, dk, mask_kind):
+    args, _ = _attention_inputs(card, dtype, b, t, s, h, dk, mask_kind)
+    got = relpos_attention(*args)
     torch.cuda.synchronize()
-    ref = relpos_attention_plain(q, k, p, v, ub, vb, mask, scale, h)
+    ref = relpos_attention_plain(*args)
     assert got.dtype == dtype
     torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
     if mask_kind == "chunk":
         assert torch.all(got[0, t - 1] == 0)
+
+
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4), (torch.bfloat16, 2.0 ** -6)])
+@pytest.mark.parametrize("b,t,s,h,dk,mask_kind", ATTENTION_SHAPES)
+def test_relpos_attention_bwd_kernel_matches_plain(card, dtype, rel, b, t, s, h, dk, mask_kind):
+    args, do = _attention_inputs(card, dtype, b, t, s, h, dk, mask_kind)
+    q, k, p, v, ub, vb, mask, scale, n_head = args
+    before = LAUNCHES["relpos_attention_bwd"]
+    got = relpos_attention_bwd(q, k, p, v, ub, vb, mask, do, scale, n_head)
+    torch.cuda.synchronize()
+    assert LAUNCHES["relpos_attention_bwd"] == before + 1
+    ref = relpos_attention_bwd_plain(q, k, p, v, ub, vb, mask, do, scale, n_head)
+    for name, x, y in zip(("dq", "dk", "dv", "dp", "du", "dvb"), got, ref):
+        assert x.dtype == y.dtype and x.shape == y.shape, name
+        err = float((x.float() - y.float()).abs().max())
+        assert err <= rel * float(y.float().abs().max()) + 1e-6, (name, err)
+    if mask_kind == "chunk":
+        assert torch.all(got[0][0, t - 1] == 0)  # fully masked row: no gradient
+
+
+def test_relpos_attention_gradients_match_plain_backward(card):
+    """Autograd through the wrapper runs kernel #3 and returns the plain
+    backward's gradients to q, k, p, v and both biases."""
+    args, do = _attention_inputs(card, torch.float32, 2, 40, 40, 4, 64, "chunk")
+    leaves = [x.detach().clone().requires_grad_() for x in args[:6]]
+    before = LAUNCHES["relpos_attention_bwd"]
+    relpos_attention(*leaves, *args[6:]).backward(do)
+    torch.cuda.synchronize()
+    assert LAUNCHES["relpos_attention_bwd"] == before + 1
+    dq, dk, dv, dp, du, dvb = relpos_attention_bwd_plain(*args[:7], do, *args[7:])
+    for x, y in zip(leaves, (dq, dk, dp, dv, du, dvb)):
+        assert float((x.grad - y).abs().max()) <= 1e-4 * float(y.abs().max()) + 1e-6
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(card):
@@ -232,11 +284,67 @@ def test_ctc_loss_card_matches_cpu(card):
     assert float(outs["cuda"][0][3]) == 0.0 and bool((outs["cuda"][1][3] == 0).all())
 
 
-def test_relpos_attention_refuses_a_gradient(card):
-    x = torch.randn(2, 5, 64, device=card, requires_grad=True)
-    mask = torch.ones(2, 5, 5, dtype=torch.bool, device=card)
-    with pytest.raises(NotImplementedError, match="#3"):
-        relpos_attention(x, x, x[:1], x, x[0, 0], x[0, 0], mask, 0.125, 2)
-    with torch.no_grad():  # serving: the kernel runs
-        out = relpos_attention(x, x, x[:1], x, x[0, 0], x[0, 0], mask, 0.125, 2)
-    assert out.shape == x.shape
+def _lattice_inputs(card, b, t, u1, seed):
+    """Masked blank/label log-probs as the losses hand them over: a t_len = 0
+    row (free blanks, no labels) and a u_len = 0 row."""
+    g = torch.Generator().manual_seed(seed)
+    lp = torch.log_softmax(torch.randn(b, t, u1, 7, generator=g), -1)
+    t_lens = torch.full((b,), t, dtype=torch.int32)
+    u_lens = torch.full((b,), u1 - 1, dtype=torch.int32)
+    t_lens[1 % b] = 0
+    u_lens[2 % b] = 0
+    bm, lm, _, _ = mask_lattice_inputs(lp[..., 0], lp[:, :, :-1, 1], t_lens, u_lens)
+    return bm.to(card), lm.contiguous().to(card), u_lens.to(card)
+
+
+@pytest.mark.parametrize("b,t,u1", [(3, 9, 1), (4, 30, 33), (3, 20, 257)])
+def test_rnnt_lattice_kernels_match_plain(card, b, t, u1):
+    blank, label, u_lens = _lattice_inputs(card, b, t, u1, seed=t * u1)
+    before = (LAUNCHES["rnnt_alpha"], LAUNCHES["rnnt_beta_grad"])
+    ga, gll = rnnt_alpha(blank, label, u_lens)
+    ra, rll = rnnt_alpha_plain(blank, label, u_lens)
+    live = ra > -1e29
+    assert torch.equal(live, ga > -1e29)
+    assert bool(((ga - ra).abs() <= 1e-3 + 1e-5 * ra.abs())[live].all())
+    assert bool(((gll - rll).abs() <= 1e-3 + 1e-5 * rll.abs()).all())
+    gvec = torch.rand(b, generator=torch.Generator().manual_seed(1)).to(card)
+    args = (blank, label, u_lens, ra.contiguous(), rll.contiguous(), gvec)
+    got, ref = rnnt_beta_grad(*args), rnnt_beta_grad_plain(*args)
+    torch.cuda.synchronize()
+    assert (LAUNCHES["rnnt_alpha"], LAUNCHES["rnnt_beta_grad"]) == (before[0] + 1,
+                                                                  before[1] + 1)
+    for x, y in zip(got, ref):
+        assert x.shape == y.shape
+        assert bool(((x - y).abs() <= 2e-3 * y.abs() + 1e-5).all())
+
+
+def test_rnnt_lattice_wrappers_refuse(card):
+    blank, label, u_lens = _lattice_inputs(card, 2, 5, 3, seed=0)
+    with pytest.raises(ValueError, match="int32"):
+        rnnt_alpha(blank, label, u_lens.long())
+    with pytest.raises(ValueError, match="contiguous"):
+        rnnt_alpha(blank.transpose(1, 2).contiguous().transpose(1, 2), label, u_lens)
+    wide = torch.zeros(2, 5, 1025, device=card)
+    with pytest.raises(ValueError, match="1024"):
+        rnnt_alpha(wide, wide[:, :, 1:].contiguous(), u_lens)
+
+
+def test_materialized_rnnt_loss_card_matches_cpu(card):
+    b, t, u, v, blank = 4, 30, 9, 412, 5
+    g = torch.Generator().manual_seed(5)
+    logits = torch.randn(b, t, u + 1, v, generator=g)
+    lab = torch.randint(6, v, (b, u), generator=g)
+    t_lens = torch.tensor([t, 0, 17, 25], dtype=torch.int32)
+    u_lens = torch.tensor([u, 3, 0, 6], dtype=torch.int32)  # row 1: infeasible
+    outs = {}
+    for dev in (card, torch.device("cpu")):
+        z = logits.to(dev).requires_grad_()
+        before = LAUNCHES["rnnt_alpha"]
+        loss = rnnt_loss_from_logits(z, lab.to(dev), t_lens.to(dev), u_lens.to(dev), blank,
+                                     "none")
+        loss.sum().backward()
+        assert (LAUNCHES["rnnt_alpha"] > before) == (dev.type == "cuda")
+        outs[dev.type] = (loss.detach().cpu(), z.grad.cpu())
+    torch.testing.assert_close(outs["cuda"][0], outs["cpu"][0], rtol=1e-5, atol=1e-3)
+    torch.testing.assert_close(outs["cuda"][1], outs["cpu"][1], rtol=0, atol=1e-4)
+    assert float(outs["cuda"][0][1]) == 0.0 and bool((outs["cuda"][1][1] == 0).all())

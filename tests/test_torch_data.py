@@ -1,0 +1,54 @@
+"""The port's synthetic batch == JAX's, bit for bit.
+
+`synth_corpus` + `make_batch` at bench.py's arguments (12 utterances of
+24-30 content tokens, SOS and EOS added, 48 kHz, (768 - 6) * 512 // 30
+samples per token, padded to 767 * 512 samples and 32 tokens) give the
+arrays of `tpuasr.data`; `tensors` moves them unchanged; the tokenizer's
+special ids are the JAX package's.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import tpuasr.text.tokenizer as jax_tokenizer
+from tpuasr.data.pipeline import BatchSpec as JaxBatchSpec
+from tpuasr.data.pipeline import make_batch as jax_make_batch
+from tpuasr.data.synthetic import synth_corpus as jax_synth_corpus
+from tpuasr_torch.data import BatchSpec, device_view, make_batch, synth_corpus, tensors
+from tpuasr_torch.text import tokenizer
+
+torch.set_num_threads(1)  # six test workers share the cores
+
+B, FRAMES, TOKENS, HOP, SR, VOCAB = 12, 768, 32, 512, 48000, 412
+CORPUS = dict(seed=0, min_tokens=24, max_tokens=30, sample_rate=SR,
+              samples_per_token=(FRAMES - 6) * HOP // 30)
+
+
+def test_bench_batch_is_bit_identical_to_jax():
+    ref = jax_make_batch(jax_synth_corpus(B, VOCAB, **CORPUS),
+                         JaxBatchSpec(B, (FRAMES - 1) * HOP, TOKENS))
+    got = make_batch(synth_corpus(B, VOCAB, **CORPUS), BatchSpec(B, (FRAMES - 1) * HOP, TOKENS))
+    assert got.keys() == ref.keys()
+    for k in ref:
+        if isinstance(ref[k], np.ndarray):
+            assert got[k].dtype == ref[k].dtype, k
+            np.testing.assert_array_equal(got[k], ref[k], err_msg=k)
+        else:
+            assert got[k] == ref[k], k
+    # bench.py's labels: SOS, 24-30 content tokens, EOS
+    assert got["text_lens"].min() >= 26 and got["text_lens"].max() <= 32
+    assert np.all(got["texts"][:, 0] == tokenizer.SOS)
+    dev = tensors(got, "cpu")
+    assert dev.keys() == device_view(got).keys() == {"waves", "wave_lens", "texts", "text_lens"}
+    for k, x in dev.items():
+        assert torch.equal(x, torch.from_numpy(got[k]))
+
+
+def test_special_ids_and_unported_corpus():
+    assert tokenizer.SPECIAL_TOKENS == jax_tokenizer.SPECIAL_TOKENS
+    assert (tokenizer.PAD, tokenizer.UNK, tokenizer.SOS, tokenizer.EOS, tokenizer.SPACE,
+            tokenizer.BLK) == (jax_tokenizer.PAD, jax_tokenizer.UNK, jax_tokenizer.SOS,
+                               jax_tokenizer.EOS, jax_tokenizer.SPACE, jax_tokenizer.BLK)
+    with pytest.raises(NotImplementedError, match="hard"):
+        synth_corpus(2, VOCAB, hard=True)

@@ -137,13 +137,26 @@ def test_unported_training_options_raise(where, key, value):
         make_train_step(model, make_optimizer(cfg.optim), cfg)
 
 
-def test_materialized_rnnt_loss_refuses_the_card_route():
+def test_lattice_and_materialized_loss_refuse_other_devices():
+    """The materialized RNN-T loss runs on the CPU (plain lattice) and on the
+    card (kernels #8/#9); any other device is refused, as are the lattice
+    wrappers' and the attention backward's inputs there."""
     from tpuasr_torch.losses import rnnt_loss_from_logits
+    from tpuasr_torch.ops import relpos_attention_bwd, rnnt_alpha, rnnt_beta_grad
 
     meta = torch.empty(1, 3, 2, 5, device="meta")
     lens = torch.ones(1, dtype=torch.int32, device="meta")
-    with pytest.raises(NotImplementedError, match="#8/#9"):
+    with pytest.raises(ValueError, match="unsupported device"):
         rnnt_loss_from_logits(meta, lens[:, None], lens, lens, 0)
+    blank, label = torch.empty(1, 3, 2, device="meta"), torch.empty(1, 3, 1, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        rnnt_alpha(blank, label, lens)
+    with pytest.raises(ValueError, match="unsupported device"):
+        rnnt_beta_grad(blank, label, lens, blank, lens.float(), lens.float())
+    x = torch.empty(2, 5, 64, device="meta")
+    mask = torch.ones(2, 1, 5, dtype=torch.bool, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        relpos_attention_bwd(x, x, x[:1], x, x[0, 0], x[0, 0], mask, x, 0.1, 2)
 
 
 def test_config_round_trips_from_jax(tmp_path):

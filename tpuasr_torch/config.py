@@ -66,11 +66,10 @@ class EncoderConfig:
     attention_type: str = ""  # "" derives from pos_enc_layer_type
     n_kv_head: int = 0  # 0 or attention_heads: no grouped K/V heads yet
     # the full-context (serving and training) attention path: True = the
-    # rel-pos attention kernel (`tpuasr_torch.ops.relpos_attention`), False =
-    # the plain formula in torch ops (`relpos_attention_plain`, with
-    # autograd); the cached streaming path is plain
-    # either way. Training with True raises on the card until the kernel's
-    # backward is ported.
+    # rel-pos attention kernels (`tpuasr_torch.ops.relpos_attention`:
+    # forward #2, backward #3), False = the plain formula in torch ops
+    # (`relpos_attention_plain`, with autograd); the cached streaming path is
+    # plain either way
     fused_attention: bool = False
     fused_ffn: bool = False  # must be False: the fused FFN kernel is not ported
     normalize_before: bool = True
@@ -121,8 +120,10 @@ class ModelConfig:
     # computation dtype of matmuls/activations (parameters stay float32;
     # layer norms and softmaxes compute their statistics in float32)
     compute_dtype: str = "float32"
-    # fused joint + log-softmax + lattice inputs (kernels in
-    # tpuasr_torch/csrc/rnnt_fused.cu): [B, T, U+1, V] never exists
+    # True: fused joint + log-softmax + lattice inputs (kernels in
+    # tpuasr_torch/csrc/rnnt_fused.cu), [B, T, U+1, V] never exists; False:
+    # the joint's full logits and `rnnt_loss_from_logits`. Both routes run
+    # the lattice kernels of tpuasr_torch/csrc/rnnt_lattice.cu on the card
     fused_joint_loss: bool = False
     rnnt_prune_range: int = 0  # must be 0: the pruned loss is not ported
     ctc_weight: float = 0.3  # > 0 builds the CTC head

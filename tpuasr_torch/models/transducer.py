@@ -8,9 +8,10 @@ or chunk-masked context) and `encode_chunk` (fixed-shape caches), both under
 generator is given. Its RNN-T routes:
 - `fused_joint_loss=True`: `tpuasr_torch.ops.rnnt_loss_fused_mean` (kernels
   #4/#5 on the card), so [B, T, U+1, V] never exists;
-- `fused_joint_loss=False`: the joint's full logits and
-  `rnnt_loss_from_logits`, plain on the CPU; on the card it raises, since
-  the JAX package runs it through TPU kernels #8/#9, not ported yet.
+- `fused_joint_loss=False` (the JAX default): the joint's full logits in the
+  compute type and `rnnt_loss_from_logits`.
+Both routes run the lattice through kernels #8/#9 on the card and the plain
+lattice on the CPU.
 The module owns its weights; they come from `init_weights` (seeded) or from
 a JAX checkpoint through `tpuasr_torch.convert`.
 """

@@ -8,12 +8,14 @@ window [B, A, H, dk]; this module concatenates the chunk to it and returns
 the [B, A + T1, H, dk] window for the caller to trim.
 
 The full-context path (no cache) follows `fused`, the encoder's
-`fused_attention` switch, as `tpuasr/nn/attention.py:111-140` does:
-- True: `tpuasr_torch.ops.relpos_attention`, the hand-written kernel for
-  tensors on the card (forward only: it raises when a gradient is asked for)
-  and its plain version on the CPU;
+`fused_attention` switch, under the gating of `tpuasr/nn/attention.py:111-112`
+(no cache; the module always has a mask, a batch-shared positional
+projection p and no attention dropout):
+- True: `tpuasr_torch.ops.relpos_attention`, an autograd Function whose
+  forward and backward are the hand-written kernels #2 and #3 for tensors on
+  the card and their plain versions on the CPU; it serves and trains;
 - False: the plain formula `relpos_attention_plain` in torch ops, with
-  autograd (the training path until the kernel's backward is ported).
+  autograd.
 The cache path takes the plain formula too. It scores and softmaxes in fp32
 and rounds the probabilities to v's type before a.v, in every compute type.
 """

@@ -7,9 +7,12 @@ carries a hash of its source, so an edited source is rebuilt. Nothing here
 runs at import time: the CPU tests import every module of the port.
 
 A source may hold several kernels (`ctc_lattice.cu`: the CTC alpha and
-beta sweeps; `rnnt_fused.cu`: the fused joint forward and backward), each
-with its own C entry point. Every wrapper counts its kernel launches in
-`LAUNCHES`, so a run can show that its path went through the kernels.
+beta sweeps; `rnnt_fused.cu`: the fused joint forward and backward;
+`rnnt_lattice.cu`: the RNN-T alpha and beta sweeps; `relpos_attention.cu`:
+the attention forward and its backward, whose one entry point launches two
+kernels), each with its own C entry point. Every wrapper counts its calls
+of an entry point in `LAUNCHES`, so a run can show that its path went
+through the kernels.
 """
 
 from __future__ import annotations
@@ -34,10 +37,14 @@ ENTRIES = {
     "fbank": ("fbank", "fbank_logmel", [_P] * 6 + [_I] * 4 + [_F, _I, _P]),
     "relpos_attention": ("relpos_attention", "relpos_attention_fwd",
                          [_P] * 8 + [_I] * 5 + [_LL] * 3 + [_F, _I, _P]),
+    "relpos_attention_bwd": ("relpos_attention", "relpos_attention_bwd",
+                             [_P] * 15 + [_I] * 5 + [_LL] * 3 + [_F, _I, _P]),
     "rnnt_fused_fwd": ("rnnt_fused", "rnnt_fused_fwd", [_P] * 8 + [_I] * 6 + [_P]),
     "rnnt_fused_bwd": ("rnnt_fused", "rnnt_fused_bwd", [_P] * 12 + [_I] * 6 + [_P]),
     "ctc_alpha": ("ctc_lattice", "ctc_alpha", [_P] * 6 + [_I] * 3 + [_P]),
     "ctc_beta_grad": ("ctc_lattice", "ctc_beta_grad", [_P] * 8 + [_I] * 3 + [_P]),
+    "rnnt_alpha": ("rnnt_lattice", "rnnt_alpha", [_P] * 5 + [_I] * 3 + [_P]),
+    "rnnt_beta_grad": ("rnnt_lattice", "rnnt_beta_grad", [_P] * 8 + [_I] * 3 + [_P]),
 }
 KERNELS = tuple(ENTRIES)
 SOURCES = tuple(dict.fromkeys(src for src, _, _ in ENTRIES.values()))

@@ -6,9 +6,11 @@ replaces `_fused_lp` (`_fused_fwd_kernel`, TPU kernel #4) and
 `rnnt_fused_grads` replaces `_fused_grads` (`_fused_bwd_kernel`, #5).
 `rnnt_loss_fused_mean` is the `torch.autograd.Function` of `_fused_fwd` /
 `_fused_bwd` (:241-293): kernel #4, masking, the alphas, ll and the
-feasibility guard forward; betas, occupancies, gb/gl and kernel #5 backward.
-The lattice itself is plain PyTorch (`tpuasr_torch.losses.rnnt`), as the JAX
-package runs it outside any kernel.
+feasibility guard forward; the occupancies, gb/gl and kernel #5 backward.
+The JAX package runs this lattice outside any kernel, as one compiled
+`lax.scan` (`rnnt_fused_pallas.py:29`); here it is the same function through
+`tpuasr_torch.ops.rnnt_lattice`: kernels #8/#9 on the card (the eager plain
+lattice would be ~2,200 launches per step), the plain lattice on the CPU.
 
 The kernel forward also returns each row's logsumexp, which the backward
 reads instead of recomputing it over the vocabulary (the TPU kernel
@@ -23,10 +25,11 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from tpuasr_torch.losses.rnnt import (
-    _NEG, mask_lattice_inputs, rnnt_alphas, rnnt_log_likelihood, rnnt_occupancies,
-)
 from tpuasr_torch.ops import _build
+from tpuasr_torch.ops.rnnt_lattice import (
+    _NEG, mask_lattice_inputs, rnnt_alpha, rnnt_beta_grad,
+)
+
 MAX_JOIN_DIM = 256  # the backward kernel keeps one row of dW per thread
 
 
@@ -149,24 +152,24 @@ class _RNNTFusedLoss(torch.autograd.Function):
         blank_lp, label_full, lse = rnnt_fused_lp(enc, pred, w32, b32, lab, blank)
         blank_m, label_m, pad_t, label_valid = mask_lattice_inputs(
             blank_lp, label_full[:, :, :-1], t_lens, u_lens)
-        alpha = rnnt_alphas(blank_m, label_m)
-        ll = rnnt_log_likelihood(alpha, blank_m, u_lens)
+        ulen = u_lens.to(torch.int32).contiguous()
+        alpha, ll = rnnt_alpha(blank_m, label_m, ulen)
         feasible = ll > _NEG / 2
-        ctx.save_for_backward(enc, pred, w32, b32, lab, u_lens, lse, blank_m, label_m,
+        ctx.save_for_backward(enc, pred, w32, b32, lab, ulen, lse, blank_m, label_m,
                               pad_t, label_valid, alpha, ll, feasible)
         ctx.blank, ctx.dtypes = blank, dtypes
         return torch.where(feasible, -ll, torch.zeros((), dtype=ll.dtype, device=ll.device))
 
     @staticmethod
     def backward(ctx, g):
-        (enc, pred, w32, b32, lab, u_lens, lse, blank_m, label_m, pad_t, label_valid, alpha,
+        (enc, pred, w32, b32, lab, ulen, lse, blank_m, label_m, pad_t, label_valid, alpha,
          ll, feasible) = ctx.saved_tensors
         zero = torch.zeros((), dtype=torch.float32, device=enc.device)
-        g = torch.where(feasible, g.float(), zero)[:, None, None]
-        occ_blank, occ_label = rnnt_occupancies(blank_m, label_m, u_lens, alpha, ll)
+        g = torch.where(feasible, g.float(), zero).contiguous()
+        g_blank, g_label = rnnt_beta_grad(blank_m, label_m, ulen, alpha, ll, g)
         # d(nll)/d(raw lp) = -occupancy on unmasked entries, 0 on padding
-        gb = torch.where(pad_t, zero, -g * occ_blank)
-        gl = F.pad(torch.where(label_valid, -g * occ_label, zero), (0, 1))
+        gb = torch.where(pad_t, zero, -g_blank)
+        gl = F.pad(torch.where(label_valid, -g_label, zero), (0, 1))
         grads = rnnt_fused_grads(enc, pred, w32, b32, lab, lse, gb.contiguous(),
                                  gl.contiguous(), ctx.blank)
         return (*(gr.to(dt) for gr, dt in zip(grads, ctx.dtypes)), None, None, None, None)
