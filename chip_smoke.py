@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port (`tpuasr_torch`) through its serving path and its
-training step on one NVIDIA card, and hold its hand-written kernels against
-their plain versions.
+"""Drive the PyTorch port (`tpuasr_torch`) through its serving path, its
+training step and its trainer on one NVIDIA card, and hold its hand-written
+kernels against their plain versions.
 
     python3 chip_smoke.py
 
@@ -23,14 +23,19 @@ Phases (any failure exits non-zero):
    joint forward and backward (#4/#5), the RNN-T lattice (#8/#9) and the
    CTC alpha and beta sweeps (#6/#7) at the training step's shapes (B 12,
    T' 191, U+1 33, S 65, D 256, V 412) and at a ragged shape with a
-   t_len = 0 and a label_len = 0 row. Max abs error, its tolerance and the
-   reason, kernel ms, plain ms, bound, and the ms of one PyTorch call
-   computing the same function where there is one (attention:
-   `scaled_dot_product_attention` on [q+u | q+v], [k | p], v, and its
-   backward; CTC: `torch.nn.functional.ctc_loss` forward, and its backward;
-   the fused joint and the RNN-T lattice: none). Kernels are timed by CUDA
-   events; the plain lattices, F.ctc_loss and the SDPA backward by the
-   profiler (`timing`).
+   t_len = 0 and a label_len = 0 row; the fused FFN forward and backward
+   (#10/#11) at the training shape (12 x 191 rows, D 256, H 1024, bf16,
+   keep-masks at rate 0.1, scale 0.5), at the serving shape (4 x 187 rows,
+   fp32, no masks) and at a streaming chunk (4 x 32 rows, fp32). Max abs
+   error, its tolerance and the reason, kernel ms, plain ms, bound, and the
+   ms of one PyTorch call computing the same function where there is one
+   (attention: `scaled_dot_product_attention` on [q+u | q+v], [k | p], v,
+   and its backward; CTC: `torch.nn.functional.ctc_loss` forward, and its
+   backward; the fused joint, the RNN-T lattice and the fused FFN: none).
+   Kernels are timed by CUDA events; the plain lattices, the plain attention
+   backward and FFNs, F.ctc_loss and the SDPA backward by the profiler
+   (`timing`). One function, `_held`, holds each kernel's tolerance, bound
+   and library call, for this phase and for phase 8.
 4. Offline serving: the full-width flagship (12 causal conformer blocks,
    d256, 4 heads, FFN 1024, conv 31, LSTM-256 predictor, tanh joint over
    412 tokens, `fused_attention=True`) with seeded random weights, through
@@ -39,16 +44,19 @@ Phases (any failure exits non-zero):
    transcripts hold (texts/text_lens), so the emission loop runs as often as
    it would for real speech. fp32 on the card against the same model and
    requests on the CPU (plain versions): features, encoder output and
-   tokens. Then bf16: the card's encoder output against the same bf16 model
-   on the CPU, latency, and token agreement with fp32.
+   tokens. The same weights with `fused_ffn=True` (kernel #10 in every FFN)
+   must give the card's fp32 tokens. Then bf16: the card's encoder output
+   against the same bf16 model on the CPU, latency, and token agreement with
+   fp32.
 5. Streaming serving: `streaming_greedy_decode` (chunk 32, 6 left chunks)
    must give the tokens of offline greedy over the chunk-masked full-context
-   encoder; `measure_rtf` greedy p50/p90.
+   encoder, with `fused_ffn` off and on; `measure_rtf` greedy p50/p90.
 6. Training, `fused_attention=True` (kernels #2/#3 in every layer):
    a. card against CPU: the full-width fp32 flagship on a batch of 2 x 256
       feature frames x 16 tokens, no dropout, static chunk 32, once per
       RNN-T loss route (`fused_joint_loss=True`, bench.py's, and False, the
-      JAX default): the loss dict, the gradient norm, every gradient leaf
+      JAX default) and once more with `fused_joint_loss=True` and
+      `fused_ffn=True`: the loss dict, the gradient norm, every gradient leaf
       (max error relative to the leaf's max |g|); the GuardedAdam step alone
       (the CPU's optimizer on the card's gradients: count, moments, weights)
       and end to end (each side's update; no entry whose sign is certain
@@ -62,12 +70,31 @@ Phases (any failure exits non-zero):
       wall from torch.profiler over one step. Kernels #1-#9 must launch;
    c. the same with `fused_joint_loss=False` (the joint's full logits and
       the materialized loss), four steps: kernels #1-#3 and #6-#9 must
-      launch.
+      launch;
+   d. 6b with `fused_ffn=True` (bench.py's TPUASR_FUSED_FFN=1): ten steps
+      after two; kernels #1-#11 must launch, #10/#11 24 times a step; its
+      step ms, audio-s/s, device busy ms, device operations and peak memory
+      beside 6b's.
+8. The trainer on the card, through `tpuasr_torch.tools.train` (in this
+   process): the full-width online_rnnt with its card defaults (bf16, the
+   fused joint loss and attention kernels, fbank "default") and
+   `fused_ffn=True`, SpecAugment on, the hard synthetic corpus (48
+   utterances, batch 12, prefetch depth 2, a 6-utterance dev split), 2
+   epochs into a temporary save dir under build/; then `--resume
+   .../latest` for a third epoch, which must start at the saved epoch and
+   step. Every loss finite; kernels #1-#11 must launch. The run records
+   the arguments of each kernel's first call at each signature (the
+   buckets' shapes, the training steps and the dev pass) and counts the
+   calls, which must equal the run's launches; then each kernel is held
+   against its plain version on those arguments, with phase 3's
+   tolerances, bound and library call, and timed.
 7. The kernels line: one JSON object with an entry per kernel and run
-   (the serving run of phases 4-5, the training runs of phases 6b and 6c;
-   counts reset just before each and read just after): that run's
-   launches, and the error, times and bound at the shape that run gives
-   the kernel.
+   (the serving run of phases 4-5, the training runs of phases 6b, 6c and
+   6d, the trainer run of phase 8; counts reset just before each and read
+   just after): that run's launches, and the error, times and bound at the
+   shape that run gives the kernel (phase 3's bench-shape records for 6b-6d;
+   for the trainer the signature it launched most, with every signature's
+   record under "shapes").
 
 Each phase prints its seconds.
 TF32 is off throughout (cuBLAS and cuDNN), so every fp32 comparison is fp32.
@@ -77,6 +104,8 @@ of JAX: the machine with the card need not have it.
 
 from __future__ import annotations
 
+import contextlib
+import itertools
 import json
 import math
 import subprocess
@@ -150,22 +179,25 @@ def main() -> dict:
     checks = _kernel_checks(torch, dev, data, bench)
     checks.update(_attention_train_checks(torch, dev, bench))
     checks.update(_train_kernel_checks(torch, dev, bench))
+    checks.update(_ffn_checks(torch, dev))
 
     # ---------------------------------------------------------------- 4-5
-    from tpuasr_torch.ops import LAUNCHES, reset_launch_counts
+    from tpuasr_torch.ops import KERNELS, LAUNCHES, reset_launch_counts
 
     t_phase = _phase("4-5: serving", t_phase)
     reset_launch_counts()
     serving = _serve(torch, dev, data)
     runs = {"serving": dict(LAUNCHES)}
     print(f"launches on the serving run: {runs['serving']}")
+    require(runs["serving"]["ffn_bwd"] == 0, "the serving run launched the FFN backward")
 
     # ---------------------------------------------------------------- 6
     training = {}
-    for fused in (True, False):
+    for fused, ffn in ((True, False), (False, False), (True, True)):
         t_phase = _phase(f"6a: training step, card against CPU (fp32, fused_joint_loss="
-                         f"{fused})", t_phase)
-        training[f"card_vs_cpu_fused_joint_loss_{fused}"] = _train_card_vs_cpu(torch, dev, fused)
+                         f"{fused}, fused_ffn={ffn})", t_phase)
+        training[f"card_vs_cpu_fused_joint_loss_{fused}" + ("_fused_ffn" if ffn else "")] = \
+            _train_card_vs_cpu(torch, dev, fused, ffn)
     t_phase = _phase("6b: training at bench.py's configuration", t_phase)
     training["bench"], runs["training"] = _train_bench(torch, dev, bench, True)
     print(f"launches on the training run: {runs['training']}")
@@ -173,26 +205,54 @@ def main() -> dict:
     training["bench_materialized"], runs["training_materialized"] = _train_bench(
         torch, dev, bench, False, n_steps=4, warmup=1)
     print(f"launches on the materialized training run: {runs['training_materialized']}")
+    t_phase = _phase("6d: training at bench.py's configuration with fused_ffn=True", t_phase)
+    training["bench_fused_ffn"], runs["training_fused_ffn"] = _train_bench(
+        torch, dev, bench, True, fused_ffn=True)
+    print(f"launches on the fused-FFN training run: {runs['training_fused_ffn']}")
+    _compare_steps(training["bench"], training["bench_fused_ffn"])
+    steps_6d = len(training["bench_fused_ffn"]["losses"])
+    for name in KERNELS:
+        require(runs["training_fused_ffn"][name] > 0, f"the 6d run never launched {name}")
+    for name in ("ffn_fwd", "ffn_bwd"):
+        require(runs["training_fused_ffn"][name] == 24 * steps_6d,
+                f"6d launched {name} {runs['training_fused_ffn'][name]} times, not 24 per step")
+
+    # ---------------------------------------------------------------- 8
+    t_phase = _phase("8: the trainer (tpuasr_torch.tools.train), 2 epochs and a resume",
+                     t_phase)
+    training["trainer"], runs["trainer"], seen = _trainer(torch)
+    print(f"launches on the trainer run: {runs['trainer']}")
+    for name in KERNELS:
+        require(runs["trainer"][name] > 0, f"the trainer never launched {name}")
+    print("kernels against their plain versions on the trainer's own inputs:")
+    trainer_records = _trainer_kernel_records(torch, seen, runs["trainer"])
 
     # ---------------------------------------------------------------- 7
     # one entry per kernel and run that launches it, with the record taken
-    # at the shape that run gives it (6b and 6c give the same shapes)
+    # at the shape that run gives it: 6b, 6c and 6d give the same shapes
+    # (bench.py's batch, phase 3's records); the trainer's records are taken
+    # on its own inputs, at the signature it launched most, every
+    # signature's under "shapes"
     _phase("7: the kernels line", t_phase)
-    both = ("training", "training_materialized")
-    plan = [("fbank", ("serving",), "fbank"), ("fbank", both, "fbank_training"),
+    fused = ("training", "training_fused_ffn", "trainer")  # the fused joint loss
+    every = fused[:1] + ("training_materialized",) + fused[1:]
+    plan = [("fbank", ("serving",), "fbank"), ("fbank", every, "fbank_training"),
             ("relpos_attention", ("serving",), "attention"),
-            ("relpos_attention", both, "attention_training"),
-            ("relpos_attention_bwd", both, "attention_bwd"),
-            ("rnnt_fused_fwd", ("training",), "rnnt_fused_fwd"),
-            ("rnnt_fused_bwd", ("training",), "rnnt_fused_bwd"),
-            ("ctc_alpha", both, "ctc_alpha"), ("ctc_beta_grad", both, "ctc_beta_grad"),
-            ("rnnt_alpha", both, "rnnt_alpha"), ("rnnt_beta_grad", both, "rnnt_beta_grad")]
+            ("relpos_attention", every, "attention_training"),
+            ("relpos_attention_bwd", every, "attention_bwd"),
+            ("rnnt_fused_fwd", fused, "rnnt_fused_fwd"),
+            ("rnnt_fused_bwd", fused, "rnnt_fused_bwd"),
+            ("ctc_alpha", every, "ctc_alpha"), ("ctc_beta_grad", every, "ctc_beta_grad"),
+            ("rnnt_alpha", every, "rnnt_alpha"), ("rnnt_beta_grad", every, "rnnt_beta_grad"),
+            ("ffn_fwd", ("serving",), "ffn_fwd_serving"),
+            ("ffn_fwd", fused[1:], "ffn_fwd"), ("ffn_bwd", fused[1:], "ffn_bwd")]
     kernels = []
     for name, run_names, check in plan:
         for run in run_names:
             launches = runs[run][name]
             require(launches > 0, f"the {run} run never launched {name}")
-            kernels.append(dict(checks[check], run=run, launches=launches,
+            rec = trainer_records[name] if run == "trainer" else checks[check]
+            kernels.append(dict(rec, run=run, launches=launches,
                                 **{f"launches_{r}": runs[r][name] for r in runs}))
     require(runs["training_materialized"]["rnnt_fused_fwd"] == 0,
             "the materialized run launched the fused joint")
@@ -279,20 +339,20 @@ def _time_ms(torch, fn, iters: int = 30, warmup: int = 3, method: str = "events"
 
 
 def _kernel_checks(torch, dev, data, bench) -> dict:
+    """fbank (#1) on the serving requests and on the training batch, and the
+    attention forward (#2) at the serving shapes; -> {"fbank",
+    "fbank_training", "attention"}: the records at the serving run's and
+    the training run's calls."""
     from dataclasses import astuple
-
-    import torch.nn.functional as F
 
     from tpuasr_torch.audio.fbank import _operands, decode_wire, frame_signal
     from tpuasr_torch.config import FeatureConfig
     from tpuasr_torch.nn.masks import chunk_mask
-    from tpuasr_torch.ops import (
-        fbank_frames, fbank_frames_plain, relpos_attention, relpos_attention_plain,
-    )
+    from tpuasr_torch.ops import relpos_attention
 
     out = {}
     cfg = FeatureConfig()
-    ops = _operands(astuple(cfg), str(dev))
+    window, cos, sin, mel = _operands(astuple(cfg), str(dev))
     n_fft, n_freq, n_mels = cfg.n_fft, cfg.n_fft // 2 + 1, cfg.n_mels
     both = (("highest", PEAK_FP32), ("default", PEAK_BF16))
     # the serving requests in both precisions, and the training step's
@@ -303,49 +363,15 @@ def _kernel_checks(torch, dev, data, bench) -> dict:
         waves = decode_wire(torch.as_tensor(wire).to(dev))
         frames = frame_signal(waves, n_fft, cfg.hop_length, cfg.center)
         frames = frames.reshape(-1, n_fft).contiguous()
-        rows = frames.shape[0]
         for prec, peak in precs:
-            got = fbank_frames(frames, *ops, cfg.amin, prec)
-            torch.cuda.synchronize()
-            ref = fbank_frames_plain(frames, *ops, cfg.amin, prec)
-            err = (got - ref).abs()
-            # a bin far below its frame's loudest bin is a sum of 1024
-            # terms that cancel, so fp32 sums in another order move it by
-            # up to ~1e-2 dB; with bf16 operands a power bin may also round
-            # to the neighbouring bf16 value, 10*log10(1 + 2**-7) = 0.034 dB
-            tol = 2e-2 if prec == "highest" else 5e-2
-            why = ("fp32 sums in another order, cancelling bins" if prec == "highest"
-                   else "that plus one bf16 ulp of a power bin")
-            ok = bool((err <= tol).all())
-            at = int(err.argmax())
-            print(f"  error quantiles 50/99/99.9%: "
-                  f"{[round(float(x), 6) for x in err.flatten().quantile(torch.tensor([0.5, 0.99, 0.999], device=dev))]}"
-                  f" dB; worst bin {float(ref.flatten()[at]):.1f} dB in a frame whose "
-                  f"loudest bin is {float(ref[at // n_mels].max()):.1f} dB")
-            # the least work for this function: a real FFT per frame
-            # (2.5 n log2 n flops), the window, |X|^2, the mel product over
-            # the filters' nonzeros only (about two per bin), max and log;
-            # bytes: the frames in, the window and mel matrix, the log-mel out
-            # (an FFT needs no DFT basis)
-            nnz = int((ops[3] != 0).sum())
-            flops = rows * (2.5 * n_fft * math.log2(n_fft) + n_fft + 3 * n_freq + 2 * nnz
-                            + 2 * n_mels)
-            nbytes = 4 * (rows * n_fft + n_fft + n_freq * n_mels + rows * n_mels)
+            rec = _hold(torch, "fbank", dict(frames=frames, window=window, cos=cos, sin=sin,
+                                             mel=mel, amin=cfg.amin, precision=prec),
+                        f"{src} {prec}")
             # this design's own work: the DFT as two dense products
-            design_ms = rows * (4 * n_fft * n_freq + 2 * n_freq * n_mels) / peak * 1e3
-            rec = _record(
-                torch, "fbank", "tpuasr_torch/csrc/fbank.cu",
-                "tpuasr/ops/fbank_pallas.py:25", float(err.max()), flops, PEAK_FP32, nbytes,
-                lambda: fbank_frames(frames, *ops, cfg.amin, prec),
-                lambda: fbank_frames_plain(frames, *ops, cfg.amin, prec), None)
-            print(f"fbank {src} rows={rows} precision={prec}: max_abs_err "
-                  f"{rec['max_abs_err']:.3g} dB (tol {tol} dB: {why}) ms {rec['ms']:.4f} "
-                  f"plain_ms {rec['plain_ms']:.4f} bound_ms {rec['bound_ms']:.5f} "
-                  f"({rec['bound_by']}: {nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP of "
-                  f"FFT and sparse mel); the dense-DFT design's own work "
-                  f"{rows * (4 * n_fft * n_freq + 2 * n_freq * n_mels) / 1e9:.2f} GFLOP "
-                  f"= {design_ms:.4f} ms at the {'fp32' if prec == 'highest' else 'bf16'} peak")
-            require(ok, f"fbank kernel disagrees with its plain version ({src}, {prec})")
+            work = frames.shape[0] * (4 * n_fft * n_freq + 2 * n_freq * n_mels)
+            print(f"  the dense-DFT design's own work {work / 1e9:.2f} GFLOP = "
+                  f"{work / peak * 1e3:.4f} ms at the {'fp32' if peak == PEAK_FP32 else 'bf16'} "
+                  f"peak")
             if src == "fixture" and prec == "highest":  # the serving run's call
                 out["fbank"] = rec
             if src == "bench":  # the training run's call
@@ -363,43 +389,13 @@ def _kernel_checks(torch, dev, data, bench) -> dict:
         base = [torch.randn(*shape, generator=g) for shape in
                 ((b, t, d), (b, t, d), (1, t, d), (b, t, d))]
         ub, vb = 0.1 * torch.randn(d, generator=g), 0.1 * torch.randn(d, generator=g)
-        for dtype, tol, why in ((torch.float32, 1e-5, "fp32 sums in another order"),
-                                (torch.bfloat16, 1e-2, "bf16 roundings of the output "
-                                 "and the probabilities at other points, 2**-8 each")):
+        for dtype in (torch.float32, torch.bfloat16):
             q, k, p, v = (x.to(dev, dtype) for x in base)
-            u_, v_ = ub.to(dev, dtype), vb.to(dev, dtype)
-            scale = 1.0 / math.sqrt(dk)
-            args = (q, k, p, v, u_, v_, mask, scale, h)
-            got = relpos_attention(*args)
-            torch.cuda.synchronize()
-            ref = relpos_attention_plain(*args)
-            diff = (got.float() - ref.float()).abs()
-            err = float(diff.max())
-            within = bool((diff <= tol + tol * ref.float().abs()).all())
-            zero_row = bool((got[1, 5] == 0).all())
-            # library yardstick: one SDPA call on [q+u | q+v], [k | p], v
-            heads = lambda x: x.view(x.shape[0], -1, h, dk).transpose(1, 2)
-            sq = torch.cat([heads(q + u_), heads(q + v_)], dim=-1)
-            sk = torch.cat([heads(k), heads(p).expand(b, -1, -1, -1)], dim=-1)
-            sv, smask = heads(v), mask[:, None]
-            valid_pairs = int(mask.sum())
-            flops = valid_pairs * h * 6 * dk  # 2*(2dk) score + 2*dk a.v per pair
-            es = q.element_size()
-            nbytes = es * (4 * b * t * d + t * d + 2 * d) + mask.numel()
-            rec = _record(
-                torch, "relpos_attention", "tpuasr_torch/csrc/relpos_attention.cu",
-                "tpuasr/ops/attention_pallas.py:72", err, flops,
-                PEAK_FP32 if dtype == torch.float32 else PEAK_BF16, nbytes,
-                lambda: relpos_attention(*args), lambda: relpos_attention_plain(*args),
-                lambda: F.scaled_dot_product_attention(sq, sk, sv, attn_mask=smask,
-                                                       scale=scale))
-            print(f"relpos_attention [{b}, {t}, {d}] {str(dtype)[6:]}: max_abs_err "
-                  f"{err:.3g} (tol {tol} + {tol}*|ref|: {why}) ms {rec['ms']:.4f} plain_ms "
-                  f"{rec['plain_ms']:.4f} library_ms {rec['library_ms']:.4f} "
-                  f"bound_ms {rec['bound_ms']:.5f} ({rec['bound_by']})")
-            require(within, f"attention kernel disagrees with its plain version "
-                                f"([{b}, {t}, {d}] {dtype})")
-            require(zero_row, "a fully masked query row did not give zeros")
+            args = dict(q=q, k=k, p=p, v=v, u_bias=ub.to(dev, dtype), v_bias=vb.to(dev, dtype),
+                        mask=mask, scale=1.0 / math.sqrt(dk), n_head=h)
+            rec = _hold(torch, "relpos_attention", args, "serving")
+            require(bool((relpos_attention(*args.values())[1, 5] == 0).all()),
+                    "a fully masked query row did not give zeros")
             if b == 4 and dtype == torch.bfloat16:  # the flagship's 8 s bf16 call
                 out["attention"] = rec
     return out
@@ -412,13 +408,9 @@ def _attention_train_checks(torch, dev, bench) -> dict:
     and with a [B, 1, S] padding mask; -> {"attention_training",
     "attention_bwd"}: the records at the training shape."""
     import numpy as np
-    import torch.nn.functional as F
 
     from tpuasr_torch.nn.masks import chunk_mask, draw_dynamic_chunk, dynamic_chunk_size
-    from tpuasr_torch.ops import (
-        relpos_attention, relpos_attention_bwd, relpos_attention_bwd_plain,
-        relpos_attention_plain,
-    )
+    from tpuasr_torch.ops import relpos_attention_bwd
 
     out = {}
     h, dk = 4, 64
@@ -443,80 +435,53 @@ def _attention_train_checks(torch, dev, bench) -> dict:
     g = torch.Generator().manual_seed(SEED + 5)
     for tag, dtype, mask in cases:
         b, t = mask.shape[0], mask.shape[2]
-        mask = mask.to(dev)
         q, k, v, do = (torch.randn(b, t, d, generator=g).to(dev, dtype) for _ in range(4))
         p = torch.randn(1, t, d, generator=g).to(dev, dtype)
         u_, v_ = ((0.1 * torch.randn(d, generator=g)).to(dev, dtype) for _ in range(2))
-        scale = 1.0 / math.sqrt(dk)
-        args = (q, k, p, v, u_, v_, mask, scale, h)
-        bargs = (q, k, p, v, u_, v_, mask, do, scale, h)
-        pairs = int(mask.expand(b, t, t).sum())  # unmasked (query, key) pairs per head
-        es = q.element_size()
-        peak = PEAK_FP32 if dtype == torch.float32 else PEAK_BF16
-        heads = lambda x: x.view(x.shape[0], -1, h, dk).transpose(1, 2)
-        sq = torch.cat([heads(q + u_), heads(q + v_)], dim=-1)
-        sk = torch.cat([heads(k), heads(p).expand(b, -1, -1, -1)], dim=-1)
-        sv, smask = heads(v), mask[:, None]
-
-        # #2 forward
-        tol = 1e-5 if dtype == torch.float32 else 1e-2
-        got = relpos_attention(*args)
-        torch.cuda.synchronize()
-        ref = relpos_attention_plain(*args)
-        diff = (got.float() - ref.float()).abs()
-        require(bool((diff <= tol + tol * ref.float().abs()).all()),
-                f"attention kernel disagrees with its plain version ({tag})")
+        args = dict(q=q, k=k, p=p, v=v, u_bias=u_, v_bias=v_, mask=mask.to(dev),
+                    scale=1.0 / math.sqrt(dk), n_head=h)
+        rec = _hold(torch, "relpos_attention", args, tag)
+        rec_b = _hold(torch, "relpos_attention_bwd",
+                      dict(list(args.items())[:7] + [("do", do)] + list(args.items())[7:]), tag)
+        if tag == "ragged":
+            dq = relpos_attention_bwd(*list(args.values())[:7], do, args["scale"], h)[0]
+            require(bool((dq[1, 5] == 0).all()), "a fully masked query row got a gradient")
         if tag == "training":
-            rec = _record(
-                torch, "relpos_attention", "tpuasr_torch/csrc/relpos_attention.cu",
-                "tpuasr/ops/attention_pallas.py:72", float(diff.max()), pairs * h * 6 * dk,
-                peak, es * (4 * b * t * d + t * d + 2 * d) + mask.numel(),
-                lambda: relpos_attention(*args), lambda: relpos_attention_plain(*args),
-                lambda: F.scaled_dot_product_attention(sq, sk, sv, attn_mask=smask,
-                                                       scale=scale))
-            out["attention_training"] = rec
-            print(f"relpos_attention {tag} [{b}, {t}, {d}] {str(dtype)[6:]}: max_abs_err "
-                  f"{rec['max_abs_err']:.3g} (tol {tol} + {tol}*|ref|) ms {rec['ms']:.4f} "
-                  f"plain_ms {rec['plain_ms']:.4f} library_ms {rec['library_ms']:.4f} "
-                  f"bound_ms {rec['bound_ms']:.5f} ({rec['bound_by']})")
+            out["attention_training"], out["attention_bwd"] = rec, rec_b
+    return out
 
-        # #3 backward
-        rel = 1e-4 if dtype == torch.float32 else 2.0 ** -6
-        got = relpos_attention_bwd(*bargs)
-        torch.cuda.synchronize()
-        ref = relpos_attention_bwd_plain(*bargs)
-        rels = {n: _rel_err(x, y) for n, x, y in zip(("dq", "dk", "dv", "dp", "du", "dvb"),
-                                                     got, ref)}
-        err = max(float((x.float() - y.float()).abs().max()) for x, y in zip(got, ref))
-        zero_row = tag != "ragged" or bool((got[0][1, 5] == 0).all())
-        print(f"relpos_attention_bwd {tag} [{b}, {t}, {d}] {str(dtype)[6:]}: error / max|ref| "
-              f"{ {n: f'{x:.2e}' for n, x in rels.items()} } (tol {rel:.3g}: "
-              + ("fp32 sums in another order, dp/du/dvb added with atomics in an order that "
-                 "changes between runs" if dtype == torch.float32 else
-                 "ds rounds to bf16 before the products, a value on a rounding edge may round "
-                 "the other way, and the outputs round to bf16") + ")")
-        require(max(rels.values()) <= rel, f"attention backward kernel disagrees with its "
-                                           f"plain version ({tag})")
-        require(zero_row, "a fully masked query row got a gradient")
+
+def _ffn_checks(torch, dev) -> dict:
+    """Kernels #10/#11 against their plain versions at the shapes the paths
+    give them: the training steps of phase 6d (12 x 191 rows, bf16,
+    keep-masks at rate 0.1, ff_scale 0.5), offline serving (4 x 187 rows, fp32,
+    no masks) and a streaming chunk (4 streams x 32 frames, fp32); -> the
+    records {"ffn_fwd", "ffn_bwd"} at the training shape and
+    {"ffn_fwd_serving"} at the serving shape."""
+    import numpy as np
+
+    out = {}
+    d, h, rate, scale = 256, 1024, 0.1, 0.5
+    rows = BENCH_B * int(_enc_len(np.array([(BENCH_FRAMES - 1) * HOP]))[0])
+    g = torch.Generator().manual_seed(SEED + 17)
+    rn = lambda *shape: torch.randn(*shape, generator=g)
+    for tag, r, dtype, masks in (("training", rows, torch.bfloat16, True),
+                                 ("serving", 4 * 187, torch.float32, False),
+                                 ("streaming", 4 * CHUNK, torch.float32, False)):
+        args = dict(x=rn(r, d).to(dev, dtype), ln_scale=(1.0 + 0.1 * rn(d)).to(dev),
+                    ln_bias=(0.1 * rn(d)).to(dev), w1=(rn(h, d) / d ** 0.5).to(dev, dtype),
+                    b1=(0.1 * rn(h)).to(dev), w2=(rn(d, h) / h ** 0.5).to(dev, dtype),
+                    b2=(0.1 * rn(d)).to(dev), mask1=None, mask2=None)
+        if masks:
+            args["mask1"] = (torch.rand(r, h, generator=g) >= rate).to(torch.uint8).to(dev)
+            args["mask2"] = (torch.rand(r, d, generator=g) >= rate).to(torch.uint8).to(dev)
+        do = rn(r, d).to(dev, dtype)
+        rec = _hold(torch, "ffn_fwd", dict(args, rate=rate, ff_scale=scale), tag)
+        rec_b = _hold(torch, "ffn_bwd", dict(args, dout=do, rate=rate, ff_scale=scale), tag)
         if tag == "training":
-            lib_in = [x.detach().requires_grad_() for x in (sq, sk, sv)]
-            lib_out = F.scaled_dot_product_attention(*lib_in, attn_mask=smask, scale=scale)
-            lib_g = heads(do)
-            # operations: 14 dk per head per unmasked pair (scores 4 dk, da, dv
-            # and dq 2 dk each, dk|dp 4 dk); bytes: q, k, v, p, do, the biases
-            # and the mask in, dq, dk, dv and the fp32 dp, du, dvb out
-            nbytes = es * (7 * b * t * d + t * d + 2 * d) + 4 * (t * d + 2 * d) + mask.numel()
-            rec = _record(
-                torch, "relpos_attention_bwd", "tpuasr_torch/csrc/relpos_attention.cu",
-                "tpuasr/ops/attention_pallas.py:87", err, pairs * h * 14 * dk, peak, nbytes,
-                lambda: relpos_attention_bwd(*bargs), lambda: relpos_attention_bwd_plain(*bargs),
-                lambda: torch.autograd.grad(lib_out, lib_in, lib_g, retain_graph=True),
-                plain_iters=10, plain_timing="profiler")
-            out["attention_bwd"] = rec
-            print(f"  ms {rec['ms']:.4f} plain_ms (profiler) {rec['plain_ms']:.4f} library_ms "
-                  f"(SDPA backward, profiler) {rec['library_ms']:.4f} bound_ms "
-                  f"{rec['bound_ms']:.5f} ({rec['bound_by']}: "
-                  f"{pairs * h * 14 * dk / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB)")
+            out["ffn_fwd"], out["ffn_bwd"] = rec, rec_b
+        if tag == "serving":
+            out["ffn_fwd_serving"] = rec
     return out
 
 
@@ -539,17 +504,253 @@ def _record(torch, name, source, replaces, err, flops, peak, nbytes, kernel, pla
     }
 
 
-def _flagship(dtype: str):
+# kernel -> (module, the wrapper that launches it, its plain version, the
+# kernel's source, the TPU kernel it replaces)
+WRAPPERS = {
+    "fbank": ("tpuasr_torch.ops.fbank", "fbank_frames", "fbank_frames_plain",
+              "tpuasr_torch/csrc/fbank.cu", "tpuasr/ops/fbank_pallas.py:25"),
+    "relpos_attention": ("tpuasr_torch.ops.relpos_attention", "_relpos_fwd",
+                         "relpos_attention_plain", "tpuasr_torch/csrc/relpos_attention.cu",
+                         "tpuasr/ops/attention_pallas.py:72"),
+    "relpos_attention_bwd": ("tpuasr_torch.ops.relpos_attention", "relpos_attention_bwd",
+                             "relpos_attention_bwd_plain",
+                             "tpuasr_torch/csrc/relpos_attention.cu",
+                             "tpuasr/ops/attention_pallas.py:87"),
+    "rnnt_fused_fwd": ("tpuasr_torch.ops.rnnt_fused", "rnnt_fused_lp", "rnnt_fused_lp_plain",
+                       "tpuasr_torch/csrc/rnnt_fused.cu", "tpuasr/ops/rnnt_fused_pallas.py:38"),
+    "rnnt_fused_bwd": ("tpuasr_torch.ops.rnnt_fused", "rnnt_fused_grads",
+                       "rnnt_fused_grads_plain", "tpuasr_torch/csrc/rnnt_fused.cu",
+                       "tpuasr/ops/rnnt_fused_pallas.py:71"),
+    "ctc_alpha": ("tpuasr_torch.ops.ctc", "ctc_alpha", "ctc_alpha_plain",
+                  "tpuasr_torch/csrc/ctc_lattice.cu", "tpuasr/ops/ctc_pallas.py:56"),
+    "ctc_beta_grad": ("tpuasr_torch.ops.ctc", "ctc_beta_grad", "ctc_beta_grad_plain",
+                      "tpuasr_torch/csrc/ctc_lattice.cu", "tpuasr/ops/ctc_pallas.py:83"),
+    "rnnt_alpha": ("tpuasr_torch.ops.rnnt_lattice", "rnnt_alpha", "rnnt_alpha_plain",
+                   "tpuasr_torch/csrc/rnnt_lattice.cu", "tpuasr/ops/rnnt_pallas.py:88"),
+    "rnnt_beta_grad": ("tpuasr_torch.ops.rnnt_lattice", "rnnt_beta_grad",
+                       "rnnt_beta_grad_plain", "tpuasr_torch/csrc/rnnt_lattice.cu",
+                       "tpuasr/ops/rnnt_pallas.py:111"),
+    "ffn_fwd": ("tpuasr_torch.ops.ffn", "ffn_fwd", "ffn_fwd_plain", "tpuasr_torch/csrc/ffn.cu",
+                "tpuasr/ops/ffn_pallas.py:169"),
+    "ffn_bwd": ("tpuasr_torch.ops.ffn", "ffn_bwd", "ffn_bwd_plain", "tpuasr_torch/csrc/ffn.cu",
+                "tpuasr/ops/ffn_pallas.py:190"),
+}
+
+
+def _hold(torch, name, args, tag, ctc_inputs=None) -> dict:
+    """Kernel `name` against its plain version on `args` (`_held`): print
+    the result under `tag` and fail outside the tolerance; -> the record,
+    with the inputs' shapes and the tolerance."""
+    rec, tol, ok, inputs = _held(torch, name, args, ctc_inputs or {})
+    print(f"{name} {tag} {inputs}: max_abs_err {rec['max_abs_err']:.3g} (tol {tol}) ms "
+          f"{rec['ms']:.4f} plain_ms ({rec['timing']['plain_ms']}) {rec['plain_ms']:.4f} "
+          f"library_ms {rec['library_ms']} bound_ms {rec['bound_ms']:.6f} ({rec['bound_by']})")
+    require(ok, f"{name} disagrees with its plain version ({tag}: {inputs})")
+    return dict(rec, inputs=inputs, tol=tol)
+
+
+def _held(torch, name, a, ctc_inputs) -> tuple[dict, str, bool, str]:
+    """Kernel `name` against its plain version on the arguments `a`
+    (argument name -> value, in the wrapper's order), with the kernel's
+    tolerance and why, its bound (the function's least work and bytes on
+    these inputs) and the PyTorch call that computes the same function where
+    there is one; -> (record, tolerance, within it, the inputs' shapes).
+    `ctc_inputs` ({key: [calls, lattice_inputs' arguments]}) holds the CTC
+    log-probs and labels behind a CTC kernel's inputs, for F.ctc_loss."""
+    import importlib
+
+    import torch.nn.functional as F
+
+    modname, wrapper, plain_name, source, replaces = WRAPPERS[name]
+    mod = importlib.import_module(modname)
+    kernel, plain = getattr(mod, wrapper), getattr(mod, plain_name)
+    args = tuple(a.values())
+    got = kernel(*args)
+    torch.cuda.synchronize()
+    ref = plain(*args)
+    got, ref = ((x,) if isinstance(x, torch.Tensor) else tuple(x) for x in (got, ref))
+    diffs = [(x.float() - y.float()).abs() for x, y in zip(got, ref)]
+    err = max(float(d.max()) for d in diffs)
+    rels = [float(d.max()) / max(float(y.float().abs().max()), 1e-30) for d, y in zip(diffs, ref)]
+    inputs = ", ".join(f"{k} {str(v.dtype)[6:]}{list(v.shape)}" for k, v in a.items()
+                       if isinstance(v, torch.Tensor) and v.dim() >= 2)
+    inputs += "".join(f", {k} None" for k, v in a.items() if v is None)
+    library, plain_iters, timing = None, 30, "events"
+
+    if name == "fbank":
+        rows, n_fft = a["frames"].shape
+        n_freq, n_mels = a["mel"].shape
+        # a bin far below its frame's loudest bin is a sum of 1024 terms that
+        # cancel, so fp32 sums in another order move it by up to ~1e-2 dB;
+        # with bf16 operands a power bin may also round to the neighbouring
+        # bf16 value, 10*log10(1 + 2**-7) = 0.034 dB
+        tol = 2e-2 if a["precision"] == "highest" else 5e-2
+        ok = err <= tol
+        why = f"{tol} dB: fp32 sums in another order, cancelling bins" + (
+            "" if a["precision"] == "highest" else ", and one bf16 ulp of a power bin")
+        # the least work: a real FFT per frame (2.5 n log2 n), the window,
+        # |X|^2, the mel product over the filters' nonzeros, max and log;
+        # bytes: the frames, window and mel matrix in, the log-mel out
+        flops = rows * (2.5 * n_fft * math.log2(n_fft) + n_fft + 3 * n_freq
+                        + 2 * int((a["mel"] != 0).sum()) + 2 * n_mels)
+        peak, nbytes = PEAK_FP32, 4 * (rows * n_fft + n_fft + n_freq * n_mels + rows * n_mels)
+    elif name in ("relpos_attention", "relpos_attention_bwd"):
+        q, k, p, v, mask, h = a["q"], a["k"], a["p"], a["v"], a["mask"], a["n_head"]
+        b, t, d = q.shape
+        s, dk, es = k.shape[1], d // h, q.element_size()
+        fp32 = q.dtype == torch.float32
+        pairs = int(mask.expand(b, t, s).sum())  # unmasked (query, key) pairs per head
+        peak = PEAK_FP32 if fp32 else PEAK_BF16
+        # library yardstick: SDPA on [q+u | q+v], [k | p], v
+        heads = lambda x: x.view(x.shape[0], -1, h, dk).transpose(1, 2)
+        sq = torch.cat([heads(q + a["u_bias"]), heads(q + a["v_bias"])], dim=-1)
+        sk = torch.cat([heads(k), heads(p).expand(b, -1, -1, -1)], dim=-1)
+        sdpa = dict(attn_mask=mask[:, None], scale=a["scale"])
+        if name == "relpos_attention":
+            tol = 1e-5 if fp32 else 1e-2
+            ok = all(bool((dd <= tol + tol * y.float().abs()).all()) for dd, y in zip(diffs, ref))
+            why = f"{tol} + {tol}*|ref|: " + (
+                "fp32 sums in another order" if fp32 else
+                "bf16 roundings of the output and the probabilities at other points, 2**-8 each")
+            flops = pairs * h * 6 * dk  # scores 4 dk, a.v 2 dk per pair
+            nbytes = es * (2 * b * t * d + 2 * b * s * d + s * d + 2 * d) + mask.numel()
+            library = lambda: F.scaled_dot_product_attention(sq, sk, heads(v), **sdpa)
+        else:
+            tol = 1e-4 if fp32 else 2.0 ** -6
+            ok = max(rels) <= tol
+            why = f"{tol:.3g} of each output's max|ref|: " + (
+                "fp32 sums in another order, dp/du/dvb added with atomics in an order that "
+                "changes between runs" if fp32 else
+                "ds rounds to bf16 before the products, a value on a rounding edge may round "
+                "the other way, and the outputs round to bf16")
+            # scores 4 dk, da, dv and dq 2 dk each, dk|dp 4 dk; bytes: q, k, v,
+            # p, do, the biases and the mask in, dq, dk, dv, fp32 dp, du, dvb out
+            flops = pairs * h * 14 * dk
+            nbytes = (es * (3 * b * t * d + 4 * b * s * d + s * d + 2 * d)
+                      + 4 * (s * d + 2 * d) + mask.numel())
+            lib_in = [x.detach().requires_grad_() for x in (sq, sk, heads(v))]
+            lib_out = F.scaled_dot_product_attention(*lib_in, **sdpa)
+            lib_g = heads(a["do"])
+            library = lambda: torch.autograd.grad(lib_out, lib_in, lib_g, retain_graph=True)
+            plain_iters, timing = 10, "profiler"
+    elif name in ("rnnt_fused_fwd", "rnnt_fused_bwd"):
+        enc, pred, w = a["enc_p"], a["pred_p"], a["w"]
+        b, t, d = enc.shape
+        u1, v = pred.shape[1], w.shape[1]
+        rows, peak = b * t * u1, PEAK_FP32
+        io = b * t * d + b * u1 * d + d * v + v
+        if name == "rnnt_fused_fwd":
+            tol = 5e-4
+            ok = err <= tol
+            why = (f"{tol}: fp32 sums of {d} products in another order on logits up to ~10, "
+                   f"~1e-5 expected; the online logsumexp against torch's")
+            flops, nbytes = 2.0 * rows * d * v, 4 * (io + b * (u1 - 1) + 3 * rows)
+        else:
+            tol = 1e-4
+            ok = max(rels) <= tol
+            why = (f"{tol} of each output's max|ref|: fp32 sums in another order, added with "
+                   f"atomics in an order that changes between runs")
+            flops, nbytes = 6.0 * rows * d * v, 4 * (2 * io + b * (u1 - 1) + 3 * rows)
+    elif name in ("rnnt_alpha", "ctc_alpha"):
+        (ga, gll), (ra, rll) = got, ref
+        live = ra > -1e29
+        ok = torch.equal(live, ga > -1e29) and torch.equal(rll > -1e29, gll > -1e29)
+        err = max(float((ga - ra)[live].abs().max()), float((gll - rll).abs().max()))
+        ok = ok and bool(((ga - ra).abs() <= 1e-3 + 1e-5 * ra.abs())[live].all())
+        ok = ok and bool(((gll - rll).abs() <= 1e-3 + 1e-5 * rll.abs()).all())
+        why = ("1e-3 + 1e-5*|ref| over reachable cells, which must match: fp32 log-adds "
+               "whose exp/log1p may differ from torch's by an ulp, over every dependent step")
+        peak, plain_iters, timing = PEAK_FP32, 5, "profiler"
+        if name == "rnnt_alpha":
+            b, t, u1 = a["blank_lp"].shape
+            flops, nbytes = 10.0 * b * t * u1, 4 * (2 * b * t * u1 + b * t * (u1 - 1) + 2 * b)
+        else:
+            b, t, s = a["lp_states"].shape
+            active = int(torch.clamp(a["tlens"], 0, t).sum()) * s
+            flops, nbytes = 13.0 * active, 4 * (2 * b * t * s + 2 * b) + 2 * b * s
+            library = _ctc_library(torch, a, ctc_inputs, backward=False)
+    elif name in ("rnnt_beta_grad", "ctc_beta_grad"):
+        ok = all(bool((dd <= 2e-3 * y.abs() + 1e-5).all()) for dd, y in zip(diffs, ref))
+        why = "2e-3*|ref| + 1e-5: exp of a log-domain sum carrying alpha's error"
+        peak, plain_iters, timing = PEAK_FP32, 5, "profiler"
+        if name == "rnnt_beta_grad":
+            b, t, u1 = a["blank_lp"].shape
+            cells = b * t * u1
+            flops, nbytes = 20.0 * cells, 4 * (4 * cells + 2 * b * t * (u1 - 1) + 3 * b)
+        else:
+            b, t, s = a["lp_states"].shape
+            active = int(torch.clamp(a["tlens"], 0, t).sum()) * s
+            flops, nbytes = 19.0 * active, 4 * (3 * b * t * s + 3 * b) + 2 * b * s
+            library = _ctc_library(torch, a, ctc_inputs, backward=True)
+    else:  # ffn_fwd, ffn_bwd
+        x, h = a["x"], a["w1"].shape[0]
+        r, d = x.shape
+        fp32 = x.dtype == torch.float32
+        es, peak = x.element_size(), PEAK_FP32 if fp32 else PEAK_BF16
+        masks = 0 if a["mask1"] is None else r * (h + d)
+        timing = "profiler"  # a plain FFN enqueues too many launches for the sleep
+        if name == "ffn_fwd":
+            tol = 1e-5 if fp32 else 2.0 ** -7
+            why = "fp32 sums in another order" if fp32 else (
+                "the same bf16 rounding points, but a sum in another order can cross a bf16 "
+                "rounding edge (one ulp is 2**-8 relative)")
+            # x, out, both weights, LN scale/bias and biases, the masks
+            flops = 4.0 * r * d * h
+            nbytes = es * (2 * r * d + 2 * d * h) + 4 * (3 * d + h) + masks
+        else:
+            tol = 1e-4 if fp32 else 2.0 ** -6
+            why = ("fp32 sums in another order, the weight and LN gradients added with "
+                   "atomics in an order that changes between runs" if fp32 else
+                   "dy, the activation and dh round to bf16 before the products, a value on "
+                   "a rounding edge may round the other way; dx rounds to bf16")
+            # five products; x, do, the weights and masks in, dx and the fp32
+            # weight and vector gradients out
+            flops = 10.0 * r * d * h
+            nbytes = (es * (3 * r * d + 2 * d * h) + 4 * (2 * d + h) + masks
+                      + 4 * (2 * d * h + 3 * d + h))
+        ok = max(rels) <= tol
+        why = f"{tol:.3g} of each output's max|ref|: {why}"
+    rec = _record(torch, name, source, replaces, err, flops, peak, nbytes,
+                  lambda: kernel(*args), lambda: plain(*args), library, plain_iters, timing)
+    return rec, why, bool(ok), inputs
+
+
+def _ctc_library(torch, a, ctc_inputs, backward: bool):
+    """F.ctc_loss (forward, or its backward on a retained graph) on the
+    log-probs and labels whose lattice inputs are the CTC kernel's `a`, or
+    None when `ctc_inputs` holds none."""
+    import torch.nn.functional as F
+
+    b, t, s = a["lp_states"].shape
+    match = [x for _, x in ctc_inputs.values()
+             if tuple(x["log_probs"].shape[:2]) == (b, t) and 2 * x["labels"].shape[1] + 1 == s]
+    if not match:
+        return None
+    x = match[0]
+    lp = x["log_probs"].detach().transpose(0, 1)
+    # a batch's padding rows have no frames (encoder length -1 clamps to 0)
+    lens = (x["labels"].long(), tuple(max(int(n), 0) for n in a["tlens"]),
+            tuple(int(n) for n in x["label_lens"]))
+    kw = dict(blank=x["blank"], reduction="sum", zero_infinity=True)
+    if not backward:
+        return lambda: F.ctc_loss(lp, *lens, **kw)
+    lp = lp.requires_grad_()
+    loss = F.ctc_loss(lp, *lens, **kw)
+    return lambda: torch.autograd.grad(loss, lp, retain_graph=True)
+
+
+def _flagship(dtype: str, fused_ffn: bool = False):
     """The reference flagship (__graft_entry__._flagship_config on an
     accelerator): causal dynamic-chunk conformer, static chunk 32, the
-    rel-pos attention kernel on the full-context path."""
+    rel-pos attention kernel on the full-context path; with `fused_ffn` the
+    FFNs through kernel #10."""
     from tpuasr_torch.config import Config
 
     cfg = Config()
     cfg.model.compute_dtype = dtype
     enc = cfg.model.encoder
     enc.causal, enc.use_dynamic_chunk, enc.static_chunk_size = True, True, 32
-    enc.fused_attention = True
+    enc.fused_attention, enc.fused_ffn = True, fused_ffn
     return cfg
 
 
@@ -632,6 +833,28 @@ def _serve(torch, dev, data) -> dict:
     require(same, "fp32 tokens on the card differ from the CPU run")
     stages = _offline_stages(torch, gpu32, cfg32, waves, wave_lens, ms32)
 
+    # the same weights with the FFNs through kernel #10
+    cfg32f = _flagship("float32", fused_ffn=True)
+    gpu32f = _model(torch, cfg32f, dev, bias)
+    require(all(torch.equal(a, b) for a, b in zip(gpu32.state_dict().values(),
+                                                  gpu32f.state_dict().values())),
+            "the fused-FFN model's weights differ")
+    dec_f = make_offline_decoder(gpu32f, cfg32f, "rnnt_greedy")
+    dec_f(waves, wave_lens)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks_f, lens_f = dec_f(waves, wave_lens)
+    torch.cuda.synchronize()
+    ms32f = (time.perf_counter() - t0) * 1e3
+    enc_f, _ = gpu32f.encode(feats_g, flen_g)
+    enc_ferr = float((enc_f - enc_g).abs().max())
+    same_f = torch.equal(toks_f, toks_g) and torch.equal(lens_f, lens_g)
+    print(f"fp32 fused_ffn=True vs False on the card, {len(wave_lens)} requests: encoder "
+          f"max_abs_err {enc_ferr:.3g} (tol 2e-3, as card vs CPU), tokens identical: {same_f}; "
+          f"latency {ms32f:.1f} ms (fused_ffn=False {ms32:.1f} ms)")
+    require(enc_ferr <= 2e-3, "the fused-FFN encoder output differs")
+    require(same_f, "fp32 tokens with fused_ffn=True differ from fused_ffn=False")
+
     cfg16 = _flagship("bfloat16")
     gpu16, cpu16 = _model(torch, cfg16, dev, bias), _model(torch, cfg16, "cpu", bias)
     # the same fp32 features into both bf16 encoders: the check is the
@@ -653,6 +876,8 @@ def _serve(torch, dev, data) -> dict:
             "the card's bf16 encoder output differs from the CPU's by more than bf16 noise")
     dec16 = make_offline_decoder(gpu16, cfg16, "rnnt_greedy")
     serving = {"offline_fp32_ms_16req": ms32, "offline_fp32_stages": stages,
+               "offline_fp32_fused_ffn_ms_16req": ms32f,
+               "fused_ffn_encoder_max_abs_err": enc_ferr,
                "blank_logit_bias": bias, "bf16_card_vs_cpu_encoder_max_abs_err":
                float(d_card.max()), "bf16_vs_fp32_encoder_max_abs_err": float(d_noise.max())}
     for src in ("fixture", "synthetic"):
@@ -675,21 +900,23 @@ def _serve(torch, dev, data) -> dict:
         serving[f"bf16_fp32_token_agreement_{src}"] = agree
 
     print(f"== phase 5: streaming serving (chunk {CHUNK}, {LEFT} left chunks)")
-    for src in ("fixture", "synthetic"):
+    for src, (model, ffn) in itertools.product(("fixture", "synthetic"),
+                                               ((gpu32, False), (gpu32f, True))):
         w, wl = data[src]
         feats, flens = fbank_batch(w, wl, cfg32.feature, device=dev)
-        full, full_lens = gpu32.encode(feats, flens, CHUNK, LEFT)
+        full, full_lens = model.encode(feats, flens, CHUNK, LEFT)
         n = num_chunks(feats.shape[1], CHUNK, 4, 6)
         # streaming sees whole chunks and never masks padding: decode the
         # frames of the whole chunks inside each request's valid length
         whole = torch.clamp(full_lens.long(), max=n * CHUNK) // CHUNK * CHUNK
-        off_t, off_l = rnnt_greedy_decode(gpu32, full, whole, cfg32.model.blank_id)
-        st_t, st_l, _ = streaming_greedy_decode(gpu32, feats, whole * 4 + 3, CHUNK, LEFT,
+        off_t, off_l = rnnt_greedy_decode(model, full, whole, cfg32.model.blank_id)
+        st_t, st_l, _ = streaming_greedy_decode(model, feats, whole * 4 + 3, CHUNK, LEFT,
                                                 cfg32.model.blank_id)
         ok = torch.equal(st_t, off_t) and torch.equal(st_l, off_l)
-        print(f"streaming == chunk-masked offline on {src} ({int(whole.sum())} frames, "
-              f"{int(st_l.sum())} tokens): {ok}")
-        require(ok, f"streaming tokens differ from chunk-masked offline ({src})")
+        print(f"streaming == chunk-masked offline on {src}, fused_ffn={ffn} "
+              f"({int(whole.sum())} frames, {int(st_l.sum())} tokens): {ok}")
+        require(ok, f"streaming tokens differ from chunk-masked offline ({src}, "
+                    f"fused_ffn={ffn})")
 
     feats16, _ = fbank_batch(*data["synthetic"], cfg16.feature, device=dev)
     for label, model, cfg in (("bf16", gpu16, cfg16), ("fp32", gpu32, cfg32)):
@@ -796,7 +1023,7 @@ def _stream_stages(torch, model, cfg, feats) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# training: kernels #4-#7 and phase 6
+# training: kernels #4-#9 and phase 6
 # ---------------------------------------------------------------------------
 
 BENCH_B, BENCH_FRAMES, BENCH_TOKENS = 12, 768, 32  # bench.py:78-80
@@ -830,21 +1057,16 @@ def _enc_len(wave_lens):
     return ((f - 1) // 2 - 1) // 2
 
 
-def _rel_err(got, ref) -> float:
-    return float((got.float() - ref.float()).abs().max() / ref.float().abs().max().clamp(min=1e-30))
-
-
 def _train_kernel_checks(torch, dev, bench) -> dict:
     """Kernels #4-#9 against their plain versions at the training step's
-    shapes (and a ragged shape); -> {name: record at the bench shape}."""
+    shapes (and a ragged shape with a t_len = 0 and a label_len = 0 row);
+    -> {name: record at the bench shape}."""
     import numpy as np
     import torch.nn.functional as F
 
     from tpuasr_torch.losses.ctc import lattice_inputs
     from tpuasr_torch.ops import (
-        ctc_alpha, ctc_alpha_plain, ctc_beta_grad, ctc_beta_grad_plain, rnnt_alpha,
-        rnnt_alpha_plain, rnnt_beta_grad, rnnt_beta_grad_plain, rnnt_fused_grads,
-        rnnt_fused_grads_plain, rnnt_fused_lp, rnnt_fused_lp_plain,
+        ctc_alpha_plain, ctc_beta_grad, rnnt_alpha_plain, rnnt_beta_grad_plain, rnnt_fused_lp,
     )
     from tpuasr_torch.ops.rnnt_lattice import mask_lattice_inputs
 
@@ -857,190 +1079,63 @@ def _train_kernel_checks(torch, dev, bench) -> dict:
               ("ragged", 3, 37, 5, 256, 97, np.array([37, 0, 20]), np.array([5, 3, 0])))
     g = torch.Generator().manual_seed(SEED)
     for tag, b, t, u, d, v, t_lens, u_lens in shapes:
-        u1 = u + 1
         enc = torch.randn(b, t, d, generator=g).to(dev)
-        pred = torch.randn(b, u1, d, generator=g).to(dev)
+        pred = torch.randn(b, u + 1, d, generator=g).to(dev)
         w = (torch.randn(d, v, generator=g) / math.sqrt(d)).to(dev)
         bias = (0.1 * torch.randn(v, generator=g)).to(dev)
         lab = torch.randint(0, v - 1, (b, u), generator=g)
         lab = (lab + (lab >= blank).long()).to(torch.int32).to(dev)  # never the blank
         tl = torch.as_tensor(t_lens, dtype=torch.int32).to(dev)
         ul = torch.as_tensor(u_lens, dtype=torch.int32).to(dev)
-        rows = b * t * u1
+        recs = {}
+        joint = dict(enc_p=enc, pred_p=pred, w=w, b=bias, labels=lab)
 
-        # #4: blank/label log-probs and the logsumexp
-        got = rnnt_fused_lp(enc, pred, w, bias, lab, blank)
-        torch.cuda.synchronize()
-        ref = rnnt_fused_lp_plain(enc, pred, w, bias, lab, blank)
-        err = max(float((x - y).abs().max()) for x, y in zip(got, ref))
-        tol = 5e-4
-        flops = 2.0 * rows * d * v
-        nbytes = 4 * (b * t * d + b * u1 * d + d * v + v + b * u + 3 * rows)
-        rec = _record(torch, "rnnt_fused_fwd", "tpuasr_torch/csrc/rnnt_fused.cu",
-                      "tpuasr/ops/rnnt_fused_pallas.py:38", err, flops, PEAK_FP32, nbytes,
-                      lambda: rnnt_fused_lp(enc, pred, w, bias, lab, blank),
-                      lambda: rnnt_fused_lp_plain(enc, pred, w, bias, lab, blank), None)
-        print(f"rnnt_fused_fwd {tag} [B {b}, T {t}, U+1 {u1}, D {d}, V {v}]: max_abs_err "
-              f"{err:.3g} (tol {tol}: fp32 sums of {d} products in another order on logits "
-              f"up to ~10, ~1e-5 expected; the online logsumexp against torch's) ms {rec['ms']:.4f} plain_ms "
-              f"{rec['plain_ms']:.4f} bound_ms {rec['bound_ms']:.5f} ({rec['bound_by']}: "
-              f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.2f} MB); library_ms none (no single "
-              f"PyTorch call fuses joint, log-softmax and gather)")
-        require(err <= tol, f"rnnt_fused_fwd disagrees with its plain version ({tag})")
-        if tag == "bench":
-            out["rnnt_fused_fwd"] = rec
-
-        # #8 / #9: the lattice over the fused route's masked log-probs (the
-        # materialized route hands the lattice the same [B, T, U+1] inputs)
-        blank_lp, label_full, lse = got
+        # #4: blank/label log-probs and the logsumexp; #8 / #9: the lattice
+        # over the fused route's masked log-probs (the materialized route
+        # hands the lattice the same [B, T, U+1] inputs)
+        recs["rnnt_fused_fwd"] = _hold(torch, "rnnt_fused_fwd", dict(joint, blank=blank), tag)
+        blank_lp, label_full, lse = rnnt_fused_lp(enc, pred, w, bias, lab, blank)
         bm, lm, pad_t, lv = mask_lattice_inputs(blank_lp, label_full[:, :, :-1], tl, ul)
-        ga, gll = rnnt_alpha(bm, lm, ul)
-        torch.cuda.synchronize()
+        lattice = dict(blank_lp=bm, label_lp=lm, u_lens=ul)
+        recs["rnnt_alpha"] = _hold(torch, "rnnt_alpha", lattice, tag)
         ra, rll = rnnt_alpha_plain(bm, lm, ul)
-        live = ra > -1e29
-        require(torch.equal(live, ga > -1e29) and torch.equal(rll > -1e29, gll > -1e29),
-                f"rnnt_alpha: reachable cells differ from the plain version ({tag})")
-        err = max(float((ga - ra)[live].abs().max()), float((gll - rll).abs().max()))
-        ok = bool(((ga - ra).abs() <= 1e-3 + 1e-5 * ra.abs())[live].all())
-        ok = ok and bool(((gll - rll).abs() <= 1e-3 + 1e-5 * rll.abs()).all())
-        cells = b * t * u1
-        nbytes = 4 * (2 * cells + b * t * u + 2 * b)
-        rec = _record(torch, "rnnt_alpha", "tpuasr_torch/csrc/rnnt_lattice.cu",
-                      "tpuasr/ops/rnnt_pallas.py:88", err, 10.0 * cells, PEAK_FP32, nbytes,
-                      lambda: rnnt_alpha(bm, lm, ul), lambda: rnnt_alpha_plain(bm, lm, ul),
-                      None, plain_iters=5, plain_timing="profiler")
-        print(f"rnnt_alpha {tag} [B {b}, T {t}, U+1 {u1}]: max_abs_err {err:.3g} over reachable "
-              f"cells (tol 1e-3 + 1e-5*|ref|: the plain version's log-adds, whose exp/log1p "
-              f"may differ from torch's by an ulp, over {t + u} diagonals) ms {rec['ms']:.4f} "
-              f"plain_ms (profiler) {rec['plain_ms']:.4f} bound_ms {rec['bound_ms']:.6f} "
-              f"({rec['bound_by']}; the {t + u} dependent diagonals bind in fact); library_ms "
-              f"none (no RNN-T loss in PyTorch)")
-        require(ok, f"rnnt_alpha disagrees with its plain version ({tag})")
-        if tag == "bench":
-            out["rnnt_alpha"] = rec
-
         gvec = (0.5 + torch.rand(b, generator=g)).to(dev)
-        largs = (bm, lm, ul, ra.contiguous(), rll.contiguous(), gvec)
-        got_l = rnnt_beta_grad(*largs)
-        torch.cuda.synchronize()
-        ref_l = rnnt_beta_grad_plain(*largs)
-        err = max(float((x - y).abs().max()) for x, y in zip(got_l, ref_l))
-        ok = all(bool(((x - y).abs() <= 2e-3 * y.abs() + 1e-5).all())
-                 for x, y in zip(got_l, ref_l))
-        rec = _record(torch, "rnnt_beta_grad", "tpuasr_torch/csrc/rnnt_lattice.cu",
-                      "tpuasr/ops/rnnt_pallas.py:111", err, 20.0 * cells, PEAK_FP32,
-                      4 * (4 * cells + 2 * b * t * u + 3 * b),
-                      lambda: rnnt_beta_grad(*largs), lambda: rnnt_beta_grad_plain(*largs),
-                      None, plain_iters=5, plain_timing="profiler")
-        print(f"rnnt_beta_grad {tag}: max_abs_err {err:.3g} (tol 2e-3*|ref| + 1e-5: exp of a "
-              f"log-domain sum carrying alpha's error) ms {rec['ms']:.4f} plain_ms (profiler) "
-              f"{rec['plain_ms']:.4f} bound_ms {rec['bound_ms']:.6f} ({rec['bound_by']}); "
-              f"library_ms none")
-        require(ok, f"rnnt_beta_grad disagrees with its plain version ({tag})")
-        if tag == "bench":
-            out["rnnt_beta_grad"] = rec
+        recs["rnnt_beta_grad"] = _hold(torch, "rnnt_beta_grad", dict(
+            lattice, alpha=ra.contiguous(), ll=rll.contiguous(), g=gvec), tag)
 
         # #5: gradients from the lattice's occupancies (mean over B)
         zero = torch.zeros((), device=dev)
         occ_b, occ_l = rnnt_beta_grad_plain(bm, lm, ul, ra, rll, torch.ones(b, device=dev))
         gb = torch.where(pad_t, zero, -occ_b / b).contiguous()
         gl = F.pad(torch.where(lv, -occ_l / b, zero), (0, 1)).contiguous()
-        args = (enc, pred, w, bias, lab, lse, gb, gl, blank)
-        got = rnnt_fused_grads(*args)
-        torch.cuda.synchronize()
-        ref = rnnt_fused_grads_plain(*args)
-        rels = [_rel_err(x, y) for x, y in zip(got, ref)]
-        err = max(float((x - y).abs().max()) for x, y in zip(got, ref))
-        tol = 1e-4
-        flops = 3 * 2.0 * rows * d * v
-        nbytes = 4 * (2 * (b * t * d + b * u1 * d + d * v + v) + b * u + 3 * rows)
-        rec = _record(torch, "rnnt_fused_bwd", "tpuasr_torch/csrc/rnnt_fused.cu",
-                      "tpuasr/ops/rnnt_fused_pallas.py:71", err, flops, PEAK_FP32, nbytes,
-                      lambda: rnnt_fused_grads(*args), lambda: rnnt_fused_grads_plain(*args),
-                      None)
-        print(f"rnnt_fused_bwd {tag}: max_abs_err {err:.3g}; error / max|ref| for d_enc, "
-              f"d_pred, dW, db {[f'{x:.2e}' for x in rels]} (tol {tol} relative: fp32 sums "
-              f"in another order, added with atomics in an order that changes between "
-              f"runs) ms {rec['ms']:.4f} plain_ms {rec['plain_ms']:.4f} bound_ms "
-              f"{rec['bound_ms']:.5f} ({rec['bound_by']}: {flops / 1e9:.2f} GFLOP); "
-              f"library_ms none")
-        require(max(rels) <= tol, f"rnnt_fused_bwd disagrees with its plain version ({tag})")
-        if tag == "bench":
-            out["rnnt_fused_bwd"] = rec
+        recs["rnnt_fused_bwd"] = _hold(torch, "rnnt_fused_bwd",
+                                       dict(joint, lse=lse, gb=gb, gl=gl, blank=blank), tag)
 
         # #6 / #7: the CTC lattice over log-softmaxed logits
-        logits = torch.randn(b, t, v, generator=g).to(dev)
-        lp = torch.log_softmax(logits, dim=-1)
+        lp = torch.log_softmax(torch.randn(b, t, v, generator=g).to(dev), dim=-1)
         lp_states, skip, final = lattice_inputs(lp, lab, ul, blank)
-        lp_states = lp_states.contiguous()
-        s = lp_states.shape[2]
-        ga, gll = ctc_alpha(lp_states, skip, tl, final)
-        torch.cuda.synchronize()
-        ra, rll = ctc_alpha_plain(lp_states, skip, tl, final)
-        live = ra > -1e29
-        require(torch.equal(live, ga > -1e29) and torch.equal(rll > -1e29, gll > -1e29),
-                f"ctc_alpha: reachable states differ from the plain version ({tag})")
-        err = max(float((ga - ra)[live].abs().max()), float((gll - rll).abs().max()))
-        ok = bool(((ga - ra).abs() <= 1e-3 + 1e-5 * ra.abs())[live].all())
-        ok = ok and bool(((gll - rll).abs() <= 1e-3 + 1e-5 * rll.abs()).all())
-        active = int(torch.clamp(tl, max=t).sum()) * s
-        nbytes = 4 * (2 * b * t * s + b + b) + 2 * b * s
-        lib_in = (lp.transpose(0, 1), lab.long(), tuple(int(x) for x in t_lens),
-                  tuple(int(x) for x in u_lens))
-        rec = _record(torch, "ctc_alpha", "tpuasr_torch/csrc/ctc_lattice.cu",
-                      "tpuasr/ops/ctc_pallas.py:56", err, 13.0 * active, PEAK_FP32, nbytes,
-                      lambda: ctc_alpha(lp_states, skip, tl, final),
-                      lambda: ctc_alpha_plain(lp_states, skip, tl, final),
-                      (lambda: F.ctc_loss(*lib_in, blank=blank, reduction="sum",
-                                          zero_infinity=True)) if tag == "bench" else None,
-                      plain_iters=5, plain_timing="profiler")
-        print(f"ctc_alpha {tag} [B {b}, T {t}, S {s}]: max_abs_err {err:.3g} over reachable "
-              f"states (tol 1e-3 + 1e-5*|ref|: fp32 log-adds whose exp/log1p may differ from "
-              f"torch's by an ulp, over {t} steps on values up to ~1e3) ms {rec['ms']:.4f} "
-              f"plain_ms (profiler) {rec['plain_ms']:.4f} library_ms (F.ctc_loss forward, "
-              f"profiler) "
-              f"{rec['library_ms']} bound_ms {rec['bound_ms']:.6f} ({rec['bound_by']}; "
-              f"the {t} dependent steps bind in fact)")
-        require(ok, f"ctc_alpha disagrees with its plain version ({tag})")
-        if tag == "bench":
-            out["ctc_alpha"] = rec
-
-        gvec = torch.ones(b, device=dev)
-        bargs = (lp_states, skip, tl, final, ra.contiguous(), rll.contiguous(), gvec)
-        got = ctc_beta_grad(*bargs)
-        torch.cuda.synchronize()
-        ref = ctc_beta_grad_plain(*bargs)
-        diff = (got - ref).abs()
-        err = float(diff.max())
-        ok = bool((diff <= 2e-3 * ref.abs() + 1e-5).all())
-        lib = None
-        if tag == "bench":  # F.ctc_loss's backward alone, on a retained graph
-            lp_req = lp.detach().transpose(0, 1).requires_grad_()
-            lib_loss = F.ctc_loss(lp_req, *lib_in[1:], blank=blank, reduction="sum",
-                                  zero_infinity=True)
-            lib = lambda: torch.autograd.grad(lib_loss, lp_req, retain_graph=True)
-        rec = _record(torch, "ctc_beta_grad", "tpuasr_torch/csrc/ctc_lattice.cu",
-                      "tpuasr/ops/ctc_pallas.py:83", err, 19.0 * active, PEAK_FP32,
-                      4 * (3 * b * t * s + 3 * b) + 2 * b * s,
-                      lambda: ctc_beta_grad(*bargs), lambda: ctc_beta_grad_plain(*bargs), lib,
-                      plain_iters=5, plain_timing="profiler")
-        print(f"ctc_beta_grad {tag}: max_abs_err {err:.3g} (tol 2e-3*|ref| + 1e-5: the "
-              f"gradient is exp of a log-domain sum carrying alpha's error) ms "
-              f"{rec['ms']:.4f} plain_ms (profiler) {rec['plain_ms']:.4f} library_ms "
-              f"(F.ctc_loss backward, profiler) {rec['library_ms']} bound_ms {rec['bound_ms']:.6f} "
-              f"({rec['bound_by']})")
-        require(ok, f"ctc_beta_grad disagrees with its plain version ({tag})")
+        ctc = dict(lp_states=lp_states.contiguous(), skip=skip, tlens=tl, final=final)
+        # F.ctc_loss on the same log-probs and labels, at the bench shape
+        lib = {0: [1, dict(log_probs=lp, labels=lab, label_lens=ul, blank=blank)]} \
+            if tag == "bench" else {}
+        recs["ctc_alpha"] = _hold(torch, "ctc_alpha", ctc, tag, lib)
+        ra, rll = ctc_alpha_plain(*ctc.values())
+        beta = dict(ctc, alpha=ra.contiguous(), ll=rll.contiguous(), g=torch.ones(b, device=dev))
+        recs["ctc_beta_grad"] = _hold(torch, "ctc_beta_grad", beta, tag, lib)
         if tag == "ragged":
-            require(bool((got[1] == 0).all()), "ctc_beta_grad: a t_len = 0 row has gradient")
+            require(bool((ctc_beta_grad(*beta.values())[1] == 0).all()),
+                    "ctc_beta_grad: a t_len = 0 row has gradient")
         if tag == "bench":
-            out["ctc_beta_grad"] = rec
+            out = recs
     return out
 
 
-def _train_cfg(dtype: str, dropout: bool, fused_joint_loss: bool = True):
+def _train_cfg(dtype: str, dropout: bool, fused_joint_loss: bool = True,
+               fused_ffn: bool = False):
     """The flagship as bench.py trains it (bench.py:51-76): causal, static
     chunk 32, the rel-pos attention kernels, the fused joint loss (or with
-    `fused_joint_loss=False` the materialized one); with `dropout`, the JAX
+    `fused_joint_loss=False` the materialized one), the fused FFN kernels with
+    `fused_ffn` (bench.py's TPUASR_FUSED_FFN=1); with `dropout`, the JAX
     defaults (0.1) and dynamic chunks, else no dropout and the static
     chunk."""
     from tpuasr_torch.config import Config
@@ -1050,6 +1145,7 @@ def _train_cfg(dtype: str, dropout: bool, fused_joint_loss: bool = True):
     cfg.model.fused_joint_loss = fused_joint_loss
     enc = cfg.model.encoder
     enc.causal, enc.static_chunk_size, enc.fused_attention = True, 32, True
+    enc.fused_ffn = fused_ffn
     enc.use_dynamic_chunk = dropout
     if not dropout:
         enc.dropout_rate = enc.positional_dropout_rate = 0.0
@@ -1058,7 +1154,7 @@ def _train_cfg(dtype: str, dropout: bool, fused_joint_loss: bool = True):
     return cfg
 
 
-def _train_card_vs_cpu(torch, dev, fused_joint_loss: bool) -> dict:
+def _train_card_vs_cpu(torch, dev, fused_joint_loss: bool, fused_ffn: bool = False) -> dict:
     """Phase 6a: one forward, backward and GuardedAdam step of the fp32
     flagship on the card and on the CPU, same weights and batch."""
     import numpy as np
@@ -1066,7 +1162,8 @@ def _train_card_vs_cpu(torch, dev, fused_joint_loss: bool) -> dict:
     from tpuasr_torch.models import Transducer, init_weights
     from tpuasr_torch.train import make_optimizer
 
-    cfg = _train_cfg("float32", dropout=False, fused_joint_loss=fused_joint_loss)
+    cfg = _train_cfg("float32", dropout=False, fused_joint_loss=fused_joint_loss,
+                     fused_ffn=fused_ffn)
     r = np.random.default_rng(SEED + 11)
     b, t, u = 2, 256, 16  # the shape of __graft_entry__.entry()
     host = (torch.from_numpy(r.standard_normal((b, t, 80)).astype(np.float32)),
@@ -1109,13 +1206,14 @@ def _train_card_vs_cpu(torch, dev, fused_joint_loss: bool) -> dict:
     held = [i for i in range(len(names)) if i not in shift_free]
     order = sorted(held, key=lambda i: -rels[i])
     worst = order[0]
-    print(f"fp32 training step (fused_joint_loss={fused_joint_loss}), card vs CPU on "
+    print(f"fp32 training step (fused_joint_loss={fused_joint_loss}, fused_ffn={fused_ffn}), "
+          f"card vs CPU on "
           f"[2, 256, 80] x 16 tokens: losses card "
           f"{lc} cpu {lh} (tol 1e-4 relative); grad norm {gc:.6g} vs {gh:.6g} (tol 1e-4 "
           f"relative); gradient error / the leaf's max|g|, the three worst: "
           f"{[(names[i], f'{rels[i]:.3g}') for i in order[:3]]} (tol 1e-3: fp32 sums in "
-          f"another order through 12 blocks, the attention backward's and the fused "
-          f"joint's atomics, the lattice); "
+          f"another order through 12 blocks, the attention backward's, the fused "
+          f"joint's and the fused FFN's atomics, the lattice); "
           f"the {len(shift_free)} key-projection biases (zero gradient in exact arithmetic) "
           f"reach {noise:.3g} against a largest gradient entry of {scale:.4g} (tol 1e-6 of "
           f"it: rounding noise)")
@@ -1208,10 +1306,10 @@ def _adam_card_vs_cpu(torch, tx, card: dict, cpu: dict) -> dict:
 
 
 def _train_bench(torch, dev, batch, fused_joint_loss: bool, n_steps: int = 10,
-                 warmup: int = 2) -> tuple[dict, dict]:
-    """Phases 6b/6c: bench.py's configuration (6c: the materialized loss)
-    on bench.py's batch through `make_train_step`; -> (stats, kernel
-    launches during the steps)."""
+                 warmup: int = 2, fused_ffn: bool = False) -> tuple[dict, dict]:
+    """Phases 6b/6c/6d: bench.py's configuration (6c: the materialized loss;
+    6d: the fused FFN) on bench.py's batch through `make_train_step`; ->
+    (stats, kernel launches during the steps)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1219,7 +1317,8 @@ def _train_bench(torch, dev, batch, fused_joint_loss: bool, n_steps: int = 10,
     from tpuasr_torch.ops import LAUNCHES, reset_launch_counts
     from tpuasr_torch.train import TrainState, make_optimizer, make_train_step
 
-    cfg = _train_cfg("bfloat16", dropout=True, fused_joint_loss=fused_joint_loss)
+    cfg = _train_cfg("bfloat16", dropout=True, fused_joint_loss=fused_joint_loss,
+                     fused_ffn=fused_ffn)
     cfg.feature.fbank_precision = "default"
     model = init_weights(Transducer(cfg.model, device=dev), SEED)
     tx = make_optimizer(cfg.optim)
@@ -1253,6 +1352,7 @@ def _train_bench(torch, dev, batch, fused_joint_loss: bool, n_steps: int = 10,
              "skipped": int(state.skipped), "steps": state.step,
              "top_device_items": [[e.key, e.count, e.self_device_time_total / 1e3] for e in top]}
     route = "fused joint loss" if fused_joint_loss else "materialized loss (full logits)"
+    route += ", fused FFN" if fused_ffn else ""
     print(f"bench.py's configuration, {route} (batch {BENCH_B} x {BENCH_FRAMES} frames, "
           f"{audio_s:.2f} s of audio per step, bf16, dropout 0.1, dynamic chunk, fused "
           f"attention): losses {[round(x, 4) for x in losses]}; step ms median {med:.1f} "
@@ -1265,6 +1365,152 @@ def _train_bench(torch, dev, batch, fused_joint_loss: bool, n_steps: int = 10,
     require(all(math.isfinite(x) for x in losses), "a training loss is not finite")
     require(int(state.skipped) == 0, "a training step was skipped")
     return stats, launches
+
+
+def _compare_steps(base: dict, fused: dict) -> None:
+    """Print 6d's step numbers beside 6b's (two calls of one script on one
+    card; the host's spread between them is up to ~30% for the step)."""
+    keys = (("step_ms_median", "step ms (median)"), ("audio_s_per_s", "audio-s/s"),
+            ("profiled_step_device_busy_ms", "device busy ms"),
+            ("profiled_step_device_ops", "device operations"),
+            ("max_memory_allocated", "peak memory bytes"))
+    print("6d (fused_ffn=True) beside 6b (fused_ffn=False): " + "; ".join(
+        f"{label} {fused[k]:.6g} vs {base[k]:.6g}" for k, label in keys))
+
+
+def _trainer(torch) -> tuple[dict, dict, dict]:
+    """Phase 8: `tpuasr_torch.tools.train` on the card, 2 epochs, then a
+    resume from "latest" for a third; -> (stats, kernel launches over both
+    runs, the kernels' recorded calls: `_recording`)."""
+    import tempfile
+
+    from tpuasr_torch.config import load_yaml
+    from tpuasr_torch.data import synthetic_pipeline
+    from tpuasr_torch.ops import LAUNCHES, reset_launch_counts
+    from tpuasr_torch.tools.train import main as train_main
+    from tpuasr_torch.train import latest_path, load_info
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="trainer-", dir=ROOT / "build") as save_dir, \
+            _recording(torch) as seen:
+        sets = ["model.encoder.fused_ffn=True", "specaug.enabled=True", "data.synth_hard=True",
+                "data.batch_size=12", "data.num_prefetch=2", f"train.save_dir={save_dir}",
+                "train.log_dir=", "train.log_every=1"]
+        reset_launch_counts()
+        (first, ms_first) = _synced_ms(torch, lambda: train_main(
+            ["--workload", "online_rnnt", "--synthetic", "48", "--epochs", "2", "--set",
+             *sets]))
+        info = load_info(latest_path(save_dir))
+        cfg = load_yaml(str(Path(save_dir) / "train.yaml"))
+        require(cfg.model.encoder.fused_ffn and cfg.specaug.enabled and cfg.data.synth_hard
+                and cfg.model.compute_dtype == "bfloat16" and cfg.model.fused_joint_loss,
+                "the trainer's effective config is not the one asked for")
+        require(info["epoch"] == 1 and info["step"] == first.state.step,
+                f"the checkpoint after 2 epochs holds epoch {info['epoch']} step "
+                f"{info['step']}, the run ended at step {first.state.step}")
+        steps_e2 = synthetic_pipeline(cfg, 48, seed=0).steps_per_epoch(2)
+        (second, ms_second) = _synced_ms(torch, lambda: train_main(
+            ["--workload", "online_rnnt", "--synthetic", "48", "--epochs", "3", "--resume",
+             latest_path(save_dir)]))
+        launches = dict(LAUNCHES)
+        info3 = load_info(latest_path(save_dir))
+    losses = first.train_losses + first.dev_losses + second.train_losses + second.dev_losses
+    print(f"trainer: 2 epochs of {first.state.step // 2} steps ({ms_first / 1e3:.1f} s), "
+          f"train losses {first.train_losses}, dev losses {first.dev_losses}; resumed at "
+          f"epoch {info3['epoch']} from step {info['step']}: {len(second.train_losses)} epoch of "
+          f"{second.state.step - info['step']} steps ({ms_second / 1e3:.1f} s, checkpoint "
+          f"load and save included), train loss {second.train_losses}, dev loss "
+          f"{second.dev_losses}, lr scale {second.state.lr_scale}")
+    require(len(second.train_losses) == 1 and info3["epoch"] == 2,
+            "the resumed run did not continue at the saved epoch")
+    require(second.state.step == info["step"] + steps_e2,
+            f"the resumed run ended at step {second.state.step}, not the saved "
+            f"{info['step']} + {steps_e2}")
+    require(all(math.isfinite(x) for x in losses), "a trainer loss is not finite")
+    require(int(second.state.skipped) == 0, "a trainer step was skipped")
+    return {"train_losses": first.train_losses + second.train_losses,
+            "dev_losses": first.dev_losses + second.dev_losses,
+            "steps": second.state.step, "first_run_s": ms_first / 1e3,
+            "resumed_run_s": ms_second / 1e3}, launches, seen
+
+
+# ---------------------------------------------------------------------------
+# phase 8's kernel records: each kernel against its plain version on the
+# inputs the trainer gave it
+# ---------------------------------------------------------------------------
+
+# the CTC loss's log-probs and labels, for F.ctc_loss on the CTC kernels' inputs
+CTC_INPUTS = ("tpuasr_torch.losses.ctc", "lattice_inputs")
+
+
+@contextlib.contextmanager
+def _recording(torch):
+    """While a run goes through the port, keep for each kernel the arguments
+    of its wrapper's first call at each signature (every tensor's type and
+    shape, every other argument's value) and count the calls at each. Every
+    attribute of a port module bound to a wrapper (or to CTC_INPUTS) is
+    swapped for a recording one and restored on exit; -> {kernel:
+    {signature: [calls, {argument: value}]}}, filled as the run goes."""
+    import importlib
+    import inspect
+
+    seen, swaps = {}, []
+
+    def recorder(name, fn):
+        sig = inspect.signature(fn)
+
+        def call(*args, **kwargs):
+            bound = sig.bind(*args, **kwargs)
+            bound.apply_defaults()
+            key = tuple((str(v.dtype), tuple(v.shape)) if isinstance(v, torch.Tensor) else v
+                        for v in bound.arguments.values())
+            calls = seen.setdefault(name, {})
+            if key not in calls:
+                calls[key] = [0, {k: v.detach().clone() if isinstance(v, torch.Tensor) else v
+                                  for k, v in bound.arguments.items()}]
+            calls[key][0] += 1
+            return fn(*args, **kwargs)
+
+        return call
+
+    targets = {name: (mod, fn) for name, (mod, fn, *_) in WRAPPERS.items()}
+    targets["ctc_inputs"] = CTC_INPUTS
+    try:
+        for name, (mod, attr) in targets.items():
+            fn = getattr(importlib.import_module(mod), attr)
+            rec = recorder(name, fn)
+            for mname, m in list(sys.modules.items()):
+                if mname.split(".")[0] == "tpuasr_torch":
+                    for a, val in list(vars(m).items()):
+                        if val is fn:
+                            setattr(m, a, rec)
+                            swaps.append((m, a, fn))
+        yield seen
+    finally:
+        for m, a, fn in swaps:
+            setattr(m, a, fn)
+
+
+def _trainer_kernel_records(torch, seen, launches) -> dict:
+    """Phase 8's kernel checks: every kernel the trainer launched, against
+    its plain version on the arguments the trainer gave it at each
+    signature (the buckets' shapes, training and dev pass); the recorded
+    calls must be the run's launches, no more and no fewer. -> {kernel: the
+    record at the signature launched most, with "shapes": every
+    signature's}."""
+    out = {}
+    for name in WRAPPERS:
+        calls = seen.get(name, {})
+        n = sum(c for c, _ in calls.values())
+        require(n == launches[name], f"the trainer launched {name} {launches[name]} times but "
+                                     f"its wrapper was called {n} times")
+        shapes = [dict(_hold(torch, name, args, f"trainer, {count} calls at",
+                             seen.get("ctc_inputs")), calls=count)
+                  for count, args in sorted(calls.values(), key=lambda x: -x[0])]
+        out[name] = dict(shapes[0], shapes=[
+            {k: s[k] for k in ("inputs", "calls", "max_abs_err", "tol", "ms", "plain_ms",
+                               "bound_ms", "bound_by", "library_ms")} for s in shapes])
+    return out
 
 
 if __name__ == "__main__":

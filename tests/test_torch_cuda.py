@@ -9,8 +9,11 @@ row, B = 1, V = 412 and V = 64, bf16 enc_p/pred_p from a bf16 model; the
 attention backward (#3) in fp32 and bf16 at dk 16, 32 and 64 with a fully
 masked row and a broadcast mask, and through autograd; the RNN-T lattice
 (#8/#9) at U+1 = 1, 33 and 257 with a t_len = 0 row, and the materialized
-RNN-T loss card against CPU. This file imports no JAX, so it runs on a
-machine without it:
+RNN-T loss card against CPU; the fused FFN (#10/#11) at R = 1, 70 and 2,292
+rows, D 64 and 256, H 128 and 1024, fp32 and bf16, no masks and keep-masks
+at rate 0.1, its autograd Function against plain autograd, and the fused
+route against the module route of a training forward on the card. This file
+imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
@@ -31,7 +34,14 @@ output's max (sums in another order; dp, du and dvb added with atomics), bf16
 rounding edge may round the other way on the other side; the outputs round
 to bf16 too). RNN-T lattice: as CTC's (the kernel repeats the plain
 version's log-adds; exp/log1p may differ by an ulp); the materialized loss
-card vs CPU: loss rtol 1e-5, gradient atol 1e-4, as the CTC loss.
+card vs CPU: loss rtol 1e-5, gradient atol 1e-4, as the CTC loss. Fused
+FFN: fp32 output within 1e-5 of its max |.| and gradients within 1e-4 of
+each one's max (sums in another order; the weight and LN gradients added
+with atomics); bf16 output within 2**-7 and gradients within 2**-6 of the
+max (the same roundings, but a sum in another order can cross a bf16
+rounding edge: one ulp is 2**-8 relative); the fused and module routes of a
+training step agree to 1e-4 of the largest gradient (fp32, the kernel's
+atomics against cuBLAS).
 """
 
 from dataclasses import astuple
@@ -47,7 +57,7 @@ from tpuasr_torch.losses import rnnt_loss_from_logits
 from tpuasr_torch.losses.ctc import ctc_loss_from_logits, lattice_inputs
 from tpuasr_torch.ops import (
     LAUNCHES, ctc_alpha, ctc_alpha_plain, ctc_beta_grad, ctc_beta_grad_plain, fbank_frames,
-    fbank_frames_plain, relpos_attention, relpos_attention_bwd, relpos_attention_bwd_plain,
+    fbank_frames_plain, ffn_bwd, ffn_bwd_plain, ffn_fwd, ffn_fwd_plain, fused_ffn, relpos_attention, relpos_attention_bwd, relpos_attention_bwd_plain,
     relpos_attention_plain, rnnt_alpha, rnnt_alpha_plain, rnnt_beta_grad,
     rnnt_beta_grad_plain, rnnt_fused_grads, rnnt_fused_grads_plain, rnnt_fused_lp,
     rnnt_fused_lp_plain, rnnt_loss_fused_mean,
@@ -348,3 +358,105 @@ def test_materialized_rnnt_loss_card_matches_cpu(card):
     torch.testing.assert_close(outs["cuda"][0], outs["cpu"][0], rtol=1e-5, atol=1e-3)
     torch.testing.assert_close(outs["cuda"][1], outs["cpu"][1], rtol=0, atol=1e-4)
     assert float(outs["cuda"][0][1]) == 0.0 and bool((outs["cuda"][1][1] == 0).all())
+
+
+def _ffn_inputs(card, r, d, h, dtype, masks, seed):
+    g = torch.Generator().manual_seed(seed)
+    rn = lambda *s: torch.randn(*s, generator=g)
+    args = [rn(r, d).to(card, dtype), (1.0 + 0.1 * rn(d)).to(card), (0.1 * rn(d)).to(card),
+            (rn(h, d) / d ** 0.5).to(card, dtype), (0.1 * rn(h)).to(card),
+            (rn(d, h) / h ** 0.5).to(card, dtype), (0.1 * rn(d)).to(card), None, None]
+    if masks:
+        args[7] = (torch.rand(r, h, generator=g) >= 0.1).to(torch.uint8).to(card)
+        args[8] = (torch.rand(r, d, generator=g) >= 0.1).to(torch.uint8).to(card)
+    return args, rn(r, d).to(card, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("masks", [False, True])
+@pytest.mark.parametrize("r,d,h", [(1, 64, 128), (70, 64, 128), (70, 256, 1024),
+                                   (2292, 256, 1024)])
+def test_ffn_kernels_match_plain(card, r, d, h, masks, dtype):
+    args, do = _ffn_inputs(card, r, d, h, dtype, masks, r + d)
+    before = (LAUNCHES["ffn_fwd"], LAUNCHES["ffn_bwd"])
+    got = ffn_fwd(*args, 0.1, 0.5)
+    torch.cuda.synchronize()
+    ref = ffn_fwd_plain(*args, 0.1, 0.5)
+    fp32 = dtype == torch.float32
+    assert got.dtype == dtype
+    out_tol, grad_tol = (1e-5, 1e-4) if fp32 else (2.0 ** -7, 2.0 ** -6)
+    top = float(ref.float().abs().max())
+    assert float((got.float() - ref.float()).abs().max()) <= out_tol * top
+    got_b = ffn_bwd(*args, do, 0.1, 0.5)
+    torch.cuda.synchronize()
+    assert (LAUNCHES["ffn_fwd"], LAUNCHES["ffn_bwd"]) == (before[0] + 1, before[1] + 1)
+    ref_b = ffn_bwd_plain(*args, do, 0.1, 0.5)
+    for name, x, y in zip(("dx", "dg", "db", "dw1", "db1", "dw2", "db2"), got_b, ref_b):
+        assert x.dtype == y.dtype and x.shape == y.shape, name
+        err = float((x.float() - y.float()).abs().max())
+        assert err <= grad_tol * float(y.float().abs().max()) + 1e-7, (name, err)
+
+
+@pytest.mark.parametrize("masks", [False, True])
+def test_fused_ffn_gradients_match_plain_autograd(card, masks):
+    """Autograd through `fused_ffn` runs #10/#11 and returns plain
+    autograd's gradients of `ffn_fwd_plain` (fp32)."""
+    args, do = _ffn_inputs(card, 300, 256, 1024, torch.float32, masks, 9)
+    leaves = [x.detach().clone().requires_grad_() for x in args[:7]]
+    before = LAUNCHES["ffn_bwd"]
+    fused_ffn(*leaves, *args[7:], 0.1, 0.5).backward(do)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ffn_bwd"] == before + 1
+    plain = [x.detach().clone().requires_grad_() for x in args[:7]]
+    ffn_fwd_plain(*plain, *args[7:], 0.1, 0.5).backward(do)
+    for a, b in zip(leaves, plain):
+        assert float((a.grad - b.grad).abs().max()) <= 1e-4 * float(b.grad.abs().max())
+
+
+def test_fused_ffn_route_equals_module_route_on_card(card):
+    import dataclasses
+
+    from tpuasr_torch.config import ModelConfig
+    from tpuasr_torch.models import Transducer, init_weights
+
+    res = {}
+    for fused in (True, False):
+        mc = ModelConfig(vocab_size=64)
+        mc.encoder = dataclasses.replace(mc.encoder, num_blocks=2, causal=True,
+                                         static_chunk_size=8, fused_ffn=fused)
+        model = init_weights(Transducer(mc, device=card), seed=3)
+        model.train()
+        g = torch.Generator().manual_seed(1)
+        feats = torch.randn(2, 97, 80, generator=g).to(card)
+        texts = torch.randint(6, 64, (2, 6), generator=g).to(card)
+        before = LAUNCHES["ffn_bwd"]
+        out = model(feats, torch.tensor([97, 70], device=card), texts,
+                    torch.tensor([6, 4], device=card),
+                    dropout_gen=torch.Generator(device=card).manual_seed(5))
+        out["loss"].backward()
+        torch.cuda.synchronize()
+        assert (LAUNCHES["ffn_bwd"] - before) == (4 if fused else 0)
+        res[fused] = (float(out["loss"].detach()),
+                      {n: p.grad.clone() for n, p in model.named_parameters()})
+    (loss_f, gf), (loss_m, gm) = res[True], res[False]
+    assert abs(loss_f - loss_m) <= 1e-5 * abs(loss_m)
+    top = max(float(x.abs().max()) for x in gm.values())
+    for name, x in gm.items():
+        assert float((gf[name] - x).abs().max()) <= 1e-4 * top, name
+
+
+def test_ffn_wrappers_reject_what_the_kernels_do_not_take(card):
+    args, do = _ffn_inputs(card, 8, 64, 128, torch.float32, True, 0)
+    for d in (96, 128):
+        odd, _ = _ffn_inputs(card, 8, d, 128, torch.float32, False, 0)
+        with pytest.raises(ValueError, match="must be 64 or 256"):
+            ffn_fwd(*odd, 0.1, 0.5)
+    narrow, _ = _ffn_inputs(card, 8, 64, 100, torch.float32, False, 0)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        ffn_fwd(*narrow, 0.1, 0.5)
+    with pytest.raises(ValueError, match="both keep-masks"):
+        ffn_fwd(*args[:8], None, 0.1, 0.5)
+    with pytest.raises(ValueError, match="dtype"):
+        ffn_fwd(args[0].half(), *args[1:], 0.1, 0.5)
+    with pytest.raises(ValueError, match="w1"):
+        ffn_bwd(args[0], args[1], args[2], args[3].bfloat16(), *args[4:], do, 0.1, 0.5)

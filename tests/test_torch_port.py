@@ -120,9 +120,9 @@ def test_unported_options_raise(bad):
 
 
 @pytest.mark.parametrize("where,key,value", [
-    ("model", "rnnt_prune_range", 4), ("encoder", "fused_ffn", True),
+    ("model", "rnnt_prune_range", 4), ("predictor", "predictor_type", "embedding"),
     ("encoder", "attention_dropout_rate", 0.1), ("optim", "accum_steps", 2),
-    ("specaug", "enabled", True),
+    ("joint", "hat_joint", True),
 ])
 def test_unported_training_options_raise(where, key, value):
     from tpuasr_torch.train import make_optimizer, make_train_step
@@ -130,7 +130,7 @@ def test_unported_training_options_raise(where, key, value):
     cfg = Config()
     cfg.model = _tiny_cfg()
     target = {"model": cfg.model, "encoder": cfg.model.encoder, "optim": cfg.optim,
-              "specaug": cfg.specaug}[where]
+              "predictor": cfg.model.predictor, "joint": cfg.model.joint}[where]
     setattr(target, key, value)
     with pytest.raises(NotImplementedError):
         model = Transducer(cfg.model, device="cpu")

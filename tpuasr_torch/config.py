@@ -1,14 +1,15 @@
 """Configuration tree for the PyTorch port.
 
 An own copy of the parts of ``tpuasr/config.py``'s dataclasses that the
-serving and training paths read or check (features, model, optimizer,
-SpecAugment switch, streaming, train seed), with the same field names and
-defaults, so a ``train.yaml`` written by the JAX package loads here
-unchanged: `from_dict` drops every key this copy does not hold (the data
-pipeline, checkpointing and loop settings, the scanned parameter layout,
-which `tpuasr_torch.convert` detects by itself, and the options of encoder
-and predictor families the port does not build, which their `*_type` fields
-already refuse). Values the port does not build raise NotImplementedError
+serving and training paths read or check (features, model, SpecAugment,
+optimizer, the data pipeline, streaming, the training loop), with the same
+field names and defaults, so a ``train.yaml`` written by the JAX package
+loads here unchanged: `from_dict` drops every key this copy does not hold
+(the BZNSYP file paths, the JAX-only loop switches such as donation, the
+RNG implementation and the host-RSS watchdog, the mesh, the scanned
+parameter layout, which `tpuasr_torch.convert` detects by itself, and the
+options of encoder and predictor families the port does not build, which
+their `*_type` fields already refuse). Values the port does not build raise NotImplementedError
 where they are read (`check_supported` in the encoder, `Transducer`,
 `make_optimizer`, `make_train_step`).
 
@@ -71,7 +72,11 @@ class EncoderConfig:
     # (`relpos_attention_plain`, with autograd); the cached streaming path is
     # plain either way
     fused_attention: bool = False
-    fused_ffn: bool = False  # must be False: the fused FFN kernel is not ported
+    # the conformer FFNs: True = the fused FFN kernels
+    # (`tpuasr_torch.ops.fused_ffn`: forward #10, backward #11; LN, both
+    # products, swish, the dropout keep-masks drawn by the caller and saved
+    # for the backward, and the scaled residual), False = the module chain
+    fused_ffn: bool = False
     normalize_before: bool = True
     macaron_style: bool = True
     use_cnn_module: bool = True
@@ -136,7 +141,14 @@ class ModelConfig:
 
 @dataclass
 class SpecAugConfig:
-    enabled: bool = False  # must be False: SpecAugment is not ported yet
+    """SpecAugment time/frequency masking inside the train step
+    (`tpuasr_torch.audio.spec_augment`), drawn from its own generator."""
+
+    enabled: bool = False
+    num_t_masks: int = 2
+    num_f_masks: int = 2
+    max_t: int = 50
+    max_f: int = 10
 
 
 @dataclass
@@ -158,8 +170,50 @@ class OptimConfig:
 
 
 @dataclass
+class DataConfig:
+    """Length-bucketed batches (`tpuasr_torch.data.LengthBucketPipeline`)
+    and the synthetic stand-in corpus (`--synthetic N`)."""
+
+    batch_size: int = 12
+    # static-shape length bucketing: (max_frames, max_tokens) buckets
+    frame_buckets: tuple = (256, 512, 768, 1024, 1536)
+    token_buckets: tuple = (16, 32, 48, 64)
+    shuffle_seed: int = 0
+    # batches in flight on the prefetch thread (0: built on the loop's own
+    # thread, `tpuasr_torch.data.prefetch_to_device`)
+    num_prefetch: int = 0
+    # wave format of the host-to-device copy: "float32" | "int16" (half the
+    # bytes; exact for 16-bit PCM corpora, decoded on the device by fbank)
+    wire_dtype: str = "float32"
+    # nonzero: a bucket padded to F frames gets batch_audio_frames // F
+    # utterances (rounded down to batch_multiple) instead of batch_size
+    batch_audio_frames: int = 0
+    batch_multiple: int = 1
+    # the synthetic corpus: token counts, feature frames per token, the
+    # two-tone chord encoding, and the hard corpus (mel-grid chords, mel
+    # jitter, SNR noise, gain jitter, a Markov token chain)
+    synth_min_tokens: int = 4
+    synth_max_tokens: int = 12
+    synth_frames_per_token: int = 24
+    synth_chord: bool = True
+    synth_hard: bool = False
+    synth_snr_db: float = 10.0
+    synth_jitter_mel: float = 12.0
+    synth_gain_jitter_db: float = 6.0
+    synth_markov: bool = True
+
+
+@dataclass
 class TrainConfig:
+    epochs: int = 50
     seed: int = 2026
+    log_every: int = 50
+    save_every_epochs: int = 5
+    save_latest_every: int = 1  # epochs between "latest" checkpoints
+    # steps between a dev pass + checkpoint inside the epoch; 0 = per epoch only
+    save_interval: int = 0
+    save_dir: str = "exp"
+    log_dir: str = "exp/tb"
 
 
 @dataclass
@@ -178,6 +232,7 @@ class Config:
     model: ModelConfig = field(default_factory=ModelConfig)
     specaug: SpecAugConfig = field(default_factory=SpecAugConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
+    data: DataConfig = field(default_factory=DataConfig)
     streaming: StreamingConfig = field(default_factory=StreamingConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
 
@@ -249,6 +304,29 @@ def load_yaml(path: str) -> Config:
 
     with open(path) as f:
         d = yaml.safe_load(f) or {}
+    return from_dict(Config, d)
+
+
+def layer_yaml(cfg: Config, path: str) -> Config:
+    """Apply a (possibly partial) yaml file on top of `cfg`: keys absent
+    from the file keep `cfg`'s values, keys this copy does not hold are
+    dropped (a JAX ``train.yaml`` layers unchanged)."""
+    import yaml
+
+    with open(path) as f:
+        layer = yaml.safe_load(f) or {}
+
+    def merge(node: dict, upd: dict) -> None:
+        for k, v in upd.items():
+            if k not in node:
+                continue
+            if isinstance(node[k], dict) and isinstance(v, dict):
+                merge(node[k], v)
+            else:
+                node[k] = v
+
+    d = to_dict(cfg)
+    merge(d, layer)
     return from_dict(Config, d)
 
 

@@ -1,9 +1,13 @@
-"""Host-side data: static-shape batches and the synthetic corpus."""
+"""Host-side data: length-bucketed static-shape batches, the synthetic
+corpus, and the device prefetcher."""
 
+from tpuasr_torch.data.corpus import make_pipeline, synthetic_pipeline
 from tpuasr_torch.data.pipeline import (
-    BatchSpec, Utterance, device_view, make_batch, tensors, wire_waves,
+    BatchSpec, LengthBucketPipeline, Utterance, device_view, make_batch, tensors, wire_waves,
 )
-from tpuasr_torch.data.synthetic import synth_corpus, synth_utterance
+from tpuasr_torch.data.prefetch import prefetch_to_device
+from tpuasr_torch.data.synthetic import synth_corpus, synth_utterance, synth_utterance_hard
 
-__all__ = ["BatchSpec", "Utterance", "device_view", "make_batch", "synth_corpus",
-           "synth_utterance", "tensors", "wire_waves"]
+__all__ = ["BatchSpec", "LengthBucketPipeline", "Utterance", "device_view", "make_batch",
+           "make_pipeline", "prefetch_to_device", "synth_corpus", "synth_utterance",
+           "synth_utterance_hard", "synthetic_pipeline", "tensors", "wire_waves"]

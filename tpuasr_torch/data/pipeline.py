@@ -1,16 +1,19 @@
-"""Static-shape batches on the host (port of ``tpuasr/data/pipeline.py``:
-`BatchSpec`, `Utterance`, `wire_waves`, `make_batch`, `device_view`).
+"""Length-bucketed, static-shape batches on the host (port of
+``tpuasr/data/pipeline.py``).
 
-Every batch is padded to one (wave_samples, tokens) shape; feature
-extraction happens on the device inside the train step, so the host only
-loads waveforms. `tensors` moves a batch's arrays onto a device. The
-length-bucketing pipeline is not ported yet (ROADMAP).
+Every batch is padded to one of a few (wave_samples, tokens) buckets;
+feature extraction happens on the device inside the train step, so the host
+only loads waveforms. `LengthBucketPipeline` shuffles per epoch from
+(seed, epoch) with numpy, so the same seed gives the JAX package's batches
+bit for bit; per-host sharding takes the utterances with
+``index % num_hosts == host_id``. `tensors` moves a batch's arrays onto a
+device.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Sequence
+from typing import Callable, Iterator, Sequence
 
 import numpy as np
 import torch
@@ -98,3 +101,86 @@ def tensors(batch: dict, device) -> dict:
     step takes."""
     return {k: torch.from_numpy(np.ascontiguousarray(x)).to(device)
             for k, x in device_view(batch).items()}
+
+
+class LengthBucketPipeline:
+    """Buckets utterances by (wave length, token count) and yields
+    static-shape batches in shuffled order (tpuasr/data/pipeline.py:105-182).
+
+    A bucket's batch holds `batch_size` utterances, or with
+    `batch_audio_frames` about batch_audio_frames // frames (rounded down to
+    `batch_multiple`). An utterance longer than every bucket is skipped and
+    counted in `last_skipped`; partial batches are emitted at the end of an
+    epoch unless `drop_remainder`."""
+
+    def __init__(
+        self,
+        utterances: Sequence,
+        batch_size: int,
+        frame_buckets: Sequence[int],
+        token_buckets: Sequence[int],
+        hop_length: int = 512,
+        pad_id: int = 0,
+        seed: int = 0,
+        host_id: int = 0,
+        num_hosts: int = 1,
+        loader: Callable[[object], Utterance] | None = None,
+        drop_remainder: bool = False,
+        batch_audio_frames: int = 0,
+        batch_multiple: int = 1,
+    ):
+        self._loader = loader or (lambda u: u)
+        self._items = [u for i, u in enumerate(utterances) if i % num_hosts == host_id]
+        self.batch_size = batch_size
+        self.pad_id = pad_id
+        self.seed = seed
+        self.drop_remainder = drop_remainder
+        self.hop = hop_length
+        self.batch_audio_frames = batch_audio_frames
+        self.batch_multiple = max(1, batch_multiple)
+        # bucket bounds in wave samples, so that 1 + n // hop is the frame bucket
+        self.wave_buckets = sorted((fb - 1) * hop_length for fb in frame_buckets)
+        self.token_buckets = sorted(token_buckets)
+        self.last_skipped = 0
+
+    def batch_size_for(self, wave_bucket: int) -> int:
+        """Batch size of a bucket padded to `wave_bucket` samples."""
+        if not self.batch_audio_frames:
+            return self.batch_size
+        frames = 1 + wave_bucket // self.hop
+        n = max(1, self.batch_audio_frames // frames)
+        return max(self.batch_multiple, n // self.batch_multiple * self.batch_multiple)
+
+    def _bucket_of(self, wave_len: int, n_tokens: int) -> tuple[int, int] | None:
+        wb = next((w for w in self.wave_buckets if wave_len <= w), None)
+        tb = next((t for t in self.token_buckets if n_tokens <= t), None)
+        if wb is None or tb is None:
+            return None
+        return wb, tb
+
+    def batches(self, epoch: int = 0) -> Iterator[dict]:
+        rng = np.random.default_rng((self.seed, epoch))
+        order = rng.permutation(len(self._items))
+        pending: dict[tuple[int, int], list] = {}
+        skipped = 0
+        for idx in order:
+            u = self._loader(self._items[idx])
+            key = self._bucket_of(u.wave_len, len(u.tokens))
+            if key is None:
+                skipped += 1
+                continue
+            pending.setdefault(key, []).append(u)
+            if len(pending[key]) == self.batch_size_for(key[0]):
+                yield self._emit(pending.pop(key), key)
+        if not self.drop_remainder:
+            for key, utts in sorted(pending.items()):
+                if utts:
+                    yield self._emit(utts, key)
+        self.last_skipped = skipped
+
+    def _emit(self, utts: list[Utterance], key: tuple[int, int]) -> dict:
+        spec = BatchSpec(self.batch_size_for(key[0]), key[0], key[1])
+        return make_batch(utts, spec, self.pad_id)
+
+    def steps_per_epoch(self, epoch: int = 0) -> int:
+        return sum(1 for _ in self.batches(epoch))

@@ -1,11 +1,18 @@
 """Synthetic corpus for tests and benchmarks (port of
-``tpuasr/data/synthetic.py``: `synth_utterance`, `synth_corpus`).
+``tpuasr/data/synthetic.py``).
 
-Waveforms whose spectral content encodes the token sequence: each token is
-a pure-tone segment (or a two-tone chord with `chord=True`), plus white
-noise. The same seed gives the JAX package's corpus bit for bit. The hard
-corpus (`hard=True`: mel-grid chords, jitter, SNR, a Markov token chain) is
-not ported yet and raises.
+Waveforms whose spectral content encodes the token sequence, so a model can
+learn the mapping without a corpus on disk. The same seed gives the JAX
+package's corpus bit for bit. Two regimes:
+
+- the clean corpus: each token is a pure-tone segment (or a two-tone chord
+  with `chord=True`, every token acoustically unique), plus white noise;
+- the hard corpus (`hard=True`): chord tones on a mel-uniform grid, where
+  tokens sharing a high band with mel-adjacent low bands are confusable;
+  each token instance jitters both tones by N(0, jitter_mel^2) in mel
+  space; white noise at `snr_db`; a per-utterance gain jitter; token
+  sequences from a fixed first-order Markov chain shared by all splits, a
+  language prior a predictor can exploit and greedy CTC cannot.
 """
 
 from __future__ import annotations
@@ -14,6 +21,58 @@ import numpy as np
 
 from tpuasr_torch.data.pipeline import Utterance
 from tpuasr_torch.text.tokenizer import EOS, SOS
+
+_MEL = 2595.0
+
+
+def _hz_to_mel(f):
+    return _MEL * np.log10(1.0 + np.asarray(f, np.float64) / 700.0)
+
+
+def _mel_to_hz(m):
+    return 700.0 * (10.0 ** (np.asarray(m, np.float64) / _MEL) - 1.0)
+
+
+def hard_chord_table(vocab_size: int, sample_rate: int, first_content_id: int = 6) -> np.ndarray:
+    """Mel-space (lo, hi) chord centres of every content token, [n, 2].
+
+    Low bands span [200 Hz, 0.19 sr] and high bands [0.21 sr, 0.47 sr], both
+    uniform in mel; content token c maps to (lo[c % L], hi[c // L]) with at
+    most 7 high bands."""
+    n = vocab_size - first_content_id
+    h = min(7, max(1, (n + 7) // 8))
+    l = int(np.ceil(n / h))
+    lo_m = np.linspace(_hz_to_mel(200.0), _hz_to_mel(0.19 * sample_rate), max(l, 2))
+    hi_m = np.linspace(_hz_to_mel(0.21 * sample_rate), _hz_to_mel(0.47 * sample_rate),
+                       max(h, 2))
+    c = np.arange(n)
+    return np.stack([lo_m[c % l], hi_m[np.minimum(c // l, h - 1)]], axis=1)
+
+
+def markov_successors(vocab_size: int, first_content_id: int = 6, k: int = 4,
+                      seed: int = 1234) -> np.ndarray:
+    """The preferred-successor table [n, k] (content-relative ids), seeded
+    apart from the corpus so every split shares one language."""
+    n = vocab_size - first_content_id
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, n, size=(n, k))
+
+
+def sample_markov_tokens(rng: np.random.Generator, vocab_size: int, n_tokens: int,
+                         first_content_id: int = 6, p_pref: float = 0.8,
+                         table: np.ndarray | None = None) -> list[int]:
+    if table is None:
+        table = markov_successors(vocab_size, first_content_id)
+    n = vocab_size - first_content_id
+    cur = int(rng.integers(0, n))
+    out = [cur]
+    for _ in range(n_tokens - 1):
+        if rng.random() < p_pref:
+            cur = int(table[cur, rng.integers(0, table.shape[1])])
+        else:
+            cur = int(rng.integers(0, n))
+        out.append(cur)
+    return [t + first_content_id for t in out]
 
 
 def synth_utterance(
@@ -47,6 +106,44 @@ def synth_utterance(
     return wave.astype(np.float32), tokens
 
 
+def synth_utterance_hard(
+    rng: np.random.Generator,
+    vocab_size: int,
+    n_tokens: int,
+    sample_rate: int,
+    samples_per_token: int,
+    *,
+    chord_table: np.ndarray,
+    markov_table: np.ndarray | None,
+    snr_db: float = 10.0,
+    jitter_mel: float = 12.0,
+    gain_jitter_db: float = 6.0,
+    p_pref: float = 0.8,
+    first_content_id: int = 6,
+) -> tuple[np.ndarray, list[int]]:
+    """One hard-corpus utterance (the protocol is the module docstring's)."""
+    if markov_table is not None:
+        tokens = sample_markov_tokens(rng, vocab_size, n_tokens, first_content_id, p_pref,
+                                      markov_table)
+    else:
+        tokens = rng.integers(first_content_id, vocab_size, size=n_tokens).tolist()
+    t = np.arange(samples_per_token) / sample_rate
+    segs = []
+    for tok in tokens:
+        m = chord_table[tok - first_content_id] + rng.normal(0.0, jitter_mel, 2)
+        lo, hi = _mel_to_hz(m)
+        seg = 0.5 * (np.sin(2 * np.pi * lo * t) + np.sin(2 * np.pi * hi * t))
+        segs.append(seg.astype(np.float32))
+    sig = np.concatenate(segs) if segs else np.zeros(samples_per_token, np.float32)
+    noise_std = float(np.sqrt(np.mean(sig.astype(np.float64) ** 2) / 10.0 ** (snr_db / 10.0)))
+    wave = sig + noise_std * rng.standard_normal(len(sig)).astype(np.float32)
+    # absolute level carries no information: normalise, then attenuate by a
+    # random gain (applied to signal and noise, so the SNR stays)
+    peak = float(np.max(np.abs(wave))) or 1.0
+    gain_db = -3.0 - float(rng.uniform(0.0, gain_jitter_db))
+    return (wave / peak * 10.0 ** (gain_db / 20.0)).astype(np.float32), tokens
+
+
 def synth_corpus(
     n_utts: int,
     vocab_size: int,
@@ -58,18 +155,28 @@ def synth_corpus(
     add_sos_eos: bool = True,
     chord: bool = False,
     hard: bool = False,
+    snr_db: float = 10.0,
+    jitter_mel: float = 12.0,
+    gain_jitter_db: float = 6.0,
+    markov: bool = True,
 ) -> list[Utterance]:
     """n_utts utterances of min_tokens..max_tokens content tokens each;
     with add_sos_eos the token lists gain SOS and EOS around them."""
-    if hard:
-        raise NotImplementedError("synth_corpus(hard=True): the hard corpus is not ported "
-                                  "yet (ROADMAP: the data pipeline)")
     rng = np.random.default_rng(seed)
+    if hard:
+        chord_table = hard_chord_table(vocab_size, sample_rate)
+        markov_table = markov_successors(vocab_size) if markov else None
     utts = []
     for i in range(n_utts):
         n_tok = int(rng.integers(min_tokens, max_tokens + 1))
-        wave, tokens = synth_utterance(rng, vocab_size, n_tok, sample_rate, samples_per_token,
-                                       chord=chord)
+        if hard:
+            wave, tokens = synth_utterance_hard(
+                rng, vocab_size, n_tok, sample_rate, samples_per_token,
+                chord_table=chord_table, markov_table=markov_table, snr_db=snr_db,
+                jitter_mel=jitter_mel, gain_jitter_db=gain_jitter_db)
+        else:
+            wave, tokens = synth_utterance(rng, vocab_size, n_tok, sample_rate,
+                                           samples_per_token, chord=chord)
         if add_sos_eos:
             tokens = [SOS] + tokens + [EOS]
         utts.append(Utterance.from_arrays(f"synth{i:06d}", wave, tokens))

@@ -14,6 +14,14 @@ host) and a dropout generator (on the model's device). Dropout sits where
 the JAX package has it: the FFN's inner activation, each block's residual
 branches (attention, conv, both FFNs) and the positional dropout of the
 scaled embedding; without a dropout generator (eval) there is none.
+
+`encoder.fused_ffn=True` runs both FFN branches, in `forward` and in
+`forward_chunk`, through `tpuasr_torch.ops.fused_ffn` (kernels #10/#11 on
+the card) as `tpuasr/nn/conformer.py:224-258` does. Its dropout keep-masks
+are drawn from the block's generator in the module chain's order and
+shapes (the inner activation [B*T, 4D], then the residual [B*T, D]), so the
+fused route and the module route make the same keep decisions; the kernel's
+backward reads the saved masks.
 """
 
 from __future__ import annotations
@@ -30,6 +38,7 @@ from tpuasr_torch.nn.embedding import PositionalEncodingTable
 from tpuasr_torch.nn.layers import Dense, LayerNorm, dropout
 from tpuasr_torch.nn.masks import add_optional_chunk_mask, make_pad_mask
 from tpuasr_torch.nn.subsampling import SUBSAMPLE_CLASSES, subsampled_mask
+from tpuasr_torch.ops.ffn import fused_ffn
 
 
 def check_supported(c: EncoderConfig) -> None:
@@ -52,9 +61,6 @@ def check_supported(c: EncoderConfig) -> None:
                                   "(ROADMAP: attention zoo)")
     if not (c.normalize_before and c.macaron_style and c.use_cnn_module):
         raise NotImplementedError("only the pre-norm macaron conformer block is ported")
-    if c.fused_ffn:
-        raise NotImplementedError("encoder.fused_ffn: the fused FFN kernels (TPU kernels "
-                                  "#10/#11) are not ported yet (ROADMAP)")
 
 
 class PositionwiseFeedForward(nn.Module):
@@ -76,6 +82,7 @@ class ConformerBlock(nn.Module):
         super().__init__()
         d = c.output_size
         self.dropout_rate = c.dropout_rate
+        self.fused_ffn = c.fused_ffn
         self.feed_forward_macaron = PositionwiseFeedForward(d, c.linear_units,
                                                             c.dropout_rate, device)
         self.norm_ff_macaron = LayerNorm(d, device=device)
@@ -90,17 +97,38 @@ class ConformerBlock(nn.Module):
         self.norm_conv = LayerNorm(d, device=device)
         self.norm_final = LayerNorm(d, device=device)
 
+    def _ffn_branch(self, ffn: PositionwiseFeedForward, norm: LayerNorm, x, gen):
+        """x + 0.5 * drop(ffn(norm(x))): the fused FFN (kernels #10/#11) or
+        the module chain; the same parameters either way."""
+        rate = self.dropout_rate
+        if not self.fused_ffn:
+            return x + 0.5 * dropout(ffn(norm(x), gen), rate, gen)
+        b, t, d = x.shape
+        m1 = m2 = None
+        if gen is not None and rate > 0.0:
+            # the module chain's draws, in its order and shapes: the inner
+            # activation's mask, then the residual's
+            m1 = (torch.rand((b * t, ffn.w_1.out_features), generator=gen, device=x.device)
+                  >= rate).to(torch.uint8)
+            m2 = (torch.rand((b * t, d), generator=gen, device=x.device) >= rate
+                  ).to(torch.uint8)
+        dt = x.dtype
+        y = fused_ffn(x.reshape(b * t, d).contiguous(), norm.weight, norm.bias,
+                      ffn.w_1.weight.to(dt), ffn.w_1.bias, ffn.w_2.weight.to(dt), ffn.w_2.bias,
+                      m1, m2, rate, 0.5)
+        return y.reshape(b, t, d)
+
     def forward(self, x, att_mask, pos_emb, mask_pad=None, att_cache=None, cnn_cache=None,
                 gen=None):
         """gen: the dropout generator, None for no dropout (tpuasr/nn/
         conformer.py:210-280: x + drop(branch) for every residual)."""
         drop = lambda y: dropout(y, self.dropout_rate, gen)
-        x = x + 0.5 * drop(self.feed_forward_macaron(self.norm_ff_macaron(x), gen))
+        x = self._ffn_branch(self.feed_forward_macaron, self.norm_ff_macaron, x, gen)
         x_att, new_att_cache = self.self_attn(self.norm_mha(x), att_mask, pos_emb, att_cache)
         x = x + drop(x_att)
         y, new_cnn_cache = self.conv_module(self.norm_conv(x), mask_pad, cnn_cache)
         x = x + drop(y)
-        x = x + 0.5 * drop(self.feed_forward(self.norm_ff(x), gen))
+        x = self._ffn_branch(self.feed_forward, self.norm_ff, x, gen)
         return self.norm_final(x), new_att_cache, new_cnn_cache
 
 

@@ -1,10 +1,11 @@
 """Hand-written CUDA kernels of the port and their plain PyTorch versions."""
 
-from tpuasr_torch.ops._build import LAUNCHES, build_all, reset_launch_counts
+from tpuasr_torch.ops._build import KERNELS, LAUNCHES, build_all, reset_launch_counts
 from tpuasr_torch.ops.ctc import (
     ctc_alpha, ctc_alpha_plain, ctc_beta_grad, ctc_beta_grad_plain, ctc_lattice,
 )
 from tpuasr_torch.ops.fbank import fbank_frames, fbank_frames_plain
+from tpuasr_torch.ops.ffn import ffn_bwd, ffn_bwd_plain, ffn_fwd, ffn_fwd_plain, fused_ffn
 from tpuasr_torch.ops.relpos_attention import (
     relpos_attention, relpos_attention_bwd, relpos_attention_bwd_plain, relpos_attention_plain,
 )
@@ -17,9 +18,10 @@ from tpuasr_torch.ops.rnnt_lattice import (
 )
 
 __all__ = [
-    "LAUNCHES", "build_all", "reset_launch_counts",
+    "KERNELS", "LAUNCHES", "build_all", "reset_launch_counts",
     "ctc_alpha", "ctc_alpha_plain", "ctc_beta_grad", "ctc_beta_grad_plain", "ctc_lattice",
     "fbank_frames", "fbank_frames_plain",
+    "ffn_bwd", "ffn_bwd_plain", "ffn_fwd", "ffn_fwd_plain", "fused_ffn",
     "relpos_attention", "relpos_attention_bwd", "relpos_attention_bwd_plain",
     "relpos_attention_plain",
     "rnnt_fused_grads", "rnnt_fused_grads_plain", "rnnt_fused_lp", "rnnt_fused_lp_plain",

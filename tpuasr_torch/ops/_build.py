@@ -10,9 +10,9 @@ A source may hold several kernels (`ctc_lattice.cu`: the CTC alpha and
 beta sweeps; `rnnt_fused.cu`: the fused joint forward and backward;
 `rnnt_lattice.cu`: the RNN-T alpha and beta sweeps; `relpos_attention.cu`:
 the attention forward and its backward, whose one entry point launches two
-kernels), each with its own C entry point. Every wrapper counts its calls
-of an entry point in `LAUNCHES`, so a run can show that its path went
-through the kernels.
+kernels; `ffn.cu`: the fused FFN forward and backward), each with its own C
+entry point. Every wrapper counts its calls of an entry point in `LAUNCHES`,
+so a run can show that its path went through the kernels.
 """
 
 from __future__ import annotations
@@ -45,6 +45,8 @@ ENTRIES = {
     "ctc_beta_grad": ("ctc_lattice", "ctc_beta_grad", [_P] * 8 + [_I] * 3 + [_P]),
     "rnnt_alpha": ("rnnt_lattice", "rnnt_alpha", [_P] * 5 + [_I] * 3 + [_P]),
     "rnnt_beta_grad": ("rnnt_lattice", "rnnt_beta_grad", [_P] * 8 + [_I] * 3 + [_P]),
+    "ffn_fwd": ("ffn", "ffn_fwd", [_P] * 10 + [_I] * 3 + [_F, _F, _I, _P]),
+    "ffn_bwd": ("ffn", "ffn_bwd", [_P] * 17 + [_I] * 3 + [_F, _F, _I, _P]),
 }
 KERNELS = tuple(ENTRIES)
 SOURCES = tuple(dict.fromkeys(src for src, _, _ in ENTRIES.values()))

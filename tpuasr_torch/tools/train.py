@@ -1,0 +1,132 @@
+"""Train the RNN-T workloads (port of ``tools/train.py``).
+
+    python -m tpuasr_torch.tools.train --workload online_rnnt|rnnt \\
+        [--config cfg.yaml] [--set model.encoder.num_blocks=6 ...] \\
+        [--synthetic N] [--epochs E] [--resume SAVE_DIR/latest] [--device cuda|cpu]
+
+On the card the defaults are the JAX trainer's TPU fast path (bf16 compute
+with fp32 parameters, the fused joint loss, the rel-pos attention kernels,
+fbank precision "default"); a yaml or --set layers on top. `--resume`
+loads the config saved beside the checkpoint unless --config is given, and
+continues at the saved step and epoch with the saved plateau state. The
+workload online_rnnt makes the encoder causal with dynamic chunks (static
+chunk = streaming.chunk_size when unset). The ctc, aed and paraformer
+workloads and the BZNSYP corpus are not ported yet and raise
+NotImplementedError naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ast
+import json
+import sys
+
+UNPORTED_WORKLOADS = {
+    "ctc": "the CTC workload (CTCModel): ROADMAP §1 item 3",
+    "aed": "the AED workload (ASRModel, attention decoder): ROADMAP §1 item 5",
+    "paraformer": "the Paraformer workload: ROADMAP §1 item 5",
+}
+
+
+def parse_overrides(pairs) -> dict:
+    out = {}
+    for p in pairs or []:
+        k, _, v = p.partition("=")
+        try:
+            out[k] = ast.literal_eval(v)
+        except (ValueError, SyntaxError):
+            out[k] = v
+    return out
+
+
+def build_model(cfg, workload: str, device):
+    """The workload's Transducer on `device`, with seeded weights
+    (cfg.train.seed); online_rnnt first makes the encoder streamable."""
+    from tpuasr_torch.models import Transducer, init_weights
+
+    if workload in UNPORTED_WORKLOADS:
+        raise NotImplementedError(UNPORTED_WORKLOADS[workload])
+    m = cfg.model
+    if workload == "online_rnnt":
+        m.encoder.causal = True
+        m.encoder.use_dynamic_chunk = True
+        if m.encoder.static_chunk_size == 0:
+            m.encoder.static_chunk_size = cfg.streaming.chunk_size
+    return init_weights(Transducer(m, device=device), cfg.train.seed)
+
+
+def main(argv=None):
+    """Run the trainer -> its LoopResult."""
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    ap.add_argument("--workload", choices=["ctc", "rnnt", "online_rnnt", "aed", "paraformer"],
+                    default="online_rnnt")
+    ap.add_argument("--config", default=None)
+    ap.add_argument("--set", nargs="*", default=[], help="dotted overrides k=v")
+    ap.add_argument("--synthetic", type=int, default=0,
+                    help="train on N synthetic utterances instead of BZNSYP")
+    ap.add_argument("--data_root", default="",
+                    help="the BZNSYP corpus root (not ported yet: without --synthetic the "
+                         "trainer raises NotImplementedError)")
+    ap.add_argument("--epochs", type=int, default=None)
+    ap.add_argument("--resume", default=None)
+    ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
+    args = ap.parse_args(argv)
+
+    from tpuasr_torch.config import Config, layer_yaml, override, to_dict
+    from tpuasr_torch.data import synthetic_pipeline
+    from tpuasr_torch.data.corpus import CORPUS_TODO
+    from tpuasr_torch.device import resolve_device
+    from tpuasr_torch.train import (
+        TrainState, find_effective_config, load_info, make_optimizer, restore_checkpoint,
+        train_loop,
+    )
+
+    if args.workload in UNPORTED_WORKLOADS:
+        raise NotImplementedError(UNPORTED_WORKLOADS[args.workload])
+    device = resolve_device(args.device)
+    cfg = Config()
+    if device.type == "cuda":
+        # the flagship fast path (the JAX trainer's TPU defaults)
+        cfg.model.compute_dtype = "bfloat16"
+        cfg.model.fused_joint_loss = True
+        cfg.model.encoder.fused_attention = True
+        cfg.feature.fbank_precision = "default"
+    if args.resume and args.config is None:
+        # continue with the numerics the checkpoint was trained with
+        args.config = find_effective_config(args.resume)
+        if args.config is not None:
+            print(f"resume: effective config {args.config}")
+    if args.config:
+        cfg = layer_yaml(cfg, args.config)
+    cfg = override(cfg, parse_overrides(args.set))
+
+    if not args.synthetic:
+        raise NotImplementedError(CORPUS_TODO)
+    train_pipe = synthetic_pipeline(cfg, args.synthetic, seed=0)
+    dev_pipe = synthetic_pipeline(cfg, max(args.synthetic // 8, 4), seed=1)
+
+    model = build_model(cfg, args.workload, device)
+    # the effective config after the workload's changes (the loop saves it
+    # as save_dir/train.yaml too)
+    print(json.dumps(to_dict(cfg), default=str))
+    state = TrainState.create(model, make_optimizer(cfg.optim))
+    start_epoch, plateau_init = 0, None
+    if args.resume:
+        state = restore_checkpoint(args.resume, state)
+        try:
+            info = load_info(args.resume)
+            start_epoch = int(info.get("epoch", -1)) + 1
+            plateau_init = info.get("plateau")
+        except FileNotFoundError:
+            pass
+        print(f"resumed from {args.resume}: step {state.step}, starting at epoch {start_epoch}")
+    result = train_loop(cfg, model, state, train_pipe, dev_pipe, epochs=args.epochs,
+                        start_epoch=start_epoch, plateau_init=plateau_init)
+    print("final train loss:", result.train_losses[-1] if result.train_losses else None)
+    return result
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

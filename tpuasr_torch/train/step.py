@@ -1,17 +1,21 @@
 """Train and eval steps (port of ``tpuasr/train/step.py``).
 
 One step: waves -> log-mel fbank on the device (kernel #1, no gradient) ->
-the model's hybrid loss forward (dropout, dynamic chunk) -> backward ->
-global gradient norm, finite flag -> the NaN-guarded `GuardedAdam` update.
-Nothing in the step waits for the host: the metrics stay device tensors.
+SpecAugment when `specaug.enabled` (training only) -> the model's hybrid
+loss forward (dropout, dynamic chunk) -> backward -> global gradient norm,
+finite flag -> the NaN-guarded `GuardedAdam` update. Nothing in the step
+waits for the host: the metrics stay device tensors.
 
 Randomness comes from an explicit seed per call, folded with the step
 count as `jax.random.fold_in(rng, state.step)` does (step.py:109): the same
 seed and step give the same dropout masks and chunk draw on the same device,
 another seed other ones. Dropout draws from a generator on the model's
 device; the dynamic-chunk draw, two host integers, from a CPU generator, so
-building the mask never syncs. The bits differ from JAX's (another
-generator); the distributions are the same.
+building the mask never syncs. SpecAugment draws from a third generator of
+its own on the device, as the JAX step splits off a fourth key for it
+(tpuasr/train/step.py:50), so turning it on changes no dropout mask or
+chunk draw. The bits differ from JAX's (another generator); the
+distributions are the same.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ from typing import Callable
 
 import torch
 
-from tpuasr_torch.audio import fbank_batch
+from tpuasr_torch.audio import fbank_batch, spec_augment
 from tpuasr_torch.config import Config
 from tpuasr_torch.train.optim import FusedAdamState, GuardedAdam
 
@@ -36,6 +40,13 @@ def step_generators(seed: int, step: int, device: torch.device
     chunk = torch.Generator().manual_seed(base)
     drop = torch.Generator(device=device).manual_seed((base ^ 0x94D049BB133111EB) & _MASK63)
     return chunk, drop
+
+
+def specaug_generator(seed: int, step: int, device: torch.device) -> torch.Generator:
+    """SpecAugment's generator on `device` for one step, seeded from (seed,
+    step) apart from `step_generators`' two."""
+    base = (int(seed) * 0x9E3779B97F4A7C15 + int(step) * 0xBF58476D1CE4E5B9) & _MASK63
+    return torch.Generator(device=device).manual_seed((base ^ 0x2545F4914F6CDD1D) & _MASK63)
 
 
 @dataclass
@@ -62,21 +73,19 @@ def _features(model, cfg: Config, batch: dict):
         return fbank_batch(batch["waves"], batch["wave_lens"], cfg.feature, device=model.device)
 
 
-def _check(cfg: Config) -> None:
-    if cfg.specaug.enabled:
-        raise NotImplementedError("specaug.enabled: SpecAugment is not ported yet (ROADMAP)")
-
-
 def make_train_step(model: torch.nn.Module, tx: GuardedAdam, cfg: Config) -> Callable:
     """-> train_step(state, batch, seed) -> (state, metrics). batch: waves
     [B, N] (float or int16 PCM), wave_lens, texts [B, U], text_lens on the
     model's device. metrics: loss, loss_rnnt, loss_ctc, grad_norm, finite,
     audio_seconds, all device tensors. The model is put in train() mode."""
-    _check(cfg)
+    sa = cfg.specaug
 
     def train_step(state: TrainState, batch: dict, seed: int):
         chunk_gen, drop_gen = step_generators(seed, state.step, model.device)
         feats, feat_lens = _features(model, cfg, batch)
+        if sa.enabled:
+            feats = spec_augment(specaug_generator(seed, state.step, model.device), feats,
+                                 feat_lens, sa.num_t_masks, sa.num_f_masks, sa.max_t, sa.max_f)
         model.train()
         params = list(model.parameters())
         for p in params:
@@ -109,7 +118,6 @@ def make_eval_step(model: torch.nn.Module, cfg: Config) -> Callable:
     """-> eval_step(batch, seed) -> loss dict (no update, no dropout; the
     chunk draw still comes from the seed, as the JAX eval step passes its
     chunk rng). The model is put in eval() mode."""
-    _check(cfg)
 
     @torch.no_grad()
     def eval_step(batch: dict, seed: int):
