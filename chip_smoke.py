@@ -19,7 +19,12 @@ Phases (any failure exits non-zero):
    and [16, 63, 256] (the fixture requests), fp32 and bf16, with a fully
    masked row; the attention forward and backward (#2/#3) at the training
    shape ([12, 191, 256] bf16, a dynamic-chunk mask), at an fp32 ragged
-   shape with a fully masked row and with a [B, 1, S] mask; the fused RNN-T
+   shape with a fully masked row and with a [B, 1, S] mask (the bf16
+   forward writing its fp32 output and each row's log-sum-exp, held against
+   the plain ones; #3 timed alone on what the forward saved; at the
+   training shape both bf16 kernels and the plain bf16 versions against the
+   fp32 plain version on the same bf16 values, and #3's two kernels
+   profiled); the fused RNN-T
    joint forward and backward (#4/#5), the RNN-T lattice (#8/#9) and the
    CTC alpha and beta sweeps (#6/#7) at the training step's shapes (B 12,
    T' 191, U+1 33, S 65, D 256, V 412) and at a ragged shape with a
@@ -108,6 +113,7 @@ import contextlib
 import itertools
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -168,9 +174,13 @@ def main() -> dict:
     logs = build_all()
     print(f"built {sorted(logs)} in {time.perf_counter() - t0:.1f} s")
     for name, log in logs.items():
+        entry = ""
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                entry = _kernel_name(m.group(1))
+            elif "registers" in line or "spill" in line:
+                print(f"  {name} {entry}: {line.strip()}")
 
     # ---------------------------------------------------------------- 3
     t_phase = _phase("3: kernels against their plain versions", t0)
@@ -411,6 +421,7 @@ def _attention_train_checks(torch, dev, bench) -> dict:
 
     from tpuasr_torch.nn.masks import chunk_mask, draw_dynamic_chunk, dynamic_chunk_size
     from tpuasr_torch.ops import relpos_attention_bwd
+    from tpuasr_torch.ops.relpos_attention import _relpos_fwd
 
     out = {}
     h, dk = 4, 64
@@ -440,15 +451,75 @@ def _attention_train_checks(torch, dev, bench) -> dict:
         u_, v_ = ((0.1 * torch.randn(d, generator=g)).to(dev, dtype) for _ in range(2))
         args = dict(q=q, k=k, p=p, v=v, u_bias=u_, v_bias=v_, mask=mask.to(dev),
                     scale=1.0 / math.sqrt(dk), n_head=h)
-        rec = _hold(torch, "relpos_attention", args, tag)
-        rec_b = _hold(torch, "relpos_attention_bwd",
-                      dict(list(args.items())[:7] + [("do", do)] + list(args.items())[7:]), tag)
+        bf16 = dtype == torch.bfloat16
+        rec = _hold(torch, "relpos_attention", dict(args, saved=bf16), tag)
+        # #3 alone: the bf16 forward's saved fp32 output and log-sum-exp made
+        # once, as the autograd Function hands them over (fp32 saves nothing)
+        saved = _relpos_fwd(*args.values(), saved=True)[1:] if bf16 else (None, None)
+        bwd_args = dict(list(args.items())[:7] + [("do", do)] + list(args.items())[7:],
+                        out=saved[0], lse=saved[1])
+        rec_b = _hold(torch, "relpos_attention_bwd", bwd_args, tag)
         if tag == "ragged":
-            dq = relpos_attention_bwd(*list(args.values())[:7], do, args["scale"], h)[0]
+            dq = relpos_attention_bwd(*bwd_args.values())[0]
             require(bool((dq[1, 5] == 0).all()), "a fully masked query row got a gradient")
         if tag == "training":
+            rec["vs_fp32"], rec_b["vs_fp32"] = _vs_fp32(torch, args, do, saved)
+            split = _device_split(torch, lambda: relpos_attention_bwd(*bwd_args.values()))
+            print("#3 at the training shape, device ms a call by kernel (profiler): " + "; ".join(
+                f"{ms:.4f} {key[:60]}" for key, ms in sorted(split.items(), key=lambda x: -x[1])))
+            rec_b["device_split_ms"] = split
             out["attention_training"], out["attention_bwd"] = rec, rec_b
     return out
+
+
+def _vs_fp32(torch, a, do, saved) -> tuple[dict, dict]:
+    """The bf16 kernels #2/#3 and the plain bf16 versions, each against the
+    fp32 plain version on the same bf16 values: -> ({"kernel",
+    "kernel_saved", "plain"}: the error over the output's max; #2 without
+    and with its saved fp32 output, and "differ": the outputs on which those
+    two differ) for the forward, and per output for the backward."""
+    from tpuasr_torch.ops.relpos_attention import (
+        _relpos_fwd, relpos_attention_bwd, relpos_attention_bwd_plain, relpos_attention_plain,
+    )
+
+    up = lambda v: v.float() if isinstance(v, torch.Tensor) and v.dtype == torch.bfloat16 else v
+    f32 = [up(v) for v in a.values()]
+    bf = list(a.values())
+    rel = lambda x, r: float((x.float() - r).abs().max() / r.abs().max().clamp(min=1e-30))
+    ref = relpos_attention_plain(*f32)
+    alone, saving = _relpos_fwd(*bf), _relpos_fwd(*bf, saved=True)[0]
+    fwd = {"kernel": rel(alone, ref), "kernel_saved": rel(saving, ref),
+           "plain": rel(relpos_attention_plain(*bf), ref),
+           "differ": int((alone != saving).sum())}
+    sc, h = a["scale"], a["n_head"]
+    names = ("dq", "dk", "dv", "dp", "du", "dvb")
+    refs = relpos_attention_bwd_plain(*f32[:7], do.float(), sc, h)
+    kern = relpos_attention_bwd(*bf[:7], do, sc, h, *saved)
+    plain = relpos_attention_bwd_plain(*bf[:7], do, sc, h)
+    bwd = {n: {"kernel": rel(x, r), "plain": rel(y, r)}
+           for n, x, y, r in zip(names, kern, plain, refs)}
+    print(f"bf16 against the fp32 plain version on the same bf16 values (error / the "
+          f"output's max): #2 kernel {fwd['kernel']:.3g} (saving for the backward "
+          f"{fwd['kernel_saved']:.3g}; {fwd['differ']} of {saving.numel()} outputs differ "
+          f"between the two), plain bf16 {fwd['plain']:.3g}; #3 "
+          + ", ".join(f"{n} kernel {v['kernel']:.3g} plain {v['plain']:.3g}"
+                      for n, v in bwd.items()))
+    return fwd, bwd
+
+
+def _device_split(torch, fn, iters: int = 10) -> dict:
+    """torch.profiler's device ms a call of fn, by kernel name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / iters for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
 
 
 def _ffn_checks(torch, dev) -> dict:
@@ -569,6 +640,10 @@ def _held(torch, name, a, ctc_inputs) -> tuple[dict, str, bool, str]:
     torch.cuda.synchronize()
     ref = plain(*args)
     got, ref = ((x,) if isinstance(x, torch.Tensor) else tuple(x) for x in (got, ref))
+    stats_err = None
+    if name == "relpos_attention" and len(got) == 3:  # saved=True: (out, out32, lse)
+        stats_err = _stats_err(torch, got[1:], ref[1:])
+        got, ref = got[:1], ref[:1]
     diffs = [(x.float() - y.float()).abs() for x, y in zip(got, ref)]
     err = max(float(d.max()) for d in diffs)
     rels = [float(d.max()) / max(float(y.float().abs().max()), 1e-30) for d, y in zip(diffs, ref)]
@@ -614,6 +689,13 @@ def _held(torch, name, a, ctc_inputs) -> tuple[dict, str, bool, str]:
                 "bf16 roundings of the output and the probabilities at other points, 2**-8 each")
             flops = pairs * h * 6 * dk  # scores 4 dk, a.v 2 dk per pair
             nbytes = es * (2 * b * t * d + 2 * b * s * d + s * d + 2 * d) + mask.numel()
+            if stats_err is not None:  # the fp32 output and each row's log-sum-exp out
+                ok = ok and stats_err[1]
+                why += (f"; saved fp32 output and lse max_abs_err {stats_err[0]:.3g} (tol 1e-4 + "
+                        f"1e-5*|ref|, a fully masked row's lse -inf on both sides: fp32 sums "
+                        f"in another order, bf16 p in two bf16 parts, 16 bits)")
+                nbytes += 4 * (b * h * t + b * t * d)
+                timing = "profiler"  # 30 plain calls with the logsumexp outlast the sleep
             library = lambda: F.scaled_dot_product_attention(sq, sk, heads(v), **sdpa)
         else:
             tol = 1e-4 if fp32 else 2.0 ** -6
@@ -624,10 +706,11 @@ def _held(torch, name, a, ctc_inputs) -> tuple[dict, str, bool, str]:
                 "ds rounds to bf16 before the products, a value on a rounding edge may round "
                 "the other way, and the outputs round to bf16")
             # scores 4 dk, da, dv and dq 2 dk each, dk|dp 4 dk; bytes: q, k, v,
-            # p, do, the biases and the mask in, dq, dk, dv, fp32 dp, du, dvb out
+            # p, do, the biases, the mask and the forward's saved fp32 output and
+            # log-sum-exp in, dq, dk, dv, fp32 dp, du, dvb out
             flops = pairs * h * 14 * dk
             nbytes = (es * (3 * b * t * d + 4 * b * s * d + s * d + 2 * d)
-                      + 4 * (s * d + 2 * d) + mask.numel())
+                      + 4 * (b * t * d + s * d + 2 * d + b * h * t) + mask.numel())
             lib_in = [x.detach().requires_grad_() for x in (sq, sk, heads(v))]
             lib_out = F.scaled_dot_product_attention(*lib_in, **sdpa)
             lib_g = heads(a["do"])
@@ -710,9 +793,49 @@ def _held(torch, name, a, ctc_inputs) -> tuple[dict, str, bool, str]:
                       + 4 * (2 * d * h + 3 * d + h))
         ok = max(rels) <= tol
         why = f"{tol:.3g} of each output's max|ref|: {why}"
+    if not ok and len(rels) > 1:
+        why += f"; error / max|ref| per output: {', '.join(f'{r:.3g}' for r in rels)}"
     rec = _record(torch, name, source, replaces, err, flops, peak, nbytes,
                   lambda: kernel(*args), lambda: plain(*args), library, plain_iters, timing)
+    if stats_err is not None:
+        rec["saved_max_abs_err"] = stats_err[0]
     return rec, why, bool(ok), inputs
+
+
+def _stats_err(torch, got, ref) -> tuple[float, bool]:
+    """What the forward saves for the backward (the fp32 output and each
+    row's log-sum-exp) against the plain version's: -> (max abs error, every
+    entry within 1e-4 + 1e-5*|ref| and a fully masked row's lse -inf on both
+    sides)."""
+    err, ok = 0.0, True
+    for x, r in zip(got, ref):
+        live = torch.isfinite(r)
+        ok = ok and torch.equal(live, torch.isfinite(x)) and bool((x[~live] == -torch.inf).all())
+        d = (x - r).abs()[live]
+        if d.numel():
+            err = max(err, float(d.max()))
+            ok = ok and bool((d <= 1e-4 + 1e-5 * r[live].abs()).all())
+    return err, ok
+
+
+def _kernel_name(mangled: str) -> str:
+    """A kernel's name and template arguments from its mangled symbol in a
+    source's anonymous namespace (`_ZN<n><namespace><n>relpos_fwd_kernelIfLi64EEEv...`
+    -> `relpos_fwd_kernel<float, 64>`), else the symbol."""
+    m = re.match(r"_ZN(\d+)_GLOBAL__N_", mangled)
+    n = m and re.match(r"\d+", mangled[m.end(1) + int(m.group(1)):])
+    if not n:
+        return mangled
+    start = m.end(1) + int(m.group(1)) + n.end()
+    name, rest = mangled[start:start + int(n.group())], mangled[start + int(n.group()):]
+    if not rest.startswith("I"):
+        return name
+    args, tok = [], re.compile(r"f|13__nv_bfloat16|L[ib]\d+E")  # the sources' kinds
+    pos = 1
+    while (t := tok.match(rest, pos)) is not None:
+        args.append({"f": "float", "13__nv_bfloat16": "bf16"}.get(t.group(), t.group()[2:-1]))
+        pos = t.end()
+    return f"{name}<{', '.join(args)}>"
 
 
 def _ctc_library(torch, a, ctc_inputs, backward: bool):

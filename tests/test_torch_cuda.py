@@ -6,8 +6,14 @@ S not multiples of the attention tiles, T != S, dk 16, 32 and 64, a broadcast
 [B, 1, S] padding mask, a fully masked query row; for the fused RNN-T joint
 (#4/#5) and the CTC lattice (#6/#7): U = 0, t_len = 0, an infeasible CTC
 row, B = 1, V = 412 and V = 64, bf16 enc_p/pred_p from a bf16 model; the
-attention backward (#3) in fp32 and bf16 at dk 16, 32 and 64 with a fully
-masked row and a broadcast mask, and through autograd; the RNN-T lattice
+attention forward (#2) and backward (#3) in fp32 and bf16 at dk 16, 32 and
+64 with a fully masked row and a broadcast mask, and at bench.py's training
+shape (12 x 191, 4 heads of 64) and the trainer's (12 x 63) with the
+encoder's padding and a chunk mask; the forward's saved fp32 output and
+log-sum-exp (bf16) against the plain ones and torch.logsumexp of the plain
+scores (1e-4 + 1e-5*|ref|, -inf for a fully masked row); autograd through
+the Function in fp32 (which saves only the inputs) and in bf16 (one launch
+of #2 and one of #3); the RNN-T lattice
 (#8/#9) at U+1 = 1, 33 and 257 with a t_len = 0 row, and the materialized
 RNN-T loss card against CPU; the fused FFN (#10/#11) at R = 1, 70 and 2,292
 rows, D 64 and 256, H 128 and 1024, fp32 and bf16, no masks and keep-masks
@@ -57,11 +63,14 @@ from tpuasr_torch.losses import rnnt_loss_from_logits
 from tpuasr_torch.losses.ctc import ctc_loss_from_logits, lattice_inputs
 from tpuasr_torch.ops import (
     LAUNCHES, ctc_alpha, ctc_alpha_plain, ctc_beta_grad, ctc_beta_grad_plain, fbank_frames,
-    fbank_frames_plain, ffn_bwd, ffn_bwd_plain, ffn_fwd, ffn_fwd_plain, fused_ffn, relpos_attention, relpos_attention_bwd, relpos_attention_bwd_plain,
+    fbank_frames_plain, ffn_bwd, ffn_bwd_plain, ffn_fwd, ffn_fwd_plain, fused_ffn,
+    relpos_attention, relpos_attention_bwd, relpos_attention_bwd_plain,
     relpos_attention_plain, rnnt_alpha, rnnt_alpha_plain, rnnt_beta_grad,
     rnnt_beta_grad_plain, rnnt_fused_grads, rnnt_fused_grads_plain, rnnt_fused_lp,
     rnnt_fused_lp_plain, rnnt_loss_fused_mean,
 )
+from tpuasr_torch.nn.masks import chunk_mask
+from tpuasr_torch.ops.relpos_attention import _relpos_fwd
 from tpuasr_torch.ops.rnnt_lattice import mask_lattice_inputs
 
 pytestmark = pytest.mark.cuda
@@ -94,9 +103,12 @@ def test_fbank_kernel_matches_plain(card, rows, n_fft, sr, precision, atol):
     torch.testing.assert_close(got[1], torch.full_like(got[1], -100.0))  # log floor
 
 
+# the last two: bench.py's training shape and the trainer's shorter bucket,
+# with the encoder's padding and a dynamic chunk
 ATTENTION_SHAPES = [
     (3, 21, 21, 2, 32, "chunk"), (2, 40, 70, 4, 64, "pad"), (1, 187, 187, 4, 64, "chunk"),
-    (3, 21, 21, 2, 16, "chunk"),
+    (3, 21, 21, 2, 16, "chunk"), (12, 191, 191, 4, 64, "dynamic"),
+    (12, 63, 63, 4, 64, "dynamic"),
 ]
 
 
@@ -111,6 +123,11 @@ def _attention_inputs(card, dtype, b, t, s, h, dk, mask_kind):
     if mask_kind == "pad":  # [B, 1, S]: read through a zero stride
         mask = torch.ones(b, 1, s, dtype=torch.bool)
         mask[-1, 0, s // 2:] = False
+    elif mask_kind == "dynamic":  # padding (as a batch's lengths) and a chunk of t // 12
+        lens = torch.linspace(s, s // 2, b).long()
+        pad = torch.arange(s)[None, None, :] < lens[:, None, None]
+        mask = pad & chunk_mask(t, t // 12, 3)[None]
+        mask[0, t - 1] = False  # fully masked row -> zeros
     else:
         i = torch.arange(t)[:, None]
         j = torch.arange(s)[None, :]
@@ -129,7 +146,7 @@ def test_relpos_attention_kernel_matches_plain(card, dtype, tol, b, t, s, h, dk,
     ref = relpos_attention_plain(*args)
     assert got.dtype == dtype
     torch.testing.assert_close(got.float(), ref.float(), rtol=tol, atol=tol)
-    if mask_kind == "chunk":
+    if mask_kind != "pad":
         assert torch.all(got[0, t - 1] == 0)
 
 
@@ -147,8 +164,61 @@ def test_relpos_attention_bwd_kernel_matches_plain(card, dtype, rel, b, t, s, h,
         assert x.dtype == y.dtype and x.shape == y.shape, name
         err = float((x.float() - y.float()).abs().max())
         assert err <= rel * float(y.float().abs().max()) + 1e-6, (name, err)
-    if mask_kind == "chunk":
+    if mask_kind != "pad":
         assert torch.all(got[0][0, t - 1] == 0)  # fully masked row: no gradient
+
+
+@pytest.mark.parametrize("b,t,s,h,dk,mask_kind", ATTENTION_SHAPES)
+def test_relpos_attention_saved_statistics(card, b, t, s, h, dk, mask_kind):
+    """What the bf16 forward saves for the backward: each row's log-sum-exp,
+    torch.logsumexp of the plain version's masked scaled scores (-inf for a
+    fully masked row), and the fp32 output a.v. Tolerance 1e-4 +
+    1e-5*|ref|: fp32 sums in another order, bf16 p in two bf16 parts (16
+    bits; an error of 1e-4 in L is 1e-4 relative in every probability the
+    backward rebuilds, far below bf16's 2**-8)."""
+    dtype = torch.bfloat16
+    args, _ = _attention_inputs(card, dtype, b, t, s, h, dk, mask_kind)
+    q, k, p, v, ub, vb, mask, scale, n_head = args
+    before = LAUNCHES["relpos_attention"]
+    out, out32, lse = _relpos_fwd(*args, saved=True)
+    torch.cuda.synchronize()
+    assert LAUNCHES["relpos_attention"] == before + 1
+    assert out32.dtype == torch.float32 and torch.equal(out32.to(dtype), out)
+    # without the saved output p rounds to bf16 once (serving): another
+    # rounding point, within the forward's bf16 tolerance
+    torch.testing.assert_close(_relpos_fwd(*args).float(), out.float(), rtol=1e-2, atol=1e-2)
+    _, ref32, _ = relpos_attention_plain(*args, saved=True)
+    assert bool(((out32 - ref32).abs() <= 1e-4 + 1e-5 * ref32.abs()).all())
+    heads = lambda x: x.float().reshape(x.shape[0], x.shape[1], n_head, dk)
+    scores = (torch.einsum("bthd,bshd->bhts", heads(q + ub), heads(k))
+              + torch.einsum("bthd,pshd->bhts", heads(q + vb), heads(p))) * scale
+    ref = torch.logsumexp(scores.masked_fill(~mask[:, None], -torch.inf), dim=-1)
+    assert lse.dtype == torch.float32 and lse.shape == (b, h, t)
+    dead = torch.isinf(ref)
+    assert torch.equal(torch.isinf(lse), dead) and bool((lse[dead] < 0).all())
+    assert bool(((lse - ref).abs() <= 1e-4 + 1e-5 * ref.abs())[~dead].all())
+    if mask_kind != "pad":
+        assert bool(dead[0, :, t - 1].all())
+
+
+@pytest.mark.parametrize("shape", [(12, 191, 191, 4, 64, "dynamic"), (3, 21, 21, 2, 16, "chunk")])
+def test_relpos_attention_bf16_autograd_launches_each_kernel_once(card, shape):
+    """bf16 autograd through `relpos_attention`: one launch of #2 (which
+    saves out and the log-sum-exp) and one of #3, and the plain backward's
+    gradients to q, k, p, v and both biases within 2**-6 of each leaf's
+    max."""
+    args, do = _attention_inputs(card, torch.bfloat16, *shape)
+    leaves = [x.detach().clone().requires_grad_() for x in args[:6]]
+    before = (LAUNCHES["relpos_attention"], LAUNCHES["relpos_attention_bwd"])
+    relpos_attention(*leaves, *args[6:]).backward(do)
+    torch.cuda.synchronize()
+    assert (LAUNCHES["relpos_attention"], LAUNCHES["relpos_attention_bwd"]) == (before[0] + 1,
+                                                                              before[1] + 1)
+    dq, dk, dv, dp, du, dvb = relpos_attention_bwd_plain(*args[:7], do, *args[7:])
+    for name, x, y in zip(("q", "k", "p", "v", "u", "v_bias"), leaves, (dq, dk, dp, dv, du, dvb)):
+        assert x.grad.dtype == y.dtype, name
+        err = float((x.grad.float() - y.float()).abs().max())
+        assert err <= 2.0 ** -6 * float(y.float().abs().max()) + 1e-6, (name, err)
 
 
 def test_relpos_attention_gradients_match_plain_backward(card):
@@ -157,9 +227,14 @@ def test_relpos_attention_gradients_match_plain_backward(card):
     args, do = _attention_inputs(card, torch.float32, 2, 40, 40, 4, 64, "chunk")
     leaves = [x.detach().clone().requires_grad_() for x in args[:6]]
     before = LAUNCHES["relpos_attention_bwd"]
-    relpos_attention(*leaves, *args[6:]).backward(do)
+    out = relpos_attention(*leaves, *args[6:])
+    saved = out.grad_fn.saved_tensors  # fp32: the inputs only
+    assert saved[7] is None and saved[8] is None
+    out.backward(do)
     torch.cuda.synchronize()
     assert LAUNCHES["relpos_attention_bwd"] == before + 1
+    with pytest.raises(ValueError, match="saves no statistics"):
+        _relpos_fwd(*args, saved=True)
     dq, dk, dv, dp, du, dvb = relpos_attention_bwd_plain(*args[:7], do, *args[7:])
     for x, y in zip(leaves, (dq, dk, dp, dv, du, dvb)):
         assert float((x.grad - y).abs().max()) <= 1e-4 * float(y.abs().max()) + 1e-6

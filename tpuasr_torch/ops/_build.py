@@ -36,9 +36,9 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 ENTRIES = {
     "fbank": ("fbank", "fbank_logmel", [_P] * 6 + [_I] * 4 + [_F, _I, _P]),
     "relpos_attention": ("relpos_attention", "relpos_attention_fwd",
-                         [_P] * 8 + [_I] * 5 + [_LL] * 3 + [_F, _I, _P]),
+                         [_P] * 10 + [_I] * 5 + [_LL] * 3 + [_F, _I, _P]),
     "relpos_attention_bwd": ("relpos_attention", "relpos_attention_bwd",
-                             [_P] * 15 + [_I] * 5 + [_LL] * 3 + [_F, _I, _P]),
+                             [_P] * 18 + [_I] * 5 + [_LL] * 3 + [_F, _I, _P]),
     "rnnt_fused_fwd": ("rnnt_fused", "rnnt_fused_fwd", [_P] * 8 + [_I] * 6 + [_P]),
     "rnnt_fused_bwd": ("rnnt_fused", "rnnt_fused_bwd", [_P] * 12 + [_I] * 6 + [_P]),
     "ctc_alpha": ("ctc_lattice", "ctc_alpha", [_P] * 6 + [_I] * 3 + [_P]),
