@@ -30,8 +30,10 @@ Phases (any failure exits non-zero):
    T' 191, U+1 33, S 65, D 256, V 412) and at a ragged shape with a
    t_len = 0 and a label_len = 0 row; the fused FFN forward and backward
    (#10/#11) at the training shape (12 x 191 rows, D 256, H 1024, bf16,
-   keep-masks at rate 0.1, scale 0.5), at the serving shape (4 x 187 rows,
-   fp32, no masks) and at a streaming chunk (4 x 32 rows, fp32). Max abs
+   keep-masks at rate 0.1, scale 0.5: two calls bit-identical, each call's
+   device time by kernel, and timed at other counts of H slices), at the
+   serving shape (4 x 187 rows, no masks) and at a streaming chunk (4 x 32
+   rows), fp32 and (#10) bf16. Max abs
    error, its tolerance and the reason, kernel ms, plain ms, bound, and the
    ms of one PyTorch call computing the same function where there is one
    (attention: `scaled_dot_product_attention` on [q+u | q+v], [k | p], v,
@@ -526,10 +528,17 @@ def _ffn_checks(torch, dev) -> dict:
     """Kernels #10/#11 against their plain versions at the shapes the paths
     give them: the training steps of phase 6d (12 x 191 rows, bf16,
     keep-masks at rate 0.1, ff_scale 0.5), offline serving (4 x 187 rows, fp32,
-    no masks) and a streaming chunk (4 streams x 32 frames, fp32); -> the
-    records {"ffn_fwd", "ffn_bwd"} at the training shape and
-    {"ffn_fwd_serving"} at the serving shape."""
+    no masks) and a streaming chunk (4 streams x 32 frames, fp32), and #10 at
+    the serving and streaming shapes in bf16 (bf16 serving with
+    `fused_ffn=True` takes the tensor-core route); at the training shape two
+    calls of each must give the same bits, each call's device time is split
+    by kernel, and both are timed at other counts of H slices than the
+    plan's; -> the records {"ffn_fwd", "ffn_bwd"} at the training shape,
+    {"ffn_fwd_serving"} at the serving shape (fp32) and
+    {"ffn_fwd_serving_bf16", "ffn_fwd_streaming_bf16"}."""
     import numpy as np
+
+    from tpuasr_torch.ops import ffn_bwd, ffn_fwd
 
     out = {}
     d, h, rate, scale = 256, 1024, 0.1, 0.5
@@ -538,7 +547,9 @@ def _ffn_checks(torch, dev) -> dict:
     rn = lambda *shape: torch.randn(*shape, generator=g)
     for tag, r, dtype, masks in (("training", rows, torch.bfloat16, True),
                                  ("serving", 4 * 187, torch.float32, False),
-                                 ("streaming", 4 * CHUNK, torch.float32, False)):
+                                 ("streaming", 4 * CHUNK, torch.float32, False),
+                                 ("serving_bf16", 4 * 187, torch.bfloat16, False),
+                                 ("streaming_bf16", 4 * CHUNK, torch.bfloat16, False)):
         args = dict(x=rn(r, d).to(dev, dtype), ln_scale=(1.0 + 0.1 * rn(d)).to(dev),
                     ln_bias=(0.1 * rn(d)).to(dev), w1=(rn(h, d) / d ** 0.5).to(dev, dtype),
                     b1=(0.1 * rn(h)).to(dev), w2=(rn(d, h) / h ** 0.5).to(dev, dtype),
@@ -547,13 +558,58 @@ def _ffn_checks(torch, dev) -> dict:
             args["mask1"] = (torch.rand(r, h, generator=g) >= rate).to(torch.uint8).to(dev)
             args["mask2"] = (torch.rand(r, d, generator=g) >= rate).to(torch.uint8).to(dev)
         do = rn(r, d).to(dev, dtype)
-        rec = _hold(torch, "ffn_fwd", dict(args, rate=rate, ff_scale=scale), tag)
-        rec_b = _hold(torch, "ffn_bwd", dict(args, dout=do, rate=rate, ff_scale=scale), tag)
-        if tag == "training":
-            out["ffn_fwd"], out["ffn_bwd"] = rec, rec_b
+        fwd_args = dict(args, rate=rate, ff_scale=scale)
+        bwd_args = dict(args, dout=do, rate=rate, ff_scale=scale)
+        rec = _hold(torch, "ffn_fwd", fwd_args, tag)
+        if tag.endswith("bf16"):
+            out[f"ffn_fwd_{tag}"] = rec
+            continue
+        rec_b = _hold(torch, "ffn_bwd", bwd_args, tag)
         if tag == "serving":
             out["ffn_fwd_serving"] = rec
+        if tag != "training":
+            continue
+        for name, fn, a in (("ffn_fwd", ffn_fwd, fwd_args), ("ffn_bwd", ffn_bwd, bwd_args)):
+            first, again = fn(*a.values()), fn(*a.values())
+            torch.cuda.synchronize()
+            first, again = ((x,) if isinstance(x, torch.Tensor) else x for x in (first, again))
+            require(all(torch.equal(x, y) for x, y in zip(first, again)),
+                    f"two calls of {name} on the same inputs differ")
+            split = _device_split(torch, lambda: fn(*a.values()))
+            print(f"{name} at the training shape: two calls bit-identical; device ms a call "
+                  f"by kernel (profiler): " + "; ".join(
+                      f"{ms:.4f} {key[:60]}" for key, ms in sorted(split.items(),
+                                                                   key=lambda x: -x[1])))
+            (rec if name == "ffn_fwd" else rec_b)["device_split_ms"] = split
+        rec["slices_ms"], rec_b["slices_ms"] = _ffn_slices(torch, r, fwd_args, bwd_args)
+        out["ffn_fwd"], out["ffn_bwd"] = rec, rec_b
     return out
+
+
+def _ffn_slices(torch, r, fwd_args, bwd_args) -> tuple[dict, dict]:
+    """#10 and #11 at the training shape timed with the hidden dimension
+    split into other counts of slices than the plan's; -> ({slices: ms}
+    forward, {slices: ms} backward)."""
+    from tpuasr_torch.ops import ffn as ffn_mod
+
+    x, h = fwd_args["x"], fwd_args["w1"].shape[0]
+    d, n_chunks = x.shape[1], h // ffn_mod.KERNEL_H_MULTIPLE
+    plan = ffn_mod._ffn_plan(r, d, h, x.dtype, ffn_mod._sm_count(x.device.index))
+    real = ffn_mod._ffn_plan
+    fwd, bwd = {}, {}
+    try:
+        for want in (1, 2, 3, 4, 7, 8, 11, 16):
+            s = ffn_mod._slices(n_chunks, 1, want, 1)
+            ffn_mod._ffn_plan = lambda r_, d_, h_, dt, n_sm, s=s: ffn_mod._plan_for(
+                r_, d_, h_, dt, s, s)
+            fwd[s] = _time_ms(torch, lambda: ffn_mod.ffn_fwd(*fwd_args.values()))
+            bwd[s] = _time_ms(torch, lambda: ffn_mod.ffn_bwd(*bwd_args.values()))
+    finally:
+        ffn_mod._ffn_plan = real
+    print(f"#10 / #11 at the training shape by H slices ({plan['tiles']} row tiles; the "
+          f"plan's {plan['fwd_slices']} / {plan['bwd_slices']}), ms: "
+          + "; ".join(f"{s}: {fwd[s]:.4f} / {bwd[s]:.4f}" for s in fwd))
+    return fwd, bwd
 
 
 def _record(torch, name, source, replaces, err, flops, peak, nbytes, kernel, plain,
@@ -782,8 +838,7 @@ def _held(torch, name, a, ctc_inputs) -> tuple[dict, str, bool, str]:
             nbytes = es * (2 * r * d + 2 * d * h) + 4 * (3 * d + h) + masks
         else:
             tol = 1e-4 if fp32 else 2.0 ** -6
-            why = ("fp32 sums in another order, the weight and LN gradients added with "
-                   "atomics in an order that changes between runs" if fp32 else
+            why = ("fp32 sums in another order (the same order in every run)" if fp32 else
                    "dy, the activation and dh round to bf16 before the products, a value on "
                    "a rounding edge may round the other way; dx rounds to bf16")
             # five products; x, do, the weights and masks in, dx and the fp32
@@ -1335,8 +1390,8 @@ def _train_card_vs_cpu(torch, dev, fused_joint_loss: bool, fused_ffn: bool = Fal
           f"{lc} cpu {lh} (tol 1e-4 relative); grad norm {gc:.6g} vs {gh:.6g} (tol 1e-4 "
           f"relative); gradient error / the leaf's max|g|, the three worst: "
           f"{[(names[i], f'{rels[i]:.3g}') for i in order[:3]]} (tol 1e-3: fp32 sums in "
-          f"another order through 12 blocks, the attention backward's, the fused "
-          f"joint's and the fused FFN's atomics, the lattice); "
+          f"another order through 12 blocks, the attention backward's and the fused "
+          f"joint's atomics, the lattice); "
           f"the {len(shift_free)} key-projection biases (zero gradient in exact arithmetic) "
           f"reach {noise:.3g} against a largest gradient entry of {scale:.4g} (tol 1e-6 of "
           f"it: rounding noise)")

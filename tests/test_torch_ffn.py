@@ -23,6 +23,9 @@
   same keep decisions, and the backward applies the forward's masks.
 - The wrappers refuse devices other than CPU and CUDA, and never count a
   launch for CPU tensors.
+- The kernels' tiling (`_ffn_plan`, plain Python): row tiles x H slices at
+  the main paths' row counts on a 132-SM card, no empty slice, and the
+  workspace bytes of both kernels.
 """
 
 import dataclasses
@@ -201,3 +204,55 @@ def test_ffn_wrappers_refuse_other_devices():
     for fn, extra in ((ffn_fwd, ()), (ffn_bwd, (meta,)), (fused_ffn, ())):
         with pytest.raises(ValueError, match="unsupported device"):
             fn(meta, vec, vec, w1, b1, w2, vec, None, None, *extra, 0.1, 0.5)
+
+
+# (rows, dtype) -> (row tiles, #10's H slices, #11's) of `_ffn_plan` on a
+# 132-SM card at D 256, H 1024: bench.py's training rows, the trainer's
+# T' 63 and 127 buckets, serving's 748 rows and a streaming chunk's 128, the
+# bf16 serving rows too
+PLANS = [(2292, torch.bfloat16, (36, 3, 3)), (756, torch.bfloat16, (12, 11, 11)),
+         (1524, torch.bfloat16, (24, 5, 5)), (748, torch.float32, (24, 11, 5)),
+         (128, torch.float32, (4, 32, 32)), (748, torch.bfloat16, (12, 11, 11)),
+         (128, torch.bfloat16, (2, 32, 32))]
+
+
+@pytest.mark.parametrize("r,dtype,want", PLANS)
+def test_ffn_plan_fills_the_card(r, dtype, want):
+    """The kernels' tiling: row tiles x H slices fill the card without a
+    second wave (#10: two blocks an SM in fp32, one in bf16; #11's row side
+    one) where H allows,
+    every slice holds a chunk, and the workspaces are sized from (R, S): the
+    forward's partial outputs S R D fp32 (none for one slice), the
+    backward's xn, dyc [R, D] and activation, dh [R, H] in the compute type,
+    S partial dxn, and per-tile vectors."""
+    from tpuasr_torch.ops.ffn import _ffn_plan
+
+    d, h, n_sm = 256, 1024, 132
+    plan = _ffn_plan(r, d, h, dtype, n_sm)
+    assert (plan["tiles"], plan["fwd_slices"], plan["bwd_slices"]) == want
+    rows, tiles = plan["rows"], plan["tiles"]
+    assert rows == (64 if dtype == torch.bfloat16 else 32) and tiles == -(-r // rows)
+    for kind, per_sm in (("fwd", 2 if dtype == torch.float32 else 1), ("bwd", 1)):
+        s, chunks = plan[f"{kind}_slices"], plan[f"{kind}_chunks"]
+        assert (s - 1) * chunks < h // 32 <= s * chunks  # no empty slice
+        assert tiles * s <= n_sm * per_sm or s == 1  # one wave
+        # and no longer slices: one chunk fewer each would take a second wave
+        assert chunks == 1 or tiles * -(-(h // 32) // (chunks - 1)) > n_sm * per_sm
+    s = plan["bwd_slices"]
+    assert plan["fwd_ws"] == plan["fwd_slices"] * r * d * 4
+    es = 2 if dtype == torch.bfloat16 else 4
+    at_least = 2 * r * (d + h) * es + s * r * d * 4 + tiles * (h + d) * 4
+    assert at_least <= plan["bwd_ws"] <= at_least + 9 * 256 + 2 * (-(-r // 8)) * d * 4
+    if r == 2292:  # bench.py's shape: the sizes the source note gives
+        assert (plan["fwd_ws"], plan["bwd_ws"]) == (7_041_024, 19_548_160)
+
+
+def test_ffn_plan_small_cards_and_odd_h():
+    """One slice when the rows alone fill the card; H 160 (five chunks)
+    splits into at most five."""
+    from tpuasr_torch.ops.ffn import _ffn_plan
+
+    one = _ffn_plan(2292, 256, 1024, torch.bfloat16, 16)
+    assert one["fwd_slices"] == one["bwd_slices"] == 1 and one["fwd_ws"] == 0
+    odd = _ffn_plan(70, 64, 160, torch.bfloat16, 132)
+    assert (odd["tiles"], odd["fwd_slices"], odd["bwd_slices"]) == (2, 5, 5)

@@ -119,6 +119,24 @@ def test_unported_options_raise(bad):
         Transducer(_tiny_cfg(**bad), device="cpu")
 
 
+@pytest.mark.parametrize("remat", [True, False])
+def test_jax_gradient_checkpointing_is_read_and_refused(remat):
+    """A JAX model dict with `encoder.gradient_checkpointing` keeps the field
+    through `from_dict`; True raises when the encoder is built (the port
+    does not recompute blocks), False builds."""
+    jm = jax_config.ModelConfig(vocab_size=64)
+    jm.encoder = dataclasses.replace(jm.encoder, output_size=32, attention_heads=2,
+                                     linear_units=64, num_blocks=1, cnn_module_kernel=7,
+                                     gradient_checkpointing=remat)
+    mc = from_dict(ModelConfig, jax_config.to_dict(jm))
+    assert mc.encoder.gradient_checkpointing is remat
+    if remat:
+        with pytest.raises(NotImplementedError, match="gradient_checkpointing.*ROADMAP"):
+            Transducer(mc, device="cpu")
+    else:
+        Transducer(mc, device="cpu")
+
+
 @pytest.mark.parametrize("where,key,value", [
     ("model", "rnnt_prune_range", 4), ("predictor", "predictor_type", "embedding"),
     ("encoder", "attention_dropout_rate", 0.1), ("optim", "accum_steps", 2),

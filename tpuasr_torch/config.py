@@ -89,6 +89,9 @@ class EncoderConfig:
     use_dynamic_left_chunk: bool = False
     max_chunk_size: int = 25  # dynamic-chunk cap: 100 frames / subsampling 4
     max_len: int = 5000  # positional-encoding table length
+    # recompute each block in the backward (the JAX package's remat): must be
+    # False, not built (`check_supported`)
+    gradient_checkpointing: bool = False
     mlp_type: str = "position_wise_feed_forward"
     encoder_type: str = "conformer"
 

@@ -1,0 +1,104 @@
+// Building blocks of the port's tensor-core kernels (sm_90a): cp.async
+// staging, ldmatrix fragment loads and the bf16 mma.sync.m16n8k16 product
+// with fp32 sums. Included by relpos_attention.cu and ffn.cu; each source is
+// its own library, so the helpers sit in an anonymous namespace.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+__host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+__device__ __forceinline__ uint32_t smem_addr(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+// 16 (or 4) bytes device memory -> shared memory, in flight until
+// cp_async_wait; zero-filled (nothing read) when !full
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(full ? 16 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool full) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(full ? 4 : 0)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// four 8x8 bf16 matrices from shared memory; lane i gives the address of
+// row i % 8 of matrix i / 8 (.trans: each matrix transposed)
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], const bf16* ptr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(ptr))
+               : "memory");
+}
+__device__ __forceinline__ void ldsm4_t(uint32_t (&r)[4], const bf16* ptr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(ptr))
+               : "memory");
+}
+
+// d += a . b, a 16x16 (row-major fragments), b 16x8, bf16 operands, fp32 sums.
+// Fragments (g = lane / 4, c = lane % 4): a {(g, 2c..), (g+8, 2c..), (g, 2c+8..),
+// (g+8, 2c+8..)}, b {(k 2c.., n g), (k 2c+8.., n g)}, d {(g, 2c), (g, 2c+1),
+// (g+8, 2c), (g+8, 2c+1)}
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 x = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// the A fragment of rows r0..r0+15, columns k0..k0+15 of a row-major tile
+__device__ __forceinline__ const bf16* a_frag(const bf16* tile, int pitch, int r0, int k0,
+                                              int lane) {
+  return tile + (r0 + (lane & 15)) * pitch + k0 + ((lane >> 4) << 3);
+}
+// the B fragments of the n-tiles n0 and n0 + 8 at depth k0..k0+15 of a tile
+// stored [n][k] (B = tile^T; ldsm4): {b0, b1} of n0, then of n0 + 8
+__device__ __forceinline__ const bf16* b_frag(const bf16* tile, int pitch, int n0, int k0,
+                                              int lane) {
+  return tile + (n0 + (lane & 7) + ((lane >> 4) << 3)) * pitch + k0 + (((lane >> 3) & 1) << 3);
+}
+// the same for a tile stored [k][n] (B = tile; ldsm4_t)
+__device__ __forceinline__ const bf16* bt_frag(const bf16* tile, int pitch, int n0, int k0,
+                                               int lane) {
+  return tile + (k0 + (lane & 7) + (((lane >> 3) & 1) << 3)) * pitch + n0 + ((lane >> 4) << 3);
+}
+// the A fragment of rows (m) m0..m0+15, depth k0..k0+15 of a tile stored
+// [k][m] (A = tile^T; ldsm4_t)
+__device__ __forceinline__ const bf16* at_frag(const bf16* tile, int pitch, int m0, int k0,
+                                               int lane) {
+  return tile + (k0 + (lane & 7) + ((lane >> 4) << 3)) * pitch + m0 + (((lane >> 3) & 1) << 3);
+}
+
+// dynamic shared memory above 48 KB needs the attribute before the launch
+template <typename K>
+cudaError_t allow_smem(K kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
+}
+
+}  // namespace

@@ -61,6 +61,11 @@ def check_supported(c: EncoderConfig) -> None:
                                   "(ROADMAP: attention zoo)")
     if not (c.normalize_before and c.macaron_style and c.use_cnn_module):
         raise NotImplementedError("only the pre-norm macaron conformer block is ported")
+    if c.gradient_checkpointing:
+        raise NotImplementedError(
+            "encoder.gradient_checkpointing=True: recomputing the blocks in the backward "
+            "is not built (ROADMAP §1 item 1: the recompute must replay each block's "
+            "dropout and chunk masks)")
 
 
 class PositionwiseFeedForward(nn.Module):

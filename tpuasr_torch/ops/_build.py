@@ -3,7 +3,9 @@
 Each ``tpuasr_torch/csrc/<name>.cu`` has a plain C interface. At first use it
 is compiled by ``nvcc`` for ``sm_90a`` into ``build/tpuasr_torch/`` at the
 root of the checkout and loaded with ``ctypes``; the library's file name
-carries a hash of its source, so an edited source is rebuilt. Nothing here
+carries a hash of its source and of the ``csrc/*.cuh`` headers it includes
+(`mma.cuh`: the tensor-core building blocks of the attention and FFN
+kernels), so an edited source or header is rebuilt. Nothing here
 runs at import time: the CPU tests import every module of the port.
 
 A source may hold several kernels (`ctc_lattice.cu`: the CTC alpha and
@@ -20,6 +22,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -45,8 +48,8 @@ ENTRIES = {
     "ctc_beta_grad": ("ctc_lattice", "ctc_beta_grad", [_P] * 8 + [_I] * 3 + [_P]),
     "rnnt_alpha": ("rnnt_lattice", "rnnt_alpha", [_P] * 5 + [_I] * 3 + [_P]),
     "rnnt_beta_grad": ("rnnt_lattice", "rnnt_beta_grad", [_P] * 8 + [_I] * 3 + [_P]),
-    "ffn_fwd": ("ffn", "ffn_fwd", [_P] * 10 + [_I] * 3 + [_F, _F, _I, _P]),
-    "ffn_bwd": ("ffn", "ffn_bwd", [_P] * 17 + [_I] * 3 + [_F, _F, _I, _P]),
+    "ffn_fwd": ("ffn", "ffn_fwd", [_P] * 10 + [_I] * 3 + [_F, _F, _I, _P, _LL, _I, _P]),
+    "ffn_bwd": ("ffn", "ffn_bwd", [_P] * 17 + [_I] * 3 + [_F, _F, _I, _P, _LL, _I, _P]),
 }
 KERNELS = tuple(ENTRIES)
 SOURCES = tuple(dict.fromkeys(src for src, _, _ in ENTRIES.values()))
@@ -71,8 +74,17 @@ def _nvcc() -> str:
                        "built from tpuasr_torch/csrc at first use")
 
 
+def _sources(name: str) -> list[Path]:
+    """A kernel source and the csrc headers it includes (`#include "x.cuh"`)."""
+    src = CSRC / f"{name}.cu"
+    heads = re.findall(r'^#include "([^"]+)"', src.read_text(), re.M)
+    return [src] + [CSRC / h for h in heads]
+
+
 def _target(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
+    """The library's path, named by a hash of its source and its headers, so
+    an edit of either rebuilds it."""
+    digest = hashlib.sha1(b"".join(p.read_bytes() for p in _sources(name))).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 
 

@@ -20,10 +20,14 @@ and `_bwd_kernel`'s: LN(x)*g + b rounds to x's type before W1; h, the swish
 and the masks stay fp32; the activation rounds before W2; x + s*y is fp32
 and rounds once. The wrappers run the kernels for tensors on the card and
 the plain versions for tensors on the CPU; a CUDA tensor never takes the
-plain path.
+plain path. On the card the kernels tile the rows and slices of the hidden
+dimension as `_ffn_plan` says and sum across blocks in a fixed order: two
+calls on the same inputs give the same bits.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -32,6 +36,75 @@ from tpuasr_torch.ops import _build
 _LN_EPS = 1e-6
 KERNEL_D = (64, 256)  # csrc/ffn.cu's widths: the card tests' and the flagship's
 KERNEL_H_MULTIPLE = 32  # the hidden dimension is walked in chunks of 32
+_ROWS = {torch.bfloat16: 64, torch.float32: 32}  # rows a block: tensor-core and fp32 routes
+_LN_ROWS = 8  # rows a block of the backward's LN pass (a warp per row)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _bwd_ws(r: int, d: int, h: int, slices: int, es: int, tiles: int) -> int:
+    """Bytes of #11's scratch, laid out as `bwd_ws` in csrc/ffn.cu: xn, dyc
+    [R, D] and the rounded activation and dh [R, H] in the compute type,
+    the slices' partial dxn [S, R, D], and per row tile the partial db1,
+    db2 (row side) and dg, db (LN pass), fp32; each part 256-byte aligned."""
+    ln = _cdiv(r, _LN_ROWS) * d * 4
+    parts = (r * d * es, r * d * es, r * h * es, r * h * es, slices * r * d * 4,
+             tiles * h * 4, tiles * d * 4, ln, ln)
+    return sum(_cdiv(n, 256) * 256 for n in parts)
+
+
+# blocks of each kernel an SM takes in one wave. #11's row side: one (153 KB
+# of shared memory bf16, 146 KB fp32). #10 fits two an SM (115 KB / 108 KB):
+# fp32 takes two (its CUDA-core chunks gain from the second block), bf16 one,
+# which measured faster at the training shape on an H100 (chip_smoke phase
+# 3, "by H slices"): the slices' partial outputs cost S R D 4 bytes through
+# L2 and a longer sum, more than a second block an SM wins back
+_PER_SM = {("fwd", torch.bfloat16): 1, ("fwd", torch.float32): 2,
+           ("bwd", torch.bfloat16): 1, ("bwd", torch.float32): 1}
+
+
+def _slices(n_chunks: int, tiles: int, n_sm: int, per_sm: int) -> int:
+    """H slices for `tiles` row tiles: as many as the card holds at once
+    (tiles x slices <= n_sm x per_sm, so no block waits for a second wave),
+    at least one and at most one a chunk, none empty."""
+    want = min(n_chunks, max(1, n_sm * per_sm // tiles))
+    return _cdiv(n_chunks, _cdiv(n_chunks, want))
+
+
+def _plan_for(r: int, d: int, h: int, dtype: torch.dtype, fwd_slices: int,
+              bwd_slices: int) -> dict:
+    """The tiling with the given H slices for #10 and #11."""
+    rows = _ROWS[dtype]
+    tiles = _cdiv(r, rows)
+    n_chunks = h // KERNEL_H_MULTIPLE
+    es = 2 if dtype == torch.bfloat16 else 4
+    return {"rows": rows, "tiles": tiles, "fwd_slices": fwd_slices,
+            "bwd_slices": bwd_slices, "fwd_chunks": _cdiv(n_chunks, fwd_slices),
+            "bwd_chunks": _cdiv(n_chunks, bwd_slices),
+            "fwd_ws": fwd_slices * r * d * 4 if fwd_slices > 1 else 0,
+            "bwd_ws": _bwd_ws(r, d, h, bwd_slices, es, tiles)}
+
+
+def _ffn_plan(r: int, d: int, h: int, dtype: torch.dtype, n_sm: int) -> dict:
+    """How #10/#11 tile R rows on a card of `n_sm` SMs: row tiles of 64
+    (bf16, tensor cores) or 32 (fp32) rows, and the hidden dimension split
+    into slices of chunks of 32 units, as many slices as let every block of
+    the kernel be resident at once (`_PER_SM`); -> {"rows", "tiles",
+    "fwd_slices", "bwd_slices", "fwd_chunks", "bwd_chunks" (chunks a
+    slice), "fwd_ws", "bwd_ws"}: the grid is tiles x slices; the workspace
+    bytes of the forward (the slices' partial outputs, none for one slice)
+    and of the backward."""
+    tiles = _cdiv(r, _ROWS[dtype])
+    n_chunks = h // KERNEL_H_MULTIPLE
+    return _plan_for(r, d, h, dtype, _slices(n_chunks, tiles, n_sm, _PER_SM["fwd", dtype]),
+                     _slices(n_chunks, tiles, n_sm, _PER_SM["bwd", dtype]))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _ln_stats(x32: torch.Tensor):
@@ -119,6 +192,8 @@ def _check(x, ln_scale, ln_bias, w1, b1, w2, b2, mask1, mask2, dout=None):
                              f"{tuple(t.shape)}")
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"fused_ffn: {name} must be contiguous on {x.device}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"fused_ffn: {name} must start on a 16-byte boundary")
     return r, d, h
 
 
@@ -141,13 +216,16 @@ def ffn_fwd(x, ln_scale, ln_bias, w1, b1, w2, b2, mask1, mask2, rate: float,
     out = torch.empty_like(x)
     if r == 0:
         return out
+    plan = _ffn_plan(r, d, h, x.dtype, _sm_count(x.device.index))
+    # the slices' partial outputs, summed in slice order by the kernel's epilogue
+    ws = torch.empty(plan["fwd_ws"], dtype=torch.uint8, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.launch("ffn_fwd", x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
                       w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
                       _ptr(mask1), _ptr(mask2), out.data_ptr(), r, d, h,
                       float(1.0 - rate), float(ff_scale), int(x.dtype == torch.bfloat16),
-                      stream)
+                      ws.data_ptr(), ws.numel(), plan["fwd_slices"], stream)
     return out
 
 
@@ -165,18 +243,23 @@ def ffn_bwd(x, ln_scale, ln_bias, w1, b1, w2, b2, mask1, mask2, dout, rate: floa
     r, d, h = _check(x, ln_scale, ln_bias, w1, b1, w2, b2, mask1, mask2, dout)
     dx = torch.empty_like(x)
     f32 = dict(dtype=torch.float32, device=x.device)
-    # the kernel adds every block's partial sums into these
-    dg, db, db2 = (torch.zeros(d, **f32) for _ in range(3))
-    dw1, db1, dw2 = torch.zeros(h, d, **f32), torch.zeros(h, **f32), torch.zeros(d, h, **f32)
-    if r > 0:
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            _build.launch("ffn_bwd", x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
-                          w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
-                          _ptr(mask1), _ptr(mask2), dout.data_ptr(), dx.data_ptr(),
-                          dg.data_ptr(), db.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
-                          dw2.data_ptr(), db2.data_ptr(), r, d, h, float(1.0 - rate),
-                          float(ff_scale), int(x.dtype == torch.bfloat16), stream)
+    if r == 0:  # sums over no rows
+        return (dx, torch.zeros(d, **f32), torch.zeros(d, **f32), torch.zeros(h, d, **f32),
+                torch.zeros(h, **f32), torch.zeros(d, h, **f32), torch.zeros(d, **f32))
+    # the kernels write every output once, each sum over the rows in a fixed order
+    dg, db, db2 = (torch.empty(d, **f32) for _ in range(3))
+    dw1, db1, dw2 = torch.empty(h, d, **f32), torch.empty(h, **f32), torch.empty(d, h, **f32)
+    plan = _ffn_plan(r, d, h, x.dtype, _sm_count(x.device.index))
+    ws = torch.empty(plan["bwd_ws"], dtype=torch.uint8, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.launch("ffn_bwd", x.data_ptr(), ln_scale.data_ptr(), ln_bias.data_ptr(),
+                      w1.data_ptr(), b1.data_ptr(), w2.data_ptr(), b2.data_ptr(),
+                      _ptr(mask1), _ptr(mask2), dout.data_ptr(), dx.data_ptr(),
+                      dg.data_ptr(), db.data_ptr(), dw1.data_ptr(), db1.data_ptr(),
+                      dw2.data_ptr(), db2.data_ptr(), r, d, h, float(1.0 - rate),
+                      float(ff_scale), int(x.dtype == torch.bfloat16), ws.data_ptr(),
+                      ws.numel(), plan["bwd_slices"], stream)
     return dx, dg, db, dw1, db1, dw2, db2
 
 
