@@ -10,7 +10,7 @@ Phases (any failure exits non-zero):
    card's name and power limit (nvidia-smi).
 2. Build: compile every kernel source of tpuasr_torch/csrc at once (one nvcc
    per source, started together) and print the time and ptxas' register
-   lines.
+   and spill lines, each labelled with its kernel.
 3. Kernels against their plain versions on the card, at the flagship's
    shapes: fbank on the 16 waves of fixtures/example1.npz (48 kHz) and on
    a seeded 8 s batch, in both precisions, and on the training batch of
@@ -28,7 +28,10 @@ Phases (any failure exits non-zero):
    joint forward and backward (#4/#5), the RNN-T lattice (#8/#9) and the
    CTC alpha and beta sweeps (#6/#7) at the training step's shapes (B 12,
    T' 191, U+1 33, S 65, D 256, V 412) and at a ragged shape with a
-   t_len = 0 and a label_len = 0 row; the fused FFN forward and backward
+   t_len = 0 and a label_len = 0 row (#5 also twice at each, bit-identical,
+   and its device time by kernel at the training shape: row side,
+   vocabulary side, sum; #4/#5's bound at the 3xTF32 floor, the fp32
+   CUDA-core figure beside it); the fused FFN forward and backward
    (#10/#11) at the training shape (12 x 191 rows, D 256, H 1024, bf16,
    keep-masks at rate 0.1, scale 0.5: two calls bit-identical, each call's
    device time by kernel, and timed at other counts of H slices), at the
@@ -125,6 +128,7 @@ ROOT = Path(__file__).resolve().parent
 
 PEAK_FP32 = 67e12    # H100 SXM fp32 outside the tensor cores, FLOP/s
 PEAK_BF16 = 989e12   # H100 SXM dense bf16 tensor cores, FLOP/s
+PEAK_TF32 = 494.7e12  # H100 SXM dense TF32 tensor cores, FLOP/s (3xTF32: three passes)
 HBM_BPS = 3.35e12    # H100 SXM HBM3, bytes/s
 SEED = 0
 SLEEP_CYCLES = 200_000_000  # ~0.1 s of GPU clock: longer than any timed enqueue
@@ -706,7 +710,7 @@ def _held(torch, name, a, ctc_inputs) -> tuple[dict, str, bool, str]:
     inputs = ", ".join(f"{k} {str(v.dtype)[6:]}{list(v.shape)}" for k, v in a.items()
                        if isinstance(v, torch.Tensor) and v.dim() >= 2)
     inputs += "".join(f", {k} None" for k, v in a.items() if v is None)
-    library, plain_iters, timing = None, 30, "events"
+    library, plain_iters, timing, bound_fp32 = None, 30, "events", None
 
     if name == "fbank":
         rows, n_fft = a["frames"].shape
@@ -776,20 +780,25 @@ def _held(torch, name, a, ctc_inputs) -> tuple[dict, str, bool, str]:
         enc, pred, w = a["enc_p"], a["pred_p"], a["w"]
         b, t, d = enc.shape
         u1, v = pred.shape[1], w.shape[1]
-        rows, peak = b * t * u1, PEAK_FP32
+        rows = b * t * u1
         io = b * t * d + b * u1 * d + d * v + v
+        # the bound at the card's own floor for fp32 products: 3xTF32 (three
+        # TF32 passes a product); the fp32 CUDA-core figure beside it
         if name == "rnnt_fused_fwd":
             tol = 5e-4
             ok = err <= tol
             why = (f"{tol}: fp32 sums of {d} products in another order on logits up to ~10, "
                    f"~1e-5 expected; the online logsumexp against torch's")
-            flops, nbytes = 2.0 * rows * d * v, 4 * (io + b * (u1 - 1) + 3 * rows)
+            work, nbytes = 2.0 * rows * d * v, 4 * (io + b * (u1 - 1) + 3 * rows)
         else:
             tol = 1e-4
             ok = max(rels) <= tol
-            why = (f"{tol} of each output's max|ref|: fp32 sums in another order, added with "
-                   f"atomics in an order that changes between runs")
-            flops, nbytes = 6.0 * rows * d * v, 4 * (2 * io + b * (u1 - 1) + 3 * rows)
+            why = (f"{tol} of each output's max|ref|: 3xTF32 products (about 21 bits) and "
+                   f"fp32 sums in another order, the same order in every run")
+            work, nbytes = 6.0 * rows * d * v, 4 * (2 * io + b * (u1 - 1) + 3 * rows)
+        flops, peak = 3 * work, PEAK_TF32
+        bound_fp32 = max(work / PEAK_FP32, nbytes / HBM_BPS) * 1e3
+        why += f"; bound at the fp32 CUDA-core peak {bound_fp32:.4f} ms"
     elif name in ("rnnt_alpha", "ctc_alpha"):
         (ga, gll), (ra, rll) = got, ref
         live = ra > -1e29
@@ -854,6 +863,8 @@ def _held(torch, name, a, ctc_inputs) -> tuple[dict, str, bool, str]:
                   lambda: kernel(*args), lambda: plain(*args), library, plain_iters, timing)
     if stats_err is not None:
         rec["saved_max_abs_err"] = stats_err[0]
+    if bound_fp32 is not None:
+        rec["bound_fp32_ms"] = bound_fp32
     return rec, why, bool(ok), inputs
 
 
@@ -1244,7 +1255,8 @@ def _train_kernel_checks(torch, dev, bench) -> dict:
 
     from tpuasr_torch.losses.ctc import lattice_inputs
     from tpuasr_torch.ops import (
-        ctc_alpha_plain, ctc_beta_grad, rnnt_alpha_plain, rnnt_beta_grad_plain, rnnt_fused_lp,
+        ctc_alpha_plain, ctc_beta_grad, rnnt_alpha_plain, rnnt_beta_grad_plain, rnnt_fused_grads,
+        rnnt_fused_lp,
     )
     from tpuasr_torch.ops.rnnt_lattice import mask_lattice_inputs
 
@@ -1286,8 +1298,19 @@ def _train_kernel_checks(torch, dev, bench) -> dict:
         occ_b, occ_l = rnnt_beta_grad_plain(bm, lm, ul, ra, rll, torch.ones(b, device=dev))
         gb = torch.where(pad_t, zero, -occ_b / b).contiguous()
         gl = F.pad(torch.where(lv, -occ_l / b, zero), (0, 1)).contiguous()
-        recs["rnnt_fused_bwd"] = _hold(torch, "rnnt_fused_bwd",
-                                       dict(joint, lse=lse, gb=gb, gl=gl, blank=blank), tag)
+        bwd = dict(joint, lse=lse, gb=gb, gl=gl, blank=blank)
+        recs["rnnt_fused_bwd"] = _hold(torch, "rnnt_fused_bwd", bwd, tag)
+        first, again = rnnt_fused_grads(*bwd.values()), rnnt_fused_grads(*bwd.values())
+        torch.cuda.synchronize()
+        require(all(torch.equal(x, y) for x, y in zip(first, again)),
+                f"two calls of rnnt_fused_bwd on the same inputs differ ({tag})")
+        msg = f"rnnt_fused_bwd {tag}: two calls bit-identical"
+        if tag == "bench":
+            split = _device_split(torch, lambda: rnnt_fused_grads(*bwd.values()))
+            recs["rnnt_fused_bwd"]["device_split_ms"] = split
+            msg += "; device ms a call by kernel (profiler): " + "; ".join(
+                f"{ms:.4f} {key[:60]}" for key, ms in sorted(split.items(), key=lambda x: -x[1]))
+        print(msg)
 
         # #6 / #7: the CTC lattice over log-softmaxed logits
         lp = torch.log_softmax(torch.randn(b, t, v, generator=g).to(dev), dim=-1)
@@ -1390,8 +1413,8 @@ def _train_card_vs_cpu(torch, dev, fused_joint_loss: bool, fused_ffn: bool = Fal
           f"{lc} cpu {lh} (tol 1e-4 relative); grad norm {gc:.6g} vs {gh:.6g} (tol 1e-4 "
           f"relative); gradient error / the leaf's max|g|, the three worst: "
           f"{[(names[i], f'{rels[i]:.3g}') for i in order[:3]]} (tol 1e-3: fp32 sums in "
-          f"another order through 12 blocks, the attention backward's and the fused "
-          f"joint's atomics, the lattice); "
+          f"another order through 12 blocks, the attention backward's atomics, the "
+          f"fused joint's 3xTF32 products, the lattice); "
           f"the {len(shift_free)} key-projection biases (zero gradient in exact arithmetic) "
           f"reach {noise:.3g} against a largest gradient entry of {scale:.4g} (tol 1e-6 of "
           f"it: rounding noise)")

@@ -5,7 +5,9 @@ flagship path does not reach: rows not a multiple of the fbank tile, T and
 S not multiples of the attention tiles, T != S, dk 16, 32 and 64, a broadcast
 [B, 1, S] padding mask, a fully masked query row; for the fused RNN-T joint
 (#4/#5) and the CTC lattice (#6/#7): U = 0, t_len = 0, an infeasible CTC
-row, B = 1, V = 412 and V = 64, bf16 enc_p/pred_p from a bf16 model; the
+row, B = 1, V = 412, 64 and 30, D 32, 64, 72 and 256, U+1 129, a ragged
+last t-chunk of #5's row side, bench.py's training shape (#5 also twice,
+bit-identical), bf16 enc_p/pred_p from a bf16 model; the
 attention forward (#2) and backward (#3) in fp32 and bf16 at dk 16, 32 and
 64 with a fully masked row and a broadcast mask, and at bench.py's training
 shape (12 x 191, 4 heads of 64) and the trainer's (12 x 63) with the
@@ -32,8 +34,9 @@ fbank: one bf16 ulp of a power bin (0.034 dB); bf16 attention: 1e-2 +
 1e-2*|ref|, the output and probability roundings to bf16 (2**-8 relative
 each) happen at different points in the kernel and the plain version.
 Fused joint: log-probs atol 5e-4 (fp32 sums of D products in another
-order), gradients 1e-4 of each output's max |.| (the same, added with
-atomics); bf16 gradients one bf16 ulp of that max (2**-8). CTC: alpha and ll
+order), gradients 1e-4 of each output's max |.| (3xTF32 products, about 22
+bits, and sums in another order, fixed between calls); bf16 gradients one
+bf16 ulp of that max (2**-8). CTC: alpha and ll
 1e-3 + 1e-5*|ref| (log-adds whose exp/log1p may differ by an ulp over T
 steps), gradients 2e-3*|ref| + 1e-5; the whole CTC loss card vs CPU,
 gradient w.r.t. the logits atol 1e-4 (alpha and beta ~ -100 carry an ulp
@@ -272,6 +275,11 @@ def _joint_inputs(card, b, t, u, d, v, blank, seed):
 
 @pytest.mark.parametrize("b,t,u,d,v", [
     (2, 9, 0, 256, 412), (1, 13, 5, 64, 64), (3, 70, 7, 256, 412), (2, 5, 40, 32, 97),
+    (12, 191, 32, 256, 412),  # bench.py's training shape
+    (2, 11, 128, 256, 412),   # U+1 129: past the old kernel's shared-memory limit (120)
+    (4, 37, 5, 256, 412),     # t-chunks of 10: a ragged last one of 7
+    (2, 7, 3, 72, 30),        # D 72 (padded to 96), V 30 (no 16-byte rows)
+    (2, 70, 0, 256, 412),     # U+1 1: tiles of 31 frames (a tile's rows copied at once)
 ])
 def test_rnnt_fused_kernels_match_plain(card, b, t, u, d, v):
     blank = 5
@@ -291,6 +299,23 @@ def test_rnnt_fused_kernels_match_plain(card, b, t, u, d, v):
                                                                       before[1] + 1)
     for x, y in zip(grads, rnnt_fused_grads_plain(*args)):
         assert float((x - y).abs().max()) <= 1e-4 * float(y.abs().max()) + 1e-6
+
+
+def test_rnnt_fused_grads_repeat_bit_for_bit(card):
+    """Two calls of #5 at bench.py's training shape give the same bits: its
+    sums across blocks go through partial buffers summed in a fixed order,
+    with no atomics."""
+    b, t, u, d, v, blank = 12, 191, 32, 256, 412, 5
+    enc, pred, w, bias, lab = _joint_inputs(card, b, t, u, d, v, blank, 3)
+    lse = rnnt_fused_lp(enc, pred, w, bias, lab, blank)[2]
+    g = torch.Generator().manual_seed(2)
+    gb = (-torch.rand(b, t, u + 1, generator=g) / b).to(card)
+    gl = F.pad(-torch.rand(b, t, u, generator=g) / b, (0, 1)).to(card)
+    first, again = (rnnt_fused_grads(enc, pred, w, bias, lab, lse, gb, gl, blank)
+                    for _ in range(2))
+    torch.cuda.synchronize()
+    for name, x, y in zip(("d_enc", "d_pred", "dW", "db"), first, again):
+        assert torch.equal(x, y), name
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -1,7 +1,9 @@
 // Building blocks of the port's tensor-core kernels (sm_90a): cp.async
-// staging, ldmatrix fragment loads and the bf16 mma.sync.m16n8k16 product
-// with fp32 sums. Included by relpos_attention.cu and ffn.cu; each source is
-// its own library, so the helpers sit in an anonymous namespace.
+// staging, ldmatrix fragment loads, the bf16 mma.sync.m16n8k16 product with
+// fp32 sums, and the TF32 mma.sync.m16n8k8 product with the operand split of
+// 3xTF32 (fp32 products to about 21 bits on tensor cores). Included by
+// relpos_attention.cu, ffn.cu and rnnt_fused.cu; each source is its own
+// library, so the helpers sit in an anonymous namespace.
 
 #pragma once
 
@@ -92,6 +94,43 @@ __device__ __forceinline__ const bf16* bt_frag(const bf16* tile, int pitch, int 
 __device__ __forceinline__ const bf16* at_frag(const bf16* tile, int pitch, int m0, int k0,
                                                int lane) {
   return tile + (k0 + (lane & 7) + ((lane >> 4) << 3)) * pitch + m0 + (((lane >> 3) & 1) << 3);
+}
+
+// x = hi + lo for 3xTF32: hi is x cut to TF32 (its top 10 mantissa bits:
+// one AND), lo = x - hi exactly in fp32; the mma reads lo's top 10 bits, so
+// hi + lo keeps about 21 of fp32's 24 bits. Two instructions: a
+// round-to-nearest split (cvt.rna.tf32.f32 twice) keeps one bit more but
+// costs several more, and the fused joint backward, which splits its
+// operands as it loads them, is bound by such instructions.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// d += a . b, a 16x8 (row-major fragments), b 8x8, tf32 operands, fp32 sums.
+// Fragments (g = lane / 4, c = lane % 4), one 32-bit element each: a {(g, c),
+// (g+8, c), (g, c+4), (g+8, c+4)}, b {(k c, n g), (k c+4, n g)}, d {(g, 2c),
+// (g, 2c+1), (g+8, 2c), (g+8, 2c+1)} (d as mma16816's). ldmatrix moves 16-bit
+// elements, so these fragments are loaded with plain 32-bit shared loads.
+__device__ __forceinline__ void mma1688_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                             uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+// 3xTF32: d += a . b with a = ah + al and b = bh + bl (split_tf32) is
+// al.bh + ah.bl + ah.bh (al.bl, ~2**-20 relative, dropped), the small terms
+// first. The three products into one d depend on each other: callers issue
+// them pass by pass over many tiles (term = 0, 1, 2), so consecutive mma are
+// independent. `term` is a constant of an unrolled loop.
+__device__ __forceinline__ void mma1688_3xtf32(float (&d)[4], int term, const uint32_t (&ah)[4],
+                                               const uint32_t (&al)[4], const uint32_t (&bh)[2],
+                                               const uint32_t (&bl)[2]) {
+  const uint32_t(&a)[4] = term == 0 ? al : ah;
+  const uint32_t(&b)[2] = term == 1 ? bl : bh;
+  mma1688_tf32(d, a, b[0], b[1]);
 }
 
 // dynamic shared memory above 48 KB needs the attribute before the launch

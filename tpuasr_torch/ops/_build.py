@@ -4,12 +4,14 @@ Each ``tpuasr_torch/csrc/<name>.cu`` has a plain C interface. At first use it
 is compiled by ``nvcc`` for ``sm_90a`` into ``build/tpuasr_torch/`` at the
 root of the checkout and loaded with ``ctypes``; the library's file name
 carries a hash of its source and of the ``csrc/*.cuh`` headers it includes
-(`mma.cuh`: the tensor-core building blocks of the attention and FFN
-kernels), so an edited source or header is rebuilt. Nothing here
-runs at import time: the CPU tests import every module of the port.
+(`mma.cuh`: the tensor-core building blocks of the attention, FFN and
+fused-joint backward kernels), so an edited source or header is rebuilt.
+Nothing here runs at import time: the CPU tests import every module of the
+port.
 
 A source may hold several kernels (`ctc_lattice.cu`: the CTC alpha and
-beta sweeps; `rnnt_fused.cu`: the fused joint forward and backward;
+beta sweeps; `rnnt_fused.cu`: the fused joint forward and backward, whose
+one entry point launches four kernels;
 `rnnt_lattice.cu`: the RNN-T alpha and beta sweeps; `relpos_attention.cu`:
 the attention forward and its backward, whose one entry point launches two
 kernels; `ffn.cu`: the fused FFN forward and backward), each with its own C
@@ -43,7 +45,7 @@ ENTRIES = {
     "relpos_attention_bwd": ("relpos_attention", "relpos_attention_bwd",
                              [_P] * 18 + [_I] * 5 + [_LL] * 3 + [_F, _I, _P]),
     "rnnt_fused_fwd": ("rnnt_fused", "rnnt_fused_fwd", [_P] * 8 + [_I] * 6 + [_P]),
-    "rnnt_fused_bwd": ("rnnt_fused", "rnnt_fused_bwd", [_P] * 12 + [_I] * 6 + [_P]),
+    "rnnt_fused_bwd": ("rnnt_fused", "rnnt_fused_bwd", [_P] * 13 + [_LL] + [_I] * 9 + [_P]),
     "ctc_alpha": ("ctc_lattice", "ctc_alpha", [_P] * 6 + [_I] * 3 + [_P]),
     "ctc_beta_grad": ("ctc_lattice", "ctc_beta_grad", [_P] * 8 + [_I] * 3 + [_P]),
     "rnnt_alpha": ("rnnt_lattice", "rnnt_alpha", [_P] * 5 + [_I] * 3 + [_P]),

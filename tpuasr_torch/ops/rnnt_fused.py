@@ -18,6 +18,14 @@ recomputes the whole softmax). The wrappers run the kernels for tensors on
 the card and the plain versions for tensors on the CPU; a CUDA tensor never
 takes the plain path. Operands are fp32 (the caller casts, as
 `rnnt_fused_pallas.py:139-143` does).
+
+On the card #5 is four kernels behind one entry (csrc/rnnt_fused.cu): W
+split once into TF32 (hi, lo) pairs, a row side over tiles of (frames x
+label positions) for d_enc and d_pred, a vocabulary side over (vocabulary
+tile x every S-th row tile) for dW and db, each writing partial sums into a
+workspace, and a sum that adds the partials in a fixed order, so two calls
+on the same inputs give the same bits. `_joint_bwd_plan` chooses the tiles
+and sizes the workspace.
 """
 
 from __future__ import annotations
@@ -26,11 +34,70 @@ import torch
 import torch.nn.functional as F
 
 from tpuasr_torch.ops import _build
+from tpuasr_torch.ops.ffn import _sm_count
 from tpuasr_torch.ops.rnnt_lattice import (
     _NEG, mask_lattice_inputs, rnnt_alpha, rnnt_beta_grad,
 )
 
-MAX_JOIN_DIM = 256  # the backward kernel keeps one row of dW per thread
+MAX_JOIN_DIM = 256  # the backward's tiles of a and W in shared memory hold D <= 256
+JOINT_ROWS = 64  # rows (t, u) of a row-side block: tt * uc <= 64
+JOINT_ROW_VT = 32  # vocabulary columns of a row-side tile
+JOINT_VOCAB_VT = 64  # vocabulary columns of a vocabulary-side block
+JOINT_PART_CAP = 32 << 20  # partial d_enc + d_pred bytes: stay well inside the 50 MB L2
+JOINT_STAGE = 8192  # floats for a tile's enc and pred rows: (tt + uc) * D padded to 32
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _align(n: int) -> int:
+    return _cdiv(n, 256) * 256
+
+
+def _joint_bwd_plan(b: int, t: int, u1: int, d: int, v: int, n_sm: int) -> dict:
+    """How kernel #5 tiles its work on a card of `n_sm` SMs (every block of
+    each side takes one SM: 224 KB of shared memory at D 256).
+
+    Row side: a block owns utterance b's frames t0.. t0+tt-1 and label
+    positions u0.. u0+uc-1 (tt * uc <= 64 rows, and its tt enc rows and uc
+    pred rows fit the JOINT_STAGE floats both sides copy them into: tt + uc
+    <= 32 at D 256); grid (n_uc, n_tc, B). Of the splits of U+1 into n_uc
+    chunks it takes the one with the fewest waves of blocks, then the least
+    partial-sum workspace, among those whose partials stay under
+    JOINT_PART_CAP (the least workspace if none does).
+    Vocabulary side: a block owns JOINT_VOCAB_VT columns and every S-th
+    row-side tile from its index s (tiles in the order b, t-chunk, u-chunk),
+    so a step reads tt enc rows and uc pred rows, not 64 of each, and the
+    tiles skipped for having no gradient (padding) spread evenly; S as many
+    as fill the card in one wave with the n_vt vocabulary tiles, at most
+    one a tile.
+    -> {"tt", "uc", "n_uc", "n_tc", "row_grid", "row_vt", "n_vt", "vocab_vt",
+    "S", "vocab_grid", "ws" (bytes of each part, 256-byte aligned, in
+    order: enc_part [B, n_uc, T, D], pred_part [B, n_tc, U+1, D], dw_part
+    [S, D, V], db_part [S, V] fp32, w_split: W as TF32 (hi, lo) pairs in the
+    row side's tiles, [V/32, D padded to 32, 32]), "ws_bytes"}."""
+    stage_rows = JOINT_STAGE // (32 * _cdiv(d, 32))  # tt + uc at most
+    cands = []
+    for n_uc in range(1, u1 + 1):
+        uc = _cdiv(u1, n_uc)
+        if uc > JOINT_ROWS or uc >= stage_rows or _cdiv(u1, uc) != n_uc:
+            continue
+        tt = max(1, min(JOINT_ROWS // uc, stage_rows - uc, t))
+        n_tc = _cdiv(t, tt)
+        part = 4 * d * (b * n_uc * t + b * n_tc * u1)
+        waves = _cdiv(b * n_uc * n_tc, n_sm)
+        cands.append((part > JOINT_PART_CAP, waves, part, n_uc, uc, tt, n_tc))
+    _, _, _, n_uc, uc, tt, n_tc = min(cands)
+    n_tiles = b * n_uc * n_tc
+    n_vt = _cdiv(v, JOINT_VOCAB_VT)
+    s = max(1, min(n_sm // n_vt, n_tiles))
+    ws = {"enc_part": _align(4 * b * n_uc * t * d), "pred_part": _align(4 * b * n_tc * u1 * d),
+          "dw_part": _align(4 * s * d * v), "db_part": _align(4 * s * v),
+          "w_split": _align(8 * _cdiv(v, JOINT_ROW_VT) * 32 * _cdiv(d, 32) * JOINT_ROW_VT)}
+    return {"tt": tt, "uc": uc, "n_uc": n_uc, "n_tc": n_tc, "row_grid": (n_uc, n_tc, b),
+            "row_vt": JOINT_ROW_VT, "n_vt": n_vt, "vocab_vt": JOINT_VOCAB_VT, "S": s,
+            "vocab_grid": (n_vt, s), "ws": ws, "ws_bytes": sum(ws.values())}
 
 
 def _label_ids(labels: torch.Tensor, blank: int) -> torch.Tensor:
@@ -129,17 +196,19 @@ def rnnt_fused_grads(enc_p, pred_p, w, b, labels, lse, gb, gl, blank: int):
     if d > MAX_JOIN_DIM:
         raise ValueError(f"rnnt_fused: join dim {d} > {MAX_JOIN_DIM}")
     dev = enc_p.device
-    outs = [torch.zeros((bsz, t, d), dtype=torch.float32, device=dev),
-            torch.zeros((bsz, u1, d), dtype=torch.float32, device=dev),
-            torch.zeros((d, v), dtype=torch.float32, device=dev),
-            torch.zeros((v,), dtype=torch.float32, device=dev)]
-    if bsz and t and u1:
-        with torch.cuda.device(dev):
-            stream = torch.cuda.current_stream().cuda_stream
-            _build.launch("rnnt_fused_bwd", enc_p.data_ptr(), pred_p.data_ptr(), w.data_ptr(),
-                          b.data_ptr(), labels.data_ptr(), lse.data_ptr(), gb.data_ptr(),
-                          gl.data_ptr(), *(o.data_ptr() for o in outs), bsz, t, u1, d, v,
-                          blank, stream)
+    shapes = ((bsz, t, d), (bsz, u1, d), (d, v), (v,))
+    if not (bsz and t and u1):  # sums over no rows
+        return tuple(torch.zeros(s, dtype=torch.float32, device=dev) for s in shapes)
+    # the kernels write every output once, each sum across blocks in a fixed order
+    outs = [torch.empty(s, dtype=torch.float32, device=dev) for s in shapes]
+    plan = _joint_bwd_plan(bsz, t, u1, d, v, _sm_count(dev.index))
+    ws = torch.empty(plan["ws_bytes"], dtype=torch.uint8, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.launch("rnnt_fused_bwd", enc_p.data_ptr(), pred_p.data_ptr(), w.data_ptr(),
+                      b.data_ptr(), labels.data_ptr(), lse.data_ptr(), gb.data_ptr(),
+                      gl.data_ptr(), *(o.data_ptr() for o in outs), ws.data_ptr(), ws.numel(),
+                      bsz, t, u1, d, v, blank, plan["tt"], plan["uc"], plan["S"], stream)
     return tuple(outs)
 
 
