@@ -14,7 +14,11 @@ Phases (any failure exits non-zero):
 3. Kernels against their plain versions on the card, at the flagship's
    shapes: fbank on the 16 waves of fixtures/example1.npz (48 kHz) and on
    a seeded 8 s batch, in both precisions, and on the training batch of
-   phase 6b (bench.py's 12 waves, 9,216 frames) in precision "default";
+   phase 6b (bench.py's 12 waves, 9,216 frames) in precision "default"
+   (the tensor-core route: its plan and own work at each shape, its time
+   at each block shape the kernel builds on the fixture and the training
+   batch, and at the training batch two calls bit-identical and its device
+   time by kernel);
    rel-pos attention forward (#2) at [4, 187, 256] (8 s after subsampling)
    and [16, 63, 256] (the fixture requests), fp32 and bf16, with a fully
    masked row; the attention forward and backward (#2/#3) at the training
@@ -77,7 +81,12 @@ Phases (any failure exits non-zero):
       "default", dropout 0.1, dynamic chunk, `fused_joint_loss=True`, ten
       steps of `make_train_step`: every loss finite, synced step ms, audio
       seconds per second, peak memory, and the device's busy time against
-      wall from torch.profiler over one step. Kernels #1-#9 must launch;
+      wall from torch.profiler over one step (after one warm-up step under
+      the profiler, with 50 ms of idle host on each side of the step: the
+      trace drops kernels near its window's edges), with the port's
+      kernels in it by name, fbank's pack and tensor-core kernels among
+      them. Kernels #1-#9 must launch, fbank once a step and always by its
+      tensor-core route (its route counts);
    c. the same with `fused_joint_loss=False` (the joint's full logits and
       the materialized loss), four steps: kernels #1-#3 and #6-#9 must
       launch;
@@ -92,7 +101,8 @@ Phases (any failure exits non-zero):
    utterances, batch 12, prefetch depth 2, a 6-utterance dev split), 2
    epochs into a temporary save dir under build/; then `--resume
    .../latest` for a third epoch, which must start at the saved epoch and
-   step. Every loss finite; kernels #1-#11 must launch. The run records
+   step. Every loss finite; kernels #1-#11 must launch (fbank by its
+   tensor-core route alone). The run records
    the arguments of each kernel's first call at each signature (the
    buckets' shapes, the training steps and the dev pass) and counts the
    calls, which must equal the run's launches; then each kernel is held
@@ -101,7 +111,9 @@ Phases (any failure exits non-zero):
 7. The kernels line: one JSON object with an entry per kernel and run
    (the serving run of phases 4-5, the training runs of phases 6b, 6c and
    6d, the trainer run of phase 8; counts reset just before each and read
-   just after): that run's launches, and the error, times and bound at the
+   just after): that run's launches (fbank's: those of the route the
+   record times, fp32 for serving, which takes that route alone, and the
+   tensor-core route for training), and the error, times and bound at the
    shape that run gives the kernel (phase 3's bench-shape records for 6b-6d;
    for the trainer the signature it launched most, with every signature's
    record under "shapes").
@@ -206,6 +218,8 @@ def main() -> dict:
     runs = {"serving": dict(LAUNCHES)}
     print(f"launches on the serving run: {runs['serving']}")
     require(runs["serving"]["ffn_bwd"] == 0, "the serving run launched the FFN backward")
+    require(runs["serving"]["fbank_fp32"] == runs["serving"]["fbank"] > 0,
+            "the serving run did not take fbank's fp32 route (precision \"highest\") alone")
 
     # ---------------------------------------------------------------- 6
     training = {}
@@ -240,6 +254,8 @@ def main() -> dict:
     print(f"launches on the trainer run: {runs['trainer']}")
     for name in KERNELS:
         require(runs["trainer"][name] > 0, f"the trainer never launched {name}")
+    require(runs["trainer"]["fbank_tc"] == runs["trainer"]["fbank"],
+            "the trainer did not take fbank's tensor-core route (precision \"default\") alone")
     print("kernels against their plain versions on the trainer's own inputs:")
     trainer_records = _trainer_kernel_records(torch, seen, runs["trainer"])
 
@@ -252,7 +268,10 @@ def main() -> dict:
     _phase("7: the kernels line", t_phase)
     fused = ("training", "training_fused_ffn", "trainer")  # the fused joint loss
     every = fused[:1] + ("training_materialized",) + fused[1:]
-    plan = [("fbank", ("serving",), "fbank"), ("fbank", every, "fbank_training"),
+    # (kernel, runs, record, launch count): fbank's records count the route
+    # they time, "highest" for serving and the tensor-core route for training
+    plan = [("fbank", ("serving",), "fbank", "fbank_fp32"),
+            ("fbank", every, "fbank_training", "fbank_tc"),
             ("relpos_attention", ("serving",), "attention"),
             ("relpos_attention", every, "attention_training"),
             ("relpos_attention_bwd", every, "attention_bwd"),
@@ -263,13 +282,14 @@ def main() -> dict:
             ("ffn_fwd", ("serving",), "ffn_fwd_serving"),
             ("ffn_fwd", fused[1:], "ffn_fwd"), ("ffn_bwd", fused[1:], "ffn_bwd")]
     kernels = []
-    for name, run_names, check in plan:
+    for name, run_names, check, *count in plan:
+        count = count[0] if count else name
         for run in run_names:
-            launches = runs[run][name]
-            require(launches > 0, f"the {run} run never launched {name}")
+            launches = runs[run][count]
+            require(launches > 0, f"the {run} run never launched {count}")
             rec = trainer_records[name] if run == "trainer" else checks[check]
             kernels.append(dict(rec, run=run, launches=launches,
-                                **{f"launches_{r}": runs[r][name] for r in runs}))
+                                **{f"launches_{r}": runs[r][count] for r in runs}))
     require(runs["training_materialized"]["rnnt_fused_fwd"] == 0,
             "the materialized run launched the fused joint")
     print(f"phases took {time.perf_counter() - t_start:.1f} s in all")
@@ -364,7 +384,9 @@ def _kernel_checks(torch, dev, data, bench) -> dict:
     from tpuasr_torch.audio.fbank import _operands, decode_wire, frame_signal
     from tpuasr_torch.config import FeatureConfig
     from tpuasr_torch.nn.masks import chunk_mask
-    from tpuasr_torch.ops import relpos_attention
+    from tpuasr_torch.ops import fbank_frames, relpos_attention
+    from tpuasr_torch.ops.fbank import _fbank_plan
+    from tpuasr_torch.ops.ffn import _sm_count
 
     out = {}
     cfg = FeatureConfig()
@@ -380,14 +402,37 @@ def _kernel_checks(torch, dev, data, bench) -> dict:
         frames = frame_signal(waves, n_fft, cfg.hop_length, cfg.center)
         frames = frames.reshape(-1, n_fft).contiguous()
         for prec, peak in precs:
-            rec = _hold(torch, "fbank", dict(frames=frames, window=window, cos=cos, sin=sin,
-                                             mel=mel, amin=cfg.amin, precision=prec),
-                        f"{src} {prec}")
-            # this design's own work: the DFT as two dense products
-            work = frames.shape[0] * (4 * n_fft * n_freq + 2 * n_freq * n_mels)
-            print(f"  the dense-DFT design's own work {work / 1e9:.2f} GFLOP = "
-                  f"{work / peak * 1e3:.4f} ms at the {'fp32' if peak == PEAK_FP32 else 'bf16'} "
-                  f"peak")
+            args = dict(frames=frames, window=window, cos=cos, sin=sin, mel=mel,
+                        amin=cfg.amin, precision=prec)
+            rec = _hold(torch, "fbank", args, f"{src} {prec}")
+            rows = frames.shape[0]
+            if prec == "highest":  # this route's design: the DFT as two dense fp32 products
+                work = rows * (4 * n_fft * n_freq + 2 * n_freq * n_mels)
+                print(f"  the dense-DFT design's own work {work / 1e9:.2f} GFLOP = "
+                      f"{work / peak * 1e3:.4f} ms at the fp32 peak")
+            else:  # the tensor-core route's own work: padded bins, K and rows
+                plan = _fbank_plan(rows, n_fft, n_freq, n_mels, _sm_count(dev.index))
+                work = plan["dft_flops"]
+                print(f"  the bf16 route's own work ({plan['k_pad']} K in tiles of "
+                      f"{plan['k_tile']}, {plan['n_freq_pad']} bins, {plan['n_mels_pad']} mel "
+                      f"columns) {work / 1e9:.2f} GFLOP = {work / peak * 1e3:.4f} ms at the bf16 "
+                      f"peak; plan: {plan['frames_per_block']} frames and {plan['warps']} "
+                      f"warps a block (tiles {plan['tiles']}), "
+                      f"{plan['blocks']} blocks, {plan['blocks_per_sm']} an SM, "
+                      f"{plan['waves']} waves, {plan['smem']} B shared, "
+                      f"{plan['ws_bytes']} B scratch")
+                rec = dict(rec, plan={k: plan[k] for k in (
+                    "tiles", "frames_per_block", "blocks", "blocks_per_sm", "waves", "smem")})
+                if src != "synthetic":  # the plan's choice at 4,112 and 9,216 frames
+                    rec["by_block_shape"] = _fbank_tiles(torch, args)
+                if src == "bench":
+                    a, b = fbank_frames(*args.values()), fbank_frames(*args.values())
+                    require(torch.equal(a, b), "two calls of fbank's bf16 route differ")
+                    print("  two calls bit-identical")
+                    split = _device_split(torch, lambda: fbank_frames(*args.values()))
+                    print("  device ms by kernel: " + "; ".join(
+                        f"{ms:.4f} {key[:60]}" for key, ms in sorted(split.items(),
+                                                                    key=lambda x: -x[1])))
             if src == "fixture" and prec == "highest":  # the serving run's call
                 out["fbank"] = rec
             if src == "bench":  # the training run's call
@@ -415,6 +460,25 @@ def _kernel_checks(torch, dev, data, bench) -> dict:
             if b == 4 and dtype == torch.bfloat16:  # the flagship's 8 s bf16 call
                 out["attention"] = rec
     return out
+
+
+def _fbank_tiles(torch, args) -> dict:
+    """fbank's bf16 route at each block shape the kernel builds (the plan
+    fixed to it), to check the plan's choice; -> {"<frames a block>f <warps
+    over the frames>x<warps over the bins>w": ms}."""
+    import tpuasr_torch.ops.fbank as fbank_mod
+
+    real, ms = fbank_mod._fbank_plan, {}
+    try:
+        for t in fbank_mod.FBANK_TILES:
+            fbank_mod._fbank_plan = lambda *a, t=t: real(*a, tiles=t)
+            ms["{}f {}x{}w".format(16 * t[0] * t[1], t[1], t[2])] = _time_ms(
+                torch, lambda: fbank_mod.fbank_frames(*args.values()))
+    finally:
+        fbank_mod._fbank_plan = real
+    print("  by block shape (frames, warps over them x over the bins), ms: "
+          + "; ".join(f"{k}: {v:.4f}" for k, v in ms.items()))
+    return ms
 
 
 def _attention_train_checks(torch, dev, bench) -> dict:
@@ -1512,7 +1576,7 @@ def _train_bench(torch, dev, batch, fused_joint_loss: bool, n_steps: int = 10,
     6d: the fused FFN) on bench.py's batch through `make_train_step`; ->
     (stats, kernel launches during the steps)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     from tpuasr_torch.models import Transducer, init_weights
     from tpuasr_torch.ops import LAUNCHES, reset_launch_counts
@@ -1537,10 +1601,27 @@ def _train_bench(torch, dev, batch, fused_joint_loss: bool, n_steps: int = 10,
         if i >= warmup:
             ms.append(dt)
     launches = dict(LAUNCHES)
+    require(launches["fbank_tc"] == warmup + n_steps and launches["fbank_fp32"] == 0,
+            f"{warmup + n_steps} steps launched fbank's tensor-core route "
+            f"{launches['fbank_tc']} times and its fp32 route {launches['fbank_fp32']} times, "
+            f"not once a step and never")
     peak = torch.cuda.max_memory_allocated()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        (state, metrics), wall = _synced_ms(torch, lambda: step(state, batch, SEED))
-    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    # one step under the profiler's warm-up (traced, not kept), then the
+    # profiled step with 50 ms of idle host on each side: the trace drops
+    # kernels that run near the edges of its window (a window opened just
+    # before a step lost the step's first kernels, fbank's, more often than
+    # not; with the warm-up alone it still lost the first or the last ones
+    # now and then; with the gaps as well, never in the trials)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for i in range(2):
+            time.sleep(0.05 * i)
+            (state, metrics), wall = _synced_ms(torch, lambda: step(state, batch, SEED))
+            time.sleep(0.05 * i)
+            prof.step()
+    # the schedule's step marker also shows on the device's timeline: not a kernel
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.key.startswith("ProfilerStep")]
     busy = sum(e.self_device_time_total for e in kern) / 1e3
     n_kern = sum(e.count for e in kern)
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:10]
@@ -1563,6 +1644,21 @@ def _train_bench(torch, dev, batch, fused_joint_loss: bool, n_steps: int = 10,
           f"({100 * (1 - busy / wall):.0f}% idle), {n_kern} device operations")
     for e in top:
         print(f"  {e.self_device_time_total / 1e3:8.3f} ms  {e.count:6d}x  {e.key[:90]}")
+    # the port's own kernels in the step, by name (csrc/*.cu: anonymous
+    # namespaces, names from the sources' prefixes)
+    own = {}  # name -> [ms, launches], template instances summed
+    for e in kern:
+        m = re.search(r"\(anonymous namespace\)::((?:fbank|relpos|rnnt|ctc|ffn)_\w+)", e.key)
+        if m:
+            tot = own.setdefault(m.group(1), [0.0, 0])
+            tot[0] += e.self_device_time_total / 1e3
+            tot[1] += e.count
+    stats["port_kernels_ms"] = {k: v[0] for k, v in own.items()}
+    print("  the port's kernels in the step, ms: " + "; ".join(
+        f"{k} {v[0]:.4f} ({v[1]}x)" for k, v in sorted(own.items(), key=lambda x: -x[1][0])))
+    for name in ("fbank_pack_kernel", "fbank_tc_kernel"):
+        require(own.get(name, [0, 0])[1] == 1, f"the profiled step ran {name} "
+                                               f"{own.get(name, [0, 0])[1]} times, not once")
     require(all(math.isfinite(x) for x in losses), "a training loss is not finite")
     require(int(state.skipped) == 0, "a training step was skipped")
     return stats, launches

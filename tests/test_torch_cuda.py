@@ -1,7 +1,9 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
 Marked `cuda`: each test skips without an NVIDIA card. Edge shapes the
-flagship path does not reach: rows not a multiple of the fbank tile, T and
+flagship path does not reach: rows not a multiple of the fbank tiles, n_fft
+not a multiple of the bf16 route's K tile, 128 and 160 mel filters, a shape
+whose frames do not fit shared memory (ValueError), T and
 S not multiples of the attention tiles, T != S, dk 16, 32 and 64, a broadcast
 [B, 1, S] padding mask, a fully masked query row; for the fused RNN-T joint
 (#4/#5) and the CTC lattice (#6/#7): U = 0, t_len = 0, an infeasible CTC
@@ -30,7 +32,8 @@ imports no JAX, so it runs on a machine without it:
 
 TF32 is off for every fp32 comparison. Tolerances: fp32 sums in another
 order (fbank: rtol 1e-4, atol 1e-3 dB; attention: 1e-5); bf16-operand
-fbank: one bf16 ulp of a power bin (0.034 dB); bf16 attention: 1e-2 +
+fbank (the tensor-core route): one bf16 ulp of a power bin (0.034 dB), atol
+4e-2 dB, rtol 0, two calls bit-identical at bench.py's 9,216 frames; bf16 attention: 1e-2 +
 1e-2*|ref|, the output and probability roundings to bf16 (2**-8 relative
 each) happen at different points in the kernel and the plain version.
 Fused joint: log-probs atol 5e-4 (fp32 sums of D products in another
@@ -90,22 +93,71 @@ def card():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("precision,atol", [("highest", 1e-3), ("default", 4e-2)])
-@pytest.mark.parametrize("rows,n_fft,sr", [(37, 1024, 48000), (5, 512, 16000)])
-def test_fbank_kernel_matches_plain(card, rows, n_fft, sr, precision, atol):
-    cfg = FeatureConfig(sample_rate=sr, n_fft=n_fft, win_length=n_fft)
+# (rows, n_fft, sample rate, n_mels, precision, atol); the bf16 route's tile
+# edges: 1, 63, 64, 65 rows (blocks of 32 frames), bench.py's 9,216 (blocks
+# of 80, the last one 16), n_fft 512 and 400 at 16 kHz (400 not a multiple
+# of the 128-deep K tile), n_fft 130 (frames loaded a float at a time, one
+# K tile mostly padding), 128 and 160 mel filters (two slabs of 80
+# columns), the last also in blocks of 80 at 6,144 rows
+FBANK_CASES = [
+    (37, 1024, 48000, 80, "highest", 1e-3), (5, 512, 16000, 80, "highest", 1e-3),
+    (37, 1024, 48000, 80, "default", 4e-2), (5, 512, 16000, 80, "default", 4e-2),
+    (1, 1024, 48000, 80, "default", 4e-2), (63, 1024, 48000, 80, "default", 4e-2),
+    (64, 1024, 48000, 80, "default", 4e-2), (65, 1024, 48000, 80, "default", 4e-2),
+    (9216, 1024, 48000, 80, "default", 4e-2), (300, 512, 16000, 80, "default", 4e-2),
+    (65, 400, 16000, 80, "default", 4e-2), (7, 130, 8000, 40, "default", 4e-2),
+    (70, 512, 16000, 128, "default", 4e-2), (70, 512, 16000, 160, "default", 4e-2),
+    (6144, 512, 16000, 160, "default", 4e-2),
+]
+
+
+def _fbank_inputs(card, rows, n_fft, sr, n_mels):
+    cfg = FeatureConfig(sample_rate=sr, n_fft=n_fft, win_length=n_fft, n_mels=n_mels)
     ops = _operands(astuple(cfg), str(card))
     g = torch.Generator().manual_seed(rows)
     frames = (torch.randn(rows, n_fft, generator=g) * 0.1).to(card)
-    frames[1] = 0.0  # a silent frame sits at the log floor
-    before = LAUNCHES["fbank"]
+    frames[min(1, rows - 1)] = 0.0  # a silent frame sits at the log floor
+    return cfg, frames, ops
+
+
+@pytest.mark.parametrize("rows,n_fft,sr,n_mels,precision,atol", FBANK_CASES)
+def test_fbank_kernel_matches_plain(card, rows, n_fft, sr, n_mels, precision, atol):
+    cfg, frames, ops = _fbank_inputs(card, rows, n_fft, sr, n_mels)
+    counts = ("fbank", "fbank_fp32", "fbank_tc")
+    before = {k: LAUNCHES[k] for k in counts}
     got = fbank_frames(frames, *ops, cfg.amin, precision)
     torch.cuda.synchronize()
-    assert LAUNCHES["fbank"] == before + 1
+    route = "fbank_fp32" if precision == "highest" else "fbank_tc"
+    assert {k: LAUNCHES[k] - before[k] for k in counts} == {
+        k: int(k in ("fbank", route)) for k in counts}
     ref = fbank_frames_plain(frames, *ops, cfg.amin, precision)
     rtol = 1e-4 if precision == "highest" else 0.0
     torch.testing.assert_close(got, ref, rtol=rtol, atol=atol)
-    torch.testing.assert_close(got[1], torch.full_like(got[1], -100.0))  # log floor
+    silent = got[min(1, rows - 1)]
+    torch.testing.assert_close(silent, torch.full_like(silent, -100.0))  # log floor
+
+
+def test_fbank_bf16_route_repeats_bit_for_bit(card):
+    """Two calls of the bf16 route at bench.py's 9,216 frames give the same
+    bits: no atomics, every sum in a fixed order."""
+    cfg, frames, ops = _fbank_inputs(card, 9216, 1024, 48000, 80)
+    a = fbank_frames(frames, *ops, cfg.amin, "default")
+    b = fbank_frames(frames, *ops, cfg.amin, "default")
+    assert torch.equal(a, b)
+
+
+def test_fbank_bf16_route_refuses_what_shared_memory_cannot_hold(card):
+    """n_fft 4096: 32 frames of 4,104 bf16 samples alone are 262 KB, past a
+    block's 227 KB. The wrapper raises before any launch; nothing else runs."""
+    n_fft, n_freq, n_mels = 4096, 2049, 80
+    frames = torch.randn(40, n_fft, device=card)
+    window = torch.ones(n_fft, device=card)
+    cos = sin = torch.zeros(n_fft, n_freq, device=card)
+    mel = torch.zeros(n_freq, n_mels, device=card)
+    before = (LAUNCHES["fbank"], LAUNCHES["fbank_tc"])
+    with pytest.raises(ValueError, match="shared memory"):
+        fbank_frames(frames, window, cos, sin, mel, 1e-10, "default")
+    assert (LAUNCHES["fbank"], LAUNCHES["fbank_tc"]) == before
 
 
 # the last two: bench.py's training shape and the trainer's shorter bucket,

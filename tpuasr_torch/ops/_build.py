@@ -4,19 +4,22 @@ Each ``tpuasr_torch/csrc/<name>.cu`` has a plain C interface. At first use it
 is compiled by ``nvcc`` for ``sm_90a`` into ``build/tpuasr_torch/`` at the
 root of the checkout and loaded with ``ctypes``; the library's file name
 carries a hash of its source and of the ``csrc/*.cuh`` headers it includes
-(`mma.cuh`: the tensor-core building blocks of the attention, FFN and
-fused-joint backward kernels), so an edited source or header is rebuilt.
+(`mma.cuh`: the tensor-core building blocks of the fbank, attention, FFN
+and fused-joint backward kernels), so an edited source or header is rebuilt.
 Nothing here runs at import time: the CPU tests import every module of the
 port.
 
-A source may hold several kernels (`ctc_lattice.cu`: the CTC alpha and
-beta sweeps; `rnnt_fused.cu`: the fused joint forward and backward, whose
-one entry point launches four kernels;
+A source may hold several kernels (`fbank.cu`: the fp32 route, and the
+bf16 route's operand pack and tensor-core kernel behind the same entry
+point; `ctc_lattice.cu`: the CTC alpha and beta sweeps; `rnnt_fused.cu`:
+the fused joint forward and backward, whose one entry point launches four
+kernels;
 `rnnt_lattice.cu`: the RNN-T alpha and beta sweeps; `relpos_attention.cu`:
 the attention forward and its backward, whose one entry point launches two
 kernels; `ffn.cu`: the fused FFN forward and backward), each with its own C
 entry point. Every wrapper counts its calls of an entry point in `LAUNCHES`,
-so a run can show that its path went through the kernels.
+so a run can show that its path went through the kernels; fbank's entry
+also counts each of its two routes there.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 # each kernel's source, C entry point and argument types (pointers and the
 # stream as c_void_p, so ctypes never cuts them to 32 bits)
 ENTRIES = {
-    "fbank": ("fbank", "fbank_logmel", [_P] * 6 + [_I] * 4 + [_F, _I, _P]),
+    "fbank": ("fbank", "fbank_logmel", [_P] * 8 + [_I] * 4 + [_F] + [_I] * 9 + [_P]),
     "relpos_attention": ("relpos_attention", "relpos_attention_fwd",
                          [_P] * 10 + [_I] * 5 + [_LL] * 3 + [_F, _I, _P]),
     "relpos_attention_bwd": ("relpos_attention", "relpos_attention_bwd",
@@ -56,7 +59,12 @@ ENTRIES = {
 KERNELS = tuple(ENTRIES)
 SOURCES = tuple(dict.fromkeys(src for src, _, _ in ENTRIES.values()))
 
-LAUNCHES = {name: 0 for name in KERNELS}
+# an entry point with several routes also counts each route's launches, so
+# a run can show which one it took: fbank's "highest" (fp32 CUDA-core kernel)
+# and "default" (bf16 pack and tensor-core kernel)
+ROUTES = {"fbank": ("fbank_fp32", "fbank_tc")}
+
+LAUNCHES = {name: 0 for name in KERNELS + tuple(r for rs in ROUTES.values() for r in rs)}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -146,14 +154,19 @@ def _library(source: str) -> ctypes.CDLL:
         return lib
 
 
-def launch(name: str, *args) -> None:
+def launch(name: str, *args, route: str | None = None) -> None:
     """Call kernel `name`'s C entry point, raise on the CUDA error it
     returns (its cudaGetLastError() right after the launch: a refused launch
-    never runs and no later sync reports it), and count the launch."""
+    never runs and no later sync reports it), and count the launch, under
+    `route` too where the entry has routes (`ROUTES`)."""
     source, symbol, _ = ENTRIES[name]
+    if route not in ROUTES.get(name, (None,)):
+        raise ValueError(f"{name}: route {route!r}, expected one of {ROUTES.get(name)}")
     lib = _library(source)
     err = getattr(lib, symbol)(*args)
     if err != 0:
         msg = lib.tpuasr_cuda_error_string(err).decode()
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")
     LAUNCHES[name] += 1
+    if route is not None:
+        LAUNCHES[route] += 1
