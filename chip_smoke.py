@@ -32,10 +32,13 @@ Phases (any failure exits non-zero):
    joint forward and backward (#4/#5), the RNN-T lattice (#8/#9) and the
    CTC alpha and beta sweeps (#6/#7) at the training step's shapes (B 12,
    T' 191, U+1 33, S 65, D 256, V 412) and at a ragged shape with a
-   t_len = 0 and a label_len = 0 row (#5 also twice at each, bit-identical,
-   and its device time by kernel at the training shape: row side,
-   vocabulary side, sum; #4/#5's bound at the 3xTF32 floor, the fp32
-   CUDA-core figure beside it); the fused FFN forward and backward
+   t_len = 0 and a label_len = 0 row (#4 and #5 also twice at each,
+   bit-identical, and their device time by kernel at the training shape:
+   #4's W tiles and rows, #5's row side, vocabulary side and sum; #4's plan
+   and the bytes of W its blocks read from L2 at each shape, and #4 held
+   and timed at the trainer's shapes too, T' 63 and 127 at U+1 17; #4/#5's
+   bound at the 3xTF32 floor, the fp32 CUDA-core figure beside it); the
+   fused FFN forward and backward
    (#10/#11) at the training shape (12 x 191 rows, D 256, H 1024, bf16,
    keep-masks at rate 0.1, scale 0.5: two calls bit-identical, each call's
    device time by kernel, and timed at other counts of H slices), at the
@@ -206,7 +209,8 @@ def main() -> dict:
     bench = _bench_batch(torch, dev)
     checks = _kernel_checks(torch, dev, data, bench)
     checks.update(_attention_train_checks(torch, dev, bench))
-    checks.update(_train_kernel_checks(torch, dev, bench))
+    train_checks, fwd_plans = _train_kernel_checks(torch, dev, bench)
+    checks.update(train_checks)
     checks.update(_ffn_checks(torch, dev))
 
     # ---------------------------------------------------------------- 4-5
@@ -222,7 +226,7 @@ def main() -> dict:
             "the serving run did not take fbank's fp32 route (precision \"highest\") alone")
 
     # ---------------------------------------------------------------- 6
-    training = {}
+    training = {"rnnt_fused_fwd_plans": fwd_plans}  # counted from the shapes, not measured
     for fused, ffn in ((True, False), (False, False), (True, True)):
         t_phase = _phase(f"6a: training step, card against CPU (fp32, fused_joint_loss="
                          f"{fused}, fused_ffn={ffn})", t_phase)
@@ -421,8 +425,6 @@ def _kernel_checks(torch, dev, data, bench) -> dict:
                       f"{plan['blocks']} blocks, {plan['blocks_per_sm']} an SM, "
                       f"{plan['waves']} waves, {plan['smem']} B shared, "
                       f"{plan['ws_bytes']} B scratch")
-                rec = dict(rec, plan={k: plan[k] for k in (
-                    "tiles", "frames_per_block", "blocks", "blocks_per_sm", "waves", "smem")})
                 if src != "synthetic":  # the plan's choice at 4,112 and 9,216 frames
                     rec["by_block_shape"] = _fbank_tiles(torch, args)
                 if src == "bench":
@@ -479,6 +481,22 @@ def _fbank_tiles(torch, args) -> dict:
     print("  by block shape (frames, warps over them x over the bins), ms: "
           + "; ".join(f"{k}: {v:.4f}" for k, v in ms.items()))
     return ms
+
+
+def _joint_fwd_plan_line(torch, enc, pred, w, tag) -> dict:
+    """Print kernel #4's plan at these operands' shape (its tiles, blocks and
+    the bytes of W's tiles its blocks ask of L2 a call, counted from the
+    plan: no number here is measured); -> the plan's numbers."""
+    from tpuasr_torch.ops.ffn import _sm_count
+    from tpuasr_torch.ops.rnnt_fused import _joint_fwd_plan
+
+    (b, t, d), u1, v = enc.shape, pred.shape[1], w.shape[1]
+    plan = _joint_fwd_plan(b, t, u1, d, v, _sm_count(enc.device.index))
+    print(f"rnnt_fused_fwd {tag} plan: tt {plan['tt']} x uc {plan['uc']}, grid {plan['grid']} "
+          f"({plan['blocks']} blocks, {plan['waves']} waves), {plan['smem']} B shared a block, "
+          f"W's tiles asked of L2 {plan['l2_w_bytes'] / 1e9:.3f} GB a call (blocks x W's "
+          f"tile bytes, counted from the plan, not measured)")
+    return {k: plan[k] for k in ("tt", "uc", "blocks", "waves", "smem", "l2_w_bytes")}
 
 
 def _attention_train_checks(torch, dev, bench) -> dict:
@@ -851,8 +869,9 @@ def _held(torch, name, a, ctc_inputs) -> tuple[dict, str, bool, str]:
         if name == "rnnt_fused_fwd":
             tol = 5e-4
             ok = err <= tol
-            why = (f"{tol}: fp32 sums of {d} products in another order on logits up to ~10, "
-                   f"~1e-5 expected; the online logsumexp against torch's")
+            why = (f"{tol}: 3xTF32 products (about 21 bits) and fp32 sums of {d} in another "
+                   f"order on logits up to ~10, ~1e-5 expected; the online logsumexp (ex2.approx "
+                   f"terms) against torch's; the same bits in every run")
             work, nbytes = 2.0 * rows * d * v, 4 * (io + b * (u1 - 1) + 3 * rows)
         else:
             tol = 1e-4
@@ -1310,10 +1329,10 @@ def _enc_len(wave_lens):
     return ((f - 1) // 2 - 1) // 2
 
 
-def _train_kernel_checks(torch, dev, bench) -> dict:
+def _train_kernel_checks(torch, dev, bench) -> tuple[dict, dict]:
     """Kernels #4-#9 against their plain versions at the training step's
     shapes (and a ragged shape with a t_len = 0 and a label_len = 0 row);
-    -> {name: record at the bench shape}."""
+    -> ({name: record at the bench shape}, {shape: #4's plan there})."""
     import numpy as np
     import torch.nn.functional as F
 
@@ -1324,7 +1343,7 @@ def _train_kernel_checks(torch, dev, bench) -> dict:
     )
     from tpuasr_torch.ops.rnnt_lattice import mask_lattice_inputs
 
-    out = {}
+    out, plans = {}, {}  # plans: #4's at each shape, kept out of the kernels line
     blank = 5
     wave_lens = bench["wave_lens"].cpu().numpy()
     bench_t = int(_enc_len(np.array([(BENCH_FRAMES - 1) * HOP]))[0])
@@ -1349,6 +1368,26 @@ def _train_kernel_checks(torch, dev, bench) -> dict:
         # hands the lattice the same [B, T, U+1] inputs)
         recs["rnnt_fused_fwd"] = _hold(torch, "rnnt_fused_fwd", dict(joint, blank=blank), tag)
         blank_lp, label_full, lse = rnnt_fused_lp(enc, pred, w, bias, lab, blank)
+        again = rnnt_fused_lp(enc, pred, w, bias, lab, blank)
+        torch.cuda.synchronize()
+        require(all(torch.equal(x, y) for x, y in zip((blank_lp, label_full, lse), again)),
+                f"two calls of rnnt_fused_lp on the same inputs differ ({tag})")
+        plans[tag] = _joint_fwd_plan_line(torch, enc, pred, w, tag)
+        msg = f"rnnt_fused_fwd {tag}: two calls bit-identical"
+        if tag == "bench":
+            split = _device_split(torch, lambda: rnnt_fused_lp(enc, pred, w, bias, lab, blank))
+            recs["rnnt_fused_fwd"]["device_split_ms"] = split
+            msg += "; device ms a call by kernel (profiler): " + "; ".join(
+                f"{ms:.4f} {key[:60]}" for key, ms in sorted(split.items(), key=lambda x: -x[1]))
+        print(msg)
+        if tag == "bench":
+            for tt in (63, 127):  # the trainer's T' at its batch of 12, U+1 17
+                trainer = dict(enc_p=enc[:, :tt].contiguous(), pred_p=pred[:, :17].contiguous(),
+                               w=w, b=bias, labels=lab[:, :16].contiguous(), blank=blank)
+                rec = _hold(torch, "rnnt_fused_fwd", trainer, f"T'{tt}")
+                plans[f"T'{tt}"] = _joint_fwd_plan_line(torch, trainer["enc_p"],
+                                                        trainer["pred_p"], w, f"T'{tt}")
+                recs["rnnt_fused_fwd"][f"trainer_shape_t{tt}"] = rec
         bm, lm, pad_t, lv = mask_lattice_inputs(blank_lp, label_full[:, :, :-1], tl, ul)
         lattice = dict(blank_lp=bm, label_lp=lm, u_lens=ul)
         recs["rnnt_alpha"] = _hold(torch, "rnnt_alpha", lattice, tag)
@@ -1392,7 +1431,7 @@ def _train_kernel_checks(torch, dev, bench) -> dict:
                     "ctc_beta_grad: a t_len = 0 row has gradient")
         if tag == "bench":
             out = recs
-    return out
+    return out, plans
 
 
 def _train_cfg(dtype: str, dropout: bool, fused_joint_loss: bool = True,

@@ -332,6 +332,8 @@ def _joint_inputs(card, b, t, u, d, v, blank, seed):
     (4, 37, 5, 256, 412),     # t-chunks of 10: a ragged last one of 7
     (2, 7, 3, 72, 30),        # D 72 (padded to 96), V 30 (no 16-byte rows)
     (2, 70, 0, 256, 412),     # U+1 1: tiles of 31 frames (a tile's rows copied at once)
+    (12, 63, 16, 256, 412),   # the trainer's shapes (data.batch_size 12, U+1 17)
+    (12, 127, 16, 256, 412),
 ])
 def test_rnnt_fused_kernels_match_plain(card, b, t, u, d, v):
     blank = 5
@@ -351,6 +353,44 @@ def test_rnnt_fused_kernels_match_plain(card, b, t, u, d, v):
                                                                       before[1] + 1)
     for x, y in zip(grads, rnnt_fused_grads_plain(*args)):
         assert float((x - y).abs().max()) <= 1e-4 * float(y.abs().max()) + 1e-6
+
+
+@pytest.mark.parametrize("b,t,u,d,v", [
+    (12, 191, 32, 256, 412), (2, 7, 3, 72, 30), (2, 70, 0, 256, 412), (3, 37, 16, 256, 97),
+    (2, 5, 4, 32, 7),  # V 7: most lanes of a row hold no column below V
+])
+def test_rnnt_fused_lp_takes_out_of_range_labels(card, b, t, u, d, v):
+    """#4 against plain with label ids outside [0, V): logit 0, as the TPU
+    kernel's one-hot gives (one id past V lands in the last W tile's
+    padding)."""
+    blank = 5
+    enc, pred, w, bias, lab = _joint_inputs(card, b, t, u, d, v, blank, 7 * t + u)
+    if u:
+        lab[0, 0], lab[-1, -1] = v, -1
+    got = rnnt_fused_lp(enc, pred, w, bias, lab, blank)
+    ref = rnnt_fused_lp_plain(enc, pred, w, bias, lab, blank)
+    for x, y in zip(got, ref):
+        torch.testing.assert_close(x, y, rtol=0, atol=5e-4)
+
+
+def test_rnnt_fused_lp_repeats_bit_for_bit(card):
+    """Two calls of #4 at bench.py's training shape give the same bits: each
+    block owns its rows and folds the vocabulary tiles in order, no atomics."""
+    b, t, u, d, v, blank = 12, 191, 32, 256, 412, 5
+    args = _joint_inputs(card, b, t, u, d, v, blank, 4)
+    first, again = (rnnt_fused_lp(*args, blank) for _ in range(2))
+    torch.cuda.synchronize()
+    for name, x, y in zip(("blank_lp", "label_lp", "lse"), first, again):
+        assert torch.equal(x, y), name
+
+
+def test_rnnt_fused_refuses_a_join_dim_past_its_tiles(card):
+    enc, pred, w, bias, lab = _joint_inputs(card, 2, 9, 3, 320, 412, 5, 0)
+    with pytest.raises(ValueError, match="join dim 320"):
+        rnnt_fused_lp(enc, pred, w, bias, lab, 5)
+    lse = torch.zeros(2, 9, 4, device=card)
+    with pytest.raises(ValueError, match="join dim 320"):
+        rnnt_fused_grads(enc, pred, w, bias, lab, lse, lse, lse, 5)
 
 
 def test_rnnt_fused_grads_repeat_bit_for_bit(card):

@@ -6,7 +6,9 @@
   device="cpu"; the kernel wrappers take their plain versions only for CPU
   tensors; the RTF measurement refuses a model that is not on the card.
 - A JAX config loads into the port's config tree: every field the port
-  holds keeps the JAX value, and the keys it does not hold are dropped.
+  holds keeps the JAX value, and the keys it does not hold are dropped;
+  the trainer resolves a non-empty train.dtype into model.compute_dtype,
+  as the JAX trainer does.
 """
 
 import ast
@@ -24,6 +26,7 @@ from tpuasr_torch.device import resolve_device
 from tpuasr_torch.eval import measure_rtf
 from tpuasr_torch.models import Transducer, init_weights
 from tpuasr_torch.ops import LAUNCHES, fbank_frames, relpos_attention
+from tpuasr_torch.tools.train import effective_config
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "tpuasr"}
@@ -194,6 +197,36 @@ def test_config_round_trips_from_jax(tmp_path):
     assert held(got, full) and got["feature"]["fbank_precision"] == "default"
     assert got["model"]["encoder"]["fused_attention"] is True  # held, the JAX value
     assert from_dict(Config, got) == cfg
+
+
+def test_trainer_resolves_train_dtype_from_a_yaml(tmp_path):
+    """A yaml's train.dtype reaches model.compute_dtype through the trainer's
+    layering and `resolve`, over the card's bf16 default, as the JAX
+    trainer's resolve (tpuasr/config.py) gives it."""
+    path = tmp_path / "train.yaml"
+    path.write_text("train:\n  dtype: float32\n")
+    cfg = effective_config("cuda", str(path), [])
+    assert cfg.train.dtype == "float32" and cfg.model.compute_dtype == "float32"
+    jcfg = jax_config.resolve(jax_config.layer_yaml(jax_config.Config(), str(path)))
+    assert cfg.model.compute_dtype == jcfg.model.compute_dtype
+
+
+@pytest.mark.parametrize("device_type,default", [("cuda", "bfloat16"), ("cpu", "float32")])
+def test_trainer_keeps_compute_dtype_when_train_dtype_is_empty(tmp_path, device_type, default):
+    path = tmp_path / "train.yaml"
+    path.write_text("train:\n  dtype: ''\n  epochs: 3\n")
+    cfg = effective_config(device_type, str(path), [])
+    assert cfg.train.dtype == "" and cfg.train.epochs == 3
+    assert cfg.model.compute_dtype == default == effective_config(device_type, None, []) \
+        .model.compute_dtype
+
+
+def test_trainer_resolves_train_dtype_from_set():
+    cfg = effective_config("cpu", None, ["train.dtype=bfloat16"])
+    assert cfg.model.compute_dtype == "bfloat16"
+    # the last word is train.dtype's, whichever key the overrides name
+    cfg = effective_config("cuda", None, ["model.compute_dtype=bfloat16", "train.dtype=float32"])
+    assert cfg.model.compute_dtype == "float32"
 
 
 def test_seeded_weights():

@@ -217,6 +217,10 @@ class TrainConfig:
     save_interval: int = 0
     save_dir: str = "exp"
     log_dir: str = "exp/tb"
+    # compute dtype for the train step; "" inherits model.compute_dtype. A
+    # non-empty value overrides model.compute_dtype via `resolve()` so yamls
+    # can set the training precision in one place (params stay float32).
+    dtype: str = ""
 
 
 @dataclass
@@ -300,6 +304,15 @@ def flatten(d: dict, prefix: str = "") -> dict[str, Any]:
         else:
             out[f"{prefix}{k}"] = v
     return out
+
+
+def resolve(cfg: Config) -> Config:
+    """Cross-section wiring applied once by the trainer after all overrides:
+    a non-empty train.dtype sets model.compute_dtype (the single precision
+    knob of a yaml, as the JAX package's `resolve`)."""
+    if cfg.train.dtype:
+        cfg.model.compute_dtype = cfg.train.dtype
+    return cfg
 
 
 def load_yaml(path: str) -> Config:

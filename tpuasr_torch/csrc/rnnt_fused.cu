@@ -11,24 +11,51 @@
 // What bounds them on an H100: operations. At the flagship's training shape
 // (B 12, T' 191, U1 33, D 256, V 412: 75,636 rows) the forward is one
 // [rows, D] x [D, V] product, 15.95 GFLOP, 0.24 ms at the fp32 CUDA-core peak
-// (67 TFLOP/s), against ~4 MB of operands and outputs (~1 us). The backward
-// needs three such products (logits again, dX.W^T, a^T.dX), 47.9 GFLOP: 0.714
-// ms on CUDA cores; on tensor cores as 3xTF32 (three TF32 passes a product,
-// below) 3 x 47.9 GFLOP at the dense TF32 peak (494.7 TFLOP/s), 0.290 ms.
+// (67 TFLOP/s), against ~4 MB of operands and outputs (~1 us); as 3xTF32
+// (three TF32 passes a product, below) at the dense TF32 peak (494.7
+// TFLOP/s) 0.097 ms. The backward needs three such products (logits again,
+// dX.W^T, a^T.dX), 47.9 GFLOP: 0.714 ms on CUDA cores, 0.290 ms as 3xTF32.
 // The exp of every logit (31 M) comes on top.
 //
-// Forward design (CUDA cores): one block of 256 threads per (utterance, tile
-// of 64 rows). The block writes tanh(enc + pred) for its rows into shared
-// memory once, then walks the vocabulary in tiles of 64 columns: W arrives in
-// chunks of 32 x 64 through shared memory, each thread accumulates a 4 x 4
-// block of logits in registers, and an online logsumexp (running max and sum
-// per row, reduced across the 16 threads of a row with warp shuffles) folds
-// each tile in. The blank column and the row's label column are picked as
-// they pass; the label id is read directly (the TPU kernel builds a one-hot
-// matrix, :147-149), an id outside [0, V) gives logit 0 as that one-hot
-// does, and padded vocab columns never enter the sum. The outputs are
-// blank_lp, label_lp and the row's logsumexp, [B, T, U1] each: the backward
-// reads the logsumexp instead of running a first pass over V again.
+// Forward design. A block owns utterance b's frames t0..t0+tt-1 x label
+// positions u0..u0+uc-1 (tt x uc <= 32 rows, tt + uc <= 32; tiled by
+// `_joint_fwd_plan`, ops/rnnt_fused.py: uc 2 x tt 16, 2,448 blocks at the
+// bench shape), 8 warps, two blocks an SM (96 KB of shared memory, 128
+// registers). K is D zero-padded to 256 whatever D, so one kernel serves
+// every D <= 256 with its k-steps fixed at compile time. Two kernels behind
+// one entry:
+//  (0) `rnnt_fwd_wtile_kernel` lays W out once in fp32 tiles of 32
+//      vocabulary columns, [256][32] each, zero padded, each row already in
+//      the shared tile's swizzle (0.43 MB at the bench shape).
+//  (1) `rnnt_fwd_kernel` copies the tile's tt enc rows and uc pred rows by
+//      cp.async (`stage_rows`, as the backward), and each warp forms its
+//      part of a = tanh(enc + pred) (16 rows x a quarter of K) straight into
+//      registers, once: a is the same for every vocabulary tile, so it is
+//      neither re-read nor kept in shared memory. Then it walks the
+//      vocabulary in W tiles of 32 columns, each copied as it lies by
+//      cp.async into a double buffer: warp (row group, K quarter) takes the
+//      logits of its 16 rows x 32 columns over its quarter of K (3xTF32
+//      mma.sync, a and W split into TF32 pairs as each fragment is formed)
+//      into one of two sets of partials in shared memory; the fold of the
+//      tile before (the quarters summed in order, + bias, each thread's
+//      running max and sum over its 4 columns) sits in the same straight-
+//      line block, without branches, so the scheduler interleaves it with
+//      these products; one barrier a tile. At the end the 8 lanes of a row
+//      combine their max and sum by shuffles. The blank column and the row's
+//      label column are picked as they pass; the label id is read directly
+//      (the TPU kernel builds a one-hot matrix, :147-149), an id outside [0,
+//      V) gives logit 0 as that one-hot does, padded vocabulary columns never
+//      enter the sum, and the last column u = U reads the blank. No atomics:
+//      each block owns its rows, so two calls give the same bits. The
+//      outputs are blank_lp, label_lp and the row's logsumexp, [B, T, U1]
+//      each: the backward reads the logsumexp instead of running a first
+//      pass over V again.
+// What the time went to, on an H100 (PERF.md): the products alone are ~0.1
+// ms of it; the fold, W's copies and the short phases between barriers
+// (latency the 16 warps of an SM do not hide) the rest. Forming a once in
+// registers and putting the fold beside the next tile's products moved it
+// most; W as TF32 pairs (twice the bytes to copy) and 32-row warps were
+// slower.
 //
 // Backward design. dX = gb*1[blank] + gl*1[label] - exp(x - lse)*(gb + gl)
 // for the logits x of a row; d_enc[t] = sum over u and d_pred[u] = sum over
@@ -78,15 +105,17 @@
 // tiles over the vocabulary blocks.
 // Precision: 3xTF32 on mma.sync.m16n8k8 (mma.cuh): each fp32 operand is
 // hi + lo, hi cut to TF32 and lo the rest (split_tf32), either as its
-// fragment is loaded from an fp32 tile (a) or once into (hi, lo) pairs (W,
-// dX); each product is lo.hi + hi.lo + hi.hi in fp32, about 21 bits: plain
-// TF32 (10 bits) would not keep the card tests' 1e-4 of each output's max,
-// since exp(x - lse) magnifies a logit's error. The three terms go pass by
-// pass over a warp's tiles, so consecutive mma are independent. exp and
-// tanh are ex2.approx with the product x log2(e) carried in two parts
-// (~3 ulp) and 1 - 2/(e^(2|x|) + 1) (within ~2e-7): the libm versions cost
-// several times the instructions, and these kernels are bound by issued
-// instructions and short dependent phases, not by the tensor cores.
+// fragment is formed (a; the forward's W) or once into (hi, lo) pairs (the
+// backward's W, dX); each product is lo.hi + hi.lo + hi.hi in fp32, about
+// 21 bits: plain TF32 (10 bits) would not keep the card tests' 5e-4 of the
+// forward's log-probs or 1e-4 of each gradient's max, since exp(x - lse)
+// magnifies a logit's error. The three terms go pass by pass over a warp's
+// tiles, so consecutive mma are independent. exp and tanh are ex2.approx
+// with the product x log2(e) carried in two parts (~3 ulp) and 1 - 2/(e^(2|x|)
+// + 1) (within ~2e-7); the forward's sums of exp take ex2.approx alone (the
+// logsumexp needs ~1e-6 of each term): the libm versions cost several times
+// the instructions, and these kernels are bound by issued instructions and
+// short dependent phases, not by the tensor cores.
 // Shared tiles have a pitch that is a multiple of 32 floats (16 pairs) and
 // XOR-swizzle the column by the row (`swz`, `swz2`), so both ways a tile is
 // read (rows g x columns c, and rows c x columns g) hit distinct banks. D is
@@ -106,14 +135,11 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-// forward
-constexpr int kR = 64;   // rows per block
-constexpr int kVT = 64;  // vocabulary columns per tile
-constexpr int kKC = 32;  // depth of a W chunk
-// backward
-constexpr int kBRows = 64;   // rows of a row-side block, and of a vocabulary-side step
-constexpr int kRVT = 32;     // vocabulary columns of a row-side tile
+constexpr int kThreads = 256;  // the W tile and sum kernels
+constexpr int kFRows = 32;     // rows of a forward block
+constexpr int kFThreads = 256;  // a forward block: 8 warps, 2 row groups x 4 K quarters
+constexpr int kBRows = 64;  // rows of a row-side block, and of a vocabulary-side step
+constexpr int kRVT = 32;    // vocabulary columns of a W tile (forward and row side)
 constexpr int kVVT = 64;     // vocabulary columns of a vocabulary-side block
 constexpr int kMaxD = 256;   // the accumulators' width
 constexpr int kBThreads = 512;  // a backward block: 16 warps, 4 row groups x 4
@@ -126,118 +152,7 @@ __device__ __forceinline__ int label_of(const int* labels, int b, int u, int U1,
   return u < U1 - 1 ? labels[(size_t)b * (U1 - 1) + u] : blank;
 }
 
-__global__ void __launch_bounds__(kThreads)
-rnnt_fwd_kernel(const float* __restrict__ enc, const float* __restrict__ pred,
-                const float* __restrict__ w, const float* __restrict__ bias,
-                const int* __restrict__ labels, float* __restrict__ blank_lp,
-                float* __restrict__ label_lp, float* __restrict__ lse, int T, int U1,
-                int D, int V, int blank) {
-  extern __shared__ float smem[];
-  float* A = smem;                            // [kR][D + 1] tanh(enc + pred)
-  float* Ws = A + (size_t)kR * (D + 1);       // [kKC][kVT] W chunk
-  __shared__ float row_blank[kR], row_label[kR];
-  __shared__ int row_lab[kR];
-
-  const int b = blockIdx.y;
-  const int N = T * U1;
-  const int r0 = blockIdx.x * kR;
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-
-  for (int i = tid; i < kR * D; i += kThreads) {
-    const int r = i / D, d = i - r * D;
-    const int n = r0 + r;
-    float a = 0.f;
-    if (n < N) {
-      const int t = n / U1, u = n - t * U1;
-      a = tanhf(enc[((size_t)b * T + t) * D + d] + pred[((size_t)b * U1 + u) * D + d]);
-    }
-    A[r * (D + 1) + d] = a;
-  }
-  for (int r = tid; r < kR; r += kThreads) {
-    const int n = r0 + r;
-    row_lab[r] = n < N ? label_of(labels, b, n % U1, U1, blank) : -1;
-    row_label[r] = 0.f;  // a label id outside [0, V) keeps logit 0 (one-hot parity)
-    row_blank[r] = 0.f;
-  }
-  __syncthreads();
-
-  float m[4], s[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    s[i] = 0.f;
-  }
-  for (int v0 = 0; v0 < V; v0 += kVT) {
-    float acc[4][4] = {};
-    for (int k0 = 0; k0 < D; k0 += kKC) {
-      for (int i = tid; i < kKC * kVT; i += kThreads) {
-        const int kk = i / kVT, c = i - kk * kVT;
-        const int k = k0 + kk, col = v0 + c;
-        Ws[i] = (k < D && col < V) ? w[(size_t)k * V + col] : 0.f;
-      }
-      __syncthreads();
-      const int kmax = min(kKC, D - k0);
-      for (int kk = 0; kk < kmax; ++kk) {
-        float a[4], x[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = A[(ty + 16 * i) * (D + 1) + k0 + kk];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) x[j] = Ws[kk * kVT + tx + 16 * j];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], x[j], acc[i][j]);
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = v0 + tx + 16 * j;
-        if (col < V) {
-          const float x = acc[i][j] + bias[col];
-          acc[i][j] = x;
-          mx = fmaxf(mx, x);
-          if (col == blank) row_blank[r] = x;
-          if (col == row_lab[r]) row_label[r] = x;
-        }
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float mn = fmaxf(m[i], mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (v0 + tx + 16 * j < V) sum += expf(acc[i][j] - mn);
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      s[i] = s[i] * expf(m[i] - mn) + sum;
-      m[i] = mn;
-    }
-  }
-  __syncthreads();  // row_blank / row_label written by other threads
-  if (tx == 0) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-      const int n = r0 + r;
-      if (n < N) {
-        const float l = m[i] + logf(s[i]);
-        const size_t o = (size_t)b * N + n;
-        blank_lp[o] = row_blank[r] - l;
-        label_lp[o] = row_label[r] - l;
-        lse[o] = l;
-      }
-    }
-  }
-}
-
-// ----------------------------------------------------------------- backward
+// ------------------------------------------------- shared by both directions
 
 __host__ __device__ inline int pad32(int d) { return (d + 31) / 32 * 32; }
 
@@ -319,6 +234,7 @@ __device__ __forceinline__ float tanh_f32(float x) {
 // (zeros past D; 16 bytes a copy when D % 4 == 0 and enc, pred are 16-byte
 // aligned), one round trip for 16 rows where reading each row's pair would
 // be 64 x 2
+template <int NT = kBThreads>
 __device__ __forceinline__ void stage_rows(float* St, const float* enc, const float* pred,
                                            int b, int t0, int u0, int nt, int nu, int T,
                                            int U1, int D, int Dp, int vec, int tid) {
@@ -326,13 +242,13 @@ __device__ __forceinline__ void stage_rows(float* St, const float* enc, const fl
   const float* src_p = pred + ((size_t)b * U1 + u0) * D;
   if (vec) {
     const int dq = Dp / 4;
-    for (int i = tid; i < (nt + nu) * dq; i += kBThreads) {
+    for (int i = tid; i < (nt + nu) * dq; i += NT) {
       const int r = i / dq, d = (i - r * dq) * 4;
       const float* src = r < nt ? src_e + (size_t)r * D : src_p + (size_t)(r - nt) * D;
       cp_async16(St + r * Dp + d, d < D ? src + d : enc, d < D);
     }
   } else {
-    for (int i = tid; i < (nt + nu) * Dp; i += kBThreads) {
+    for (int i = tid; i < (nt + nu) * Dp; i += NT) {
       const int r = i / Dp, d = i - r * Dp;
       const float* src = r < nt ? src_e + (size_t)r * D : src_p + (size_t)(r - nt) * D;
       cp_async4(St + r * Dp + d, d < D ? src + d : enc, d < D);
@@ -384,6 +300,222 @@ rnnt_bwd_wsplit_kernel(const float* __restrict__ w, uint2* __restrict__ wsp, int
     wsp[i] = split_pair(k < D && v < V ? w[(size_t)k * V + v] : 0.f);
   }
 }
+
+// ------------------------------------------------------------------ forward
+
+// W zero-padded into fp32 tiles, wf [n_vt][kMaxD][32], each row's columns
+// already swizzled as the forward's shared tile holds them (at(k, q, 32)),
+// so a block copies a tile as it lies; the forward splits W as it loads its
+// fragments
+__global__ void __launch_bounds__(kThreads)
+rnnt_fwd_wtile_kernel(const float* __restrict__ w, float* __restrict__ wf, int D, int V) {
+  constexpr int Dp = kMaxD;
+  const size_t n = (size_t)cdiv(V, kRVT) * Dp * kRVT;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    const int q = (int)(i % kRVT), k = (int)(i / kRVT % Dp), vt = (int)(i / ((size_t)kRVT * Dp));
+    const int v = vt * kRVT + q;
+    wf[i - q + (q ^ swz(k))] = k < D && v < V ? w[(size_t)k * V + v] : 0.f;
+  }
+}
+
+// e^(t ln 2) for t <= 0 in one instruction (2 ulp, and 2^-126 and below flush
+// to 0): the forward's sums of exp need ~1e-6 of each term, not exp_f32's ~3 ulp
+__device__ __forceinline__ float ex2_fast(float t) {
+  float p;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(p) : "f"(t));
+  return p;
+}
+
+// A block owns utterance b's frames t0.. (tt) x label positions u0.. (uc),
+// <= 32 rows: 2 row groups x 4 K quarters = 8 warps, each 16 rows x 32
+// columns over a quarter of K; two blocks an SM. K is D zero-padded to kMaxD
+// (the rows are staged with zeros past D, W's tiles hold zeros there), so
+// the k-steps of a quarter are known at compile time. A warp's a = tanh(enc
+// + pred) (its rows, its quarter) is formed once and stays in registers
+// while the vocabulary passes, split into TF32 pairs at each use. Shared
+// memory (`_joint_fwd_plan`'s smem): two W tiles [kMaxD][32], then two sets
+// of the K quarters' 4 partial logits [32][32] (the first holds the tile's
+// enc and pred rows before that).
+__global__ void __launch_bounds__(kFThreads, 2)
+rnnt_fwd_kernel(const float* __restrict__ enc, const float* __restrict__ pred,
+                const float* __restrict__ wf, const float* __restrict__ bias,
+                const int* __restrict__ labels, float* __restrict__ blank_lp,
+                float* __restrict__ label_lp, float* __restrict__ lse, int T, int U1, int D,
+                int V, int blank, int tt, int uc, int vec) {
+  constexpr int ROWS = kFRows, NT = kFThreads, RG = ROWS / 16;
+  constexpr int Dp = kMaxD, KS = Dp / 4 / 8;  // K padded; k-steps of a K quarter
+  constexpr int CPT = 4, LPR = kRVT / CPT;     // the fold: columns a thread, lanes a row
+  constexpr int PS = 4 * ROWS * kRVT;          // floats of a set of partials
+  extern __shared__ __align__(16) float smem[];
+  float* Wb = smem;
+  float* Ps = Wb + 2 * (size_t)Dp * kRVT;
+  __shared__ JointRows R;
+  __shared__ float row_x[2][ROWS];  // the row's blank and label logits
+
+  const int uk = blockIdx.x, tk = blockIdx.y, b = blockIdx.z;
+  const int u0 = uk * uc, t0 = tk * tt;
+  const int nu = min(uc, U1 - u0), nt = min(tt, T - t0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, c = lane & 3;
+  const int n_vt = cdiv(V, kRVT);
+
+  // W tile vt into buffer vt & 1 as it lies, 16 bytes a copy
+  auto stage = [&](int vt) {
+    const float* src = wf + (size_t)vt * Dp * kRVT;
+    float* dst = Wb + (size_t)(vt & 1) * Dp * kRVT;
+    for (int i = 4 * tid; i < Dp * kRVT; i += 4 * NT) cp_async16(dst + i, src + i, true);
+    cp_async_commit();
+  };
+  stage(0);
+  stage_rows<NT>(Ps, enc, pred, b, t0, u0, nt, nu, T, U1, D, Dp, vec, tid);
+  for (int r = tid; r < ROWS; r += NT) {
+    const int tl = r / uc, ul = r - tl * uc;
+    const bool ok = tl < nt && ul < nu;
+    R.ok[r] = ok;
+    R.tl[r] = tl;
+    R.ul[r] = ul;
+    R.lab[r] = ok ? label_of(labels, b, u0 + ul, U1, blank) : -1;
+    row_x[0][r] = 0.f;
+    row_x[1][r] = 0.f;  // a label id outside [0, V) keeps logit 0 (the one-hot's parity)
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // W tile 0, the rows
+  if (n_vt > 1) stage(1);
+
+  // warp (rg, cg) takes rows 16 rg.. x all 32 columns over the K quarter cg
+  // Dp/4..; its A fragments: a of rows mr + g (+8), columns k_lo + 8 s + c
+  // (+4), 0 on rows that are not there
+  const int rg = warp % RG, cg = warp / RG;
+  const int mr = 16 * rg, k_lo = cg * (Dp / 4);
+  float af[KS][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {  // fragment register i: row + 8 (i & 1), column + 4 (i >> 1)
+    const int r = mr + g + 8 * (i & 1);
+    const float* e = Ps + R.tl[r] * Dp + k_lo + c + 4 * (i >> 1);
+    const float* p = Ps + (nt + R.ul[r]) * Dp + k_lo + c + 4 * (i >> 1);
+    const bool ok = R.ok[r];
+#pragma unroll
+    for (int s = 0; s < KS; ++s) af[s][i] = ok ? tanh_f32(e[8 * s] + p[8 * s]) : 0.f;
+  }
+  __syncthreads();  // the staged rows read (the partials go over them)
+
+  int ob[2][4];  // W's columns 8 j + g of rows k0 + c and k0 + c + 4, swizzled
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    ob[0][j] = (8 * j + g) ^ swz(c);
+    ob[1][j] = (8 * j + g) ^ swz(c + 4);
+  }
+  // the fold: row xr, columns xq..xq+3 of each tile; the thread keeps its
+  // own running max and sum over its columns, and the 8 lanes of a row
+  // combine theirs once, at the end
+  const int xr = tid / LPR, xq = (tid % LPR) * CPT;
+  const int lab = R.lab[xr];
+  float m_run = -INFINITY, s_run = 0.f;
+  float bv[CPT];  // the bias of the fold's columns in the tile folded next
+
+  // tile vt's logits from partial set vt & 1, summed over the quarters in
+  // order, + bias; columns past V never enter (branch free: the fold shares
+  // its block of instructions with the next tile's products); blank and
+  // label picked as they pass
+  auto fold = [&](int vt) {
+    const float* P = Ps + (vt & 1) * PS;
+    const int v0 = vt * kRVT, o = at(xr, xq, kRVT);
+    float4 q = *reinterpret_cast<const float4*>(P + o);
+#pragma unroll
+    for (int k = 1; k < 4; ++k) {
+      const float4 p = *reinterpret_cast<const float4*>(P + k * ROWS * kRVT + o);
+      q.x += p.x, q.y += p.y, q.z += p.z, q.w += p.w;
+    }
+    float xv[CPT] = {q.x, q.y, q.z, q.w};
+    float mx = m_run;
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) {
+      const int v = v0 + xq + i;
+      xv[i] = v < V ? xv[i] + bv[i] : -INFINITY;
+      mx = fmaxf(mx, xv[i]);
+      if (v == blank) row_x[0][xr] = xv[i];
+      if (v == lab && v < V) row_x[1][xr] = xv[i];
+    }
+    // mx = -inf: no column below V yet (the sum stays 0)
+    const float ml = mx * 1.44269502f;
+    float sum = m_run == -INFINITY ? 0.f : s_run * ex2_fast(fmaf(m_run, 1.44269502f, -ml));
+#pragma unroll
+    for (int i = 0; i < CPT; ++i)
+      sum += xv[i] == -INFINITY ? 0.f : ex2_fast(fmaf(xv[i], 1.44269502f, -ml));
+    s_run = sum;
+    m_run = mx;
+  };
+  auto load_bias = [&](int vt) {
+#pragma unroll
+    for (int i = 0; i < CPT; ++i) {
+      const int v = vt * kRVT + xq + i;
+      bv[i] = v < V ? __ldg(bias + v) : 0.f;
+    }
+  };
+
+  // tile vt: its products into partial set vt & 1 beside the fold of tile
+  // vt - 1 (one block of instructions for the scheduler to interleave), then
+  // one barrier
+  load_bias(0);
+  for (int vt = 0; vt < n_vt; ++vt) {
+    const float* Wt = Wb + (size_t)(vt & 1) * Dp * kRVT;
+    float x[4][4] = {};
+#pragma unroll
+    for (int s = 0; s < KS; ++s) {
+      uint32_t ah[4], al[4], bh[4][2], bl[4][2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split_tf32(af[s][i], ah[i], al[i]);
+      const float* wk = Wt + (k_lo + 8 * s + c) * kRVT;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        split_tf32(wk[ob[0][j]], bh[j][0], bl[j][0]);
+        split_tf32(wk[4 * kRVT + ob[1][j]], bh[j][1], bl[j][1]);
+      }
+#pragma unroll
+      for (int t = 0; t < 3; ++t)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma1688_3xtf32(x[j], t, ah, al, bh[j], bl[j]);
+    }
+    if (vt > 0) {
+      fold(vt - 1);
+      load_bias(vt);
+    }
+    float* Pq = Ps + (vt & 1) * PS + cg * ROWS * kRVT;
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(Pq + at(mr + g + 8 * h, 8 * j + 2 * c, kRVT)) =
+            make_float2(x[j][2 * h], x[j][2 * h + 1]);
+    cp_async_wait<0>();
+    __syncthreads();  // tile vt's partials written, tile vt - 1's read; W tile vt + 1 landed,
+                      // W tile vt read by all
+    if (vt + 2 < n_vt) stage(vt + 2);  // into tile vt's buffer
+  }
+  fold(n_vt - 1);
+
+  // the row's max and sum from its 8 lanes' (a lane with no column below V
+  // adds nothing); the same bits in each lane
+  float mrow = m_run;
+#pragma unroll
+  for (int off = LPR / 2; off > 0; off >>= 1)
+    mrow = fmaxf(mrow, __shfl_xor_sync(0xffffffffu, mrow, off));
+  float srow = m_run == -INFINITY ? 0.f : s_run * exp_f32(m_run - mrow);
+#pragma unroll
+  for (int off = LPR / 2; off > 0; off >>= 1) srow += __shfl_xor_sync(0xffffffffu, srow, off);
+  __syncthreads();  // row_x written by the lane that held the column
+  if (tid % LPR == 0 && R.ok[xr]) {
+    const int t = t0 + R.tl[xr], u = u0 + R.ul[xr];
+    const size_t o = ((size_t)b * T + t) * U1 + u;
+    const float l = mrow + logf(srow);
+    blank_lp[o] = row_x[0][xr] - l;
+    label_lp[o] = row_x[1][xr] - l;
+    lse[o] = l;
+  }
+}
+
+// ----------------------------------------------------------------- backward
 
 __global__ void __launch_bounds__(kBThreads, 1)
 rnnt_bwd_rows_kernel(const float* __restrict__ enc, const float* __restrict__ pred,
@@ -839,22 +971,37 @@ const char* tpuasr_cuda_error_string(int err) {
 }
 
 // enc [B, T, D], pred [B, U1, D], w [D, V], bias [V] fp32; labels [B, U1-1]
-// int32 -> blank_lp, label_lp, lse [B, T, U1] fp32; all contiguous.
+// int32 -> blank_lp, label_lp, lse [B, T, U1] fp32; all contiguous. The
+// plan (`_joint_fwd_plan`, the owner of the layout): tiles of tt frames x uc
+// label positions (tt * uc <= 32, (tt + uc) 256 <= 8192), smem, the block's
+// shared bytes, and ws: ws_bytes of scratch for W's tiles; checked here
+// against the shape, the card's limit and alignment. D <= 256. Two kernels:
+// W's tiles, then the rows.
 int rnnt_fused_fwd(const void* enc, const void* pred, const void* w, const void* bias,
-                   const void* labels, void* blank_lp, void* label_lp, void* lse, int B,
-                   int T, int U1, int D, int V, int blank, void* stream) {
+                   const void* labels, void* blank_lp, void* label_lp, void* lse, void* ws,
+                   long long ws_bytes, int B, int T, int U1, int D, int V, int blank, int tt,
+                   int uc, int smem, void* stream) {
   if (B == 0 || T == 0 || U1 == 0) return 0;
-  const size_t smem = sizeof(float) * ((size_t)kR * (D + 1) + (size_t)kKC * kVT);
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = cudaFuncSetAttribute(
-      rnnt_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const size_t n_w = (size_t)cdiv(V, kRVT) * kMaxD * kRVT;
+  if (D < 1 || D > kMaxD || V < 1 || tt < 1 || uc < 1 || tt * uc > kFRows ||
+      (tt + uc) * kMaxD > kStage || smem < 1 || (size_t)smem > kMaxSmem ||
+      ws_bytes < (long long)(n_w * sizeof(float)) || reinterpret_cast<uintptr_t>(ws) % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* wf = static_cast<float*>(ws);
+  rnnt_fwd_wtile_kernel<<<(unsigned)cdiv((int)n_w, kThreads), kThreads, 0, st>>>(
+      static_cast<const float*>(w), wf, D, V);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((T * U1 + kR - 1) / kR, B);
-  rnnt_fwd_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(enc), static_cast<const float*>(pred),
-      static_cast<const float*>(w), static_cast<const float*>(bias),
-      static_cast<const int*>(labels), static_cast<float*>(blank_lp),
-      static_cast<float*>(label_lp), static_cast<float*>(lse), T, U1, D, V, blank);
+
+  if ((err = allow_smem(rnnt_fwd_kernel, smem)) != cudaSuccess) return static_cast<int>(err);
+  const int vec_rows = D % 4 == 0 && reinterpret_cast<uintptr_t>(enc) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(pred) % 16 == 0;
+  rnnt_fwd_kernel<<<dim3(cdiv(U1, uc), cdiv(T, tt), B), kFThreads, smem, st>>>(
+      static_cast<const float*>(enc), static_cast<const float*>(pred), wf,
+      static_cast<const float*>(bias), static_cast<const int*>(labels),
+      static_cast<float*>(blank_lp), static_cast<float*>(label_lp), static_cast<float*>(lse), T,
+      U1, D, V, blank, tt, uc, vec_rows);
   return static_cast<int>(cudaGetLastError());
 }
 

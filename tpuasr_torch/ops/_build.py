@@ -5,15 +5,15 @@ is compiled by ``nvcc`` for ``sm_90a`` into ``build/tpuasr_torch/`` at the
 root of the checkout and loaded with ``ctypes``; the library's file name
 carries a hash of its source and of the ``csrc/*.cuh`` headers it includes
 (`mma.cuh`: the tensor-core building blocks of the fbank, attention, FFN
-and fused-joint backward kernels), so an edited source or header is rebuilt.
+and fused-joint kernels), so an edited source or header is rebuilt.
 Nothing here runs at import time: the CPU tests import every module of the
 port.
 
 A source may hold several kernels (`fbank.cu`: the fp32 route, and the
 bf16 route's operand pack and tensor-core kernel behind the same entry
 point; `ctc_lattice.cu`: the CTC alpha and beta sweeps; `rnnt_fused.cu`:
-the fused joint forward and backward, whose one entry point launches four
-kernels;
+the fused joint forward and backward, whose entry points launch two and
+four kernels;
 `rnnt_lattice.cu`: the RNN-T alpha and beta sweeps; `relpos_attention.cu`:
 the attention forward and its backward, whose one entry point launches two
 kernels; `ffn.cu`: the fused FFN forward and backward), each with its own C
@@ -47,7 +47,7 @@ ENTRIES = {
                          [_P] * 10 + [_I] * 5 + [_LL] * 3 + [_F, _I, _P]),
     "relpos_attention_bwd": ("relpos_attention", "relpos_attention_bwd",
                              [_P] * 18 + [_I] * 5 + [_LL] * 3 + [_F, _I, _P]),
-    "rnnt_fused_fwd": ("rnnt_fused", "rnnt_fused_fwd", [_P] * 8 + [_I] * 6 + [_P]),
+    "rnnt_fused_fwd": ("rnnt_fused", "rnnt_fused_fwd", [_P] * 9 + [_LL] + [_I] * 9 + [_P]),
     "rnnt_fused_bwd": ("rnnt_fused", "rnnt_fused_bwd", [_P] * 13 + [_LL] + [_I] * 9 + [_P]),
     "ctc_alpha": ("ctc_lattice", "ctc_alpha", [_P] * 6 + [_I] * 3 + [_P]),
     "ctc_beta_grad": ("ctc_lattice", "ctc_beta_grad", [_P] * 8 + [_I] * 3 + [_P]),

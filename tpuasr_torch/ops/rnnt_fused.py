@@ -19,13 +19,21 @@ the card and the plain versions for tensors on the CPU; a CUDA tensor never
 takes the plain path. Operands are fp32 (the caller casts, as
 `rnnt_fused_pallas.py:139-143` does).
 
-On the card #5 is four kernels behind one entry (csrc/rnnt_fused.cu): W
-split once into TF32 (hi, lo) pairs, a row side over tiles of (frames x
-label positions) for d_enc and d_pred, a vocabulary side over (vocabulary
-tile x every S-th row tile) for dW and db, each writing partial sums into a
-workspace, and a sum that adds the partials in a fixed order, so two calls
-on the same inputs give the same bits. `_joint_bwd_plan` chooses the tiles
-and sizes the workspace.
+On the card #4 is two kernels behind one entry (csrc/rnnt_fused.cu): W laid
+out once in fp32 tiles of 32 vocabulary columns (K zero-padded to 256),
+then a block a tile of (frames x label positions) that forms tanh(enc +
+pred) once and walks the vocabulary with 3xTF32 tensor-core products,
+folding each tile into an online logsumexp: no atomics, so two calls give
+the same bits.
+`_joint_fwd_plan` chooses the tiles and owns the shared memory and the
+scratch sizes; the entry checks them against the card's limit.
+
+#5 is four kernels behind one entry: W split once into TF32 (hi, lo) pairs,
+a row side over tiles of (frames x label positions) for d_enc and d_pred, a
+vocabulary side over (vocabulary tile x every S-th row tile) for dW and db,
+each writing partial sums into a workspace, and a sum that adds the
+partials in a fixed order, so two calls on the same inputs give the same
+bits. `_joint_bwd_plan` chooses the tiles and sizes the workspace.
 """
 
 from __future__ import annotations
@@ -39,12 +47,14 @@ from tpuasr_torch.ops.rnnt_lattice import (
     _NEG, mask_lattice_inputs, rnnt_alpha, rnnt_beta_grad,
 )
 
-MAX_JOIN_DIM = 256  # the backward's tiles of a and W in shared memory hold D <= 256
+MAX_JOIN_DIM = 256  # the kernels' tiles of a, W and the fragments hold D <= 256
 JOINT_ROWS = 64  # rows (t, u) of a row-side block: tt * uc <= 64
-JOINT_ROW_VT = 32  # vocabulary columns of a row-side tile
+JOINT_ROW_VT = 32  # vocabulary columns of a W tile (forward and row side)
 JOINT_VOCAB_VT = 64  # vocabulary columns of a vocabulary-side block
 JOINT_PART_CAP = 32 << 20  # partial d_enc + d_pred bytes: stay well inside the 50 MB L2
 JOINT_STAGE = 8192  # floats for a tile's enc and pred rows: (tt + uc) * D padded to 32
+JOINT_FWD_ROWS = 32  # rows (t, u) of a forward block: tt * uc <= 32
+JOINT_FWD_PER_SM = 2  # forward blocks an SM holds (96 KB of shared memory, 128 registers)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -53,6 +63,56 @@ def _cdiv(a: int, b: int) -> int:
 
 def _align(n: int) -> int:
     return _cdiv(n, 256) * 256
+
+
+def _row_tiles(t: int, u1: int, d: int, rows: int = JOINT_ROWS):
+    """The tiles of (frames x label positions) a block may own, both
+    directions: for each split of U+1 into n_uc chunks of uc, tt frames
+    (tt * uc <= rows, and the tile's tt enc rows and uc pred rows fit the
+    JOINT_STAGE floats they are copied into: tt + uc <= 32 at D 256)
+    -> (n_uc, uc, tt, n_tc) each."""
+    stage_rows = JOINT_STAGE // (32 * _cdiv(d, 32))  # tt + uc at most
+    for n_uc in range(1, u1 + 1):
+        uc = _cdiv(u1, n_uc)
+        if uc > rows or uc >= stage_rows or _cdiv(u1, uc) != n_uc:
+            continue
+        tt = max(1, min(rows // uc, stage_rows - uc, t))
+        yield n_uc, uc, tt, _cdiv(t, tt)
+
+
+def _joint_fwd_plan(b: int, t: int, u1: int, d: int, v: int, n_sm: int) -> dict:
+    """How kernel #4 lays out and tiles its work on a card of `n_sm` SMs
+    (JOINT_FWD_PER_SM blocks an SM); the one owner of its shared memory and
+    scratch, which the wrapper passes to csrc/rnnt_fused.cu's entry.
+
+    K is zero-padded to MAX_JOIN_DIM whatever D (one kernel, its k-steps
+    fixed at compile time). A block owns utterance b's frames t0.. t0+tt-1
+    and label positions u0.. u0+uc-1 (`_row_tiles` at D MAX_JOIN_DIM, tt *
+    uc <= JOINT_FWD_ROWS), 8 warps of 16 rows each over a quarter of K; grid
+    (n_uc, n_tc, B). It takes the split with the fewest waves of blocks, then
+    the fewest blocks (each reads all of W from L2). W goes to the blocks as
+    fp32 tiles of 32 columns, split into TF32 pairs as each fragment is
+    formed. Raises ValueError for D > MAX_JOIN_DIM.
+    -> {"tt", "uc", "n_uc", "n_tc", "grid", "blocks", "waves", "vt" (columns
+    a W tile), "n_vt", "smem" (bytes a block: two W tiles [MAX_JOIN_DIM, 32],
+    two sets of four [32, 32] partial logits), "ws" (bytes, 256-byte aligned:
+    w_tiles fp32 [n_vt, MAX_JOIN_DIM, 32]), "ws_bytes", "l2_w_bytes" (W's
+    tile bytes times the blocks: what the blocks ask of L2 a call, counted
+    from the plan)}."""
+    if d > MAX_JOIN_DIM:
+        raise ValueError(f"rnnt_fused: join dim {d} > {MAX_JOIN_DIM}")
+    slots = n_sm * JOINT_FWD_PER_SM
+    _, blocks, n_uc, uc, tt, n_tc = min(
+        (_cdiv(b * n_uc * n_tc, slots), b * n_uc * n_tc, n_uc, uc, tt, n_tc)
+        for n_uc, uc, tt, n_tc in _row_tiles(t, u1, MAX_JOIN_DIM, JOINT_FWD_ROWS))
+    n_vt = _cdiv(v, JOINT_ROW_VT)
+    w_bytes = 4 * n_vt * MAX_JOIN_DIM * JOINT_ROW_VT
+    smem = 4 * (2 * MAX_JOIN_DIM * JOINT_ROW_VT + 2 * 4 * JOINT_FWD_ROWS * JOINT_ROW_VT)
+    ws = {"w_tiles": _align(w_bytes)}
+    return {"tt": tt, "uc": uc, "n_uc": n_uc, "n_tc": n_tc, "grid": (n_uc, n_tc, b),
+            "blocks": blocks, "waves": _cdiv(blocks, slots), "vt": JOINT_ROW_VT, "n_vt": n_vt,
+            "smem": smem, "ws": ws, "ws_bytes": sum(ws.values()),
+            "l2_w_bytes": blocks * w_bytes}
 
 
 def _joint_bwd_plan(b: int, t: int, u1: int, d: int, v: int, n_sm: int) -> dict:
@@ -77,14 +137,8 @@ def _joint_bwd_plan(b: int, t: int, u1: int, d: int, v: int, n_sm: int) -> dict:
     order: enc_part [B, n_uc, T, D], pred_part [B, n_tc, U+1, D], dw_part
     [S, D, V], db_part [S, V] fp32, w_split: W as TF32 (hi, lo) pairs in the
     row side's tiles, [V/32, D padded to 32, 32]), "ws_bytes"}."""
-    stage_rows = JOINT_STAGE // (32 * _cdiv(d, 32))  # tt + uc at most
     cands = []
-    for n_uc in range(1, u1 + 1):
-        uc = _cdiv(u1, n_uc)
-        if uc > JOINT_ROWS or uc >= stage_rows or _cdiv(u1, uc) != n_uc:
-            continue
-        tt = max(1, min(JOINT_ROWS // uc, stage_rows - uc, t))
-        n_tc = _cdiv(t, tt)
+    for n_uc, uc, tt, n_tc in _row_tiles(t, u1, d):
         part = 4 * d * (b * n_uc * t + b * n_tc * u1)
         waves = _cdiv(b * n_uc * n_tc, n_sm)
         cands.append((part > JOINT_PART_CAP, waves, part, n_uc, uc, tt, n_tc))
@@ -166,20 +220,26 @@ def _check(enc_p, pred_p, w, b, labels, extra=()):
 def rnnt_fused_lp(enc_p, pred_p, w, b, labels, blank: int):
     """Kernel #4: -> (blank_lp, label_lp, lse) [B, T, U+1] fp32. enc_p
     [B, T, D], pred_p [B, U+1, D], w [D, V], b [V] fp32; labels [B, U]
-    int32 on the card. CPU tensors take the plain version."""
+    int32 on the card (D <= MAX_JOIN_DIM). CPU tensors take the plain
+    version."""
     if enc_p.device.type == "cpu":
         return rnnt_fused_lp_plain(enc_p, pred_p, w, b, labels, blank)
     bsz, t, u1, d, v = _check(enc_p, pred_p, w, b, labels)
     if not 0 <= blank < v:
         raise ValueError(f"rnnt_fused: blank {blank} outside [0, {v})")
-    outs = [torch.empty((bsz, t, u1), dtype=torch.float32, device=enc_p.device)
-            for _ in range(3)]
+    if d > MAX_JOIN_DIM:
+        raise ValueError(f"rnnt_fused: join dim {d} > {MAX_JOIN_DIM}")
+    dev = enc_p.device
+    outs = [torch.empty((bsz, t, u1), dtype=torch.float32, device=dev) for _ in range(3)]
     if bsz and t and u1:
-        with torch.cuda.device(enc_p.device):
+        plan = _joint_fwd_plan(bsz, t, u1, d, v, _sm_count(dev.index))
+        ws = torch.empty(plan["ws_bytes"], dtype=torch.uint8, device=dev)
+        with torch.cuda.device(dev):
             stream = torch.cuda.current_stream().cuda_stream
             _build.launch("rnnt_fused_fwd", enc_p.data_ptr(), pred_p.data_ptr(), w.data_ptr(),
                           b.data_ptr(), labels.data_ptr(), *(o.data_ptr() for o in outs),
-                          bsz, t, u1, d, v, blank, stream)
+                          ws.data_ptr(), ws.numel(), bsz, t, u1, d, v, blank, plan["tt"],
+                          plan["uc"], plan["smem"], stream)
     return tuple(outs)
 
 

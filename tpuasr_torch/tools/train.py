@@ -6,7 +6,9 @@
 
 On the card the defaults are the JAX trainer's TPU fast path (bf16 compute
 with fp32 parameters, the fused joint loss, the rel-pos attention kernels,
-fbank precision "default"); a yaml or --set layers on top. `--resume`
+fbank precision "default"); a yaml or --set layers on top, and a
+non-empty train.dtype then sets model.compute_dtype (`config.resolve`, as
+the JAX trainer applies it). `--resume`
 loads the config saved beside the checkpoint unless --config is given, and
 continues at the saved step and epoch with the saved plateau state. The
 workload online_rnnt makes the encoder causal with dynamic chunks (static
@@ -56,6 +58,24 @@ def build_model(cfg, workload: str, device):
     return init_weights(Transducer(m, device=device), cfg.train.seed)
 
 
+def effective_config(device_type: str, config_path: str | None, sets):
+    """-> the trainer's Config: the card's fast-path defaults when it trains
+    on the card, the yaml at `config_path` layered on top, the dotted --set
+    pairs, then `resolve` (train.dtype into model.compute_dtype)."""
+    from tpuasr_torch.config import Config, layer_yaml, override, resolve
+
+    cfg = Config()
+    if device_type == "cuda":
+        # the flagship fast path (the JAX trainer's TPU defaults)
+        cfg.model.compute_dtype = "bfloat16"
+        cfg.model.fused_joint_loss = True
+        cfg.model.encoder.fused_attention = True
+        cfg.feature.fbank_precision = "default"
+    if config_path:
+        cfg = layer_yaml(cfg, config_path)
+    return resolve(override(cfg, parse_overrides(sets)))
+
+
 def main(argv=None):
     """Run the trainer -> its LoopResult."""
     ap = argparse.ArgumentParser(description=__doc__,
@@ -74,7 +94,7 @@ def main(argv=None):
     ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
 
-    from tpuasr_torch.config import Config, layer_yaml, override, to_dict
+    from tpuasr_torch.config import to_dict
     from tpuasr_torch.data import synthetic_pipeline
     from tpuasr_torch.data.corpus import CORPUS_TODO
     from tpuasr_torch.device import resolve_device
@@ -86,21 +106,12 @@ def main(argv=None):
     if args.workload in UNPORTED_WORKLOADS:
         raise NotImplementedError(UNPORTED_WORKLOADS[args.workload])
     device = resolve_device(args.device)
-    cfg = Config()
-    if device.type == "cuda":
-        # the flagship fast path (the JAX trainer's TPU defaults)
-        cfg.model.compute_dtype = "bfloat16"
-        cfg.model.fused_joint_loss = True
-        cfg.model.encoder.fused_attention = True
-        cfg.feature.fbank_precision = "default"
     if args.resume and args.config is None:
         # continue with the numerics the checkpoint was trained with
         args.config = find_effective_config(args.resume)
         if args.config is not None:
             print(f"resume: effective config {args.config}")
-    if args.config:
-        cfg = layer_yaml(cfg, args.config)
-    cfg = override(cfg, parse_overrides(args.set))
+    cfg = effective_config(device.type, args.config, args.set)
 
     if not args.synthetic:
         raise NotImplementedError(CORPUS_TODO)
