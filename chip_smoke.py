@@ -18,7 +18,12 @@ Phases (any failure exits non-zero):
    (the tensor-core route: its plan and own work at each shape, its time
    at each block shape the kernel builds on the fixture and the training
    batch, and at the training batch two calls bit-identical and its device
-   time by kernel);
+   time by kernel); "highest" takes the FFT route at n_fft 1024 (its plan
+   and own work, each route's error against a float64 DFT; at the fixture
+   two calls bit-identical, silent frames at -100 dB, its device time by
+   kernel, its time at each count of frames a block, the dense kernel
+   timed on the same frames and torch.fft.rfft of the windowed frames
+   timed as one stage);
    rel-pos attention forward (#2) at [4, 187, 256] (8 s after subsampling)
    and [16, 63, 256] (the fixture requests), fp32 and bf16, with a fully
    masked row; the attention forward and backward (#2/#3) at the training
@@ -64,7 +69,9 @@ Phases (any failure exits non-zero):
    tokens. The same weights with `fused_ffn=True` (kernel #10 in every FFN)
    must give the card's fp32 tokens. Then bf16: the card's encoder output
    against the same bf16 model on the CPU, latency, and token agreement with
-   fp32.
+   fp32. After phase 5, outside the serving run's launch counts: the fp32
+   request batch's device busy ms with fbank "highest" by the FFT route and
+   by the dense kernel, in turns.
 5. Streaming serving: `streaming_greedy_decode` (chunk 32, 6 left chunks)
    must give the tokens of offline greedy over the chunk-masked full-context
    encoder, with `fused_ffn` off and on; `measure_rtf` greedy p50/p90.
@@ -115,8 +122,9 @@ Phases (any failure exits non-zero):
    (the serving run of phases 4-5, the training runs of phases 6b, 6c and
    6d, the trainer run of phase 8; counts reset just before each and read
    just after): that run's launches (fbank's: those of the route the
-   record times, fp32 for serving, which takes that route alone, and the
-   tensor-core route for training), and the error, times and bound at the
+   record times, the FFT for serving, which takes that route alone, and the
+   tensor-core route for training, which never takes the FFT), and the
+   error, times and bound at the
    shape that run gives the kernel (phase 3's bench-shape records for 6b-6d;
    for the trainer the signature it launched most, with every signature's
    record under "shapes").
@@ -218,12 +226,15 @@ def main() -> dict:
 
     t_phase = _phase("4-5: serving", t_phase)
     reset_launch_counts()
-    serving = _serve(torch, dev, data)
+    serving, (gpu32, cfg32) = _serve(torch, dev, data)
     runs = {"serving": dict(LAUNCHES)}
     print(f"launches on the serving run: {runs['serving']}")
     require(runs["serving"]["ffn_bwd"] == 0, "the serving run launched the FFN backward")
-    require(runs["serving"]["fbank_fp32"] == runs["serving"]["fbank"] > 0,
-            "the serving run did not take fbank's fp32 route (precision \"highest\") alone")
+    require(runs["serving"]["fbank_fft"] == runs["serving"]["fbank"] > 0,
+            "the serving run did not take fbank's FFT route (precision \"highest\") alone")
+    serving["offline_device_busy_ms_by_fbank_route"] = _fbank_route_ab(
+        torch, gpu32, cfg32, *data["fixture"])
+    del gpu32
 
     # ---------------------------------------------------------------- 6
     training = {"rnnt_fused_fwd_plans": fwd_plans}  # counted from the shapes, not measured
@@ -258,7 +269,8 @@ def main() -> dict:
     print(f"launches on the trainer run: {runs['trainer']}")
     for name in KERNELS:
         require(runs["trainer"][name] > 0, f"the trainer never launched {name}")
-    require(runs["trainer"]["fbank_tc"] == runs["trainer"]["fbank"],
+    require(runs["trainer"]["fbank_tc"] == runs["trainer"]["fbank"]
+            and runs["trainer"]["fbank_fft"] == 0,
             "the trainer did not take fbank's tensor-core route (precision \"default\") alone")
     print("kernels against their plain versions on the trainer's own inputs:")
     trainer_records = _trainer_kernel_records(torch, seen, runs["trainer"])
@@ -273,8 +285,9 @@ def main() -> dict:
     fused = ("training", "training_fused_ffn", "trainer")  # the fused joint loss
     every = fused[:1] + ("training_materialized",) + fused[1:]
     # (kernel, runs, record, launch count): fbank's records count the route
-    # they time, "highest" for serving and the tensor-core route for training
-    plan = [("fbank", ("serving",), "fbank", "fbank_fp32"),
+    # they time, "highest" by the FFT for serving and the tensor-core route
+    # for training
+    plan = [("fbank", ("serving",), "fbank", "fbank_fft"),
             ("fbank", every, "fbank_training", "fbank_tc"),
             ("relpos_attention", ("serving",), "attention"),
             ("relpos_attention", every, "attention_training"),
@@ -410,10 +423,8 @@ def _kernel_checks(torch, dev, data, bench) -> dict:
                         amin=cfg.amin, precision=prec)
             rec = _hold(torch, "fbank", args, f"{src} {prec}")
             rows = frames.shape[0]
-            if prec == "highest":  # this route's design: the DFT as two dense fp32 products
-                work = rows * (4 * n_fft * n_freq + 2 * n_freq * n_mels)
-                print(f"  the dense-DFT design's own work {work / 1e9:.2f} GFLOP = "
-                      f"{work / peak * 1e3:.4f} ms at the fp32 peak")
+            if prec == "highest":  # the FFT route: its plan, work, bits, split and yardsticks
+                rec.update(_fbank_fft_checks(torch, args, src == "fixture"))
             else:  # the tensor-core route's own work: padded bins, K and rows
                 plan = _fbank_plan(rows, n_fft, n_freq, n_mels, _sm_count(dev.index))
                 work = plan["dft_flops"]
@@ -461,6 +472,89 @@ def _kernel_checks(torch, dev, data, bench) -> dict:
                     "a fully masked query row did not give zeros")
             if b == 4 and dtype == torch.bfloat16:  # the flagship's 8 s bf16 call
                 out["attention"] = rec
+    return out
+
+
+def _fbank_fft_checks(torch, args, serving: bool) -> dict:
+    """fbank's FFT route ("highest" at n_fft 1024) on `args`: print the
+    plan and the design's own work (the FFT from the plan, the mel product
+    over each filter's band of this mel matrix) and each route's max dB error
+    against a float64 DFT on the card, and time it at each count of frames
+    a block the plan could take; at the serving requests also two calls
+    bit-identical, the device time by kernel, the dense kernel on the same
+    frames (held against plain too) and torch.fft.rfft (cuFFT) of the
+    windowed frames alone, one stage of the function; -> the measured
+    numbers."""
+    import tpuasr_torch.ops.fbank as fbank_mod
+    from tpuasr_torch.ops.ffn import _sm_count
+
+    frames, window, cos, sin, mel = (args[k] for k in ("frames", "window", "cos", "sin", "mel"))
+    (rows, n_fft), (n_freq, n_mels) = frames.shape, mel.shape
+    fft_plan, n_sm = fbank_mod._fbank_fft_plan, _sm_count(frames.device.index)
+    plan = fft_plan(rows, n_fft, n_freq, n_mels, n_sm)
+    require(plan["route"] == "fbank_fft", f"n_fft {n_fft} did not take the FFT route")
+    nz = mel != 0
+    f = torch.arange(n_freq, device=mel.device)[:, None]
+    widths = (torch.where(nz, f, -1).max(0).values - torch.where(nz, f, n_freq).min(0).values
+              + 1).clamp(min=0)
+    work = plan["fft_flops"] + rows * (2 * int(widths.sum()) + 2 * n_mels)
+    print(f"  the FFT design's own work {work / 1e6:.1f} MFLOP = {work / PEAK_FP32 * 1e3:.5f} ms "
+          f"at the fp32 peak (FFT, split and power {plan['fft_flops'] / 1e6:.1f}, the mel "
+          f"product over {int(widths.sum())} band bins of {n_freq * n_mels}); plan (counted, "
+          f"not measured): {plan['frames_per_block']} frames of {plan['threads_per_frame']} "
+          f"threads a block, {plan['points']} points a frame, {plan['points_per_thread']} a "
+          f"thread, passes (lowest bit, bits) {plan['passes']}, {plan['blocks']} blocks, "
+          f"{plan['blocks_per_sm']} an SM, {plan['waves']} waves, {plan['smem']} B shared")
+    out = {}
+    fw = frames.double() * window.double()
+    exact = 10.0 * torch.log10(torch.clamp(((fw @ cos.double()) ** 2 + (fw @ sin.double()) ** 2)
+                                           @ mel.double(), min=args["amin"]))
+    out["fp64_max_db_err"] = {
+        "fft": float((fbank_mod.fbank_frames(*args.values()).double() - exact).abs().max()),
+        "plain": float((fbank_mod.fbank_frames_plain(*args.values()).double() - exact)
+                       .abs().max())}
+    print(f"  max dB error against a float64 DFT on the card: FFT kernel "
+          f"{out['fp64_max_db_err']['fft']:.3g}, plain (fp32 products) "
+          f"{out['fp64_max_db_err']['plain']:.3g}")
+    by_frames = {}
+    try:
+        for fb in fbank_mod.FFT_FRAMES:
+            try:
+                fft_plan(rows, n_fft, n_freq, n_mels, n_sm, frames=fb)
+            except ValueError:
+                continue
+            fbank_mod._fbank_fft_plan = lambda *a, fb=fb: fft_plan(*a, frames=fb)
+            by_frames[fb] = _time_ms(torch, lambda: fbank_mod.fbank_frames(*args.values()))
+    finally:
+        fbank_mod._fbank_fft_plan = fft_plan
+    out["by_frames_per_block_ms"] = by_frames
+    print("  by frames a block (the plan's "
+          f"{plan['frames_per_block']}), ms: " + "; ".join(f"{k}: {v:.4f}"
+                                                         for k, v in by_frames.items()))
+    if not serving:
+        return out
+    a, b = fbank_mod.fbank_frames(*args.values()), fbank_mod.fbank_frames(*args.values())
+    require(torch.equal(a, b), "two calls of fbank's FFT route differ")
+    require(bool((a[(frames == 0).all(1)] == -100.0).all()), "a silent frame is not at -100 dB")
+    print("  two calls bit-identical; silent frames at -100 dB")
+    split = _device_split(torch, lambda: fbank_mod.fbank_frames(*args.values()))
+    out["device_split_ms"] = split
+    print("  device ms by kernel (profiler): " + "; ".join(
+        f"{ms:.4f} {key[:60]}" for key, ms in sorted(split.items(), key=lambda x: -x[1])))
+    try:  # the dense kernel at the same frames: the route a non-power-of-two takes
+        fbank_mod._fbank_fft_plan = lambda r, *a: {"route": "fbank_fp32"}
+        dense = fbank_mod.fbank_frames(*args.values())
+        dense_err = float((dense - fbank_mod.fbank_frames_plain(*args.values())).abs().max())
+        require(dense_err <= 2e-2, f"the dense kernel is {dense_err} dB off plain")
+        out["dense_kernel_ms"] = _time_ms(torch, lambda: fbank_mod.fbank_frames(*args.values()))
+    finally:
+        fbank_mod._fbank_fft_plan = fft_plan
+    print(f"  the dense kernel on the same frames (route fbank_fp32): "
+          f"{out['dense_kernel_ms']:.4f} ms, max_abs_err against plain {dense_err:.3g}")
+    fw32 = frames * window
+    out["cufft_rfft_stage_ms"] = _time_ms(torch, lambda: torch.fft.rfft(fw32))
+    print(f"  torch.fft.rfft (cuFFT) of the windowed frames alone, one stage of the function "
+          f"(no window, power, mel or log): {out['cufft_rfft_stage_ms']:.4f} ms")
     return out
 
 
@@ -1067,7 +1161,9 @@ def _fit_blank_bias(torch, model, cfg, waves, wave_lens, text_lens) -> float:
     return hi
 
 
-def _serve(torch, dev, data) -> dict:
+def _serve(torch, dev, data) -> tuple[dict, tuple]:
+    """Phases 4-5; -> (the serving records, the fp32 flagship and its config
+    with the fitted blank logit)."""
     from tpuasr_torch.audio import fbank_batch
     from tpuasr_torch.decode import rnnt_greedy_decode, streaming_greedy_decode
     from tpuasr_torch.eval import make_offline_decoder, measure_rtf
@@ -1199,7 +1295,7 @@ def _serve(torch, dev, data) -> dict:
         serving[f"rtf_p50_{label}"] = st.rtf_p50
         serving[f"rtf_p90_{label}"] = st.rtf_p90
     serving["stream_bf16_chunk_stages"] = _stream_stages(torch, gpu16, cfg16, feats16)
-    return serving
+    return serving, (gpu32, cfg32)
 
 
 def _synced_ms(torch, fn):
@@ -1225,13 +1321,49 @@ def _count_steps(model):
     return steps, lambda: delattr(model, "predict_step")
 
 
+def _decode_busy(torch, dec, waves, wave_lens) -> tuple[float, list]:
+    """The device's busy ms over one offline decode (torch.profiler), and
+    its device items."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        dec(waves, wave_lens)
+        torch.cuda.synchronize()
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return sum(e.self_device_time_total for e in kern) / 1e3, kern
+
+
+def _fbank_route_ab(torch, model, cfg, waves, wave_lens) -> dict:
+    """The offline fp32 request batch's device busy ms with "highest" fbank
+    by the FFT route and by the dense kernel (the plan fixed to it), in
+    turns (FFT, dense, dense, FFT) in this process, after the serving run's
+    launches are read; -> {route: [ms, ms]}."""
+    import tpuasr_torch.ops.fbank as fbank_mod
+    from tpuasr_torch.eval import make_offline_decoder
+
+    dec = make_offline_decoder(model, cfg, "rnnt_greedy")
+    real, busy = fbank_mod._fbank_fft_plan, {"fbank_fft": [], "fbank_fp32": []}
+    try:
+        for route in ("fbank_fft", "fbank_fp32", "fbank_fp32", "fbank_fft"):
+            fbank_mod._fbank_fft_plan = real if route == "fbank_fft" else \
+                (lambda r, *a: {"route": "fbank_fp32"})
+            dec(waves, wave_lens)  # warm
+            busy[route].append(_decode_busy(torch, dec, waves, wave_lens)[0])
+    finally:
+        fbank_mod._fbank_fft_plan = real
+    mean = {k: sum(v) / len(v) for k, v in busy.items()}
+    print(f"offline fp32 request batch, device busy ms by fbank route (in turns FFT, dense, "
+          f"dense, FFT): FFT {busy['fbank_fft']}, the dense kernel {busy['fbank_fp32']}; "
+          f"means {mean['fbank_fft']:.3f} / {mean['fbank_fp32']:.3f}, change "
+          f"{mean['fbank_fft'] - mean['fbank_fp32']:+.3f} ms")
+    return busy
+
+
 def _offline_stages(torch, model, cfg, waves, wave_lens, wall_ms) -> dict:
     """Where the offline request time goes: host ms of fbank, encoder and
     greedy search (each closed by a sync), the greedy loop's emission steps,
     and the device's busy time from the profiler over one whole decode."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from tpuasr_torch.audio import fbank_batch
     from tpuasr_torch.decode import rnnt_greedy_decode
     from tpuasr_torch.eval import make_offline_decoder
@@ -1245,12 +1377,8 @@ def _offline_stages(torch, model, cfg, waves, wave_lens, wall_ms) -> dict:
                                                                 cfg.model.blank_id))
     finally:
         restore()
-    dec = make_offline_decoder(model, cfg, "rnnt_greedy")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        dec(waves, wave_lens)
-        torch.cuda.synchronize()
-    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    busy_ms, kern = _decode_busy(torch, make_offline_decoder(model, cfg, "rnnt_greedy"),
+                                 waves, wave_lens)
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:6]
     print(f"offline fp32 stages: fbank {t_fb:.2f} ms, encode {t_enc:.2f} ms, greedy "
           f"{t_dec:.2f} ms over {steps[0]} emission steps (one host sync each); device "
@@ -1640,10 +1768,11 @@ def _train_bench(torch, dev, batch, fused_joint_loss: bool, n_steps: int = 10,
         if i >= warmup:
             ms.append(dt)
     launches = dict(LAUNCHES)
-    require(launches["fbank_tc"] == warmup + n_steps and launches["fbank_fp32"] == 0,
+    require(launches["fbank_tc"] == warmup + n_steps and launches["fbank_fp32"] == 0
+            and launches["fbank_fft"] == 0,
             f"{warmup + n_steps} steps launched fbank's tensor-core route "
-            f"{launches['fbank_tc']} times and its fp32 route {launches['fbank_fp32']} times, "
-            f"not once a step and never")
+            f"{launches['fbank_tc']} times, its dense fp32 route {launches['fbank_fp32']} times "
+            f"and its FFT route {launches['fbank_fft']} times, not once a step and never")
     peak = torch.cuda.max_memory_allocated()
     # one step under the profiler's warm-up (traced, not kept), then the
     # profiled step with 50 ms of idle host on each side: the trace drops

@@ -3,7 +3,8 @@
 Marked `cuda`: each test skips without an NVIDIA card. Edge shapes the
 flagship path does not reach: rows not a multiple of the fbank tiles, n_fft
 not a multiple of the bf16 route's K tile, 128 and 160 mel filters, a shape
-whose frames do not fit shared memory (ValueError), T and
+whose frames do not fit shared memory (ValueError, on the bf16 and the FFT
+route), the FFT route at n_fft 64 to 2,048 and with a dense mel, T and
 S not multiples of the attention tiles, T != S, dk 16, 32 and 64, a broadcast
 [B, 1, S] padding mask, a fully masked query row; for the fused RNN-T joint
 (#4/#5) and the CTC lattice (#6/#7): U = 0, t_len = 0, an infeasible CTC
@@ -33,7 +34,9 @@ imports no JAX, so it runs on a machine without it:
 TF32 is off for every fp32 comparison. Tolerances: fp32 sums in another
 order (fbank: rtol 1e-4, atol 1e-3 dB; attention: 1e-5); bf16-operand
 fbank (the tensor-core route): one bf16 ulp of a power bin (0.034 dB), atol
-4e-2 dB, rtol 0, two calls bit-identical at bench.py's 9,216 frames; bf16 attention: 1e-2 +
+4e-2 dB, rtol 0, two calls bit-identical at bench.py's 9,216 frames; fbank's
+FFT route (fp32): as the dense fp32 route, two calls bit-identical at the
+serving requests' 4,112 frames; bf16 attention: 1e-2 +
 1e-2*|ref|, the output and probability roundings to bf16 (2**-8 relative
 each) happen at different points in the kernel and the plain version.
 Fused joint: log-probs atol 5e-4 (fp32 sums of D products in another
@@ -93,14 +96,23 @@ def card():
     return torch.device("cuda")
 
 
-# (rows, n_fft, sample rate, n_mels, precision, atol); the bf16 route's tile
-# edges: 1, 63, 64, 65 rows (blocks of 32 frames), bench.py's 9,216 (blocks
-# of 80, the last one 16), n_fft 512 and 400 at 16 kHz (400 not a multiple
-# of the 128-deep K tile), n_fft 130 (frames loaded a float at a time, one
-# K tile mostly padding), 128 and 160 mel filters (two slabs of 80
+# (rows, n_fft, sample rate, n_mels, precision, atol); "highest" by the
+# FFT (a power-of-two n_fft): 1, 15, 16, 17, 37 and the serving requests'
+# 4,112 rows at n_fft 1024 (blocks of up to 32 frames, a ragged last one),
+# n_fft 512, 2048 (two warps a frame) and 64 (16 filters at 8 kHz, several
+# frames a warp); "highest" by the dense kernel at n_fft 400 and 130; the
+# bf16 route's tile edges: 1, 63, 64, 65 rows (blocks of 32 frames), bench.py's
+# 9,216 (blocks of 80, the last one 16), n_fft 512 and 400 at 16 kHz (400 not
+# a multiple of the 128-deep K tile), n_fft 130 (frames loaded a float at a
+# time, one K tile mostly padding), 128 and 160 mel filters (two slabs of 80
 # columns), the last also in blocks of 80 at 6,144 rows
 FBANK_CASES = [
     (37, 1024, 48000, 80, "highest", 1e-3), (5, 512, 16000, 80, "highest", 1e-3),
+    (1, 1024, 48000, 80, "highest", 1e-3), (15, 1024, 48000, 80, "highest", 1e-3),
+    (16, 1024, 48000, 80, "highest", 1e-3), (17, 1024, 48000, 80, "highest", 1e-3),
+    (4112, 1024, 48000, 80, "highest", 1e-3), (300, 512, 16000, 80, "highest", 1e-3),
+    (70, 2048, 48000, 80, "highest", 1e-3), (70, 64, 8000, 16, "highest", 1e-3),
+    (65, 400, 16000, 80, "highest", 1e-3), (7, 130, 8000, 40, "highest", 1e-3),
     (37, 1024, 48000, 80, "default", 4e-2), (5, 512, 16000, 80, "default", 4e-2),
     (1, 1024, 48000, 80, "default", 4e-2), (63, 1024, 48000, 80, "default", 4e-2),
     (64, 1024, 48000, 80, "default", 4e-2), (65, 1024, 48000, 80, "default", 4e-2),
@@ -109,6 +121,13 @@ FBANK_CASES = [
     (70, 512, 16000, 128, "default", 4e-2), (70, 512, 16000, 160, "default", 4e-2),
     (6144, 512, 16000, 160, "default", 4e-2),
 ]
+
+
+def _fbank_route(n_fft, precision):
+    """The route the plan must pick: by the FFT at a power-of-two n_fft."""
+    if precision == "default":
+        return "fbank_tc"
+    return "fbank_fft" if n_fft & (n_fft - 1) == 0 else "fbank_fp32"
 
 
 def _fbank_inputs(card, rows, n_fft, sr, n_mels):
@@ -123,11 +142,11 @@ def _fbank_inputs(card, rows, n_fft, sr, n_mels):
 @pytest.mark.parametrize("rows,n_fft,sr,n_mels,precision,atol", FBANK_CASES)
 def test_fbank_kernel_matches_plain(card, rows, n_fft, sr, n_mels, precision, atol):
     cfg, frames, ops = _fbank_inputs(card, rows, n_fft, sr, n_mels)
-    counts = ("fbank", "fbank_fp32", "fbank_tc")
+    counts = ("fbank", "fbank_fp32", "fbank_tc", "fbank_fft")
     before = {k: LAUNCHES[k] for k in counts}
     got = fbank_frames(frames, *ops, cfg.amin, precision)
     torch.cuda.synchronize()
-    route = "fbank_fp32" if precision == "highest" else "fbank_tc"
+    route = _fbank_route(n_fft, precision)
     assert {k: LAUNCHES[k] - before[k] for k in counts} == {
         k: int(k in ("fbank", route)) for k in counts}
     ref = fbank_frames_plain(frames, *ops, cfg.amin, precision)
@@ -158,6 +177,44 @@ def test_fbank_bf16_route_refuses_what_shared_memory_cannot_hold(card):
     with pytest.raises(ValueError, match="shared memory"):
         fbank_frames(frames, window, cos, sin, mel, 1e-10, "default")
     assert (LAUNCHES["fbank"], LAUNCHES["fbank_tc"]) == before
+
+
+def test_fbank_fft_route_takes_a_dense_mel(card):
+    """A random mel matrix with no zero entry on the FFT route: every
+    filter's band is every bin."""
+    cfg, frames, (window, cos, sin, _) = _fbank_inputs(card, 300, 512, 16000, 40)
+    g = torch.Generator().manual_seed(3)
+    mel = (0.01 + torch.rand(257, 40, generator=g)).to(card)
+    before = LAUNCHES["fbank_fft"]
+    got = fbank_frames(frames, window, cos, sin, mel, cfg.amin, "highest")
+    torch.cuda.synchronize()
+    assert LAUNCHES["fbank_fft"] == before + 1
+    ref = fbank_frames_plain(frames, window, cos, sin, mel, cfg.amin, "highest")
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-3)
+
+
+def test_fbank_fft_route_repeats_bit_for_bit(card):
+    """Two calls of the FFT route at the serving requests' 4,112 frames give
+    the same bits: no atomics, every sum in a fixed order."""
+    cfg, frames, ops = _fbank_inputs(card, 4112, 1024, 48000, 80)
+    a = fbank_frames(frames, *ops, cfg.amin, "highest")
+    b = fbank_frames(frames, *ops, cfg.amin, "highest")
+    assert torch.equal(a, b)
+
+
+def test_fbank_fft_route_refuses_what_shared_memory_cannot_hold(card):
+    """n_fft 32,768: a frame's 16,384 complex points and the twiddles are
+    past a block's 227 KB. The plan raises before any launch."""
+    n_fft, n_freq, n_mels = 32768, 16385, 80
+    frames = torch.randn(3, n_fft, device=card)
+    window = torch.ones(n_fft, device=card)
+    cos = sin = torch.zeros(n_fft, n_freq, device=card)
+    mel = torch.zeros(n_freq, n_mels, device=card)
+    counts = ("fbank", "fbank_fp32", "fbank_tc", "fbank_fft")
+    before = {k: LAUNCHES[k] for k in counts}
+    with pytest.raises(ValueError, match="shared memory"):
+        fbank_frames(frames, window, cos, sin, mel, 1e-10, "highest")
+    assert {k: LAUNCHES[k] for k in counts} == before
 
 
 # the last two: bench.py's training shape and the trainer's shorter bucket,

@@ -103,12 +103,15 @@ def test_fbank_plan_refuses_what_shared_memory_cannot_hold():
 
 
 def test_fbank_launch_counts_each_route():
-    """fbank's entry point counts each route beside its own count, and a
-    launch names its route (checked before any library is loaded)."""
-    assert {"fbank", "fbank_fp32", "fbank_tc"} <= set(LAUNCHES)
-    assert _build.ROUTES == {"fbank": ("fbank_fp32", "fbank_tc")}
+    """fbank's entry point counts each of its three routes (the dense
+    fp32 kernel, the bf16 tensor-core route, the fp32 FFT) beside its own
+    count, and a launch names its route (checked before any library is
+    loaded)."""
+    assert {"fbank", "fbank_fp32", "fbank_tc", "fbank_fft"} <= set(LAUNCHES)
+    assert _build.ROUTES == {"fbank": ("fbank_fp32", "fbank_tc", "fbank_fft")}
     before = dict(LAUNCHES)
-    for name, route in (("fbank", None), ("fbank", "fbank"), ("ffn_fwd", "fbank_tc")):
+    for name, route in (("fbank", None), ("fbank", "fbank"), ("ffn_fwd", "fbank_tc"),
+                        ("ffn_fwd", "fbank_fft")):
         with pytest.raises(ValueError, match="route"):
             _build.launch(name, route=route)
     assert LAUNCHES == before

@@ -9,17 +9,17 @@ and fused-joint kernels), so an edited source or header is rebuilt.
 Nothing here runs at import time: the CPU tests import every module of the
 port.
 
-A source may hold several kernels (`fbank.cu`: the fp32 route, and the
-bf16 route's operand pack and tensor-core kernel behind the same entry
-point; `ctc_lattice.cu`: the CTC alpha and beta sweeps; `rnnt_fused.cu`:
-the fused joint forward and backward, whose entry points launch two and
-four kernels;
+A source may hold several kernels (`fbank.cu`: the fp32 dense route, the
+fp32 FFT route's band and FFT kernels, and the bf16 route's operand pack and
+tensor-core kernel behind the same entry point; `ctc_lattice.cu`: the CTC
+alpha and beta sweeps; `rnnt_fused.cu`: the fused joint forward and
+backward, whose entry points launch two and four kernels;
 `rnnt_lattice.cu`: the RNN-T alpha and beta sweeps; `relpos_attention.cu`:
 the attention forward and its backward, whose one entry point launches two
 kernels; `ffn.cu`: the fused FFN forward and backward), each with its own C
 entry point. Every wrapper counts its calls of an entry point in `LAUNCHES`,
 so a run can show that its path went through the kernels; fbank's entry
-also counts each of its two routes there.
+also counts each of its three routes there.
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 # each kernel's source, C entry point and argument types (pointers and the
 # stream as c_void_p, so ctypes never cuts them to 32 bits)
 ENTRIES = {
-    "fbank": ("fbank", "fbank_logmel", [_P] * 8 + [_I] * 4 + [_F] + [_I] * 9 + [_P]),
+    "fbank": ("fbank", "fbank_logmel", [_P] * 9 + [_I] * 4 + [_F] + [_I] * 11 + [_P]),
     "relpos_attention": ("relpos_attention", "relpos_attention_fwd",
                          [_P] * 10 + [_I] * 5 + [_LL] * 3 + [_F, _I, _P]),
     "relpos_attention_bwd": ("relpos_attention", "relpos_attention_bwd",
@@ -60,9 +60,10 @@ KERNELS = tuple(ENTRIES)
 SOURCES = tuple(dict.fromkeys(src for src, _, _ in ENTRIES.values()))
 
 # an entry point with several routes also counts each route's launches, so
-# a run can show which one it took: fbank's "highest" (fp32 CUDA-core kernel)
-# and "default" (bf16 pack and tensor-core kernel)
-ROUTES = {"fbank": ("fbank_fp32", "fbank_tc")}
+# a run can show which one it took: fbank's "highest" by the dense fp32
+# kernel, "default" (bf16 pack and tensor-core kernel) and "highest" by the
+# fp32 FFT (band and FFT kernels)
+ROUTES = {"fbank": ("fbank_fp32", "fbank_tc", "fbank_fft")}
 
 LAUNCHES = {name: 0 for name in KERNELS + tuple(r for rs in ROUTES.values() for r in rs)}
 
