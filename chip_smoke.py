@@ -37,7 +37,11 @@ Phases (any failure exits non-zero):
    joint forward and backward (#4/#5), the RNN-T lattice (#8/#9) and the
    CTC alpha and beta sweeps (#6/#7) at the training step's shapes (B 12,
    T' 191, U+1 33, S 65, D 256, V 412) and at a ragged shape with a
-   t_len = 0 and a label_len = 0 row (#4 and #5 also twice at each,
+   t_len = 0 and a label_len = 0 row (#6/#7 also at the trainer's T' 63 and
+   127, U+1 17, on the warp route the plan takes and on the block route,
+   each with its time per dependent step, two calls bit-identical, its
+   device time by kernel and both routes timed in turns; #4 and #5 also
+   twice at each,
    bit-identical, and their device time by kernel at the training shape:
    #4's W tiles and rows, #5's row side, vocabulary side and sum; #4's plan
    and the bytes of W its blocks read from L2 at each shape, and #4 held
@@ -96,7 +100,9 @@ Phases (any failure exits non-zero):
       trace drops kernels near its window's edges), with the port's
       kernels in it by name, fbank's pack and tensor-core kernels among
       them. Kernels #1-#9 must launch, fbank once a step and always by its
-      tensor-core route (its route counts);
+      tensor-core route (its route counts); then, outside the run's launch
+      counts, a fresh model's profiled step's device busy ms with the CTC
+      lattice by its block route and by its warp route, in turns;
    c. the same with `fused_joint_loss=False` (the joint's full logits and
       the materialized loss), four steps: kernels #1-#3 and #6-#9 must
       launch;
@@ -127,7 +133,8 @@ Phases (any failure exits non-zero):
    error, times and bound at the
    shape that run gives the kernel (phase 3's bench-shape records for 6b-6d;
    for the trainer the signature it launched most, with every signature's
-   record under "shapes").
+   record under "shapes"). The CTC entries carry their run's launches by
+   route under "routes": each training run must take the warp route alone.
 
 Each phase prints its seconds.
 TF32 is off throughout (cuBLAS and cuDNN), so every fp32 comparison is fp32.
@@ -246,6 +253,7 @@ def main() -> dict:
     t_phase = _phase("6b: training at bench.py's configuration", t_phase)
     training["bench"], runs["training"] = _train_bench(torch, dev, bench, True)
     print(f"launches on the training run: {runs['training']}")
+    training["bench"]["device_busy_ms_by_ctc_route"] = _ctc_route_ab(torch, dev, bench)
     t_phase = _phase("6c: training through the materialized loss", t_phase)
     training["bench_materialized"], runs["training_materialized"] = _train_bench(
         torch, dev, bench, False, n_steps=4, warmup=1)
@@ -305,8 +313,14 @@ def main() -> dict:
             launches = runs[run][count]
             require(launches > 0, f"the {run} run never launched {count}")
             rec = trainer_records[name] if run == "trainer" else checks[check]
-            kernels.append(dict(rec, run=run, launches=launches,
-                                **{f"launches_{r}": runs[r][count] for r in runs}))
+            entry = dict(rec, run=run, launches=launches,
+                         **{f"launches_{r}": runs[r][count] for r in runs})
+            if name in ("ctc_alpha", "ctc_beta_grad"):  # the training runs: the warp route alone
+                entry["routes"] = {f"{name}_{r}": runs[run][f"{name}_{r}"] for r in ("warp", "block")}
+                require(entry["routes"][f"{name}_warp"] == launches
+                        and entry["routes"][f"{name}_block"] == 0,
+                        f"the {run} run did not take {name}'s warp route alone: {entry['routes']}")
+            kernels.append(entry)
     require(runs["training_materialized"]["rnnt_fused_fwd"] == 0,
             "the materialized run launched the fused joint")
     print(f"phases took {time.perf_counter() - t_start:.1f} s in all")
@@ -984,7 +998,9 @@ def _held(torch, name, a, ctc_inputs) -> tuple[dict, str, bool, str]:
         ok = ok and bool(((ga - ra).abs() <= 1e-3 + 1e-5 * ra.abs())[live].all())
         ok = ok and bool(((gll - rll).abs() <= 1e-3 + 1e-5 * rll.abs()).all())
         why = ("1e-3 + 1e-5*|ref| over reachable cells, which must match: fp32 log-adds "
-               "whose exp/log1p may differ from torch's by an ulp, over every dependent step")
+               "whose exp/log1p may differ from torch's by an ulp (CTC's warp route: one "
+               "three-term log-add, ex2/lg2, rounded once where plain rounds twice), over every "
+               "dependent step")
         peak, plain_iters, timing = PEAK_FP32, 5, "profiler"
         if name == "rnnt_alpha":
             b, t, u1 = a["blank_lp"].shape
@@ -1543,23 +1559,108 @@ def _train_kernel_checks(torch, dev, bench) -> tuple[dict, dict]:
                 f"{ms:.4f} {key[:60]}" for key, ms in sorted(split.items(), key=lambda x: -x[1]))
         print(msg)
 
-        # #6 / #7: the CTC lattice over log-softmaxed logits
+        # #6 / #7: the CTC lattice over log-softmaxed logits, on each route;
+        # at the bench shape also at the trainer's shapes (T' 63 / 127, U+1
+        # 17)
         lp = torch.log_softmax(torch.randn(b, t, v, generator=g).to(dev), dim=-1)
-        lp_states, skip, final = lattice_inputs(lp, lab, ul, blank)
-        ctc = dict(lp_states=lp_states.contiguous(), skip=skip, tlens=tl, final=final)
-        # F.ctc_loss on the same log-probs and labels, at the bench shape
-        lib = {0: [1, dict(log_probs=lp, labels=lab, label_lens=ul, blank=blank)]} \
-            if tag == "bench" else {}
-        recs["ctc_alpha"] = _hold(torch, "ctc_alpha", ctc, tag, lib)
-        ra, rll = ctc_alpha_plain(*ctc.values())
-        beta = dict(ctc, alpha=ra.contiguous(), ll=rll.contiguous(), g=torch.ones(b, device=dev))
-        recs["ctc_beta_grad"] = _hold(torch, "ctc_beta_grad", beta, tag, lib)
-        if tag == "ragged":
-            require(bool((ctc_beta_grad(*beta.values())[1] == 0).all()),
-                    "ctc_beta_grad: a t_len = 0 row has gradient")
+        ctc_shapes = [(tag, lp, lab, ul, tl)]
+        if tag == "bench":
+            ctc_shapes += [(f"T'{tt}", lp[:, :tt], lab[:, :16].contiguous(),
+                            torch.clamp(ul, max=16), torch.clamp(tl, max=tt)) for tt in (63, 127)]
+        for shape, lp_s, lab_s, ul_s, tl_s in ctc_shapes:
+            lp_states, skip, final = lattice_inputs(lp_s, lab_s, ul_s, blank)
+            ctc = dict(lp_states=lp_states.contiguous(), skip=skip, tlens=tl_s, final=final)
+            ra, rll = ctc_alpha_plain(*ctc.values())
+            beta = dict(ctc, alpha=ra.contiguous(), ll=rll.contiguous(),
+                        g=(0.5 + torch.rand(b, generator=g)).to(dev))
+            # F.ctc_loss on the same log-probs and labels (not at the ragged
+            # shape, whose t_len = 0 row it is not asked to take)
+            lib = {} if shape == "ragged" else {
+                0: [1, dict(log_probs=lp_s, labels=lab_s, label_lens=ul_s, blank=blank)]}
+            pair = _ctc_routes(torch, ctc, beta, shape, lib)
+            if shape == tag:
+                recs.update(pair)
+            else:
+                for name in pair:
+                    recs[name][f"trainer_shape_t{shape[2:]}"] = pair[name]
+            if shape == "ragged":
+                require(bool((ctc_beta_grad(*beta.values())[1] == 0).all()),
+                        "ctc_beta_grad: a t_len = 0 row has gradient")
         if tag == "bench":
             out = recs
     return out, plans
+
+
+@contextlib.contextmanager
+def _ctc_plan_as(route: str):
+    """Run the CTC wrappers on `route` (the wrappers choose by shape alone)."""
+    from tpuasr_torch.ops import ctc as ctc_mod
+
+    real = ctc_mod._ctc_plan
+    ctc_mod._ctc_plan = lambda s: real(s, route=route)
+    try:
+        yield
+    finally:
+        ctc_mod._ctc_plan = real
+
+
+def _ctc_routes(torch, ctc, beta, tag, lib) -> dict:
+    """#6 / #7 at one shape, held against their plain versions on the route
+    the plan takes (the warp route at every shape of the path) and on the
+    block route; -> {name: the plan's route's record}, each with its time
+    per dependent step (ms / the longest t_len), two calls bit-identical,
+    its device time by kernel, and the block route's record and both routes
+    timed in turns (block, warp, warp, block)."""
+    from tpuasr_torch.ops import ctc as ctc_mod
+
+    s = ctc["lp_states"].shape[2]
+    route = ctc_mod._ctc_plan(s)["route"]
+    steps = max(int(ctc["tlens"].max()), 1)
+    ghz = _sm_ghz(torch)
+    out = {}
+    for name, args in (("ctc_alpha", ctc), ("ctc_beta_grad", beta)):
+        fn = getattr(ctc_mod, name)
+        call = lambda: fn(*args.values())
+        rec = _hold(torch, name, args, f"{tag}, {route} route", lib)
+        first, again = call(), call()
+        torch.cuda.synchronize()
+        first, again = ((x,) if isinstance(x, torch.Tensor) else x for x in (first, again))
+        require(all(torch.equal(x, y) for x, y in zip(first, again)),
+                f"two calls of {name} on the same inputs differ ({tag})")
+        split = _device_split(torch, call)
+        with _ctc_plan_as(route="block"):
+            block = _hold(torch, name, args, f"{tag}, block route", lib)
+            block_split = _device_split(torch, call)
+        turns = {"block": [], route: []}
+        for r in ("block", route, route, "block"):
+            with _ctc_plan_as(route=r):
+                turns[r].append(_time_ms(torch, call))
+        rec.update(plan_route=route, us_per_step=rec["ms"] / steps * 1e3, steps=steps,
+                   sm_ghz=ghz, cycles_per_step=rec["ms"] / steps * ghz * 1e6,
+                   bits_identical=True, device_split_ms=split, turns_ms=turns,
+                   block_route=dict(block, us_per_step=block["ms"] / steps * 1e3,
+                                    device_split_ms=block_split))
+        print(f"{name} {tag}: {route} route {rec['ms']:.4f} ms, {rec['us_per_step']:.4f} us a "
+              f"dependent step ({steps} steps; {rec['cycles_per_step']:.0f} cycles at the "
+              f"{ghz:.3f} GHz a sleep kernel shows); block route {block['ms']:.4f} ms, "
+              f"{rec['block_route']['us_per_step']:.4f} us a step; in turns (block, {route}, "
+              f"{route}, block) {turns['block'][0]:.4f} {turns[route][0]:.4f} "
+              f"{turns[route][1]:.4f} {turns['block'][1]:.4f}; two calls bit-identical; "
+              f"device ms a call by kernel (profiler): " + "; ".join(
+                  f"{ms:.4f} {key[:60]}" for key, ms in sorted(split.items(), key=lambda x: -x[1])))
+        out[name] = rec
+    return out
+
+
+def _sm_ghz(torch) -> float:
+    """The SM clock, GHz: a sleep kernel of SLEEP_CYCLES cycles timed by
+    CUDA events."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    ev[1].record()
+    torch.cuda.synchronize()
+    return SLEEP_CYCLES / ev[0].elapsed_time(ev[1]) / 1e6
 
 
 def _train_cfg(dtype: str, dropout: bool, fused_joint_loss: bool = True,
@@ -1742,9 +1843,6 @@ def _train_bench(torch, dev, batch, fused_joint_loss: bool, n_steps: int = 10,
     """Phases 6b/6c/6d: bench.py's configuration (6c: the materialized loss;
     6d: the fused FFN) on bench.py's batch through `make_train_step`; ->
     (stats, kernel launches during the steps)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
-
     from tpuasr_torch.models import Transducer, init_weights
     from tpuasr_torch.ops import LAUNCHES, reset_launch_counts
     from tpuasr_torch.train import TrainState, make_optimizer, make_train_step
@@ -1774,23 +1872,7 @@ def _train_bench(torch, dev, batch, fused_joint_loss: bool, n_steps: int = 10,
             f"{launches['fbank_tc']} times, its dense fp32 route {launches['fbank_fp32']} times "
             f"and its FFT route {launches['fbank_fft']} times, not once a step and never")
     peak = torch.cuda.max_memory_allocated()
-    # one step under the profiler's warm-up (traced, not kept), then the
-    # profiled step with 50 ms of idle host on each side: the trace drops
-    # kernels that run near the edges of its window (a window opened just
-    # before a step lost the step's first kernels, fbank's, more often than
-    # not; with the warm-up alone it still lost the first or the last ones
-    # now and then; with the gaps as well, never in the trials)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-        for i in range(2):
-            time.sleep(0.05 * i)
-            (state, metrics), wall = _synced_ms(torch, lambda: step(state, batch, SEED))
-            time.sleep(0.05 * i)
-            prof.step()
-    # the schedule's step marker also shows on the device's timeline: not a kernel
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and not e.key.startswith("ProfilerStep")]
-    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    state, busy, wall, kern = _profiled_step(torch, step, state, batch)
     n_kern = sum(e.count for e in kern)
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:10]
     ms_sorted = sorted(ms)
@@ -1830,6 +1912,59 @@ def _train_bench(torch, dev, batch, fused_joint_loss: bool, n_steps: int = 10,
     require(all(math.isfinite(x) for x in losses), "a training loss is not finite")
     require(int(state.skipped) == 0, "a training step was skipped")
     return stats, launches
+
+
+def _profiled_step(torch, step, state, batch) -> tuple:
+    """One training step under torch.profiler; -> (state, the device's busy
+    ms, the step's wall ms, the device items). One step under the
+    profiler's warm-up (traced, not kept), then the profiled step with 50 ms
+    of idle host on each side: the trace drops kernels that run near the
+    edges of its window (a window opened just before a step lost the step's
+    first kernels, fbank's, more often than not; with the warm-up alone it
+    still lost the first or the last ones now and then; with the gaps as
+    well, never in the trials)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        for i in range(2):
+            time.sleep(0.05 * i)
+            (state, _), wall = _synced_ms(torch, lambda: step(state, batch, SEED))
+            time.sleep(0.05 * i)
+            prof.step()
+    # the schedule's step marker also shows on the device's timeline: not a kernel
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and not e.key.startswith("ProfilerStep")]
+    return state, sum(e.self_device_time_total for e in kern) / 1e3, wall, kern
+
+
+def _ctc_route_ab(torch, dev, batch) -> dict:
+    """6b's training step's device busy ms with the CTC lattice by its
+    block route and by its warp route (the plan fixed to each), in turns
+    (block, warp, warp, block), after the training runs' launches are read;
+    -> {route: [ms, ms], "ctc_ms": {route: [the lattice kernels' ms, ...]}}."""
+    from tpuasr_torch.models import Transducer, init_weights
+    from tpuasr_torch.train import TrainState, make_optimizer, make_train_step
+
+    cfg = _train_cfg("bfloat16", dropout=True)
+    cfg.feature.fbank_precision = "default"
+    model = init_weights(Transducer(cfg.model, device=dev), SEED)
+    tx = make_optimizer(cfg.optim)
+    state, step = TrainState.create(model, tx), make_train_step(model, tx, cfg)
+    busy, own = {"block": [], "warp": []}, {"block": [], "warp": []}
+    for route in ("block", "warp", "warp", "block"):
+        with _ctc_plan_as(route=route):
+            state, ms, _, kern = _profiled_step(torch, step, state, batch)
+        busy[route].append(ms)
+        own[route].append(sum(e.self_device_time_total for e in kern
+                              if re.search(r"::ctc_\w+_kernel", e.key)) / 1e3)
+    mean = {k: sum(v) / len(v) for k, v in busy.items()}
+    print(f"6b's step, device busy ms by CTC route (in turns block, warp, warp, block): block "
+          f"{busy['block']}, warp {busy['warp']}; means {mean['block']:.3f} / "
+          f"{mean['warp']:.3f}, change {mean['warp'] - mean['block']:+.3f} ms; the CTC kernels' "
+          f"own ms: block {own['block']}, warp {own['warp']}")
+    return dict(busy, ctc_ms=own)
 
 
 def _compare_steps(base: dict, fused: dict) -> None:

@@ -8,7 +8,9 @@ route), the FFT route at n_fft 64 to 2,048 and with a dense mel, T and
 S not multiples of the attention tiles, T != S, dk 16, 32 and 64, a broadcast
 [B, 1, S] padding mask, a fully masked query row; for the fused RNN-T joint
 (#4/#5) and the CTC lattice (#6/#7): U = 0, t_len = 0, an infeasible CTC
-row, B = 1, V = 412, 64 and 30, D 32, 64, 72 and 256, U+1 129, a ragged
+row, B = 1, the CTC lattice by its warp and its block route at S 1, 31, 33,
+63, 65 and 255 (the block route also at 257), with a t_len = 1 row or every
+row shorter than T and two calls bit-identical, V = 412, 64 and 30, D 32, 64, 72 and 256, U+1 129, a ragged
 last t-chunk of #5's row side, bench.py's training shape (#5 also twice,
 bit-identical), bf16 enc_p/pred_p from a bf16 model; the
 attention forward (#2) and backward (#3) in fp32 and bf16 at dk 16, 32 and
@@ -492,22 +494,44 @@ def test_rnnt_fused_loss_card_matches_cpu(card, dtype):
     assert float(outs["cuda"][1][0][1].abs().max()) == 0.0  # t_len = 0: no gradient
 
 
-@pytest.mark.parametrize("b,t,u,v", [(1, 30, 6, 412), (4, 50, 12, 64), (3, 8, 0, 20)])
-def test_ctc_kernels_match_plain(card, b, t, u, v):
+# the CTC lattice (#6/#7) by each route, forced through the plan: the
+# earlier shapes, and S 1, 31, 33, 63, 65 and 255 (U 0 to 127: the S that
+# bound each K, K 1 to 8, of the warp route), S 257 (U 128: the block route by
+# shape); a t_len = 0 row, a t_len = 1 row and an infeasible row where B
+# allows, or a batch whose rows all end before T
+CTC_SHAPES = [(1, 30, 6, 412), (4, 50, 12, 64), (3, 8, 0, 20)] + [
+    (4, 40, u, 412) for u in (0, 15, 16, 31, 32, 127)]
+CTC_CASES = ([(route, *shape, False) for route in ("warp", "block") for shape in CTC_SHAPES]
+             + [(route, 3, 30, 16, 412, True) for route in ("warp", "block")]
+             + [("block", 4, 40, 128, 412, False)])
+
+
+@pytest.mark.parametrize("route,b,t,u,v,all_short", CTC_CASES)
+def test_ctc_kernels_match_plain(card, monkeypatch, route, b, t, u, v, all_short):
+    from tpuasr_torch.ops import ctc as ctc_mod
+
+    real = ctc_mod._ctc_plan
+    monkeypatch.setattr(ctc_mod, "_ctc_plan", lambda s: real(s, route=route))
     blank = 5
-    g = torch.Generator().manual_seed(b * t)
+    g = torch.Generator().manual_seed(b * t + u)
     lp = torch.log_softmax(torch.randn(b, t, v, generator=g), -1).to(card)
     lab = torch.randint(0, v, (b, u), generator=g).to(card)
     u_lens = torch.full((b,), u, dtype=torch.int32, device=card)
     t_lens = torch.full((b,), t, dtype=torch.int32, device=card)
-    if b > 1:
+    if all_short:
+        t_lens = torch.tensor([t - 10, t // 3, t - 1], dtype=torch.int32, device=card)
+    if b > 1 and not all_short:
         t_lens[1] = 0  # no frames
-    if b > 2 and u >= 3:
+    if b > 2 and u >= 3 and not all_short:
         lab[2, :3] = 7  # 7 7 7 needs 5 frames: infeasible in 3
         u_lens[2], t_lens[2] = 3, 3
+    if b > 3:
+        t_lens[3] = 1  # one frame
     lp_states, skip, final = lattice_inputs(lp, lab, u_lens, blank)
     lp_states = lp_states.contiguous()
+    before = dict(LAUNCHES)
     ga, gll = ctc_alpha(lp_states, skip, t_lens, final)
+    ga2, gll2 = ctc_alpha(lp_states, skip, t_lens, final)
     ra, rll = ctc_alpha_plain(lp_states, skip, t_lens, final)
     live = ra > -1e29
     assert torch.equal(live, ga > -1e29)
@@ -515,11 +539,19 @@ def test_ctc_kernels_match_plain(card, b, t, u, v):
     assert bool(((gll - rll).abs() <= 1e-3 + 1e-5 * rll.abs()).all())
     gvec = torch.rand(b, generator=g).to(card)
     args = (lp_states, skip, t_lens, final, ra.contiguous(), rll.contiguous(), gvec)
-    got, ref = ctc_beta_grad(*args), ctc_beta_grad_plain(*args)
+    got, again, ref = ctc_beta_grad(*args), ctc_beta_grad(*args), ctc_beta_grad_plain(*args)
     torch.cuda.synchronize()
     assert bool(((got - ref).abs() <= 2e-3 * ref.abs() + 1e-5).all())
-    if b > 1:
+    if b > 1 and not all_short:
         assert bool((got[1] == 0).all())
+    for row in range(b):  # no gradient from a row's t_len on
+        assert bool((got[row, max(int(t_lens[row]), 0):] == 0).all())
+    # no atomics: two calls give the same bits
+    assert torch.equal(ga, ga2) and torch.equal(gll, gll2) and torch.equal(got, again)
+    other = "block" if route == "warp" else "warp"
+    for name in ("ctc_alpha", "ctc_beta_grad"):
+        assert LAUNCHES[f"{name}_{route}"] - before[f"{name}_{route}"] == 2
+        assert LAUNCHES[f"{name}_{other}"] == before[f"{name}_{other}"]
 
 
 def test_ctc_loss_card_matches_cpu(card):

@@ -15,6 +15,14 @@ Inputs: lp_states [B, T, S] fp32 (masked emission log-probs, -1e30 at
 states past 2·label_len), skip [B, S] bool (the s-2 -> s transition is
 allowed), tlens [B] int (frames of each row; rows are frozen from t_len on),
 final [B, S] bool (the one or two final states).
+
+Two routes on the card, chosen by S alone (`_ctc_plan`) and counted apart
+(`LAUNCHES["ctc_alpha_warp"]`, `"ctc_alpha_block"`, `"ctc_beta_grad_warp"`,
+`"ctc_beta_grad_block"`, beside each entry's own count): up to S = 256 (U
+127) the warp route, one warp per utterance with K = ceil(S / 32) states a
+lane in registers; beyond it the block route, a thread per state. The plan
+also sizes the warp route's shared-memory ring (frames a chunk); the
+wrapper passes K and the chunk to the entry.
 """
 
 from __future__ import annotations
@@ -25,6 +33,44 @@ import torch.nn.functional as F
 from tpuasr_torch.ops import _build
 
 _NEG = -1.0e30  # large-negative stand-in for -inf (keeps arithmetic NaN-free)
+
+CTC_WARP = 32  # lanes of a warp
+CTC_WARP_MAX_K = 8  # states a lane holds on the warp route: S <= 256
+CTC_CHUNK = 32  # frames a ring chunk holds at most
+CTC_SMEM = 48 * 1024  # shared memory a block takes without opting in
+
+
+def _ring_chunk(s: int, arrays: int) -> int:
+    """Frames a ring chunk holds: the largest power of two up to CTC_CHUNK
+    whose two chunks of `arrays` [T, S] fp32 arrays fit CTC_SMEM."""
+    ch = CTC_CHUNK
+    while ch > 1 and 4 * arrays * 2 * ch * s > CTC_SMEM:
+        ch //= 2
+    return ch
+
+
+def _ctc_plan(s: int, route: str | None = None) -> dict:
+    """How the card runs the CTC lattice for S states. The route follows
+    from S alone: "warp" (a warp an utterance, K = ceil(S / 32) states a
+    lane) while K <= CTC_WARP_MAX_K, else "block" (a thread a state).
+    `route` sets it by hand, for timing one route against the other; the
+    wrappers never pass it. -> {"route", "k" (0 on the block route), "chunk"
+    and "smem" ({"alpha", "beta_grad"}: frames a ring chunk, shared bytes a
+    block)}."""
+    if s < 1:
+        raise ValueError(f"ctc lattice: S = {s}")
+    k = -(-s // CTC_WARP)
+    route = route or ("warp" if k <= CTC_WARP_MAX_K else "block")
+    if route == "block":
+        return {"route": "block", "k": 0, "chunk": {"alpha": 0, "beta_grad": 0},
+                "smem": {"alpha": 8 * s, "beta_grad": 8 * s}}
+    if route != "warp" or k > CTC_WARP_MAX_K:
+        raise ValueError(f"ctc lattice: route {route!r} cannot take S = {s} (the warp route "
+                         f"holds up to {CTC_WARP * CTC_WARP_MAX_K} states)")
+    chunk = {"alpha": _ring_chunk(s, 1), "beta_grad": _ring_chunk(s, 2)}
+    return {"route": "warp", "k": k, "chunk": chunk,
+            "smem": {name: 4 * arrays * 2 * chunk[name] * s
+                     for name, arrays in (("alpha", 1), ("beta_grad", 2))}}
 
 
 def _logaddexp(a, b):
@@ -116,10 +162,12 @@ def ctc_alpha(lp_states, skip, tlens, final) -> tuple[torch.Tensor, torch.Tensor
     ll = torch.empty(b, dtype=torch.float32, device=lp_states.device)
     if b == 0 or s == 0:
         return alpha, ll
+    plan = _ctc_plan(s)
     with torch.cuda.device(lp_states.device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.launch("ctc_alpha", lp_states.data_ptr(), skip.data_ptr(), tlens.data_ptr(),
-                      final.data_ptr(), alpha.data_ptr(), ll.data_ptr(), b, t, s, stream)
+                      final.data_ptr(), alpha.data_ptr(), ll.data_ptr(), b, t, s, plan["k"],
+                      plan["chunk"]["alpha"], stream, route=f"ctc_alpha_{plan['route']}")
     return alpha, ll
 
 
@@ -138,11 +186,14 @@ def ctc_beta_grad(lp_states, skip, tlens, final, alpha, ll, g) -> torch.Tensor:
     grad = torch.empty_like(lp_states)
     if b == 0 or s == 0:
         return grad
+    plan = _ctc_plan(s)
     with torch.cuda.device(lp_states.device):
         stream = torch.cuda.current_stream().cuda_stream
         _build.launch("ctc_beta_grad", lp_states.data_ptr(), skip.data_ptr(),
                       tlens.data_ptr(), final.data_ptr(), alpha.data_ptr(), ll.data_ptr(),
-                      g.data_ptr(), grad.data_ptr(), b, t, s, stream)
+                      g.data_ptr(), grad.data_ptr(), b, t, s, plan["k"],
+                      plan["chunk"]["beta_grad"], stream,
+                      route=f"ctc_beta_grad_{plan['route']}")
     return grad
 
 
