@@ -37,11 +37,14 @@ Phases (any failure exits non-zero):
    joint forward and backward (#4/#5), the RNN-T lattice (#8/#9) and the
    CTC alpha and beta sweeps (#6/#7) at the training step's shapes (B 12,
    T' 191, U+1 33, S 65, D 256, V 412) and at a ragged shape with a
-   t_len = 0 and a label_len = 0 row (#6/#7 also at the trainer's T' 63 and
-   127, U+1 17, on the warp route the plan takes and on the block route,
-   each with its time per dependent step, two calls bit-identical, its
-   device time by kernel and both routes timed in turns; #4 and #5 also
-   twice at each,
+   t_len = 0 and a label_len = 0 row (#6/#7 and #8/#9 also at the
+   trainer's T' 63 and 127, U+1 17, on the warp route the plan takes and on
+   the block route, each with its time per dependent step (CTC: a frame;
+   RNN-T: an anti-diagonal), two calls bit-identical, its device time by
+   kernel and both routes timed in turns; #8/#9 by both routes, in turns,
+   at U+1 = 32K for K 1-8, B 12 and T' 191 and B 4 and T' 60, the warp
+   route held against the block route: the reading behind the plan's
+   route; #4 and #5 also twice at each,
    bit-identical, and their device time by kernel at the training shape:
    #4's W tiles and rows, #5's row side, vocabulary side and sum; #4's plan
    and the bytes of W its blocks read from L2 at each shape, and #4 held
@@ -102,7 +105,8 @@ Phases (any failure exits non-zero):
       them. Kernels #1-#9 must launch, fbank once a step and always by its
       tensor-core route (its route counts); then, outside the run's launch
       counts, a fresh model's profiled step's device busy ms with the CTC
-      lattice by its block route and by its warp route, in turns;
+      lattice by its block route and by its warp route, in turns, and the
+      same for the RNN-T lattice;
    c. the same with `fused_joint_loss=False` (the joint's full logits and
       the materialized loss), four steps: kernels #1-#3 and #6-#9 must
       launch;
@@ -133,8 +137,9 @@ Phases (any failure exits non-zero):
    error, times and bound at the
    shape that run gives the kernel (phase 3's bench-shape records for 6b-6d;
    for the trainer the signature it launched most, with every signature's
-   record under "shapes"). The CTC entries carry their run's launches by
-   route under "routes": each training run must take the warp route alone.
+   record under "shapes"). The CTC and RNN-T lattice entries carry their
+   run's launches by route under "routes": each training run must take the
+   warp route alone.
 
 Each phase prints its seconds.
 TF32 is off throughout (cuBLAS and cuDNN), so every fp32 comparison is fp32.
@@ -226,6 +231,7 @@ def main() -> dict:
     checks.update(_attention_train_checks(torch, dev, bench))
     train_checks, fwd_plans = _train_kernel_checks(torch, dev, bench)
     checks.update(train_checks)
+    rnnt_sweep = _rnnt_route_sweep(torch, dev)
     checks.update(_ffn_checks(torch, dev))
 
     # ---------------------------------------------------------------- 4-5
@@ -244,7 +250,8 @@ def main() -> dict:
     del gpu32
 
     # ---------------------------------------------------------------- 6
-    training = {"rnnt_fused_fwd_plans": fwd_plans}  # counted from the shapes, not measured
+    training = {"rnnt_fused_fwd_plans": fwd_plans,  # counted from the shapes, not measured
+                "rnnt_lattice_by_route": rnnt_sweep}
     for fused, ffn in ((True, False), (False, False), (True, True)):
         t_phase = _phase(f"6a: training step, card against CPU (fp32, fused_joint_loss="
                          f"{fused}, fused_ffn={ffn})", t_phase)
@@ -253,7 +260,9 @@ def main() -> dict:
     t_phase = _phase("6b: training at bench.py's configuration", t_phase)
     training["bench"], runs["training"] = _train_bench(torch, dev, bench, True)
     print(f"launches on the training run: {runs['training']}")
-    training["bench"]["device_busy_ms_by_ctc_route"] = _ctc_route_ab(torch, dev, bench)
+    for kind in ("ctc", "rnnt"):
+        training["bench"][f"device_busy_ms_by_{kind}_route"] = _lattice_route_ab(
+            torch, dev, bench, kind)
     t_phase = _phase("6c: training through the materialized loss", t_phase)
     training["bench_materialized"], runs["training_materialized"] = _train_bench(
         torch, dev, bench, False, n_steps=4, warmup=1)
@@ -315,7 +324,8 @@ def main() -> dict:
             rec = trainer_records[name] if run == "trainer" else checks[check]
             entry = dict(rec, run=run, launches=launches,
                          **{f"launches_{r}": runs[r][count] for r in runs})
-            if name in ("ctc_alpha", "ctc_beta_grad"):  # the training runs: the warp route alone
+            if name in ("ctc_alpha", "ctc_beta_grad", "rnnt_alpha", "rnnt_beta_grad"):
+                # the training runs: the lattices' warp route alone
                 entry["routes"] = {f"{name}_{r}": runs[run][f"{name}_{r}"] for r in ("warp", "block")}
                 require(entry["routes"][f"{name}_warp"] == launches
                         and entry["routes"][f"{name}_block"] == 0,
@@ -998,9 +1008,9 @@ def _held(torch, name, a, ctc_inputs) -> tuple[dict, str, bool, str]:
         ok = ok and bool(((ga - ra).abs() <= 1e-3 + 1e-5 * ra.abs())[live].all())
         ok = ok and bool(((gll - rll).abs() <= 1e-3 + 1e-5 * rll.abs()).all())
         why = ("1e-3 + 1e-5*|ref| over reachable cells, which must match: fp32 log-adds "
-               "whose exp/log1p may differ from torch's by an ulp (CTC's warp route: one "
-               "three-term log-add, ex2/lg2, rounded once where plain rounds twice), over every "
-               "dependent step")
+               "whose exp/log1p may differ from torch's by an ulp (the warp routes: ex2/lg2 "
+               "log-adds that round at other points, CTC's three-term one once where plain "
+               "rounds twice), over every dependent step")
         peak, plain_iters, timing = PEAK_FP32, 5, "profiler"
         if name == "rnnt_alpha":
             b, t, u1 = a["blank_lp"].shape
@@ -1017,7 +1027,8 @@ def _held(torch, name, a, ctc_inputs) -> tuple[dict, str, bool, str]:
         if name == "rnnt_beta_grad":
             b, t, u1 = a["blank_lp"].shape
             cells = b * t * u1
-            flops, nbytes = 20.0 * cells, 4 * (4 * cells + 2 * b * t * (u1 - 1) + 3 * b)
+            # blank and alpha in, gblank out; label in, glabel out; u_lens, ll, g
+            flops, nbytes = 20.0 * cells, 4 * (3 * cells + 2 * b * t * (u1 - 1) + 3 * b)
         else:
             b, t, s = a["lp_states"].shape
             active = int(torch.clamp(a["tlens"], 0, t).sum()) * s
@@ -1533,12 +1544,27 @@ def _train_kernel_checks(torch, dev, bench) -> tuple[dict, dict]:
                                                         trainer["pred_p"], w, f"T'{tt}")
                 recs["rnnt_fused_fwd"][f"trainer_shape_t{tt}"] = rec
         bm, lm, pad_t, lv = mask_lattice_inputs(blank_lp, label_full[:, :, :-1], tl, ul)
-        lattice = dict(blank_lp=bm, label_lp=lm, u_lens=ul)
-        recs["rnnt_alpha"] = _hold(torch, "rnnt_alpha", lattice, tag)
+        # #8 / #9 on each route; at the bench shape also at the trainer's
+        # shapes (T' 63 / 127, U+1 17), cut from the same log-probs
+        rnnt_shapes = [(tag, bm, lm, ul)]
+        if tag == "bench":
+            for tt in (63, 127):
+                cut = mask_lattice_inputs(blank_lp[:, :tt, :17], label_full[:, :tt, :16],
+                                          torch.clamp(tl, max=tt), torch.clamp(ul, max=16))
+                rnnt_shapes.append((f"T'{tt}", cut[0].contiguous(), cut[1].contiguous(),
+                                    torch.clamp(ul, max=16)))
+        for shape, bm_s, lm_s, ul_s in rnnt_shapes:
+            lattice = dict(blank_lp=bm_s, label_lp=lm_s, u_lens=ul_s)
+            ra, rll = rnnt_alpha_plain(*lattice.values())
+            beta = dict(lattice, alpha=ra.contiguous(), ll=rll.contiguous(),
+                        g=(0.5 + torch.rand(b, generator=g)).to(dev))
+            pair = _lattice_routes(torch, "rnnt", lattice, beta, shape, {})
+            if shape == tag:
+                recs.update(pair)
+            else:
+                for name in pair:
+                    recs[name][f"trainer_shape_t{shape[2:]}"] = pair[name]
         ra, rll = rnnt_alpha_plain(bm, lm, ul)
-        gvec = (0.5 + torch.rand(b, generator=g)).to(dev)
-        recs["rnnt_beta_grad"] = _hold(torch, "rnnt_beta_grad", dict(
-            lattice, alpha=ra.contiguous(), ll=rll.contiguous(), g=gvec), tag)
 
         # #5: gradients from the lattice's occupancies (mean over B)
         zero = torch.zeros((), device=dev)
@@ -1577,7 +1603,7 @@ def _train_kernel_checks(torch, dev, bench) -> tuple[dict, dict]:
             # shape, whose t_len = 0 row it is not asked to take)
             lib = {} if shape == "ragged" else {
                 0: [1, dict(log_probs=lp_s, labels=lab_s, label_lens=ul_s, blank=blank)]}
-            pair = _ctc_routes(torch, ctc, beta, shape, lib)
+            pair = _lattice_routes(torch, "ctc", ctc, beta, shape, lib)
             if shape == tag:
                 recs.update(pair)
             else:
@@ -1591,35 +1617,55 @@ def _train_kernel_checks(torch, dev, bench) -> tuple[dict, dict]:
     return out, plans
 
 
-@contextlib.contextmanager
-def _ctc_plan_as(route: str):
-    """Run the CTC wrappers on `route` (the wrappers choose by shape alone)."""
-    from tpuasr_torch.ops import ctc as ctc_mod
+# each lattice's wrapper module, plan, kernels and the kernel symbols of its
+# source (for the device time by route in a profiled step)
+LATTICES = {"ctc": ("tpuasr_torch.ops.ctc", "_ctc_plan", ("ctc_alpha", "ctc_beta_grad"),
+                    r"::ctc_\w+_kernel"),
+            "rnnt": ("tpuasr_torch.ops.rnnt_lattice", "_rnnt_plan",
+                     ("rnnt_alpha", "rnnt_beta_grad"), r"::rnnt_(alpha|beta_grad)\w*_kernel")}
 
-    real = ctc_mod._ctc_plan
-    ctc_mod._ctc_plan = lambda s: real(s, route=route)
+
+@contextlib.contextmanager
+def _plan_as(kind: str, route: str):
+    """Run a lattice's wrappers (`kind` "ctc" or "rnnt") on `route` (the
+    wrappers choose by shape alone)."""
+    import importlib
+
+    modname, plan_name, _, _ = LATTICES[kind]
+    mod = importlib.import_module(modname)
+    real = getattr(mod, plan_name)
+    setattr(mod, plan_name, lambda *args: real(*args, route=route))
     try:
         yield
     finally:
-        ctc_mod._ctc_plan = real
+        setattr(mod, plan_name, real)
 
 
-def _ctc_routes(torch, ctc, beta, tag, lib) -> dict:
-    """#6 / #7 at one shape, held against their plain versions on the route
-    the plan takes (the warp route at every shape of the path) and on the
-    block route; -> {name: the plan's route's record}, each with its time
-    per dependent step (ms / the longest t_len), two calls bit-identical,
-    its device time by kernel, and the block route's record and both routes
-    timed in turns (block, warp, warp, block)."""
-    from tpuasr_torch.ops import ctc as ctc_mod
+def _lattice_routes(torch, kind, fwd, bwd, tag, lib) -> dict:
+    """A lattice's kernels (#6 / #7 for kind "ctc", #8 / #9 for "rnnt") at
+    one shape, held against their plain versions on the route the plan
+    takes (the warp route at every shape of the path) and on the block
+    route; -> {name: the plan's route's record}, each with its time per
+    dependent step (CTC: ms / the longest t_len; RNN-T: ms / the T + U
+    anti-diagonals), two calls bit-identical, its device time by kernel, and
+    the block route's record and both routes timed in turns (block, warp,
+    warp, block)."""
+    import importlib
 
-    s = ctc["lp_states"].shape[2]
-    route = ctc_mod._ctc_plan(s)["route"]
-    steps = max(int(ctc["tlens"].max()), 1)
+    modname, plan_name, names, _ = LATTICES[kind]
+    mod = importlib.import_module(modname)
+    if kind == "ctc":
+        width, steps = fwd["lp_states"].shape[2], max(int(fwd["tlens"].max()), 1)
+    else:
+        _, t, width = fwd["blank_lp"].shape
+        steps = t + width - 1
     ghz = _sm_ghz(torch)
     out = {}
-    for name, args in (("ctc_alpha", ctc), ("ctc_beta_grad", beta)):
-        fn = getattr(ctc_mod, name)
+    for name, args in zip(names, (fwd, bwd)):
+        # the RNN-T plan chooses each entry's route apart
+        plan_args = (width,) if kind == "ctc" else (width, name.removeprefix("rnnt_"))
+        route = getattr(mod, plan_name)(*plan_args)["route"]
+        fn = getattr(mod, name)
         call = lambda: fn(*args.values())
         rec = _hold(torch, name, args, f"{tag}, {route} route", lib)
         first, again = call(), call()
@@ -1628,12 +1674,12 @@ def _ctc_routes(torch, ctc, beta, tag, lib) -> dict:
         require(all(torch.equal(x, y) for x, y in zip(first, again)),
                 f"two calls of {name} on the same inputs differ ({tag})")
         split = _device_split(torch, call)
-        with _ctc_plan_as(route="block"):
+        with _plan_as(kind, route="block"):
             block = _hold(torch, name, args, f"{tag}, block route", lib)
             block_split = _device_split(torch, call)
         turns = {"block": [], route: []}
         for r in ("block", route, route, "block"):
-            with _ctc_plan_as(route=r):
+            with _plan_as(kind, route=r):
                 turns[r].append(_time_ms(torch, call))
         rec.update(plan_route=route, us_per_step=rec["ms"] / steps * 1e3, steps=steps,
                    sm_ghz=ghz, cycles_per_step=rec["ms"] / steps * ghz * 1e6,
@@ -1649,6 +1695,73 @@ def _ctc_routes(torch, ctc, beta, tag, lib) -> dict:
               f"device ms a call by kernel (profiler): " + "; ".join(
                   f"{ms:.4f} {key[:60]}" for key, ms in sorted(split.items(), key=lambda x: -x[1])))
         out[name] = rec
+    return out
+
+
+def rnnt_lattice_inputs(torch, dev, b, t, u1, t_lens, u_lens, seed) -> dict:
+    """Masked RNN-T lattice inputs on the card, as the loss hands them to
+    #8: blank_lp [B, T, U+1] and label_lp [B, T, U] a log-softmax over 64
+    classes of normal logits (the label's a random class's), masked by
+    `mask_lattice_inputs`, and u_lens [B] int32."""
+    from tpuasr_torch.ops.rnnt_lattice import mask_lattice_inputs
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    lp = torch.log_softmax(torch.randn(b, t, u1, 64, generator=g, device=dev), -1)
+    lab = torch.randint(1, 64, (b, u1 - 1), generator=g, device=dev)
+    label = lp[:, :, :u1 - 1].gather(3, lab[:, None, :, None].expand(b, t, u1 - 1, 1))[..., 0]
+    tl = torch.as_tensor(t_lens, dtype=torch.int32, device=dev)
+    ul = torch.as_tensor(u_lens, dtype=torch.int32, device=dev)
+    bm, lm, _, _ = mask_lattice_inputs(lp[..., 0], label, tl, ul)
+    return dict(blank_lp=bm.contiguous(), label_lp=lm.contiguous(), u_lens=ul)
+
+
+def _rnnt_route_sweep(torch, dev) -> dict:
+    """#8 and #9 by route at U+1 = 32K for every K of the warp route (1 ..
+    8), every label sequence U long, at the bench's B 12 and T' 191 and at
+    B 4 and T' 60 (fewer frames than labels at K >= 2): each route timed in
+    turns (block, warp, warp, block), the warp route's outputs held against
+    the block route's with phase 3's tolerances (#9 on the block route's
+    alpha and ll). The plan's route for each entry is printed beside the
+    times: this is the reading behind `_rnnt_plan`'s cut-over at K 8. ->
+    {"b<B>_t<T>_u1_<U+1>": {name: {"warp": [ms, ms], "block": [ms, ms],
+    "plan": route}}}."""
+    import importlib
+
+    rl = importlib.import_module("tpuasr_torch.ops.rnnt_lattice")  # the module, not the function
+    out = {}
+    for (b, t), k in itertools.product(((BENCH_B, 191), (4, 60)), range(1, rl.MAX_K + 1)):
+        u1 = 32 * k
+        fwd = rnnt_lattice_inputs(torch, dev, b, t, u1, [t] * b, [u1 - 1] * b, SEED + k)
+        with _plan_as("rnnt", route="block"):
+            alpha, ll = rl.rnnt_alpha(*fwd.values())
+            g = torch.ones(b, device=dev)
+            ref = rl.rnnt_beta_grad(*fwd.values(), alpha, ll, g)
+        with _plan_as("rnnt", route="warp"):
+            ga, gll = rl.rnnt_alpha(*fwd.values())
+            got = rl.rnnt_beta_grad(*fwd.values(), alpha, ll, g)
+        live = alpha > -1e29
+        require(torch.equal(live, ga > -1e29)
+                and bool(((ga - alpha).abs() <= 1e-3 + 1e-5 * alpha.abs())[live].all())
+                and bool(((gll - ll).abs() <= 1e-3 + 1e-5 * ll.abs()).all())
+                and all(bool(((x - y).abs() <= 2e-3 * y.abs() + 1e-5).all())
+                        for x, y in zip(got, ref)),
+                f"the RNN-T lattice's warp route disagrees with its block route at B {b}, "
+                f"T' {t}, U+1 {u1}")
+        calls = {"rnnt_alpha": lambda: rl.rnnt_alpha(*fwd.values()),
+                 "rnnt_beta_grad": lambda: rl.rnnt_beta_grad(*fwd.values(), alpha, ll, g)}
+        rec = {}
+        for name, call in calls.items():
+            turns = {"block": [], "warp": []}
+            for route in ("block", "warp", "warp", "block"):
+                with _plan_as("rnnt", route=route):
+                    turns[route].append(_time_ms(torch, call))
+            rec[name] = dict(turns, plan=rl._rnnt_plan(u1, name.removeprefix("rnnt_"))["route"])
+        out[f"b{b}_t{t}_u1_{u1}"] = rec
+        print(f"rnnt lattice by route at U+1 {u1} (K {k}), B {b}, T' {t}, ms in turns "
+              f"(block, warp, warp, block): " + "; ".join(
+                  f"{name} {r['block'][0]:.4f} {r['warp'][0]:.4f} {r['warp'][1]:.4f} "
+                  f"{r['block'][1]:.4f}, the plan's route {r['plan']}"
+                  for name, r in rec.items()))
     return out
 
 
@@ -1939,11 +2052,12 @@ def _profiled_step(torch, step, state, batch) -> tuple:
     return state, sum(e.self_device_time_total for e in kern) / 1e3, wall, kern
 
 
-def _ctc_route_ab(torch, dev, batch) -> dict:
-    """6b's training step's device busy ms with the CTC lattice by its
-    block route and by its warp route (the plan fixed to each), in turns
-    (block, warp, warp, block), after the training runs' launches are read;
-    -> {route: [ms, ms], "ctc_ms": {route: [the lattice kernels' ms, ...]}}."""
+def _lattice_route_ab(torch, dev, batch, kind) -> dict:
+    """6b's training step's device busy ms with a lattice (`kind` "ctc" or
+    "rnnt") by its block route and by its warp route (the plan fixed to
+    each), in turns (block, warp, warp, block), after the training runs'
+    launches are read; -> {route: [ms, ms], "lattice_ms": {route: [the
+    lattice kernels' own ms, ...]}}."""
     from tpuasr_torch.models import Transducer, init_weights
     from tpuasr_torch.train import TrainState, make_optimizer, make_train_step
 
@@ -1954,17 +2068,18 @@ def _ctc_route_ab(torch, dev, batch) -> dict:
     state, step = TrainState.create(model, tx), make_train_step(model, tx, cfg)
     busy, own = {"block": [], "warp": []}, {"block": [], "warp": []}
     for route in ("block", "warp", "warp", "block"):
-        with _ctc_plan_as(route=route):
+        with _plan_as(kind, route=route):
             state, ms, _, kern = _profiled_step(torch, step, state, batch)
         busy[route].append(ms)
         own[route].append(sum(e.self_device_time_total for e in kern
-                              if re.search(r"::ctc_\w+_kernel", e.key)) / 1e3)
+                              if re.search(LATTICES[kind][3], e.key)) / 1e3)
     mean = {k: sum(v) / len(v) for k, v in busy.items()}
-    print(f"6b's step, device busy ms by CTC route (in turns block, warp, warp, block): block "
-          f"{busy['block']}, warp {busy['warp']}; means {mean['block']:.3f} / "
-          f"{mean['warp']:.3f}, change {mean['warp'] - mean['block']:+.3f} ms; the CTC kernels' "
-          f"own ms: block {own['block']}, warp {own['warp']}")
-    return dict(busy, ctc_ms=own)
+    print(f"6b's step, device busy ms by {kind.upper()} lattice route (in turns block, warp, "
+          f"warp, block): block {busy['block']}, warp {busy['warp']}; means "
+          f"{mean['block']:.3f} / {mean['warp']:.3f}, change "
+          f"{mean['warp'] - mean['block']:+.3f} ms; the {kind.upper()} lattice kernels' own "
+          f"ms: block {own['block']}, warp {own['warp']}")
+    return dict(busy, lattice_ms=own)
 
 
 def _compare_steps(base: dict, fused: dict) -> None:

@@ -37,7 +37,8 @@ from tpuasr.ops.ctc_pallas import ctc_loss_pallas
 from tpuasr_torch.losses.ctc import lattice_inputs
 from tpuasr_torch.losses.rnnt import zero_infeasible
 from tpuasr_torch.ops import LAUNCHES, _build, ctc_alpha_plain, ctc_beta_grad_plain
-from tpuasr_torch.ops.ctc import CTC_CHUNK, CTC_SMEM, CTC_WARP, CTC_WARP_MAX_K, _NEG, _ctc_plan
+from tpuasr_torch.ops._lattice import CHUNK, MAX_K, SMEM, WARP
+from tpuasr_torch.ops.ctc import _NEG, _ctc_plan
 
 torch.set_num_threads(1)  # six test workers share the cores
 
@@ -48,21 +49,21 @@ torch.set_num_threads(1)  # six test workers share the cores
 
 def test_ctc_plan_routes_by_shape():
     """S = 1 .. 1025: K = ceil(S / 32) states a lane; the warp route up to
-    K = CTC_WARP_MAX_K (S 256), the block route beyond; ring chunks a power
+    K = MAX_K (S 256), the block route beyond; ring chunks a power
     of two up to 32 frames within the 48 KB a block takes without opting
     in; the path's shapes (S 65 bench, 33 trainer, 11 ragged) take the warp
     route with 32-frame chunks."""
-    assert CTC_WARP * CTC_WARP_MAX_K == 256 and CTC_WARP_MAX_K >= 8
+    assert WARP * MAX_K == 256 and MAX_K >= 8
     for s in range(1, 1026):
         plan = _ctc_plan(s)
         k = -(-s // 32)
         if s <= 256:
-            assert plan["route"] == "warp" and plan["k"] == k and CTC_WARP * k >= s
+            assert plan["route"] == "warp" and plan["k"] == k and WARP * k >= s
             for name, arrays in (("alpha", 1), ("beta_grad", 2)):
                 ch = plan["chunk"][name]
-                assert ch & (ch - 1) == 0 and 1 <= ch <= CTC_CHUNK
-                assert plan["smem"][name] == 4 * arrays * 2 * ch * s <= CTC_SMEM
-                assert ch == CTC_CHUNK or 4 * arrays * 2 * 2 * ch * s > CTC_SMEM
+                assert ch & (ch - 1) == 0 and 1 <= ch <= CHUNK
+                assert plan["smem"][name] == 4 * arrays * 2 * ch * s <= SMEM
+                assert ch == CHUNK or 4 * arrays * 2 * 2 * ch * s > SMEM
         else:
             assert plan["route"] == "block" and plan["k"] == 0
             with pytest.raises(ValueError, match="warp route"):
@@ -101,7 +102,7 @@ def test_ctc_launch_counts_each_route():
 def _states(k: int) -> torch.Tensor:
     """[32, K] state index of each lane's registers: lane l holds l*K ..
     l*K+K-1."""
-    return torch.arange(CTC_WARP)[:, None] * k + torch.arange(k)[None, :]
+    return torch.arange(WARP)[:, None] * k + torch.arange(k)[None, :]
 
 
 def _regs(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -115,8 +116,8 @@ def _shfl(x: torch.Tensor, d: int) -> torch.Tensor:
     """A warp shuffle along the lane axis: lane l gets lane l - d's register
     (d < 0: lane l + |d|'s); a lane whose source is out of range keeps its
     own (`__shfl_up_sync` / `__shfl_down_sync`)."""
-    src = torch.arange(CTC_WARP) - d
-    src = torch.where((src >= 0) & (src < CTC_WARP), src, torch.arange(CTC_WARP))
+    src = torch.arange(WARP) - d
+    src = torch.where((src >= 0) & (src < WARP), src, torch.arange(WARP))
     return x[:, src]
 
 
@@ -157,7 +158,7 @@ def _above(b, lane):
 
 def _butterfly(v: torch.Tensor, op) -> torch.Tensor:
     """[B, 32] -> [B]: v = op(v, v[l ^ o]) for o = 16, 8, 4, 2, 1."""
-    lane = torch.arange(CTC_WARP)
+    lane = torch.arange(WARP)
     for o in (16, 8, 4, 2, 1):
         v = op(v, v[:, lane ^ o])
     return v[:, 0]
@@ -168,14 +169,14 @@ def _emulate_alpha(lp_states, skip, tlens, final):
     b, t_max, s = lp_states.shape
     idx = _states(_ctc_plan(s)["k"])
     valid = (idx < s)[None]
-    lane = torch.arange(CTC_WARP)[None, :, None]
-    lp_r = _regs(lp_states.reshape(b * t_max, s), idx).reshape(b, t_max, CTC_WARP, -1)
+    lane = torch.arange(WARP)[None, :, None]
+    lp_r = _regs(lp_states.reshape(b * t_max, s), idx).reshape(b, t_max, WARP, -1)
     skips = _regs(skip.float(), idx).bool()
     finals = _regs(final.float(), idx).bool()
     neg = torch.full((), _NEG)
     tend = torch.clamp(tlens.long(), max=t_max).clamp(min=1)
     a = torch.where(valid & (idx < 2)[None], lp_r[:, 0], neg)
-    tape = torch.full((b, t_max, CTC_WARP, idx.shape[1]), _NEG)
+    tape = torch.full((b, t_max, WARP, idx.shape[1]), _NEG)
     tape[:, 0] = a
     for t in range(1, int(tend.max())):
         p1, p2 = _below(a, lane)
@@ -189,7 +190,7 @@ def _emulate_alpha(lp_states, skip, tlens, final):
     out.reshape(b, t_max, -1)[..., idx[valid[0]]] = tape[..., valid[0]]
     fin = torch.where(finals, a, neg)
     m = _butterfly(fin.max(dim=2).values, torch.maximum)
-    part = torch.zeros(b, CTC_WARP)
+    part = torch.zeros(b, WARP)
     for k in range(idx.shape[1]):
         part = part + torch.where(valid[..., k], torch.exp(fin[..., k] - m[:, None]), 0.0)
     ll = m + torch.log(_butterfly(part, torch.add))
@@ -201,16 +202,16 @@ def _emulate_beta_grad(lp_states, skip, tlens, final, alpha, ll, g):
     b, t_max, s = lp_states.shape
     idx = _states(_ctc_plan(s)["k"])
     valid = (idx < s)[None]
-    lane = torch.arange(CTC_WARP)[None, :, None]
-    flat = lambda x: _regs(x.reshape(b * t_max, s), idx).reshape(b, t_max, CTC_WARP, -1)
+    lane = torch.arange(WARP)[None, :, None]
+    flat = lambda x: _regs(x.reshape(b * t_max, s), idx).reshape(b, t_max, WARP, -1)
     lp_r, al_r = flat(lp_states), flat(alpha)
     skip2 = torch.cat([skip, torch.zeros(b, 2, dtype=torch.bool)], dim=1)[:, 2:]
     skips2 = _regs(skip2.float(), idx).bool()
     finals = _regs(final.float(), idx).bool()
     neg = torch.full((), _NEG)
     tend = torch.clamp(tlens.long(), max=t_max)
-    grad = torch.zeros(b, t_max, CTC_WARP, idx.shape[1])  # 0 from t_len on, written first
-    beta = pe = pa = torch.full((b, CTC_WARP, idx.shape[1]), _NEG)
+    grad = torch.zeros(b, t_max, WARP, idx.shape[1])  # 0 from t_len on, written first
+    beta = pe = pa = torch.full((b, WARP, idx.shape[1]), _NEG)
 
     def emit(rows, t, beta, pe, pa):
         gam = torch.clamp(pa + (beta - pe) - ll[:, None, None], max=0.0)

@@ -21,8 +21,9 @@ log-sum-exp (bf16) against the plain ones and torch.logsumexp of the plain
 scores (1e-4 + 1e-5*|ref|, -inf for a fully masked row); autograd through
 the Function in fp32 (which saves only the inputs) and in bf16 (one launch
 of #2 and one of #3); the RNN-T lattice
-(#8/#9) at U+1 = 1, 33 and 257 with a t_len = 0 row, and the materialized
-RNN-T loss card against CPU; the fused FFN (#10/#11) at R = 1, 70, 130 and the main paths' 128
+(#8/#9) by its warp route at U+1 = 1, 17, 33, 65 and 256 and its block
+route at 33, 256 and 257, with a t_len = 0 and a u_len = 0 row and two calls
+bit-identical, and the materialized RNN-T loss card against CPU; the fused FFN (#10/#11) at R = 1, 70, 130 and the main paths' 128
 (a streaming chunk), 748 (serving), 756 and 1,524 (the trainer) and 2,292
 (bench.py's) rows, so one slice and many, a ragged last row tile; D 64 and
 256, H 128, 1024 and 160 (not a multiple of the 64-unit weight tiles); fp32
@@ -52,8 +53,9 @@ of 7.6e-6 into the posterior). Attention backward: fp32 1e-4 of each
 output's max (sums in another order; dp, du and dvb added with atomics), bf16
 2**-6 of it (ds is rounded to bf16 before the products, and a value on a
 rounding edge may round the other way on the other side; the outputs round
-to bf16 too). RNN-T lattice: as CTC's (the kernel repeats the plain
-version's log-adds; exp/log1p may differ by an ulp); the materialized loss
+to bf16 too). RNN-T lattice: as CTC's (the block route repeats the plain
+version's log-adds, exp/log1p may differ by an ulp; the warp route's
+log-add of ex2/lg2 rounds at other points, over T + U dependent steps); the materialized loss
 card vs CPU: loss rtol 1e-5, gradient atol 1e-4, as the CTC loss. Fused
 FFN: fp32 output within 1e-5 of its max |.| and gradients within 1e-4 of
 each one's max (sums in another order, fixed between calls); bf16 output within 2**-7 and gradients within 2**-6 of the
@@ -63,6 +65,7 @@ training step agree to 1e-4 of the largest gradient (fp32, the kernels'
 sums against cuBLAS's).
 """
 
+import importlib
 from dataclasses import astuple
 
 import pytest
@@ -590,11 +593,28 @@ def _lattice_inputs(card, b, t, u1, seed):
     return bm.to(card), lm.contiguous().to(card), u_lens.to(card)
 
 
-@pytest.mark.parametrize("b,t,u1", [(3, 9, 1), (4, 30, 33), (3, 20, 257)])
-def test_rnnt_lattice_kernels_match_plain(card, b, t, u1):
+# the RNN-T lattice (#8/#9) by the route its plan takes: the warp route at
+# U+1 1 (K 1), 33 (K 2, the bench's), 65 (K 3) and 256 (K 8, ring chunks of
+# 4), the block route at 257; the warp route forced at 17 and the block route
+# forced at 33 and 256, each with a t_len = 0 row and a u_len = 0 row
+RNNT_CASES = [(None, 3, 9, 1), (None, 4, 30, 33), (None, 3, 21, 65), (None, 3, 12, 256),
+              (None, 3, 20, 257), ("warp", 4, 25, 17), ("block", 4, 30, 33),
+              ("block", 3, 12, 256)]
+
+
+@pytest.mark.parametrize("route,b,t,u1", RNNT_CASES)
+def test_rnnt_lattice_kernels_match_plain(card, monkeypatch, route, b, t, u1):
+    # (`tpuasr_torch.ops.rnnt_lattice` the attribute is the autograd wrapper)
+    rnnt_mod = importlib.import_module("tpuasr_torch.ops.rnnt_lattice")
+    real = rnnt_mod._rnnt_plan
+    monkeypatch.setattr(rnnt_mod, "_rnnt_plan", lambda u, entry: real(u, entry, route=route))
+    taken = {name: real(u1, name.removeprefix("rnnt_"), route=route)["route"]
+             for name in ("rnnt_alpha", "rnnt_beta_grad")}
+    assert set(taken.values()) == {route or ("warp" if u1 <= 256 else "block")}
     blank, label, u_lens = _lattice_inputs(card, b, t, u1, seed=t * u1)
-    before = (LAUNCHES["rnnt_alpha"], LAUNCHES["rnnt_beta_grad"])
+    before = dict(LAUNCHES)
     ga, gll = rnnt_alpha(blank, label, u_lens)
+    ga2, gll2 = rnnt_alpha(blank, label, u_lens)
     ra, rll = rnnt_alpha_plain(blank, label, u_lens)
     live = ra > -1e29
     assert torch.equal(live, ga > -1e29)
@@ -602,13 +622,20 @@ def test_rnnt_lattice_kernels_match_plain(card, b, t, u1):
     assert bool(((gll - rll).abs() <= 1e-3 + 1e-5 * rll.abs()).all())
     gvec = torch.rand(b, generator=torch.Generator().manual_seed(1)).to(card)
     args = (blank, label, u_lens, ra.contiguous(), rll.contiguous(), gvec)
-    got, ref = rnnt_beta_grad(*args), rnnt_beta_grad_plain(*args)
+    got, again = rnnt_beta_grad(*args), rnnt_beta_grad(*args)
+    ref = rnnt_beta_grad_plain(*args)
     torch.cuda.synchronize()
-    assert (LAUNCHES["rnnt_alpha"], LAUNCHES["rnnt_beta_grad"]) == (before[0] + 1,
-                                                                  before[1] + 1)
     for x, y in zip(got, ref):
         assert x.shape == y.shape
         assert bool(((x - y).abs() <= 2e-3 * y.abs() + 1e-5).all())
+    # no atomics: two calls give the same bits
+    assert torch.equal(ga, ga2) and torch.equal(gll, gll2)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    for name, r in taken.items():
+        other = "block" if r == "warp" else "warp"
+        assert LAUNCHES[name] - before[name] == 2
+        assert LAUNCHES[f"{name}_{r}"] - before[f"{name}_{r}"] == 2
+        assert LAUNCHES[f"{name}_{other}"] == before[f"{name}_{other}"]
 
 
 def test_rnnt_lattice_wrappers_refuse(card):

@@ -49,33 +49,14 @@
 //
 // Neither route uses atomics: two calls give the same bits.
 
+#include "lattice.cuh"
 #include "mma.cuh"
 
 namespace {
 
-constexpr float kNeg = -1.0e30f;
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kWarp = 32;
-constexpr int kMaxK = 8;  // states a lane holds on the warp route
-
-constexpr float kLog2e = 1.44269504088896341f, kLn2 = 0.693147180559945309f;
-
 __device__ __forceinline__ float logaddexp(float a, float b) {
   const float m = fmaxf(fmaxf(a, b), kNeg);
   return m + log1pf(expf(fminf(a, b) - m));
-}
-
-// e^x and log(x) in one MUFU instruction each (ex2 / lg2, results below
-// 2^-126 flushed to 0: they add nothing to a sum that holds a 1)
-__device__ __forceinline__ float exp_fast(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x * kLog2e));
-  return y;
-}
-__device__ __forceinline__ float lg2_fast(float x) {
-  float y;
-  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // log(e^a + e^b + e^c) + e: m, the largest clamped at -1e30, plus e, plus

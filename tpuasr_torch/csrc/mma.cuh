@@ -2,9 +2,9 @@
 // staging, ldmatrix fragment loads, the bf16 mma.sync.m16n8k16 product with
 // fp32 sums, and the TF32 mma.sync.m16n8k8 product with the operand split of
 // 3xTF32 (fp32 products to about 21 bits on tensor cores). Included by
-// fbank.cu, relpos_attention.cu, ffn.cu, rnnt_fused.cu and ctc_lattice.cu
-// (cp.async alone); each source is its own library, so the helpers sit in
-// an anonymous namespace.
+// fbank.cu, relpos_attention.cu, ffn.cu, rnnt_fused.cu, ctc_lattice.cu and
+// rnnt_lattice.cu (the last two cp.async alone); each source is its own
+// library, so the helpers sit in an anonymous namespace.
 
 #pragma once
 

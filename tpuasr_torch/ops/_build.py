@@ -5,8 +5,8 @@ is compiled by ``nvcc`` for ``sm_90a`` into ``build/tpuasr_torch/`` at the
 root of the checkout and loaded with ``ctypes``; the library's file name
 carries a hash of its source and of the ``csrc/*.cuh`` headers it includes
 (`mma.cuh`: the cp.async and tensor-core building blocks of the fbank,
-attention, FFN, fused-joint and CTC kernels), so an edited source or header
-is rebuilt.
+attention, FFN, fused-joint and lattice kernels; `lattice.cuh`: what the
+two lattices' warp routes share), so an edited source or header is rebuilt.
 Nothing here runs at import time: the CPU tests import every module of the
 port.
 
@@ -16,11 +16,13 @@ tensor-core kernel behind the same entry point; `ctc_lattice.cu`: the CTC
 alpha and beta sweeps, each by a warp route and a block route;
 `rnnt_fused.cu`: the fused joint forward and backward, whose entry points
 launch two and four kernels; `rnnt_lattice.cu`: the RNN-T alpha and beta
-sweeps; `relpos_attention.cu`: the attention forward and its backward, whose
-one entry point launches two kernels; `ffn.cu`: the fused FFN forward and
+sweeps, each by a warp route and a block route; `relpos_attention.cu`: the
+attention forward and its backward, whose one entry point launches two
+kernels; `ffn.cu`: the fused FFN forward and
 backward), each with its own C entry point. Every wrapper counts its calls of an entry point in `LAUNCHES`,
 so a run can show that its path went through the kernels; fbank's entry
-also counts each of its three routes there, and each CTC entry its two.
+also counts each of its three routes there, and each lattice entry its
+two.
 """
 
 from __future__ import annotations
@@ -52,8 +54,8 @@ ENTRIES = {
     "rnnt_fused_bwd": ("rnnt_fused", "rnnt_fused_bwd", [_P] * 13 + [_LL] + [_I] * 9 + [_P]),
     "ctc_alpha": ("ctc_lattice", "ctc_alpha", [_P] * 6 + [_I] * 5 + [_P]),
     "ctc_beta_grad": ("ctc_lattice", "ctc_beta_grad", [_P] * 8 + [_I] * 5 + [_P]),
-    "rnnt_alpha": ("rnnt_lattice", "rnnt_alpha", [_P] * 5 + [_I] * 3 + [_P]),
-    "rnnt_beta_grad": ("rnnt_lattice", "rnnt_beta_grad", [_P] * 8 + [_I] * 3 + [_P]),
+    "rnnt_alpha": ("rnnt_lattice", "rnnt_alpha", [_P] * 5 + [_I] * 6 + [_P]),
+    "rnnt_beta_grad": ("rnnt_lattice", "rnnt_beta_grad", [_P] * 8 + [_I] * 6 + [_P]),
     "ffn_fwd": ("ffn", "ffn_fwd", [_P] * 10 + [_I] * 3 + [_F, _F, _I, _P, _LL, _I, _P]),
     "ffn_bwd": ("ffn", "ffn_bwd", [_P] * 17 + [_I] * 3 + [_F, _F, _I, _P, _LL, _I, _P]),
 }
@@ -63,11 +65,13 @@ SOURCES = tuple(dict.fromkeys(src for src, _, _ in ENTRIES.values()))
 # an entry point with several routes also counts each route's launches, so
 # a run can show which one it took: fbank's "highest" by the dense fp32
 # kernel, "default" (bf16 pack and tensor-core kernel) and "highest" by the
-# fp32 FFT (band and FFT kernels); the CTC sweeps' warp route (a warp an
-# utterance, S <= 256) and block route (a block an utterance)
+# fp32 FFT (band and FFT kernels); the CTC and RNN-T sweeps' warp route (a
+# warp an utterance, S or U+1 <= 256) and block route (a block an utterance)
 ROUTES = {"fbank": ("fbank_fp32", "fbank_tc", "fbank_fft"),
           "ctc_alpha": ("ctc_alpha_warp", "ctc_alpha_block"),
-          "ctc_beta_grad": ("ctc_beta_grad_warp", "ctc_beta_grad_block")}
+          "ctc_beta_grad": ("ctc_beta_grad_warp", "ctc_beta_grad_block"),
+          "rnnt_alpha": ("rnnt_alpha_warp", "rnnt_alpha_block"),
+          "rnnt_beta_grad": ("rnnt_beta_grad_warp", "rnnt_beta_grad_block")}
 
 LAUNCHES = {name: 0 for name in KERNELS + tuple(r for rs in ROUTES.values() for r in rs)}
 

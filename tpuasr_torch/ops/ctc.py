@@ -31,20 +31,16 @@ import torch
 import torch.nn.functional as F
 
 from tpuasr_torch.ops import _build
+from tpuasr_torch.ops._lattice import CHUNK, MAX_K, SMEM, WARP
 
 _NEG = -1.0e30  # large-negative stand-in for -inf (keeps arithmetic NaN-free)
 
-CTC_WARP = 32  # lanes of a warp
-CTC_WARP_MAX_K = 8  # states a lane holds on the warp route: S <= 256
-CTC_CHUNK = 32  # frames a ring chunk holds at most
-CTC_SMEM = 48 * 1024  # shared memory a block takes without opting in
-
 
 def _ring_chunk(s: int, arrays: int) -> int:
-    """Frames a ring chunk holds: the largest power of two up to CTC_CHUNK
-    whose two chunks of `arrays` [T, S] fp32 arrays fit CTC_SMEM."""
-    ch = CTC_CHUNK
-    while ch > 1 and 4 * arrays * 2 * ch * s > CTC_SMEM:
+    """Frames a ring chunk holds: the largest power of two up to CHUNK
+    whose two chunks of `arrays` [T, S] fp32 arrays fit SMEM."""
+    ch = CHUNK
+    while ch > 1 and 4 * arrays * 2 * ch * s > SMEM:
         ch //= 2
     return ch
 
@@ -52,21 +48,21 @@ def _ring_chunk(s: int, arrays: int) -> int:
 def _ctc_plan(s: int, route: str | None = None) -> dict:
     """How the card runs the CTC lattice for S states. The route follows
     from S alone: "warp" (a warp an utterance, K = ceil(S / 32) states a
-    lane) while K <= CTC_WARP_MAX_K, else "block" (a thread a state).
+    lane) while K <= MAX_K, else "block" (a thread a state).
     `route` sets it by hand, for timing one route against the other; the
     wrappers never pass it. -> {"route", "k" (0 on the block route), "chunk"
     and "smem" ({"alpha", "beta_grad"}: frames a ring chunk, shared bytes a
     block)}."""
     if s < 1:
         raise ValueError(f"ctc lattice: S = {s}")
-    k = -(-s // CTC_WARP)
-    route = route or ("warp" if k <= CTC_WARP_MAX_K else "block")
+    k = -(-s // WARP)
+    route = route or ("warp" if k <= MAX_K else "block")
     if route == "block":
         return {"route": "block", "k": 0, "chunk": {"alpha": 0, "beta_grad": 0},
                 "smem": {"alpha": 8 * s, "beta_grad": 8 * s}}
-    if route != "warp" or k > CTC_WARP_MAX_K:
+    if route != "warp" or k > MAX_K:
         raise ValueError(f"ctc lattice: route {route!r} cannot take S = {s} (the warp route "
-                         f"holds up to {CTC_WARP * CTC_WARP_MAX_K} states)")
+                         f"holds up to {WARP * MAX_K} states)")
     chunk = {"alpha": _ring_chunk(s, 1), "beta_grad": _ring_chunk(s, 2)}
     return {"route": "warp", "k": k, "chunk": chunk,
             "smem": {name: 4 * arrays * 2 * chunk[name] * s

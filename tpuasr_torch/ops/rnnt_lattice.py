@@ -20,10 +20,19 @@ The plain version runs the recurrence
 label[t, u-1])`` over anti-diagonals n = t + u: every cell of a diagonal
 depends only on the diagonal before, so one vectorised step per diagonal
 (T + U steps of a few launches each) replaces the JAX package's T frames
-times log2(U+1) scan levels. The kernels sweep the same diagonals with one
-thread per column. The wrappers run the kernels for tensors on the card and
-the plain versions for tensors on the CPU; a CUDA tensor never takes the
-plain path.
+times log2(U+1) scan levels. The kernels sweep the same diagonals. The
+wrappers run the kernels for tensors on the card and the plain versions for
+tensors on the CPU; a CUDA tensor never takes the plain path.
+
+Two routes on the card, chosen by U+1 alone (`_rnnt_plan`) and counted apart
+(`LAUNCHES["rnnt_alpha_warp"]`, `"rnnt_alpha_block"`,
+`"rnnt_beta_grad_warp"`, `"rnnt_beta_grad_block"`, beside each entry's own
+count): up to U+1 = 256 the warp route, one warp per utterance with K =
+ceil((U+1) / 32) columns a lane in registers; beyond it, up to 1024, the
+block route, a thread per column. The plan also sizes each entry's
+shared-memory rings (diagonals a chunk) and the rows of a chunk each step
+copies in (its share); the wrapper passes K, the chunk and the share to the
+entry.
 """
 
 from __future__ import annotations
@@ -32,9 +41,56 @@ import torch
 import torch.nn.functional as F
 
 from tpuasr_torch.ops import _build
+from tpuasr_torch.ops._lattice import CHUNK, MAX_K, SMEM, WARP
 
 _NEG = -1.0e30
-MAX_COLUMNS = 1024  # U+1: one thread per column in one block
+MAX_COLUMNS = 1024  # U+1: the block route's one thread per column in one block
+ENTRIES = ("alpha", "beta_grad")
+# the warp route's shared memory in chunks of diagonals of 32K floats (a
+# float a column the warp holds): alpha four chunks of blank and of label,
+# beta four of blank, label and alpha
+RING_CHUNKS = {"alpha": 8, "beta_grad": 12}
+
+
+def _rnnt_plan(u1: int, entry: str, route: str | None = None) -> dict:
+    """How the card runs `entry` ("alpha", #8, or "beta_grad", #9) of the
+    RNN-T lattice for U+1 columns. The route follows from U+1 alone: "warp"
+    (a warp an utterance, K = ceil((U+1) / 32) columns a lane) while K <=
+    MAX_K (U+1 256), else "block" (a thread a column): chip_smoke.py phase
+    3's sweep by route finds the warp route the faster of the two, or level,
+    at every K for both entries (PERF.md §6). `route` sets it by hand, for
+    timing one route against the other; the wrappers never pass it. ->
+    {"route", "k" (0 on the block route),
+    "chunk" (diagonals a ring chunk, a power of two up to CHUNK whose
+    RING_CHUNKS[entry] chunks of 32K fp32 a diagonal fit SMEM), "share"
+    (rows of a chunk's fill and flush a step copies, K or K + 1, enough for
+    the chunk's C + U1 (beta: C + U) rows at 32 / C a copy), "smem" (shared
+    bytes a block; the block route's static rows)}. The chunk is the largest
+    of 8 or more that fits with a share of K, else the largest that fits: a
+    step's copies sit beside its chain, so fewer rows a step count for more
+    than fewer chunks, down to chunks short enough that their starts (a wait
+    each) add up."""
+    if entry not in ENTRIES:
+        raise ValueError(f"rnnt lattice: no entry {entry!r}")
+    if u1 < 1:
+        raise ValueError(f"rnnt lattice: U+1 = {u1}")
+    k = -(-u1 // WARP)
+    route = route or ("warp" if k <= MAX_K else "block")
+    if route == "block":
+        return {"route": "block", "k": 0, "chunk": 0, "share": 0,
+                "smem": 8 * (MAX_COLUMNS + (entry == "beta_grad"))}
+    if route != "warp" or k > MAX_K:
+        raise ValueError(f"rnnt lattice: route {route!r} cannot take U+1 = {u1} (the warp "
+                         f"route holds up to {WARP * MAX_K} columns)")
+    chunks = RING_CHUNKS[entry]
+    fits = [c for c in (CHUNK >> i for i in range(6)) if 4 * chunks * c * WARP * k <= SMEM]
+    width = u1 if entry == "alpha" else u1 - 1
+    share = {c: max(-(-(-(-(c + width) // (WARP // c))) // c), k) for c in fits}
+    # the largest chunk of 8 or more whose steps copy K rows each, else the
+    # largest (a chunk's start costs a wait)
+    c = next((c for c in fits if c >= 8 and share[c] == k), fits[0])
+    return {"route": "warp", "k": k, "chunk": c, "share": share[c],
+            "smem": 4 * chunks * c * WARP * k}
 
 
 def _skew(x: torch.Tensor, n_diag: int) -> torch.Tensor:
@@ -177,11 +233,13 @@ def rnnt_alpha(blank_lp, label_lp, u_lens) -> tuple[torch.Tensor, torch.Tensor]:
     alpha = torch.empty_like(blank_lp)
     ll = torch.empty(b, dtype=torch.float32, device=blank_lp.device)
     if b:
+        plan = _rnnt_plan(u1, "alpha")
         with torch.cuda.device(blank_lp.device):
             stream = torch.cuda.current_stream().cuda_stream
             _build.launch("rnnt_alpha", blank_lp.data_ptr(), label_lp.data_ptr(),
                           u_lens.data_ptr(), alpha.data_ptr(), ll.data_ptr(), b, t, u1,
-                          stream)
+                          plan["k"], plan["chunk"], plan["share"], stream,
+                          route=f"rnnt_alpha_{plan['route']}")
     return alpha, ll
 
 
@@ -198,11 +256,14 @@ def rnnt_beta_grad(blank_lp, label_lp, u_lens, alpha, ll, g
     gblank = torch.empty_like(blank_lp)
     glabel = torch.empty_like(label_lp)
     if b:
+        plan = _rnnt_plan(u1, "beta_grad")
         with torch.cuda.device(blank_lp.device):
             stream = torch.cuda.current_stream().cuda_stream
             _build.launch("rnnt_beta_grad", blank_lp.data_ptr(), label_lp.data_ptr(),
                           u_lens.data_ptr(), alpha.data_ptr(), ll.data_ptr(), g.data_ptr(),
-                          gblank.data_ptr(), glabel.data_ptr(), b, t, u1, stream)
+                          gblank.data_ptr(), glabel.data_ptr(), b, t, u1, plan["k"],
+                          plan["chunk"], plan["share"], stream,
+                          route=f"rnnt_beta_grad_{plan['route']}")
     return gblank, glabel
 
 
