@@ -79,9 +79,34 @@ Phases (any failure exits non-zero):
    fp32. After phase 5, outside the serving run's launch counts: the fp32
    request batch's device busy ms with fbank "highest" by the FFT route and
    by the dense kernel, in turns.
+4b. The other offline modes, on the same fp32 model and requests: the CTC
+   head's blank logit is fitted as the joint's (to the transcripts' tokens
+   per frame, by `ctc_greedy`); `rnnt_beam` (beam 4, CTC fusion 0 and
+   0.3), `ctc_greedy`, `ctc_prefix_beam` (beam 4, with and without a
+   context graph of 2-token hotwords cut from the CPU's best hypotheses)
+   and `rnnt_rescoring` (the prefix beam's n-best through the joint's full
+   logits and #8) on the card against the CPU: `ctc_greedy` tokens
+   identical; for each beam mode d, the largest |card - CPU| score of the
+   hypotheses both sides found, and the same best hypothesis on every
+   request whose CPU margin (best - second) exceeds 2d, at most 4 of 16
+   inside it; `make_offline_decoder` in each mode gives its search's best
+   hypothesis; each mode's synced latency after a warm-up call, fp32 and
+   bf16, on the fixture and the synthetic batch; `rnnt_beam`'s device busy
+   ms (profiler).
 5. Streaming serving: `streaming_greedy_decode` (chunk 32, 6 left chunks)
    must give the tokens of offline greedy over the chunk-masked full-context
-   encoder, with `fused_ffn` off and on; `measure_rtf` greedy p50/p90.
+   encoder, with `fused_ffn` off and on; `measure_rtf` greedy p50/p90 and
+   the probe's p50 (a trivial op on the card, synced in the same loop).
+5b. Streaming beam: `streaming_beam_decode` (beam 4) must give the tokens
+   of `rnnt_beam_decode` over the chunk-masked encoder, on both batches,
+   `fused_ffn` off and on, at one emission a frame and at
+   `streaming.n_steps` with CTC fusion 0.3; `measure_rtf(mode="beam")`
+   p50/p90 and its expansion sub-steps a frame, bf16 and fp32;
+   `measure_first_token_delay` p50/p90 on the fixture requests. The serving
+   run (4-5b) records #8's inputs on the card (rnnt_rescoring's) and,
+   after its launch counts are read, holds #8 against its plain version on
+   them: the serving run must launch #8 by its warp route alone and never
+   #9, #6 or #7.
 6. Training, `fused_attention=True` (kernels #2/#3 in every layer):
    a. card against CPU: the full-width fp32 flagship on a batch of 2 x 256
       feature frames x 16 tokens, no dropout, static chunk 32, once per
@@ -129,17 +154,17 @@ Phases (any failure exits non-zero):
    against its plain version on those arguments, with phase 3's
    tolerances, bound and library call, and timed.
 7. The kernels line: one JSON object with an entry per kernel and run
-   (the serving run of phases 4-5, the training runs of phases 6b, 6c and
+   (the serving run of phases 4-5b, the training runs of phases 6b, 6c and
    6d, the trainer run of phase 8; counts reset just before each and read
    just after): that run's launches (fbank's: those of the route the
    record times, the FFT for serving, which takes that route alone, and the
    tensor-core route for training, which never takes the FFT), and the
    error, times and bound at the
    shape that run gives the kernel (phase 3's bench-shape records for 6b-6d;
-   for the trainer the signature it launched most, with every signature's
-   record under "shapes"). The CTC and RNN-T lattice entries carry their
-   run's launches by route under "routes": each training run must take the
-   warp route alone.
+   for the trainer and for #8 in serving the signature it launched most,
+   with every signature's record under "shapes"). The CTC and RNN-T
+   lattice entries carry their run's launches by route under "routes":
+   each run that launches a lattice must take its warp route alone.
 
 Each phase prints its seconds.
 TF32 is off throughout (cuBLAS and cuDNN), so every fp32 comparison is fp32.
@@ -239,15 +264,25 @@ def main() -> dict:
 
     t_phase = _phase("4-5: serving", t_phase)
     reset_launch_counts()
-    serving, (gpu32, cfg32) = _serve(torch, dev, data)
+    with _recording(torch, only=("rnnt_alpha",)) as seen:
+        serving, served = _serve(torch, dev, data)
+        serving["modes"] = _serve_modes(torch, dev, data, served)
+        serving["stream_beam"] = _serve_stream_beam(torch, dev, data, served)
     runs = {"serving": dict(LAUNCHES)}
     print(f"launches on the serving run: {runs['serving']}")
     require(runs["serving"]["ffn_bwd"] == 0, "the serving run launched the FFN backward")
     require(runs["serving"]["fbank_fft"] == runs["serving"]["fbank"] > 0,
             "the serving run did not take fbank's FFT route (precision \"highest\") alone")
+    for name in ("rnnt_beta_grad", "ctc_alpha", "ctc_beta_grad"):
+        require(runs["serving"][name] == 0, f"the serving run launched {name}")
+    require(runs["serving"]["rnnt_alpha_warp"] == runs["serving"]["rnnt_alpha"] > 0,
+            "rnnt_rescoring did not launch #8 by its warp route alone")
+    print("#8 against its plain version on the inputs rnnt_rescoring gave it:")
+    checks["rnnt_alpha_serving"] = _serving_lattice_record(torch, seen, runs["serving"])
+    gpu32, cfg32 = served["gpu32"], served["cfg32"]
     serving["offline_device_busy_ms_by_fbank_route"] = _fbank_route_ab(
         torch, gpu32, cfg32, *data["fixture"])
-    del gpu32
+    del gpu32, served
 
     # ---------------------------------------------------------------- 6
     training = {"rnnt_fused_fwd_plans": fwd_plans,  # counted from the shapes, not measured
@@ -312,6 +347,7 @@ def main() -> dict:
             ("rnnt_fused_fwd", fused, "rnnt_fused_fwd"),
             ("rnnt_fused_bwd", fused, "rnnt_fused_bwd"),
             ("ctc_alpha", every, "ctc_alpha"), ("ctc_beta_grad", every, "ctc_beta_grad"),
+            ("rnnt_alpha", ("serving",), "rnnt_alpha_serving"),
             ("rnnt_alpha", every, "rnnt_alpha"), ("rnnt_beta_grad", every, "rnnt_beta_grad"),
             ("ffn_fwd", ("serving",), "ffn_fwd_serving"),
             ("ffn_fwd", fused[1:], "ffn_fwd"), ("ffn_bwd", fused[1:], "ffn_bwd")]
@@ -325,7 +361,7 @@ def main() -> dict:
             entry = dict(rec, run=run, launches=launches,
                          **{f"launches_{r}": runs[r][count] for r in runs})
             if name in ("ctc_alpha", "ctc_beta_grad", "rnnt_alpha", "rnnt_beta_grad"):
-                # the training runs: the lattices' warp route alone
+                # every run that launches a lattice: its warp route alone
                 entry["routes"] = {f"{name}_{r}": runs[run][f"{name}_{r}"] for r in ("warp", "block")}
                 require(entry["routes"][f"{name}_warp"] == launches
                         and entry["routes"][f"{name}_block"] == 0,
@@ -1147,12 +1183,13 @@ def _flagship(dtype: str, fused_ffn: bool = False):
     return cfg
 
 
-def _model(torch, cfg, device, blank_bias: float = 0.0):
+def _model(torch, cfg, device, blank_bias: float = 0.0, ctc_blank_bias: float = 0.0):
     from tpuasr_torch.models import Transducer, init_weights
 
     model = init_weights(Transducer(cfg.model, device=device), SEED)
     with torch.no_grad():
         model.joint.ffn_out_bias[cfg.model.blank_id] = blank_bias
+        model.ctc.ctc_lo.bias[cfg.model.blank_id] = ctc_blank_bias
     return model
 
 
@@ -1188,9 +1225,10 @@ def _fit_blank_bias(torch, model, cfg, waves, wave_lens, text_lens) -> float:
     return hi
 
 
-def _serve(torch, dev, data) -> tuple[dict, tuple]:
-    """Phases 4-5; -> (the serving records, the fp32 flagship and its config
-    with the fitted blank logit)."""
+def _serve(torch, dev, data) -> tuple[dict, dict]:
+    """Phases 4-5; -> (the serving records, the models with the fitted blank
+    logit: fp32 on the card and the CPU, fp32 with the fused FFN, bf16 on
+    the card, their configs and the bias)."""
     from tpuasr_torch.audio import fbank_batch
     from tpuasr_torch.decode import rnnt_greedy_decode, streaming_greedy_decode
     from tpuasr_torch.eval import make_offline_decoder, measure_rtf
@@ -1318,11 +1356,299 @@ def _serve(torch, dev, data) -> tuple[dict, tuple]:
         st = measure_rtf(model, feats16, cfg, "greedy")
         print(f"streaming RTF {label} (4 streams, {st.n_chunks} chunks of "
               f"{st.chunk_audio_seconds:.3f} s): p50 {st.rtf_p50:.5f} p90 {st.rtf_p90:.5f} "
-              f"on {st.device}")
+              f"(probe p50 {st.probe_p50_ms:.4f} ms) on {st.device}")
         serving[f"rtf_p50_{label}"] = st.rtf_p50
         serving[f"rtf_p90_{label}"] = st.rtf_p90
+        serving[f"rtf_probe_p50_ms_{label}"] = st.probe_p50_ms
     serving["stream_bf16_chunk_stages"] = _stream_stages(torch, gpu16, cfg16, feats16)
-    return serving, (gpu32, cfg32)
+    return serving, {"gpu32": gpu32, "cpu32": cpu32, "gpu32f": gpu32f, "gpu16": gpu16,
+                     "cfg32": cfg32, "cfg32f": cfg32f, "cfg16": cfg16, "bias": bias,
+                     "feats16": feats16}
+
+
+def _fit_ctc_blank_bias(torch, model, enc, elens, target: float) -> float:
+    """Set the CTC head's blank logit (bisection on [0, 16]) so that CTC
+    greedy search emits `target` tokens per encoder frame, as the joint's
+    was fitted; -> the bias. A random CTC head otherwise emits at nearly
+    every frame."""
+    from tpuasr_torch.decode import ctc_greedy_decode
+
+    bias = model.ctc.ctc_lo.bias
+    blank = model.cfg.blank_id
+
+    def rate(b: float) -> float:
+        with torch.no_grad():
+            bias[blank] = b
+        lp = torch.log_softmax(model.ctc_logits(enc).float(), dim=-1)
+        return float(ctc_greedy_decode(lp, elens, blank)[1].sum()) / float(elens.sum())
+
+    free = rate(0.0)
+    lo, hi = 0.0, 16.0
+    for _ in range(12):
+        mid = 0.5 * (lo + hi)
+        lo, hi = (mid, hi) if rate(mid) > target else (lo, mid)
+    got = rate(hi)
+    print(f"CTC blank logit bias {hi:.4f}: {got:.4f} tokens per encoder frame by ctc_greedy, "
+          f"target {target:.4f}; {free:.4f} with no bias")
+    return hi
+
+
+def _hyps(toks, lens, scores) -> list[dict]:
+    """Per request: {token tuple: score} of the live n-best slots."""
+    out = []
+    for t, l, s in zip(toks.tolist(), lens.tolist(), scores.tolist()):
+        out.append({tuple(ti[:li]): si for ti, li, si in zip(t, l, s) if si > -1e29})
+    return out
+
+
+def _nbest_agreement(torch, label, card, cpu, max_inside: int = 4) -> dict:
+    """Card against CPU for a beam mode: card, cpu = (n-best tokens [B, N,
+    U], lens [B, N], scores [B, N]). d is the largest |card - CPU| score of
+    the hypotheses both found; each request whose CPU margin between its
+    best and second-best score exceeds 2d must have the same best
+    hypothesis on the card. Requests inside the margin are printed; more
+    than `max_inside` of them fail the check (it would say nothing)."""
+    hc = _hyps(*(x.cpu() for x in card))
+    hp = _hyps(*cpu)
+    d = max((abs(a[h] - b[h]) for a, b in zip(hc, hp) for h in a.keys() & b.keys()),
+            default=0.0)
+    inside, same = [], 0
+    for i, (a, b) in enumerate(zip(hc, hp)):
+        ranked = sorted(b.values(), reverse=True)
+        margin = ranked[0] - ranked[1] if len(ranked) > 1 else math.inf
+        if margin <= 2 * d:
+            inside.append((i, margin))
+            continue
+        best_c, best_p = max(a, key=a.get), max(b, key=b.get)
+        require(best_c == best_p, f"{label}: request {i}'s best hypothesis differs on the "
+                                  f"card (CPU margin {margin:.4g} > 2d = {2 * d:.4g})")
+        same += 1
+    both = sum(len(a.keys() & b.keys()) for a, b in zip(hc, hp))
+    emitted = sum(len(max(b, key=b.get)) for b in hp)
+    print(f"{label}: d = {d:.3g} (the largest |card - CPU| score over {both} hypotheses "
+          f"both found); {same} requests outside 2d, same best hypothesis ({emitted} tokens "
+          f"in the CPU's best); inside 2d (request, CPU margin): "
+          f"{[(i, round(mg, 6)) for i, mg in inside]}")
+    require(len(inside) <= max_inside, f"{label}: {len(inside)} requests within 2d of a tie: "
+                                       f"the check would be empty")
+    return {"d": d, "hypotheses_both": both, "same_outside_2d": same, "inside_2d": inside,
+            "cpu_best_tokens": emitted}
+
+
+def _serve_modes(torch, dev, data, m) -> dict:
+    """Phase 4b: the flagship through make_offline_decoder's other modes
+    (rnnt_beam with CTC fusion 0 and 0.3, ctc_greedy, ctc_prefix_beam with
+    and without a context graph, rnnt_rescoring), fp32 on the card against
+    the CPU, then each mode's latency in fp32 and bf16."""
+    from tpuasr_torch.audio import fbank_batch
+    from tpuasr_torch.decode import (
+        build_context_graph, ctc_greedy_decode, ctc_prefix_beam_search, rnnt_beam_decode,
+        transducer_rescoring,
+    )
+    from tpuasr_torch.decode.rnnt_beam import first_argmax
+    from tpuasr_torch.eval import make_offline_decoder
+
+    t0 = time.perf_counter()
+    print("== phase 4b: the other offline modes (make_offline_decoder)")
+    gpu32, cpu32, cfg32 = m["gpu32"], m["cpu32"], m["cfg32"]
+    c = cfg32.model
+    blank, tw, cw = c.blank_id, c.transducer_weight, c.ctc_weight
+    waves, wave_lens = data["fixture"]
+    enc = {}
+    for side, model in (("card", gpu32), ("cpu", cpu32)):
+        feats, flens = fbank_batch(waves, wave_lens, cfg32.feature, device=model.device)
+        enc[side] = model.encode(feats, flens)
+    target = float(data["text_lens"].sum()) / float(enc["cpu"][1].sum())
+    ctc_bias = _fit_ctc_blank_bias(torch, gpu32, *enc["card"], target)
+    for model in (cpu32, m["gpu32f"], m["gpu16"]):
+        with torch.no_grad():
+            model.ctc.ctc_lo.bias[blank] = ctc_bias
+
+    def searches(model, e, el, graph=None):
+        """Every mode's search on one side's encoder output -> {mode:
+        (n-best tokens, lens, scores) or (tokens, lens) for ctc_greedy}."""
+        lp = torch.log_softmax(model.ctc_logits(e).float(), dim=-1)
+        out = {f"rnnt_beam_fusion_{w}": rnnt_beam_decode(model, e, el, blank, 4, 200,
+                                                         ctc_weight=w, transducer_weight=tw)[2:]
+               for w in (0.0, 0.3)}
+        out["ctc_greedy"] = ctc_greedy_decode(lp, el, blank)
+        out["ctc_prefix_beam"] = ctc_prefix_beam_search(lp, el, blank, 4, 200)[2]
+        if graph is not None:
+            out["ctc_prefix_beam_graph"] = ctc_prefix_beam_search(lp, el, blank, 4, 200,
+                                                                  context_graph=graph)[2]
+        out["rnnt_rescoring"] = out["ctc_prefix_beam"][:2] + (transducer_rescoring(
+            model, e, el, *out["ctc_prefix_beam"], blank, tw, cw)[2],)
+        return out
+
+    cpu = searches(cpu32, *enc["cpu"])
+    # hotwords: 2-token spans of the CPU's unbiased best hypotheses
+    words = []
+    for h in _hyps(*cpu["ctc_prefix_beam"]):
+        best = list(max(h, key=h.get))
+        words += [best[i:i + 2] for i in range(0, len(best) - 1, 4)]
+    graph = build_context_graph(words, c.vocab_size, 2.0)
+    cpu["ctc_prefix_beam_graph"] = ctc_prefix_beam_search(
+        torch.log_softmax(cpu32.ctc_logits(enc["cpu"][0]).float(), dim=-1), enc["cpu"][1],
+        blank, 4, 200, context_graph=graph)[2]
+    moved = int((cpu["ctc_prefix_beam_graph"][2] != cpu["ctc_prefix_beam"][2]).any(1).sum())
+    print(f"context graph: {len(words)} hotwords of 2 tokens, {graph.num_nodes} states; "
+          f"it moved the n-best scores of {moved} of {len(wave_lens)} requests")
+    require(moved > 0, "the context graph never fired")
+    card = searches(gpu32, *enc["card"], graph)
+
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(card["ctc_greedy"], cpu["ctc_greedy"]))
+    print(f"ctc_greedy card vs CPU on {len(wave_lens)} requests: tokens identical {same} "
+          f"(emitted {int(cpu['ctc_greedy'][1].sum())})")
+    require(same, "ctc_greedy tokens on the card differ from the CPU run")
+    out = {"ctc_blank_logit_bias": ctc_bias, "agreement": {}}
+    for mode in ("rnnt_beam_fusion_0.0", "rnnt_beam_fusion_0.3", "ctc_prefix_beam",
+                 "ctc_prefix_beam_graph", "rnnt_rescoring"):
+        out["agreement"][mode] = _nbest_agreement(torch, mode, card[mode], cpu[mode])
+
+    # the entry points: make_offline_decoder on the card gives the searches'
+    # best hypotheses
+    decoders = {
+        "rnnt_beam_fusion_0.0": ("rnnt_beam", {}), "rnnt_beam_fusion_0.3":
+        ("rnnt_beam", {"ctc_fusion_weight": 0.3}), "ctc_greedy": ("ctc_greedy", {}),
+        "ctc_prefix_beam": ("ctc_prefix_beam", {}), "rnnt_rescoring": ("rnnt_rescoring", {})}
+    for name, (mode, kw) in decoders.items():
+        toks, lens = make_offline_decoder(gpu32, cfg32, mode, **kw)(waves, wave_lens)
+        if name == "ctc_greedy":
+            ref_t, ref_l = card[name]
+        else:
+            nb_t, nb_l, nb_s = card[name]
+            rows = torch.arange(nb_t.shape[0], device=dev)
+            pick = first_argmax(nb_s, 1)
+            ref_t, ref_l = nb_t[rows, pick], nb_l[rows, pick]
+        require(torch.equal(toks, ref_t) and torch.equal(lens, ref_l),
+                f"make_offline_decoder({mode!r}) differs from its search on the card")
+
+    # latency: one warm-up call, then one synced call
+    graph_dec = _graph_decoder(torch, graph)
+    lat = {}
+    for label, model, cfg in (("fp32", gpu32, cfg32), ("bf16", m["gpu16"], m["cfg16"])):
+        for src in ("fixture", "synthetic"):
+            w, wl = data[src]
+            for name, (mode, kw) in decoders.items():
+                dec = make_offline_decoder(model, cfg, mode, **kw)
+                dec(w, wl)
+                _, ms = _synced_ms(torch, lambda: dec(w, wl))
+                lat[f"{name}_{label}_{src}"] = ms
+            dec = graph_dec(model, cfg)
+            dec(w, wl)
+            lat[f"ctc_prefix_beam_graph_{label}_{src}"] = _synced_ms(torch, lambda: dec(w, wl))[1]
+    for k, v in lat.items():
+        print(f"  offline latency {k}: {v:.1f} ms")
+    out["latency_ms"] = lat
+    dec = make_offline_decoder(gpu32, cfg32, "rnnt_beam")
+    out["rnnt_beam_fp32_fixture_device_busy_ms"] = _decode_busy(torch, dec, waves,
+                                                                wave_lens)[0]
+    print(f"rnnt_beam fp32 on the fixture: device busy "
+          f"{out['rnnt_beam_fp32_fixture_device_busy_ms']:.2f} ms (profiler) of a "
+          f"{lat['rnnt_beam_fusion_0.0_fp32_fixture']:.1f} ms request batch")
+    print(f"(phase 4b: {time.perf_counter() - t0:.1f} s)")
+    return out
+
+
+def _graph_decoder(torch, graph):
+    """-> decoder(model, cfg): waves -> ctc_prefix_beam_search with the
+    context graph (make_offline_decoder's ctc_prefix_beam takes none)."""
+    from tpuasr_torch.audio import fbank_batch
+    from tpuasr_torch.decode import ctc_prefix_beam_search
+
+    def make(model, cfg):
+        @torch.no_grad()
+        def decode(waves, wave_lens):
+            feats, flens = fbank_batch(waves, wave_lens, cfg.feature, device=model.device)
+            e, el = model.encode(feats, flens)
+            lp = torch.log_softmax(model.ctc_logits(e).float(), dim=-1)
+            return ctc_prefix_beam_search(lp, el, model.cfg.blank_id, 4, 200,
+                                          context_graph=graph)[:2]
+        return decode
+
+    return make
+
+
+def _serve_stream_beam(torch, dev, data, m) -> dict:
+    """Phase 5b: streaming beam == offline beam over the chunk-masked
+    full-context encoder (fixture and synthetic, fused_ffn off and on, one
+    emission a frame, and streaming.n_steps with CTC fusion 0.3); beam RTF
+    on the synthetic batch beside greedy's, with its expansion sub-steps a
+    frame; the first-token delay of the fixture requests."""
+    from tpuasr_torch.audio import fbank_batch
+    from tpuasr_torch.decode import rnnt_beam_decode, streaming_beam_decode
+    from tpuasr_torch.eval import measure_first_token_delay, measure_rtf
+    from tpuasr_torch.streaming import num_chunks
+
+    t0 = time.perf_counter()
+    print(f"== phase 5b: streaming beam (chunk {CHUNK}, {LEFT} left chunks, beam 4)")
+    cfg32 = m["cfg32"]
+    c = cfg32.model
+    out = {}
+    for src, (model, ffn) in itertools.product(("fixture", "synthetic"),
+                                               ((m["gpu32"], False), (m["gpu32f"], True))):
+        w, wl = data[src]
+        feats, flens = fbank_batch(w, wl, cfg32.feature, device=dev)
+        full, full_lens = model.encode(feats, flens, CHUNK, LEFT)
+        n = num_chunks(feats.shape[1], CHUNK, 4, 6)
+        whole = torch.clamp(full_lens.long(), max=n * CHUNK) // CHUNK * CHUNK
+        for n_steps, cw in ((1, 0.0), (cfg32.streaming.n_steps, 0.3)):
+            off = rnnt_beam_decode(model, full, whole, c.blank_id, 4, 200, n_steps=n_steps,
+                                   ctc_weight=cw, transducer_weight=c.transducer_weight)
+            (st_t, st_l, _), ms = _synced_ms(torch, lambda: streaming_beam_decode(
+                model, feats, whole * 4 + 3, CHUNK, LEFT, c.blank_id, 4, 200, n_steps, cw,
+                c.transducer_weight))
+            ok = torch.equal(st_t, off[0]) and torch.equal(st_l, off[1])
+            print(f"streaming beam == chunk-masked offline beam on {src}, fused_ffn={ffn}, "
+                  f"n_steps {n_steps}, CTC fusion {cw} ({int(whole.sum())} frames, "
+                  f"{int(st_l.sum())} tokens, {int(off[3].sum())} in the n-best): {ok}; "
+                  f"streaming {ms:.1f} ms")
+            require(ok, f"streaming beam tokens differ from chunk-masked offline beam ({src}, "
+                        f"fused_ffn={ffn}, n_steps {n_steps}, fusion {cw})")
+    feats16 = m["feats16"]
+    fx_feats, fx_lens = fbank_batch(*data["fixture"], cfg32.feature, device=dev)
+    for label, model, cfg in (("bf16", m["gpu16"], m["cfg16"]), ("fp32", m["gpu32"], cfg32)):
+        steps, restore = _count_steps(model)
+        try:
+            st = measure_rtf(model, feats16, cfg, "beam", beam_size=cfg.streaming.beam_size,
+                             n_steps=cfg.streaming.n_steps)
+        finally:
+            restore()
+        # measure_rtf runs the warm-up chunks and then every chunk
+        frames = (st.n_chunks + min(2, st.n_chunks)) * cfg.streaming.chunk_size
+        print(f"streaming beam RTF {label} (4 streams, beam {cfg.streaming.beam_size}, n_steps "
+              f"{cfg.streaming.n_steps}, {st.n_chunks} chunks of {st.chunk_audio_seconds:.3f} s): "
+              f"p50 {st.rtf_p50:.5f} p90 {st.rtf_p90:.5f} (probe p50 {st.probe_p50_ms:.4f} ms); "
+              f"{steps[0]} expansion sub-steps over {frames} frames, one host sync each after "
+              f"a frame's first")
+        out[f"beam_rtf_p50_{label}"], out[f"beam_rtf_p90_{label}"] = st.rtf_p50, st.rtf_p90
+        out[f"beam_rtf_probe_p50_ms_{label}"] = st.probe_p50_ms
+        out[f"beam_rtf_substeps_per_frame_{label}"] = steps[0] / frames
+        ftd = measure_first_token_delay(model, fx_feats, fx_lens, cfg)
+        print(f"first-token delay {label} (streaming greedy, the {len(fx_lens)} fixture "
+              f"requests): p50 {ftd['p50_first_token_delay_s']:.4f} s, p90 "
+              f"{ftd['p90_first_token_delay_s']:.4f} s, emitted {ftd['emitted_fraction']:.2f}")
+        out[f"first_token_delay_{label}"] = ftd
+    print(f"(phase 5b: {time.perf_counter() - t0:.1f} s)")
+    return out
+
+
+def _serving_lattice_record(torch, seen, launches) -> dict:
+    """#8 against its plain version on the inputs rnnt_rescoring gave it on
+    the card in the serving run, at each signature (the recorded calls must
+    be the run's launches); -> the record at the signature launched most,
+    every signature's under "shapes"."""
+    # the CPU reference's calls take the plain version and launch nothing
+    calls = {k: v for k, v in seen.get("rnnt_alpha", {}).items() if v[1]["blank_lp"].is_cuda}
+    n = sum(c for c, _ in calls.values())
+    require(n == launches["rnnt_alpha"], f"the serving run launched rnnt_alpha "
+                                         f"{launches['rnnt_alpha']} times but its wrapper "
+                                         f"was called {n} times")
+    shapes = [dict(_hold(torch, "rnnt_alpha", args, f"serving, {count} calls at"),
+                   calls=count) for count, args in sorted(calls.values(), key=lambda x: -x[0])]
+    return dict(shapes[0], shapes=[
+        {k: s[k] for k in ("inputs", "calls", "max_abs_err", "tol", "ms", "plain_ms",
+                           "bound_ms", "bound_by", "library_ms")} for s in shapes])
 
 
 def _synced_ms(torch, fn):
@@ -2159,13 +2485,14 @@ CTC_INPUTS = ("tpuasr_torch.losses.ctc", "lattice_inputs")
 
 
 @contextlib.contextmanager
-def _recording(torch):
-    """While a run goes through the port, keep for each kernel the arguments
-    of its wrapper's first call at each signature (every tensor's type and
-    shape, every other argument's value) and count the calls at each. Every
-    attribute of a port module bound to a wrapper (or to CTC_INPUTS) is
-    swapped for a recording one and restored on exit; -> {kernel:
-    {signature: [calls, {argument: value}]}}, filled as the run goes."""
+def _recording(torch, only=None):
+    """While a run goes through the port, keep for each kernel (of `only`,
+    or every one) the arguments of its wrapper's first call at each
+    signature (every tensor's type and shape, every other argument's value)
+    and count the calls at each. Every attribute of a port module bound to
+    a wrapper (or to CTC_INPUTS) is swapped for a recording one and restored
+    on exit; -> {kernel: {signature: [calls, {argument: value}]}}, filled as
+    the run goes."""
     import importlib
     import inspect
 
@@ -2177,8 +2504,8 @@ def _recording(torch):
         def call(*args, **kwargs):
             bound = sig.bind(*args, **kwargs)
             bound.apply_defaults()
-            key = tuple((str(v.dtype), tuple(v.shape)) if isinstance(v, torch.Tensor) else v
-                        for v in bound.arguments.values())
+            key = tuple((str(v.dtype), tuple(v.shape), v.device.type)
+                        if isinstance(v, torch.Tensor) else v for v in bound.arguments.values())
             calls = seen.setdefault(name, {})
             if key not in calls:
                 calls[key] = [0, {k: v.detach().clone() if isinstance(v, torch.Tensor) else v
@@ -2188,8 +2515,10 @@ def _recording(torch):
 
         return call
 
-    targets = {name: (mod, fn) for name, (mod, fn, *_) in WRAPPERS.items()}
-    targets["ctc_inputs"] = CTC_INPUTS
+    targets = {name: (mod, fn) for name, (mod, fn, *_) in WRAPPERS.items()
+               if only is None or name in only}
+    if only is None:
+        targets["ctc_inputs"] = CTC_INPUTS
     try:
         for name, (mod, attr) in targets.items():
             fn = getattr(importlib.import_module(mod), attr)

@@ -29,7 +29,10 @@ bit-identical, and the materialized RNN-T loss card against CPU; the fused FFN (
 256, H 128, 1024 and 160 (not a multiple of the 64-unit weight tiles); fp32
 and bf16, no masks and keep-masks at rate 0.1; two calls bit-identical at
 the training shape; its autograd Function against plain autograd, and the
-fused route against the module route of a training forward on the card. This file
+fused route against the module route of a training forward on the card; the
+decoders (plain PyTorch on the card): the beam searches' top-k order among
+ties, and a tiny model's RNN-T beam (one and three emissions a frame, CTC
+fusion) and CTC prefix beam (a context graph) against the CPU. This file
 imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -785,3 +788,73 @@ def test_ffn_wrappers_reject_what_the_kernels_do_not_take(card):
         ffn_fwd(args[0].half(), *args[1:], 0.1, 0.5)
     with pytest.raises(ValueError, match="w1"):
         ffn_bwd(args[0], args[1], args[2], args[3].bfloat16(), *args[4:], do, 0.1, 0.5)
+
+
+# --------------------------------------------------------------- decoders
+# plain PyTorch on the card, held against the same search on the CPU
+
+
+@pytest.mark.parametrize("shape,k", [((16, 4, 412), 4), ((16, 20), 4), ((64, 110), 10),
+                                     ((3, 5000), 8)])
+def test_top_k_puts_the_lower_index_first_among_ties_on_card(card, shape, k):
+    """The beam searches' top-k on the card: descending, and among equal
+    values (a few distinct values, runs of -1e30, a row of -1e30) the lower
+    index first, as jax.lax.top_k orders them."""
+    from tpuasr_torch.decode import top_k
+
+    g = torch.Generator().manual_seed(sum(shape))
+    levels = torch.tensor([-1.5, -0.25, -3.0, -1e30])
+    x = levels[torch.randint(0, 4, shape, generator=g)]
+    x.view(-1, shape[-1])[0] = -1e30
+    vals, idx = top_k(x.to(card), k)
+    rows = x.view(-1, shape[-1]).tolist()
+    ref = [sorted(range(len(r)), key=lambda i: (-r[i], i))[:k] for r in rows]
+    assert idx.view(-1, k).cpu().tolist() == ref
+    assert torch.equal(vals.cpu(), torch.gather(x, -1, idx.cpu()))
+
+
+def _tiny_transducer(device):
+    """A tiny flagship (2 causal blocks, d32, vocab 64, blank 5) with seeded
+    weights and a blank logit that makes hypotheses both emit and take blanks."""
+    from tpuasr_torch.config import Config
+    from tpuasr_torch.models import Transducer, init_weights
+
+    m = Config().model
+    m.vocab_size, m.blank_id = 64, 5
+    e = m.encoder
+    e.output_size, e.attention_heads, e.linear_units, e.num_blocks = 32, 2, 64, 2
+    e.cnn_module_kernel, e.dropout_rate, e.positional_dropout_rate = 7, 0.0, 0.0
+    e.causal, e.use_dynamic_chunk, e.static_chunk_size = True, True, 4
+    m.predictor.embed_size, m.predictor.hidden_size, m.predictor.output_size = 16, 16, 32
+    model = init_weights(Transducer(m, device=device), 0)
+    with torch.no_grad():
+        model.joint.ffn_out_bias[5] = 1.5
+    return model
+
+
+@pytest.mark.parametrize("n_steps,ctc_weight", [(1, 0.0), (3, 0.3)])
+def test_beam_searches_on_card_match_cpu(card, n_steps, ctc_weight):
+    """rnnt_beam_decode and ctc_prefix_beam_search (with a context graph)
+    on the card against the CPU on the same encoder output: every n-best
+    slot's tokens and lengths identical, scores within 1e-4 (fp32 sums in
+    another order)."""
+    from tpuasr_torch.decode import (
+        build_context_graph, ctc_prefix_beam_search, rnnt_beam_decode,
+    )
+
+    cpu_m, card_m = _tiny_transducer("cpu"), _tiny_transducer(card)
+    g = torch.Generator().manual_seed(3)
+    feats = torch.randn(3, 131, 80, generator=g) * 0.5
+    enc, enc_lens = cpu_m.encode(feats, torch.tensor([131, 99, 60]))
+    outs = {}
+    for side, model in (("cpu", cpu_m), ("card", card_m)):
+        e, el = enc.to(model.device), enc_lens.to(model.device)
+        beam = rnnt_beam_decode(model, e, el, 5, 4, 40, n_steps=n_steps, ctc_weight=ctc_weight)
+        lp = torch.log_softmax(cpu_m.ctc_logits(enc), -1).to(model.device)
+        graph = build_context_graph([[7, 9], [12, 3, 7]], 64, 1.5)
+        prefix = ctc_prefix_beam_search(lp, el, 5, 4, 40, context_graph=graph)[2]
+        outs[side] = (beam[2:], prefix)
+    for got, ref in zip(outs["card"], outs["cpu"]):
+        assert torch.equal(got[0].cpu(), ref[0]) and torch.equal(got[1].cpu(), ref[1])
+        assert float((got[2].cpu() - ref[2]).abs().max()) <= 1e-4
+    assert int(outs["cpu"][0][1].max()) > 0

@@ -109,7 +109,7 @@ def test_measure_rtf_refuses_cpu():
     model = Transducer(_tiny_cfg(), device="cpu")
     with pytest.raises(RuntimeError, match="card"):
         measure_rtf(model, torch.zeros(1, 200, 80), Config())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(RuntimeError, match="card"):
         measure_rtf(model, torch.zeros(1, 200, 80), Config(), mode="beam")
 
 

@@ -231,6 +231,7 @@ class StreamingConfig:
     chunk_size: int = 32  # encoder frames per chunk
     num_left_chunks: int = 6
     n_steps: int = 10  # max non-blank emissions per frame
+    beam_size: int = 4
 
 
 @dataclass

@@ -1,10 +1,14 @@
-"""Streaming RNN-T greedy decode: chunked encoder + carried decoder state
-(port of the greedy half of ``tpuasr/decode/rnnt_streaming.py:27-109``).
+"""Streaming RNN-T decode: chunked encoder + carried decoder state (port of
+``tpuasr/decode/rnnt_streaming.py``).
 
 `StreamingState` holds the encoder caches, the greedy carry and each
 stream's encoder length; `process_chunk` encodes one chunk window and
-greedily decodes its frames, so B streams advance in lockstep. The beam
-half comes with a later slice (ROADMAP).
+greedily decodes its frames, so B streams advance in lockstep.
+`StreamingBeamState` / `process_chunk_beam` do the same with the beam
+carry of `decode.rnnt_beam` (per-hypothesis predictor states), with the
+chunk's CTC log-probs fused into every frame when `ctc_weight > 0`.
+`streaming_greedy_decode` and `streaming_beam_decode` run a whole
+utterance chunk by chunk.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ from dataclasses import dataclass
 
 import torch
 
+from tpuasr_torch.decode.rnnt_beam import BeamCarry, beam_frames, init_beam_carry, take_best
 from tpuasr_torch.decode.rnnt_greedy import GreedyCarry, greedy_frames, init_greedy_carry
 from tpuasr_torch.models.transducer import stream_output_len
 from tpuasr_torch.nn.conformer import EncoderStreamState
@@ -29,28 +34,49 @@ class StreamingState:
     enc_lens: torch.Tensor  # [B] valid encoder frames per stream (decode gate)
 
 
+def _enc_lens(model, batch: int, enc_lens) -> torch.Tensor:
+    if enc_lens is None:
+        return torch.full((batch,), _INT32_MAX, dtype=torch.long, device=model.device)
+    return torch.as_tensor(enc_lens).to(model.device, torch.long)
+
+
 def init_streaming_state(model, batch: int, chunk_size: int, num_left_chunks: int,
                          blank_id: int, max_tokens: int = 200, enc_lens=None
                          ) -> StreamingState:
     """Fresh streaming state (reset_streaming_cache parity)."""
-    enc = model.init_encoder_state(batch, chunk_size, num_left_chunks)
-    dec = init_greedy_carry(model, batch, blank_id, max_tokens)
-    if enc_lens is None:
-        enc_lens = torch.full((batch,), _INT32_MAX, dtype=torch.long, device=model.device)
-    return StreamingState(enc=enc, dec=dec,
-                          enc_lens=torch.as_tensor(enc_lens).to(model.device, torch.long))
+    return StreamingState(enc=model.init_encoder_state(batch, chunk_size, num_left_chunks),
+                          dec=init_greedy_carry(model, batch, blank_id, max_tokens),
+                          enc_lens=_enc_lens(model, batch, enc_lens))
+
+
+def _chunk_frames(model, chunk_feats: torch.Tensor, enc: EncoderStreamState,
+                  enc_lens: torch.Tensor):
+    """Encode one chunk window -> (frames [B, chunk, D], their validity
+    [B, chunk], the new encoder state). The encoder's output factor is 1
+    (one decoded frame per encoder frame)."""
+    ys, enc_state = model.encode_chunk(chunk_feats, enc)
+    frame_idx = enc.offset + torch.arange(ys.shape[1], device=ys.device)[None, :]
+    return ys, frame_idx < enc_lens[:, None], enc_state
 
 
 @torch.no_grad()
 def process_chunk(model, chunk_feats: torch.Tensor, state: StreamingState,
                   blank_id: int, n_steps: int = 10) -> StreamingState:
     """Encode one chunk window [B, window, F] and greedily decode its frames."""
-    ys, enc_state = model.encode_chunk(chunk_feats, state.enc)
-    chunk = ys.shape[1]
-    frame_idx = state.enc.offset + torch.arange(chunk, device=ys.device)[None, :]
-    valid = frame_idx < state.enc_lens[:, None]
+    ys, valid, enc_state = _chunk_frames(model, chunk_feats, state.enc, state.enc_lens)
     dec = greedy_frames(model, ys, valid, state.dec, blank_id, n_steps)
     return StreamingState(enc=enc_state, dec=dec, enc_lens=state.enc_lens)
+
+
+def _windows(model, feats: torch.Tensor, feat_lens, chunk_size: int):
+    """-> (chunk windows [n, B, window, F], encoder lengths [B])."""
+    cfg = model.cfg.encoder
+    sub = SUBSAMPLE_CLASSES[cfg.input_layer]
+    n = num_chunks(feats.shape[1], chunk_size, sub.subsampling_rate, sub.right_context)
+    enc_lens = stream_output_len(cfg, torch.as_tensor(feat_lens).to(model.device))
+    windows = chunk_windows(feats.to(model.device), chunk_size, sub.subsampling_rate,
+                            sub.right_context, n)
+    return windows, enc_lens
 
 
 @torch.no_grad()
@@ -59,15 +85,61 @@ def streaming_greedy_decode(model, feats: torch.Tensor, feat_lens, chunk_size: i
                             max_tokens: int = 200):
     """Whole-utterance simulated streaming: feats [B, T, F] ->
     (tokens [B, max_tokens], token_lens [B], final state)."""
-    cfg = model.cfg.encoder
-    sub = SUBSAMPLE_CLASSES[cfg.input_layer]
-    b, t, _ = feats.shape
-    n = num_chunks(t, chunk_size, sub.subsampling_rate, sub.right_context)
-    enc_lens = stream_output_len(cfg, torch.as_tensor(feat_lens).to(model.device))
-    windows = chunk_windows(feats.to(model.device), chunk_size, sub.subsampling_rate,
-                            sub.right_context, n)
-    state = init_streaming_state(model, b, chunk_size, num_left_chunks, blank_id,
-                                 max_tokens, enc_lens)
-    for i in range(n):
-        state = process_chunk(model, windows[i], state, blank_id, n_steps)
+    windows, enc_lens = _windows(model, feats, feat_lens, chunk_size)
+    state = init_streaming_state(model, feats.shape[0], chunk_size, num_left_chunks,
+                                 blank_id, max_tokens, enc_lens)
+    for w in windows:
+        state = process_chunk(model, w, state, blank_id, n_steps)
     return state.dec.hyp[:, :max_tokens], state.dec.hyp_len, state
+
+
+# ---------------------------------------------------------------------------
+# streaming beam search
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class StreamingBeamState:
+    enc: EncoderStreamState
+    beam: BeamCarry
+    enc_lens: torch.Tensor  # [B]
+
+
+def init_streaming_beam_state(model, batch: int, chunk_size: int, num_left_chunks: int,
+                              beam_size: int, max_tokens: int = 200, enc_lens=None
+                              ) -> StreamingBeamState:
+    return StreamingBeamState(enc=model.init_encoder_state(batch, chunk_size, num_left_chunks),
+                              beam=init_beam_carry(model, batch, beam_size, max_tokens),
+                              enc_lens=_enc_lens(model, batch, enc_lens))
+
+
+@torch.no_grad()
+def process_chunk_beam(model, chunk_feats: torch.Tensor, state: StreamingBeamState,
+                       blank_id: int, n_steps: int = 1, ctc_weight: float = 0.0,
+                       transducer_weight: float = 0.7) -> StreamingBeamState:
+    """Encode one chunk window and advance the beam over its frames;
+    `ctc_weight > 0` fuses the chunk's CTC log-probs into every frame."""
+    ys, valid, enc_state = _chunk_frames(model, chunk_feats, state.enc, state.enc_lens)
+    ctc_logp = None
+    if ctc_weight > 0:
+        ctc_logp = torch.log_softmax(model.ctc_logits(ys).float(), dim=-1)
+    beam = beam_frames(model, ys, valid, state.beam, blank_id, n_steps=n_steps,
+                       ctc_logp=ctc_logp, transducer_weight=transducer_weight,
+                       ctc_weight=ctc_weight)
+    return StreamingBeamState(enc=enc_state, beam=beam, enc_lens=state.enc_lens)
+
+
+@torch.no_grad()
+def streaming_beam_decode(model, feats: torch.Tensor, feat_lens, chunk_size: int,
+                          num_left_chunks: int, blank_id: int, beam_size: int = 4,
+                          max_tokens: int = 200, n_steps: int = 1, ctc_weight: float = 0.0,
+                          transducer_weight: float = 0.7):
+    """Whole-utterance simulated streaming beam search: feats [B, T, F] ->
+    (best tokens [B, max_tokens], best lens [B], final state)."""
+    windows, enc_lens = _windows(model, feats, feat_lens, chunk_size)
+    state = init_streaming_beam_state(model, feats.shape[0], chunk_size, num_left_chunks,
+                                      beam_size, max_tokens, enc_lens)
+    for w in windows:
+        state = process_chunk_beam(model, w, state, blank_id, n_steps, ctc_weight,
+                                   transducer_weight)
+    return (*take_best(state.beam.logp, state.beam.tokens, state.beam.lens), state)

@@ -1,9 +1,13 @@
 """Offline decoding of waves (port of ``make_offline_decoder`` from
-``tpuasr/eval/cer_eval.py:43-138``, the rnnt_greedy mode).
+``tpuasr/eval/cer_eval.py:43-138``): the transducer's decode modes.
 
-Waves go through fbank, the full-context encoder and greedy search on the
-model's device. Corpus CER (tokenizer, CER counts) and the other decode
-modes come with later slices.
+Waves go through fbank and the full-context encoder on the model's device,
+then one search: `rnnt_greedy`, `rnnt_beam` (optionally with per-frame CTC
+fusion), `ctc_greedy`, `ctc_prefix_beam`, or `rnnt_rescoring` (the CTC
+prefix-beam n-best rescored by the transducer through the RNN-T lattice).
+The CTC modes need the model's CTC head (`ctc_weight > 0`). Corpus CER
+(`evaluate_offline`, the tokenizer and CER counts) and the AED and
+Paraformer modes come with later slices.
 """
 
 from __future__ import annotations
@@ -12,36 +16,60 @@ import torch
 
 from tpuasr_torch.audio.fbank import fbank_batch
 from tpuasr_torch.config import Config
+from tpuasr_torch.decode.ctc_greedy import ctc_greedy_decode
+from tpuasr_torch.decode.ctc_prefix_beam import ctc_prefix_beam_search
+from tpuasr_torch.decode.rnnt_beam import rnnt_beam_decode
 from tpuasr_torch.decode.rnnt_greedy import rnnt_greedy_decode
+from tpuasr_torch.decode.rnnt_rescoring import transducer_rescoring
 
-# decode modes of the JAX package and the ROADMAP item that ports each
+MODES = ("rnnt_greedy", "rnnt_beam", "ctc_greedy", "ctc_prefix_beam", "rnnt_rescoring")
+# decode modes of the JAX package not ported yet, and the ROADMAP item that owns each
 LATER_MODES = {
-    "rnnt_beam": "beam search (rnnt_beam.py)",
-    "ctc_greedy": "CTC decoders",
-    "ctc_prefix_beam": "CTC decoders",
-    "rnnt_rescoring": "CTC decoders and rnnt_rescoring.py",
-    "attention": "AED (asr_model.py, decoder.py, attention_beam.py)",
-    "attention_rescoring": "AED (asr_model.py, decoder.py, attention_beam.py)",
-    "paraformer_greedy": "Paraformer",
-    "paraformer_beam": "Paraformer",
+    "attention": "§1 item 5, AED (asr_model.py, decoder.py, attention_beam.py)",
+    "attention_rescoring": "§1 item 5, AED (asr_model.py, decoder.py, attention_beam.py)",
+    "paraformer_greedy": "§1 item 5, Paraformer",
+    "paraformer_beam": "§1 item 5, Paraformer",
 }
 
 
-def make_offline_decoder(model, cfg: Config, mode: str, n_steps: int = 10,
-                         max_tokens: int = 200):
-    """-> decode(waves [B, N], wave_lens [B]) -> (tokens [B, max_tokens],
-    token_lens [B]), run on the model's device."""
+def make_offline_decoder(model, cfg: Config, mode: str, beam_size: int = 4,
+                         n_steps: int = 10, max_tokens: int = 200,
+                         ctc_fusion_weight: float = 0.0, rescoring_ctc_weight: float = 0.5):
+    """-> decode(waves [B, N], wave_lens [B]) -> (tokens, token_lens [B]),
+    run on the model's device. Tokens are [B, max_tokens], or [B, T'] for
+    `ctc_greedy`. `ctc_fusion_weight` is `rnnt_beam`'s per-frame CTC
+    fusion; `rescoring_ctc_weight` belongs to `attention_rescoring` (not
+    ported) and is accepted for the JAX signature; `rnnt_rescoring` fuses
+    with cfg.model's transducer_weight and ctc_weight."""
     if mode in LATER_MODES:
         raise NotImplementedError(
-            f"decode mode {mode!r} is not ported yet (ROADMAP: {LATER_MODES[mode]})")
-    if mode != "rnnt_greedy":
+            f"decode mode {mode!r} is not ported yet (ROADMAP {LATER_MODES[mode]})")
+    if mode not in MODES:
         raise ValueError(mode)
+    c = cfg.model
     blank_id = model.cfg.blank_id
 
     @torch.no_grad()
     def decode(waves, wave_lens):
         feats, feat_lens = fbank_batch(waves, wave_lens, cfg.feature, device=model.device)
         enc, enc_lens = model.encode(feats, feat_lens)
-        return rnnt_greedy_decode(model, enc, enc_lens, blank_id, n_steps, max_tokens)
+        ctc_lp = lambda: torch.log_softmax(model.ctc_logits(enc).float(), dim=-1)
+        if mode == "rnnt_greedy":
+            return rnnt_greedy_decode(model, enc, enc_lens, blank_id, n_steps, max_tokens)
+        if mode == "rnnt_beam":
+            toks, tok_lens, *_ = rnnt_beam_decode(
+                model, enc, enc_lens, blank_id, beam_size, max_tokens,
+                ctc_weight=ctc_fusion_weight, transducer_weight=c.transducer_weight)
+            return toks, tok_lens
+        if mode == "ctc_greedy":
+            return ctc_greedy_decode(ctc_lp(), enc_lens, blank_id)
+        toks, tok_lens, (nb_tok, nb_len, nb_score) = ctc_prefix_beam_search(
+            ctc_lp(), enc_lens, blank_id, beam_size, max_tokens)
+        if mode == "ctc_prefix_beam":
+            return toks, tok_lens
+        toks, tok_lens, _ = transducer_rescoring(
+            model, enc, enc_lens, nb_tok, nb_len, nb_score, blank_id,
+            transducer_weight=c.transducer_weight, ctc_weight=c.ctc_weight)
+        return toks, tok_lens
 
     return decode
