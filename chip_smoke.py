@@ -153,16 +153,44 @@ Phases (any failure exits non-zero):
    calls, which must equal the run's launches; then each kernel is held
    against its plain version on those arguments, with phase 3's
    tolerances, bound and library call, and timed.
+9. The corpus on disk and the serving CLIs, each called in this process
+   through its `main(argv)`: a BZNSYP-layout corpus written to a temporary
+   directory under build/ (a ProsodyLabeling transcript and Wave/*.wav,
+   48 kHz 16-bit mono: 64 utterances of 8-12 syllables spoken by the
+   synthetic corpus' chord encoding, 406 syllables, all in the 48 train
+   utterances, 16 dev); `split_data` and `gen_vocab` (406 syllables, so
+   412 tokens); the trainer with --data_root for one epoch at its card
+   defaults plus `fused_ffn=True`; the checkpoint's blank logits (joint and
+   CTC head) fitted on the CPU as phases 4 and 4b fit them and written back;
+   `evaluate` on the dev split in the five transducer modes and
+   `eval_streaming`, each on the card and with `--device cpu`, both in
+   fp32 over the checkpoint's fbank precision ("default"): rnnt_greedy,
+   ctc_greedy and streaming greedy give the same hypotheses and S/D/I/N,
+   each beam mode follows phase 4b's 2d rule on the n-best lists its
+   searches returned inside the CLI calls, and the CPU's hypotheses are the
+   best of its own lists; `decode_stream` on a dev WAV whose encoder frames
+   are not whole chunks: its last greedy line is `streaming_greedy_decode`
+   of the WAV, its cand 1 `streaming_beam_decode`'s best, and the same
+   chunk loop without the gate at the WAV's end must extend its greedy
+   hypothesis (the trailing tokens the gate keeps out are printed;
+   eval_streaming's hypothesis of that utterance is printed beside it: in
+   its padded batch the last chunk attends to other padding). Each CLI's
+   wall and launches are printed beside the card's name and power limit;
+   the run (counts reset before split_data, read after decode_stream) must
+   launch every kernel, fbank by its tensor-core route alone, #1, #2 and
+   #10 while serving and #8 in rnnt_rescoring; each kernel is held against
+   its plain version on the arguments the run gave it at every signature,
+   the signature launched most timed.
 7. The kernels line: one JSON object with an entry per kernel and run
    (the serving run of phases 4-5b, the training runs of phases 6b, 6c and
-   6d, the trainer run of phase 8; counts reset just before each and read
-   just after): that run's launches (fbank's: those of the route the
+   6d, the trainer run of phase 8, the corpus run of phase 9; counts reset
+   just before each and read just after): that run's launches (fbank's: those of the route the
    record times, the FFT for serving, which takes that route alone, and the
    tensor-core route for training, which never takes the FFT), and the
    error, times and bound at the
    shape that run gives the kernel (phase 3's bench-shape records for 6b-6d;
-   for the trainer and for #8 in serving the signature it launched most,
-   with every signature's record under "shapes"). The CTC and RNN-T
+   for the trainer, the corpus run and #8 in serving the signature it
+   launched most, with every signature's record under "shapes"). The CTC and RNN-T
    lattice entries carry their run's launches by route under "routes":
    each run that launches a lattice must take its warp route alone.
 
@@ -327,6 +355,19 @@ def main() -> dict:
     print("kernels against their plain versions on the trainer's own inputs:")
     trainer_records = _trainer_kernel_records(torch, seen, runs["trainer"])
 
+    # ---------------------------------------------------------------- 9
+    t_phase = _phase("9: the corpus on disk and the serving CLIs", t_phase)
+    corpus, runs["corpus"], parts = _corpus(torch, card)
+    print(f"launches on the corpus run: {runs['corpus']}; wrapper calls on the card that "
+          f"launched nothing: {[seen.get('idle', {}) for seen, _ in parts.values()]}")
+    for name in KERNELS:
+        require(runs["corpus"][name] > 0, f"the corpus run never launched {name}")
+    require(runs["corpus"]["fbank_tc"] == runs["corpus"]["fbank"]
+            and runs["corpus"]["fbank_fft"] == 0,
+            "the corpus run did not take fbank's tensor-core route (precision \"default\") alone")
+    print("kernels against their plain versions on the corpus run's own inputs:")
+    corpus_records = _corpus_kernel_records(torch, parts)
+
     # ---------------------------------------------------------------- 7
     # one entry per kernel and run that launches it, with the record taken
     # at the shape that run gives it: 6b, 6c and 6d give the same shapes
@@ -334,7 +375,7 @@ def main() -> dict:
     # on its own inputs, at the signature it launched most, every
     # signature's under "shapes"
     _phase("7: the kernels line", t_phase)
-    fused = ("training", "training_fused_ffn", "trainer")  # the fused joint loss
+    fused = ("training", "training_fused_ffn", "trainer", "corpus")  # the fused joint loss
     every = fused[:1] + ("training_materialized",) + fused[1:]
     # (kernel, runs, record, launch count): fbank's records count the route
     # they time, "highest" by the FFT for serving and the tensor-core route
@@ -357,7 +398,8 @@ def main() -> dict:
         for run in run_names:
             launches = runs[run][count]
             require(launches > 0, f"the {run} run never launched {count}")
-            rec = trainer_records[name] if run == "trainer" else checks[check]
+            rec = {"trainer": trainer_records, "corpus": corpus_records}.get(
+                run, checks)[name if run in ("trainer", "corpus") else check]
             entry = dict(rec, run=run, launches=launches,
                          **{f"launches_{r}": runs[r][count] for r in runs})
             if name in ("ctc_alpha", "ctc_beta_grad", "rnnt_alpha", "rnnt_beta_grad"):
@@ -372,6 +414,7 @@ def main() -> dict:
     print(f"phases took {time.perf_counter() - t_start:.1f} s in all")
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
+    print(json.dumps({"corpus": corpus}))
     print(json.dumps({"kernels": kernels}))
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}
@@ -853,19 +896,21 @@ def _ffn_slices(torch, r, fwd_args, bwd_args) -> tuple[dict, dict]:
 
 
 def _record(torch, name, source, replaces, err, flops, peak, nbytes, kernel, plain,
-            library, plain_iters: int = 30, plain_timing: str = "events") -> dict:
+            library, plain_iters: int = 30, plain_timing: str = "events",
+            timed: bool = True) -> dict:
     """One kernel's record for the kernels line. The kernel is always timed
     by events; `plain_timing` says how its plain version and the library
-    call are timed, and `timing` records it beside the numbers."""
+    call are timed, and `timing` records it beside the numbers. Untimed
+    (`timed` False), the three times are None."""
     t_ops, t_bytes = flops / peak * 1e3, nbytes / HBM_BPS * 1e3
+    clock = (lambda fn, *a, **k: _time_ms(torch, fn, *a, **k)) if timed else (lambda *a, **k: None)
     return {
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "max_abs_err": err, "ms": _time_ms(torch, kernel),
-        "plain_ms": _time_ms(torch, plain, plain_iters, method=plain_timing),
+        "max_abs_err": err, "ms": clock(kernel),
+        "plain_ms": clock(plain, plain_iters, method=plain_timing),
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": None if library is None else _time_ms(torch, library,
-                                                            method=plain_timing),
+        "library_ms": None if library is None else clock(library, method=plain_timing),
         "timing": {"ms": "events", "plain_ms": plain_timing,
                    "library_ms": None if library is None else plain_timing},
     }
@@ -904,19 +949,20 @@ WRAPPERS = {
 }
 
 
-def _hold(torch, name, args, tag, ctc_inputs=None) -> dict:
+def _hold(torch, name, args, tag, ctc_inputs=None, timed: bool = True) -> dict:
     """Kernel `name` against its plain version on `args` (`_held`): print
     the result under `tag` and fail outside the tolerance; -> the record,
-    with the inputs' shapes and the tolerance."""
-    rec, tol, ok, inputs = _held(torch, name, args, ctc_inputs or {})
+    with the inputs' shapes and the tolerance (untimed: no times)."""
+    rec, tol, ok, inputs = _held(torch, name, args, ctc_inputs or {}, timed)
+    ms = lambda x: "-" if x is None else f"{x:.4f}"
     print(f"{name} {tag} {inputs}: max_abs_err {rec['max_abs_err']:.3g} (tol {tol}) ms "
-          f"{rec['ms']:.4f} plain_ms ({rec['timing']['plain_ms']}) {rec['plain_ms']:.4f} "
+          f"{ms(rec['ms'])} plain_ms ({rec['timing']['plain_ms']}) {ms(rec['plain_ms'])} "
           f"library_ms {rec['library_ms']} bound_ms {rec['bound_ms']:.6f} ({rec['bound_by']})")
     require(ok, f"{name} disagrees with its plain version ({tag}: {inputs})")
     return dict(rec, inputs=inputs, tol=tol)
 
 
-def _held(torch, name, a, ctc_inputs) -> tuple[dict, str, bool, str]:
+def _held(torch, name, a, ctc_inputs, timed: bool = True) -> tuple[dict, str, bool, str]:
     """Kernel `name` against its plain version on the arguments `a`
     (argument name -> value, in the wrapper's order), with the kernel's
     tolerance and why, its bound (the function's least work and bytes on
@@ -1100,7 +1146,8 @@ def _held(torch, name, a, ctc_inputs) -> tuple[dict, str, bool, str]:
     if not ok and len(rels) > 1:
         why += f"; error / max|ref| per output: {', '.join(f'{r:.3g}' for r in rels)}"
     rec = _record(torch, name, source, replaces, err, flops, peak, nbytes,
-                  lambda: kernel(*args), lambda: plain(*args), library, plain_iters, timing)
+                  lambda: kernel(*args), lambda: plain(*args), library, plain_iters, timing,
+                  timed)
     if stats_err is not None:
         rec["saved_max_abs_err"] = stats_err[0]
     if bound_fp32 is not None:
@@ -1403,13 +1450,15 @@ def _hyps(toks, lens, scores) -> list[dict]:
 
 def _nbest_agreement(torch, label, card, cpu, max_inside: int = 4) -> dict:
     """Card against CPU for a beam mode: card, cpu = (n-best tokens [B, N,
-    U], lens [B, N], scores [B, N]). d is the largest |card - CPU| score of
+    U], lens [B, N], scores [B, N]), or a list of such batches. d is the largest |card - CPU| score of
     the hypotheses both found; each request whose CPU margin between its
     best and second-best score exceeds 2d must have the same best
     hypothesis on the card. Requests inside the margin are printed; more
     than `max_inside` of them fail the check (it would say nothing)."""
-    hc = _hyps(*(x.cpu() for x in card))
-    hp = _hyps(*cpu)
+    # one (tokens, lens, scores) triple, or a list of them (one a batch)
+    rows = lambda x: [h for b in (x if isinstance(x, list) else [x])
+                      for h in _hyps(*(t.cpu() for t in b))]
+    hc, hp = rows(card), rows(cpu)
     d = max((abs(a[h] - b[h]) for a, b in zip(hc, hp) for h in a.keys() & b.keys()),
             default=0.0)
     inside, same = [], 0
@@ -2476,6 +2525,361 @@ def _trainer(torch) -> tuple[dict, dict, dict]:
 
 
 # ---------------------------------------------------------------------------
+# phase 9: a BZNSYP-layout corpus on disk through the port's CLIs
+# ---------------------------------------------------------------------------
+
+# 64 utterances, the first 48 train and the rest dev; 406 of the 409
+# syllables, all of them in the train split, so the vocabulary is the
+# flagship's 412 tokens
+CORPUS_UTTS, CORPUS_TRAIN, CORPUS_SYLLABLES = 64, 48, 406
+DECODE_MODES = ("rnnt_greedy", "ctc_greedy", "rnnt_beam", "ctc_prefix_beam", "rnnt_rescoring")
+
+
+def _corpus_transcripts(np) -> list[list[str]]:
+    """The corpus' syllable sequences, 8-12 a transcript: the train split
+    holds every chosen syllable at least once, the dev split draws from
+    them."""
+    from tpuasr_torch.text import PINYIN_SYLLABLES
+
+    rng = np.random.default_rng(SEED)
+    syl = sorted(rng.choice(PINYIN_SYLLABLES, CORPUS_SYLLABLES, replace=False).tolist())
+    lens = rng.integers(8, 13, size=CORPUS_UTTS)
+    n_train = int(lens[:CORPUS_TRAIN].sum())
+    require(n_train >= CORPUS_SYLLABLES, "the train split is too short to hold every syllable")
+    seq = rng.permutation(syl).tolist() + rng.choice(syl, n_train - CORPUS_SYLLABLES).tolist()
+    ends = np.cumsum(lens[:CORPUS_TRAIN])
+    train = [seq[e - n:e] for e, n in zip(ends, lens[:CORPUS_TRAIN])]
+    return train + [rng.choice(syl, n).tolist() for n in lens[CORPUS_TRAIN:]]
+
+
+def _sync(torch) -> None:
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
+def _corpus(torch, card_name: str, card: str = "cuda", sets=()) -> tuple[dict, dict, dict]:
+    """Phase 9: a BZNSYP-layout corpus written to disk, then the port's CLIs
+    in this process through their `main(argv)`: split_data, gen_vocab, the
+    trainer with --data_root for one epoch (the card's defaults and
+    fused_ffn), evaluate in the five transducer modes and eval_streaming,
+    each on the card and on the CPU in fp32, and decode_stream on one dev
+    WAV on the card. `card` and `sets` (extra --set pairs for the trainer)
+    let the phase be rehearsed at a cut size on a machine without a card.
+    -> (stats, the run's kernel launches, {part: (its recorded card calls,
+    its launches)} for its two parts, the trainer and serving)."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+
+    from tpuasr_torch.config import load_yaml
+    from tpuasr_torch.data.corpus import scan_split
+    from tpuasr_torch.data.synthetic import write_bznsyp_corpus
+    from tpuasr_torch.ops import KERNELS, LAUNCHES, reset_launch_counts
+    from tpuasr_torch.tools import decode_stream, eval_streaming, evaluate, gen_vocab, split_data
+    from tpuasr_torch.tools import train as train_tool
+    from tpuasr_torch.tools.common import eval_config, eval_split
+
+    on_card = [] if card == "cuda" else ["--device", card]
+    sides = (("card", on_card), ("cpu", ["--device", "cpu"]))
+    walls, deltas, out = {}, {}, {}
+
+    def run(label, cli, argv):
+        """One CLI call -> its result; its wall, its kernel launches and the
+        head of its output are kept under `label`."""
+        before = dict(LAUNCHES)
+        recorded = lambda: {k: sum(c for c, _ in seen.get(k, {}).values()) for k in KERNELS}
+        rec_before = recorded()
+        buf = io.StringIO()
+        _sync(torch)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            res = cli.main(argv)
+        _sync(torch)
+        walls[label] = time.perf_counter() - t0
+        deltas[label] = {k: LAUNCHES[k] - before[k] for k in KERNELS if LAUNCHES[k] > before[k]}
+        rec = {k: n - rec_before[k] for k, n in recorded().items()}
+        require(all(rec[k] == deltas[label].get(k, 0) for k in KERNELS),
+                f"{label}: the wrappers' recorded launches {rec} are not its launches")
+        head = [ln for ln in buf.getvalue().splitlines() if not ln.startswith("{")][:3]
+        print(f"{label}: {walls[label]:.2f} s, launches {deltas[label]}; " + " | ".join(head))
+        return res
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="corpus-", dir=ROOT / "build") as root:
+        transcripts = _corpus_transcripts(np)
+        text = write_bznsyp_corpus(root, transcripts, 48000, 24 * 512, seed=SEED)
+        split, vocab, exp = f"{root}/split", f"{root}/vocab.txt", f"{root}/exp"
+        data = [f"data.{s}_{k}={split}/{s}/{f}" for s in ("train", "dev", "test")
+                for k, f in (("wav_scp", "wav.scp"), ("text", "pinyin"))]
+        data.append(f"data.vocab_file={vocab}")
+        ckpt = f"{exp}/latest"
+        fp32 = ["--set", "model.compute_dtype=float32"]
+        reset_launch_counts()
+        parts = {}
+        with _recording(torch) as seen:  # the corpus and the trainer
+            counts = run("split_data", split_data, [
+                "--transcript", text, "--out_dir", split, "--train_max", str(CORPUS_TRAIN),
+                "--dev_max", str(CORPUS_UTTS)])
+            require(counts == {"train": CORPUS_TRAIN, "dev": CORPUS_UTTS - CORPUS_TRAIN,
+                               "test": 0}, f"split_data gave {counts}")
+            n_vocab = run("gen_vocab", gen_vocab, [
+                "--pinyin_files", *(f"{split}/{s}/pinyin" for s in ("train", "dev", "test")),
+                "--out", vocab])
+            require(n_vocab == CORPUS_SYLLABLES, f"gen_vocab wrote {n_vocab} syllables")
+            trained = run("train", train_tool, [
+                "--workload", "online_rnnt", "--data_root", root, "--epochs", "1", "--set",
+                "model.encoder.fused_ffn=True", f"train.save_dir={exp}", "train.log_dir=",
+                *data, *sets, *on_card])
+            cfg = load_yaml(f"{exp}/train.yaml")
+            require(cfg.model.vocab_size == 412 and cfg.model.encoder.fused_ffn
+                    and (card != "cuda" or (cfg.model.compute_dtype == "bfloat16"
+                                            and cfg.feature.fbank_precision == "default")),
+                    "the trainer's effective config is not the card's defaults with fused_ffn "
+                    "over 412 tokens")
+            require(all(math.isfinite(x) for x in trained.train_losses + trained.dev_losses),
+                    "a loss of the trainer is not finite")
+            out["train"] = {"steps": trained.state.step, "train_losses": trained.train_losses,
+                            "dev_losses": trained.dev_losses}
+        parts["trainer"] = (seen, dict(LAUNCHES))
+        with _recording(torch) as seen:  # serving from the checkpoint
+            out["blank_logit_bias"] = _fit_corpus_blanks(torch, ckpt, root)
+
+            evals, nbest = {}, {}
+            for mode in DECODE_MODES:
+                for side, dev in sides:
+                    with _nbest_capture() as got:
+                        evals[mode, side] = run(f"evaluate {mode} {side}", evaluate, [
+                            "--checkpoint", ckpt, "--workload", "online_rnnt", "--mode", mode,
+                            "--data_root", root, "--max_samples", "16", *fp32, *dev])
+                    nbest[mode, side] = got.get(mode)
+            streams = {side: run(f"eval_streaming {side}", eval_streaming, [
+                "--checkpoint", ckpt, "--data_root", root, "--max_samples", "16", *fp32, *dev])
+                for side, dev in sides}
+            # a dev WAV whose encoder frames are not a whole number of chunks
+            chunk, hop = cfg.streaming.chunk_size, cfg.feature.hop_length
+            tok, pipe = eval_split(eval_config(ckpt, None, [], torch.device("cpu")), "dev", 0,
+                                   1, root)
+            metas = scan_split(cfg.data.dev_wav_scp, cfg.data.dev_text, tok, root)
+            frames = lambda m: ((m.wave_len // hop) // 2 - 1) // 2  # ((T - 1)//2 - 1)//2
+            utt = next(m for m in metas if frames(m) % chunk).utt_id
+            lines = run("decode_stream card", decode_stream, [
+                "--checkpoint", ckpt, "--wav", f"{root}/Wave/{utt}.wav", *fp32, *on_card])
+        launches = dict(LAUNCHES)
+        parts["serving"] = (seen, {k: n - parts["trainer"][1][k] for k, n in launches.items()})
+
+        # card against CPU, outside the run's counts
+        print(f"{card_name}: walls of the CLIs in this process (s, synced; evaluate over "
+              f"{len(metas)} dev utterances): " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                                            walls.items()))
+        out["walls_s"], out["launches_by_call"] = walls, deltas
+        served = {k: v for k, v in deltas.items() if k.startswith(("evaluate", "eval_streaming",
+                                                                   "decode_stream"))}
+        for name in ("fbank", "relpos_attention", "ffn_fwd"):
+            require(sum(d.get(name, 0) for d in served.values()) > 0 or card != "cuda",
+                    f"serving from the checkpoint never launched {name}")
+        require(deltas["evaluate rnnt_rescoring card"].get("rnnt_alpha", 0) > 0
+                or card != "cuda", "evaluate --mode rnnt_rescoring never launched #8")
+        valid = [int(b["num_valid"]) for b in pipe.batches(0)]
+        out["agreement"] = _corpus_agreement(torch, evals, nbest, valid, tok)
+        same = [a[2] == b[2] for a, b in zip(streams["card"].samples, streams["cpu"].samples)]
+        require(len(same) == len(metas) and all(same) and
+                streams["card"].greedy == streams["cpu"].greedy,
+                "eval_streaming's greedy hypotheses differ between the card and the CPU")
+        beam_same = sum(a[3] == b[3] for a, b in zip(streams["card"].samples,
+                                                     streams["cpu"].samples))
+        print(f"eval_streaming card vs CPU: greedy hypotheses identical on {len(same)} "
+              f"utterances ({streams['cpu'].greedy}); beam hypotheses identical on "
+              f"{beam_same}; greedy CER {streams['card'].greedy.cer:.4f}, beam "
+              f"{streams['card'].beam.cer:.4f}")
+        out["streaming"] = {"greedy": vars(streams["card"].greedy),
+                            "beam": vars(streams["card"].beam), "beam_same_as_cpu": beam_same}
+        out["decode_stream"] = _decode_stream_check(
+            torch, ckpt, f"{root}/Wave/{utt}.wav", lines, card,
+            {s[0]: s for s in streams["card"].samples}[utt])
+        out["cer"] = {f"{m} {s}": vars(r.counts) for (m, s), r in evals.items()}
+    return out, launches, parts
+
+
+def _decode_stream_check(torch, ckpt, wav, lines, card, batch_hyp) -> dict:
+    """decode_stream's output against the library on the same WAV on the
+    card: its last greedy line is `streaming_greedy_decode`'s hypothesis of
+    the WAV's own features gated at its true encoder length, and its cand 1
+    `streaming_beam_decode`'s best; with no gate (every frame of the
+    zero-padded last window decoded) the greedy hypothesis must extend the
+    gated one, and what it adds are the trailing tokens the gate keeps out.
+    eval_streaming's hypothesis of the utterance is printed beside them: it
+    decodes the utterance inside its padded batch, whose frames past the
+    utterance's end (fbank of zeros, -100 dB) differ from the zeros that
+    pad decode_stream's last window, and the last chunk's valid frames
+    attend to them, so the two may differ in the last chunk's tokens."""
+    from tpuasr_torch.audio import fbank
+    from tpuasr_torch.data import read_wav
+    from tpuasr_torch.decode import streaming_beam_decode, streaming_greedy_decode
+    from tpuasr_torch.decode.rnnt_streaming import init_streaming_state, process_chunk
+    from tpuasr_torch.nn.subsampling import SUBSAMPLE_CLASSES
+    from tpuasr_torch.streaming import chunk_windows, num_chunks
+    from tpuasr_torch.tools.common import eval_config, restore_model, vocab_tokenizer
+
+    dev = torch.device(card)
+    cfg = eval_config(ckpt, None, ["model.compute_dtype=float32"], dev)
+    tok = vocab_tokenizer(cfg, None)
+    model = restore_model(cfg, "online_rnnt", dev, ckpt)
+    wave, sr = read_wav(wav)
+    cfg.feature.sample_rate = sr
+    feats = fbank(torch.from_numpy(wave).to(dev), cfg.feature)[None]
+    t = torch.tensor([feats.shape[1]])
+    c, st = cfg.model, cfg.streaming
+    text = lambda toks, n: " ".join(tok.decode(toks[: int(n)].tolist()))
+    g, gl, _ = streaming_greedy_decode(model, feats, t, st.chunk_size, st.num_left_chunks,
+                                       c.blank_id, st.n_steps)
+    b, bl, _ = streaming_beam_decode(model, feats, t, st.chunk_size, st.num_left_chunks,
+                                     c.blank_id, 4)
+    sub = SUBSAMPLE_CLASSES[c.encoder.input_layer]
+    n = num_chunks(feats.shape[1], st.chunk_size, sub.subsampling_rate, sub.right_context)
+    state = init_streaming_state(model, 1, st.chunk_size, st.num_left_chunks, c.blank_id)
+    for w in chunk_windows(feats, st.chunk_size, sub.subsampling_rate, sub.right_context, n):
+        state = process_chunk(model, w, state, c.blank_id, st.n_steps)
+    ungated = state.dec.hyp[0, : int(state.dec.hyp_len[0])]
+    greedy = [ln.split(": ", 1)[1] for ln in lines if ln.startswith("chunk")]
+    cand1 = next((ln.split("): ", 1)[1] for ln in lines if ln.startswith("cand 1 ")), None)
+    gated = g[0, : int(gl[0])]
+    trailing = len(ungated) - len(gated)
+    print(f"decode_stream {wav.rsplit('/', 1)[-1]} ({feats.shape[1]} frames, {n} chunks, the "
+          f"last window zero-padded): last greedy line {greedy[-1]!r}, "
+          f"streaming_greedy_decode {text(g[0], gl[0])!r}; cand 1 {cand1!r}, "
+          f"streaming_beam_decode {text(b[0], bl[0])!r}; without the gate {trailing} trailing "
+          f"tokens more; eval_streaming in its batch: greedy {batch_hyp[2]!r}, beam "
+          f"{batch_hyp[3]!r}")
+    require(greedy[-1] == text(g[0], gl[0]), "decode_stream's last greedy line is not the "
+                                             "streaming greedy decode of the WAV")
+    require(cand1 == text(b[0], bl[0]), "decode_stream's cand 1 is not the streaming beam's best")
+    require(trailing >= 0 and torch.equal(ungated[: len(gated)], gated),
+            "the gated greedy hypothesis is not a prefix of the ungated one")
+    return {"chunks": n, "trailing_tokens_without_gate": trailing,
+            "same_as_eval_streaming": {"greedy": greedy[-1] == batch_hyp[2],
+                                       "beam": cand1 == batch_hyp[3]}}
+
+
+def _fit_corpus_blanks(torch, ckpt, root) -> dict:
+    """Fit the checkpoint's blank logits (the joint's and the CTC head's) on
+    the CPU in fp32, over the dev split, to the transcripts' tokens per
+    encoder frame, as phases 4 and 4b fit the random model's (a model one
+    epoch into its warm-up emits up to n_steps tokens a frame), and write
+    them back into the checkpoint; -> the two biases."""
+    from tpuasr_torch.audio import fbank_batch
+    from tpuasr_torch.data import BatchSpec, make_batch
+    from tpuasr_torch.data.corpus import _load, scan_split
+    from tpuasr_torch.tools.common import eval_config, eval_split, restore_model
+    from tpuasr_torch.train import (
+        TrainState, load_info, make_optimizer, restore_checkpoint, save_checkpoint,
+    )
+
+    cpu = torch.device("cpu")
+    cfg = eval_config(ckpt, None, [], cpu)
+    tok = eval_split(cfg, "dev", 0, 1, root)[0]
+    model = restore_model(cfg, "online_rnnt", cpu, ckpt)
+    state = restore_checkpoint(ckpt, TrainState.create(model, make_optimizer(cfg.optim)))
+    utts = [_load(m) for m in scan_split(cfg.data.dev_wav_scp, cfg.data.dev_text, tok, root)]
+    b = make_batch(utts, BatchSpec(len(utts), max(u.wave_len for u in utts),
+                                   max(len(u.tokens) for u in utts)))
+    content = b["text_lens"] - 2  # <sos> and <eos>
+    joint = _fit_blank_bias(torch, model, cfg, b["waves"], b["wave_lens"], content)
+    with torch.no_grad():
+        model.joint.ffn_out_bias[cfg.model.blank_id] = joint
+    feats, flens = fbank_batch(b["waves"], b["wave_lens"], cfg.feature, device=cpu)
+    enc, elens = model.encode(feats, flens)
+    ctc = _fit_ctc_blank_bias(torch, model, enc, elens,
+                              float(content.sum()) / float(elens.sum()))
+    save_checkpoint(ckpt, state, load_info(ckpt))
+    return {"joint": joint, "ctc": ctc}
+
+
+@contextlib.contextmanager
+def _nbest_capture():
+    """While evaluate runs, keep the n-best (tokens, lens, scores) of each
+    beam search make_offline_decoder calls, a batch each: -> {mode: [...]},
+    filled as the run goes (`rnnt_rescoring`'s with the rescored scores)."""
+    import tpuasr_torch.eval.cer_eval as ce
+
+    got = {m: [] for m in DECODE_MODES[2:]}
+    orig = {k: getattr(ce, k) for k in ("rnnt_beam_decode", "ctc_prefix_beam_search",
+                                        "transducer_rescoring")}
+
+    def beam(*a, **k):
+        r = orig["rnnt_beam_decode"](*a, **k)
+        got["rnnt_beam"].append(r[2:])
+        return r
+
+    def prefix(*a, **k):
+        r = orig["ctc_prefix_beam_search"](*a, **k)
+        got["ctc_prefix_beam"].append(r[2])
+        return r
+
+    def rescore(*a, **k):
+        r = orig["transducer_rescoring"](*a, **k)
+        got["rnnt_rescoring"].append((a[3], a[4], r[2]))
+        return r
+
+    ce.rnnt_beam_decode, ce.ctc_prefix_beam_search, ce.transducer_rescoring = beam, prefix, rescore
+    try:
+        yield got
+    finally:
+        for k, fn in orig.items():
+            setattr(ce, k, fn)
+
+
+def _corpus_agreement(torch, evals, nbest, valid, tok) -> dict:
+    """evaluate's results on the card against the CPU's: rnnt_greedy and
+    ctc_greedy the same hypotheses and S/D/I/N; each beam mode by PERF.md
+    §2's rule on the n-best lists its searches gave on each side (`nbest`:
+    {(mode, side): a triple a batch}, `valid`: each batch's valid rows; the
+    CPU CLI's hypotheses must be the best of its own lists): the same best
+    hypothesis on every utterance whose CPU margin exceeds 2d, at most 4 of
+    16 inside it."""
+    out = {}
+    for mode in DECODE_MODES[:2]:
+        a, b = evals[mode, "card"], evals[mode, "cpu"]
+        require(a.counts == b.counts and a.samples == b.samples,
+                f"evaluate --mode {mode}: the card's hypotheses or counts differ from the CPU's")
+        print(f"evaluate {mode}: card == CPU on {len(a.samples)} utterances, {vars(a.counts)}")
+        out[mode] = {"identical": True}
+    for mode in DECODE_MODES[2:]:
+        lists = {side: [tuple(x[:n] for x in t) for t, n in zip(nbest[mode, side], valid)]
+                 for side in ("card", "cpu")}
+        rec = _nbest_agreement(torch, f"evaluate {mode}", lists["card"], lists["cpu"])
+        inside = {i for i, _ in rec["inside_2d"]}
+        cpu_best = [" ".join(tok.decode(max(h, key=h.get)))
+                    for t in lists["cpu"] for h in _hyps(*(x.cpu() for x in t))]
+        a, b = evals[mode, "card"].samples, evals[mode, "cpu"].samples
+        require([x[2] for x in b] == cpu_best, f"evaluate --mode {mode} on the CPU is not the "
+                                               f"best of its own n-best search")
+        differ = [i for i, (x, y) in enumerate(zip(a, b)) if x != y]
+        require(set(differ) <= inside, f"evaluate --mode {mode}: utterances {differ} differ "
+                                       f"between the card and the CPU outside 2d")
+        print(f"evaluate {mode}: card vs CPU hypotheses differ on {differ} (inside 2d: "
+              f"{sorted(inside)})")
+        out[mode] = dict(rec, differ=differ)
+    return out
+
+
+def _corpus_kernel_records(torch, parts) -> dict:
+    """Phase 9's kernel records: each part of the run (the trainer, then
+    serving from its checkpoint) held as phase 8's, the signature each part
+    launched most timed; -> {kernel: the serving part's record where the
+    kernel served, else the trainer's, with every signature of both parts
+    under "shapes"}."""
+    recs = {part: _trainer_kernel_records(torch, seen, launches, f"corpus {part}", timed=1)
+            for part, (seen, launches) in parts.items()}
+    out = {}
+    for name in WRAPPERS:
+        have = [recs[p][name] for p in ("serving", "trainer") if name in recs[p]]
+        out[name] = dict(have[0], shapes=[s for r in have for s in r["shapes"]])
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 8's kernel records: each kernel against its plain version on the
 # inputs the trainer gave it
 # ---------------------------------------------------------------------------
@@ -2487,8 +2891,8 @@ CTC_INPUTS = ("tpuasr_torch.losses.ctc", "lattice_inputs")
 @contextlib.contextmanager
 def _recording(torch, only=None):
     """While a run goes through the port, keep for each kernel (of `only`,
-    or every one) the arguments of its wrapper's first call at each
-    signature (every tensor's type and shape, every other argument's value)
+    or every one) the arguments of its wrapper's first call on the card
+    that launched it at each signature (every tensor's type and shape, every other argument's value)
     and count the calls at each. Every attribute of a port module bound to
     a wrapper (or to CTC_INPUTS) is swapped for a recording one and restored
     on exit; -> {kernel: {signature: [calls, {argument: value}]}}, filled as
@@ -2496,7 +2900,9 @@ def _recording(torch, only=None):
     import importlib
     import inspect
 
-    seen, swaps = {}, []
+    from tpuasr_torch.ops import LAUNCHES
+
+    seen = {}
 
     def recorder(name, fn):
         sig = inspect.signature(fn)
@@ -2504,14 +2910,23 @@ def _recording(torch, only=None):
         def call(*args, **kwargs):
             bound = sig.bind(*args, **kwargs)
             bound.apply_defaults()
+            if not any(isinstance(v, torch.Tensor) and v.is_cuda
+                       for v in bound.arguments.values()):
+                return fn(*args, **kwargs)  # a CPU call takes the plain version
             key = tuple((str(v.dtype), tuple(v.shape), v.device.type)
                         if isinstance(v, torch.Tensor) else v for v in bound.arguments.values())
             calls = seen.setdefault(name, {})
-            if key not in calls:
-                calls[key] = [0, {k: v.detach().clone() if isinstance(v, torch.Tensor) else v
-                                  for k, v in bound.arguments.items()}]
-            calls[key][0] += 1
-            return fn(*args, **kwargs)
+            args_in = None if key in calls else {
+                k: v.detach().clone() if isinstance(v, torch.Tensor) else v
+                for k, v in bound.arguments.items()}
+            before = LAUNCHES.get(name)
+            out = fn(*args, **kwargs)
+            if before is not None and LAUNCHES[name] == before:  # e.g. no rows: no launch
+                idle = seen.setdefault("idle", {})
+                idle[name] = idle.get(name, 0) + 1
+                return out
+            calls.setdefault(key, [0, args_in])[0] += 1
+            return out
 
         return call
 
@@ -2519,38 +2934,49 @@ def _recording(torch, only=None):
                if only is None or name in only}
     if only is None:
         targets["ctc_inputs"] = CTC_INPUTS
+    port = lambda: [m for name, m in list(sys.modules.items())
+                    if name.split(".")[0] == "tpuasr_torch"]
+    originals = {}  # id(recorder) -> (recorder, the wrapper it stands for)
     try:
         for name, (mod, attr) in targets.items():
             fn = getattr(importlib.import_module(mod), attr)
             rec = recorder(name, fn)
-            for mname, m in list(sys.modules.items()):
-                if mname.split(".")[0] == "tpuasr_torch":
-                    for a, val in list(vars(m).items()):
-                        if val is fn:
-                            setattr(m, a, rec)
-                            swaps.append((m, a, fn))
+            originals[id(rec)] = (rec, fn)
+            for m in port():
+                for a, val in list(vars(m).items()):
+                    if val is fn:
+                        setattr(m, a, rec)
         yield seen
     finally:
-        for m, a, fn in swaps:
-            setattr(m, a, fn)
+        # also in modules first imported during the run, which bound a recorder
+        for m in port():
+            for a, val in list(vars(m).items()):
+                entry = originals.get(id(val))
+                if entry is not None and entry[0] is val:
+                    setattr(m, a, entry[1])
 
 
-def _trainer_kernel_records(torch, seen, launches) -> dict:
-    """Phase 8's kernel checks: every kernel the trainer launched, against
-    its plain version on the arguments the trainer gave it at each
-    signature (the buckets' shapes, training and dev pass); the recorded
-    calls must be the run's launches, no more and no fewer. -> {kernel: the
-    record at the signature launched most, with "shapes": every
-    signature's}."""
+def _trainer_kernel_records(torch, seen, launches, run: str = "trainer",
+                            timed: int | None = None) -> dict:
+    """Phase 8's (and 9's) kernel checks: every kernel the `run` launched,
+    against its plain version on the arguments the run gave it at each
+    signature (the buckets' shapes, training and dev pass, evaluation); the
+    recorded calls must be the run's launches, no more and no fewer. With
+    `timed` only the `timed` signatures launched most are timed, the others
+    only held. -> {kernel: the record at the signature launched most, with
+    "shapes": every signature's}."""
     out = {}
     for name in WRAPPERS:
         calls = seen.get(name, {})
+        if not calls and not launches[name]:
+            continue  # a part of a run that never launches the kernel
         n = sum(c for c, _ in calls.values())
-        require(n == launches[name], f"the trainer launched {name} {launches[name]} times but "
-                                     f"its wrapper was called {n} times")
-        shapes = [dict(_hold(torch, name, args, f"trainer, {count} calls at",
-                             seen.get("ctc_inputs")), calls=count)
-                  for count, args in sorted(calls.values(), key=lambda x: -x[0])]
+        require(n == launches[name], f"the {run} run launched {name} {launches[name]} times "
+                                     f"but its wrapper was called {n} times")
+        shapes = [dict(_hold(torch, name, args, f"{run}, {count} calls at",
+                             seen.get("ctc_inputs"), timed is None or i < timed), calls=count)
+                  for i, (count, args) in enumerate(sorted(calls.values(),
+                                                           key=lambda x: -x[0]))]
         out[name] = dict(shapes[0], shapes=[
             {k: s[k] for k in ("inputs", "calls", "max_abs_err", "tol", "ms", "plain_ms",
                                "bound_ms", "bound_by", "library_ms")} for s in shapes])

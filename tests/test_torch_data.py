@@ -4,12 +4,11 @@
 24-30 content tokens, SOS and EOS added, 48 kHz, (768 - 6) * 512 // 30
 samples per token, padded to 767 * 512 samples and 32 tokens) give the
 arrays of `tpuasr.data`; `tensors` moves them unchanged; the tokenizer's
-special ids are the JAX package's; the corpus read from disk (BZNSYP) still
-raises NotImplementedError.
+special ids are the JAX package's; an utterance read from disk (BZNSYP
+metadata) loads into the JAX package's batch.
 """
 
 import numpy as np
-import pytest
 import torch
 
 import tpuasr.text.tokenizer as jax_tokenizer
@@ -46,14 +45,31 @@ def test_bench_batch_is_bit_identical_to_jax():
         assert torch.equal(x, torch.from_numpy(got[k]))
 
 
-def test_special_ids_and_unported_corpus():
+def test_special_ids_and_unported_corpus(tmp_path):
     assert tokenizer.SPECIAL_TOKENS == jax_tokenizer.SPECIAL_TOKENS
     assert (tokenizer.PAD, tokenizer.UNK, tokenizer.SOS, tokenizer.EOS, tokenizer.SPACE,
             tokenizer.BLK) == (jax_tokenizer.PAD, jax_tokenizer.UNK, jax_tokenizer.SOS,
                                jax_tokenizer.EOS, jax_tokenizer.SPACE, jax_tokenizer.BLK)
-    # the BZNSYP corpus (metadata scanned from disk) waits for the tokenizer
-    from tpuasr_torch.config import Config
-    from tpuasr_torch.data import make_pipeline
+    # the BZNSYP corpus: an utterance's metadata scanned from disk loads into
+    # the JAX package's batch
+    import wave
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        next(make_pipeline([object()], Config()).batches(0))
+    from tpuasr.config import Config as JaxConfig
+    from tpuasr.data.corpus import UtteranceMeta as JaxMeta
+    from tpuasr.data.corpus import make_pipeline as jax_make_pipeline
+    from tpuasr_torch.config import Config
+    from tpuasr_torch.data import UtteranceMeta, make_pipeline
+
+    pcm = np.random.default_rng(0).integers(-32768, 32768, 40000).astype("<i2")
+    path = str(tmp_path / "u.wav")
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(48000)
+        w.writeframes(pcm.tobytes())
+    toks = np.array([2, 9, 7, 3], np.int32)
+    got = next(make_pipeline([UtteranceMeta("u", path, toks, len(pcm))], Config()).batches(0))
+    want = next(jax_make_pipeline([JaxMeta("u", path, toks, len(pcm))],
+                                  JaxConfig()).batches(0))
+    for k in ("waves", "wave_lens", "texts", "text_lens", "num_valid"):
+        assert got[k].dtype == want[k].dtype and np.array_equal(got[k], want[k]), k

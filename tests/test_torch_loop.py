@@ -15,8 +15,8 @@ dropout 0.1, SpecAugment, dynamic chunks) on the hard synthetic corpus
   kernels are deterministic at one thread);
 - `python -m tpuasr_torch.tools.train --device cpu --synthetic 8 --epochs 1`
   with a tiny `--set` exits 0 and leaves a checkpoint; the unported
-  workloads and the corpus read from disk raise NotImplementedError naming
-  their ROADMAP item.
+  workloads raise NotImplementedError naming their ROADMAP item (the corpus
+  on disk: tests/test_torch_eval_cli.py).
 """
 
 import os
@@ -126,7 +126,7 @@ def test_trainer_cli_on_cpu(tmp_path):
 
 @pytest.mark.parametrize("argv", [["--workload", "ctc", "--synthetic", "4"],
                                   ["--workload", "aed", "--synthetic", "4"],
-                                  ["--workload", "rnnt"]])
+                                  ["--workload", "paraformer"]])
 def test_trainer_cli_refuses_what_is_not_ported(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         main(argv + ["--device", "cpu"])

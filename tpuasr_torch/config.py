@@ -5,17 +5,20 @@ serving and training paths read or check (features, model, SpecAugment,
 optimizer, the data pipeline, streaming, the training loop), with the same
 field names and defaults, so a ``train.yaml`` written by the JAX package
 loads here unchanged: `from_dict` drops every key this copy does not hold
-(the BZNSYP file paths, the JAX-only loop switches such as donation, the
-RNG implementation and the host-RSS watchdog, the mesh, the scanned
-parameter layout, which `tpuasr_torch.convert` detects by itself, and the
-options of encoder and predictor families the port does not build, which
-their `*_type` fields already refuse). Values the port does not build raise NotImplementedError
+(the JAX-only loop switches such as donation, the RNG implementation and
+the host-RSS watchdog, the mesh, the scanned parameter layout, which
+`tpuasr_torch.convert` detects by itself, and the options of encoder and
+predictor families the port does not build, which their `*_type` fields
+already refuse). Values the port does not build raise NotImplementedError
 where they are read (`check_supported` in the encoder, `Transducer`,
 `make_optimizer`, `make_train_step`).
 
 The JAX package's ``adapt_to_backend`` is not copied: it strips TPU-only
 settings off the TPU, while the port runs its kernels whenever a tensor lies
-on the card and their plain versions whenever it lies on the CPU.
+on the card and their plain versions whenever it lies on the CPU. Its one
+numeric effect, fp32 compute for a checkpoint's auto-loaded train.yaml off
+the TPU, the evaluation CLIs apply on the CPU
+(`tpuasr_torch.tools.common.eval_config`).
 """
 
 from __future__ import annotations
@@ -174,9 +177,18 @@ class OptimConfig:
 
 @dataclass
 class DataConfig:
-    """Length-bucketed batches (`tpuasr_torch.data.LengthBucketPipeline`)
-    and the synthetic stand-in corpus (`--synthetic N`)."""
+    """The BZNSYP corpus' split files and vocabulary (paths relative to the
+    working directory; wav.scp entries relative to the CLIs' --data_root),
+    length-bucketed batches (`tpuasr_torch.data.LengthBucketPipeline`) and
+    the synthetic stand-in corpus (`--synthetic N`)."""
 
+    train_wav_scp: str = "dataset/split/train/wav.scp"
+    train_text: str = "dataset/split/train/pinyin"
+    dev_wav_scp: str = "dataset/split/dev/wav.scp"
+    dev_text: str = "dataset/split/dev/pinyin"
+    test_wav_scp: str = "dataset/split/test/wav.scp"
+    test_text: str = "dataset/split/test/pinyin"
+    vocab_file: str = "tokenizer/vocab.txt"
     batch_size: int = 12
     # static-shape length bucketing: (max_frames, max_tokens) buckets
     frame_buckets: tuple = (256, 512, 768, 1024, 1536)

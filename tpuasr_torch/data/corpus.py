@@ -1,31 +1,73 @@
-"""Corpus -> pipeline assembly (port of ``tpuasr/data/corpus.py``:
-`make_pipeline`, `synthetic_pipeline`).
+"""Corpus -> pipeline assembly (port of ``tpuasr/data/corpus.py``).
 
-The synthetic stand-in corpus is built in memory and, for the int16 wire
-format, encoded once at build time. Utterance metadata read from disk
-(`scan_split` and the BZNSYP wav/text readers) waits for the tokenizer
-(ROADMAP §1 item 4): `make_pipeline` takes in-memory `Utterance`s only and
-raises NotImplementedError for anything else.
+Bridges the BZNSYP readers (`tpuasr_torch.data.bznsyp`) to the static-shape
+`LengthBucketPipeline`: `scan_split` reads each utterance's metadata once
+(path, token ids, wave length from the WAV header); waveforms are decoded
+when the pipeline loads the utterance, every epoch, by the port's own
+`read_wav` (16-bit PCM passed through raw for the int16 wire format). The
+synthetic stand-in corpus is built in memory and, for the int16 wire
+format, encoded once at build time. `make_pipeline` takes either kind of
+item.
 """
 
 from __future__ import annotations
 
+import wave as wave_mod
+from dataclasses import dataclass
+
+import numpy as np
+
 from tpuasr_torch.config import Config
+from tpuasr_torch.data.bznsyp import read_scp, read_text, read_wav
 from tpuasr_torch.data.pipeline import LengthBucketPipeline, Utterance, wire_waves
 from tpuasr_torch.data.synthetic import synth_corpus
-
-CORPUS_TODO = ("the BZNSYP corpus readers (scan_split, wav/text readers) are not ported "
-               "yet: ROADMAP §1 item 4 (tokenizer, eval and CLIs)")
+from tpuasr_torch.text.tokenizer import Tokenizer
 
 
-def _load(item) -> Utterance:
+@dataclass
+class UtteranceMeta:
+    utt_id: str
+    path: str
+    tokens: np.ndarray
+    wave_len: int
+
+
+def _wav_frames(path: str) -> int:
+    with wave_mod.open(path, "rb") as w:
+        return w.getnframes()
+
+
+def scan_split(wav_scp: str, text_file: str, tokenizer: Tokenizer, root: str = "",
+               add_sos_eos: bool = True) -> list[UtteranceMeta]:
+    """Metadata of one split, in wav.scp's order (utterances without a
+    transcript are left out). Text becomes
+    tokenizer(["<sos>"] + syllables + ["<eos>"])."""
+    wavs = read_scp(wav_scp, root)
+    texts = read_text(text_file)
+    items = []
+    for utt, path in wavs.items():
+        if utt not in texts:
+            continue
+        toks = texts[utt]
+        if add_sos_eos:
+            toks = ["<sos>"] + toks + ["<eos>"]
+        items.append(UtteranceMeta(utt, path, np.asarray(tokenizer(toks), np.int32),
+                                   _wav_frames(path)))
+    return items
+
+
+def _load(item, wire_dtype: str = "float32") -> Utterance:
+    """An `Utterance` as it is, or a `UtteranceMeta`'s WAV decoded: float32
+    in [-1, 1], or for the int16 wire its raw 16-bit samples."""
     if isinstance(item, Utterance):
         return item
-    raise NotImplementedError(CORPUS_TODO)
+    wave, _ = read_wav(item.path, dtype="int16" if wire_dtype == "int16" else "float32")
+    return Utterance(item.utt_id, wave, item.tokens, len(wave))
 
 
 def make_pipeline(items, cfg: Config) -> LengthBucketPipeline:
-    """In-memory `Utterance`s -> the length-bucketed pipeline of cfg.data."""
+    """`Utterance`s or `UtteranceMeta`s -> the length-bucketed pipeline of
+    cfg.data."""
     d = cfg.data
     return LengthBucketPipeline(
         items,
@@ -35,7 +77,7 @@ def make_pipeline(items, cfg: Config) -> LengthBucketPipeline:
         hop_length=cfg.feature.hop_length,
         pad_id=0,
         seed=d.shuffle_seed,
-        loader=_load,
+        loader=lambda item: _load(item, d.wire_dtype),
         batch_audio_frames=d.batch_audio_frames,
         batch_multiple=d.batch_multiple,
     )

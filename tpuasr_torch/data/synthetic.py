@@ -13,9 +13,16 @@ package's corpus bit for bit. Two regimes:
   space; white noise at `snr_db`; a per-utterance gain jitter; token
   sequences from a fixed first-order Markov chain shared by all splits, a
   language prior a predictor can exploit and greedy CTC cannot.
+
+`write_bznsyp_corpus` writes clean chord speech of given syllable sequences
+to disk in the BZNSYP layout, so the corpus path (split, vocabulary, the
+trainer's --data_root, the evaluation CLIs) runs without the corpus.
 """
 
 from __future__ import annotations
+
+import os
+import wave as wave_mod
 
 import numpy as np
 
@@ -86,6 +93,15 @@ def synth_utterance(
     chord: bool = False,
 ) -> tuple[np.ndarray, list[int]]:
     tokens = rng.integers(first_content_id, vocab_size, size=n_tokens).tolist()
+    return speak_tokens(rng, tokens, vocab_size, sample_rate, samples_per_token, noise,
+                        chord), tokens
+
+
+def speak_tokens(rng: np.random.Generator, tokens: list[int], vocab_size: int,
+                 sample_rate: int = 16000, samples_per_token: int = 1600, noise: float = 0.01,
+                 chord: bool = False) -> np.ndarray:
+    """`synth_utterance`'s waveform of the given tokens: a segment each,
+    then white noise from `rng`."""
     segs = []
     t = np.arange(samples_per_token) / sample_rate
     for tok in tokens:
@@ -103,7 +119,7 @@ def synth_utterance(
         segs.append(seg.astype(np.float32))
     wave = np.concatenate(segs) if segs else np.zeros(samples_per_token, np.float32)
     wave = wave + noise * rng.standard_normal(len(wave)).astype(np.float32)
-    return wave.astype(np.float32), tokens
+    return wave.astype(np.float32)
 
 
 def synth_utterance_hard(
@@ -181,3 +197,41 @@ def synth_corpus(
             tokens = [SOS] + tokens + [EOS]
         utts.append(Utterance.from_arrays(f"synth{i:06d}", wave, tokens))
     return utts
+
+
+def write_bznsyp_corpus(root: str, transcripts: list[list[str]], sample_rate: int,
+                        samples_per_token: int, seed: int = 0, tail_s: float = 0.25,
+                        transcript: str = "ProsodyLabeling/000001-010000.txt") -> str:
+    """A BZNSYP-layout corpus of synthetic speech under `root`; -> the
+    transcript's path. Utterance i gets the id ``f"{i + 1:06d}"``, a line of
+    placeholder hanzi and a line of its toned pinyin (`transcripts[i]`, the
+    toneless syllables, each with a tone 1-4 drawn from `seed`) in the
+    ProsodyLabeling transcript, and ``Wave/{id}.wav``: 16-bit PCM mono at
+    `sample_rate`, the syllables spoken by the chord encoding of their ids in
+    the vocabulary gen_vocab builds from all of them (sorted, after the six
+    specials; `speak_tokens`), at half scale, then `tail_s` seconds of
+    silence."""
+    vocab = sorted({s for t in transcripts for s in t})
+    ids = {s: i + 6 for i, s in enumerate(vocab)}
+    rng = np.random.default_rng(seed)
+    lines = []
+    os.makedirs(os.path.join(root, "Wave"), exist_ok=True)
+    for i, syls in enumerate(transcripts):
+        utt = f"{i + 1:06d}"
+        tones = rng.integers(1, 5, size=len(syls))
+        lines += [f"{utt}\t{'合成' * len(syls)}#4。",
+                  "\t" + " ".join(f"{s}{k}" for s, k in zip(syls, tones))]
+        x = 0.5 * speak_tokens(rng, [ids[s] for s in syls], len(vocab) + 6, sample_rate,
+                               samples_per_token, chord=True)
+        x = np.concatenate([x, np.zeros(int(tail_s * sample_rate), np.float32)])
+        pcm = np.clip(np.rint(x * 32768.0), -32768, 32767).astype("<i2")
+        with wave_mod.open(os.path.join(root, "Wave", f"{utt}.wav"), "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(sample_rate)
+            w.writeframes(pcm.tobytes())
+    path = os.path.join(root, transcript)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w", encoding="utf-8") as f:
+        f.write("\n".join(lines) + "\n")
+    return path

@@ -1,17 +1,23 @@
-"""Offline decoding of waves (port of ``make_offline_decoder`` from
-``tpuasr/eval/cer_eval.py:43-138``): the transducer's decode modes.
+"""Offline evaluation: batched decode -> corpus CER with S/D/I breakdown
+(port of ``tpuasr/eval/cer_eval.py``).
 
-Waves go through fbank and the full-context encoder on the model's device,
-then one search: `rnnt_greedy`, `rnnt_beam` (optionally with per-frame CTC
-fusion), `ctc_greedy`, `ctc_prefix_beam`, or `rnnt_rescoring` (the CTC
-prefix-beam n-best rescored by the transducer through the RNN-T lattice).
-The CTC modes need the model's CTC head (`ctc_weight > 0`). Corpus CER
-(`evaluate_offline`, the tokenizer and CER counts) and the AED and
-Paraformer modes come with later slices.
+`make_offline_decoder` decodes waves on the model's device: fbank, the
+full-context encoder, then one search: `rnnt_greedy`, `rnnt_beam`
+(optionally with per-frame CTC fusion), `ctc_greedy`, `ctc_prefix_beam`, or
+`rnnt_rescoring` (the CTC prefix-beam n-best rescored by the transducer
+through the RNN-T lattice). The CTC modes need the model's CTC head
+(`ctc_weight > 0`). `evaluate_offline` runs it over a pipeline's batches and
+sums S/D/I over the valid rows, with every special id stripped from
+reference and hypothesis alike, keeping the first `max_samples` (utt, REF,
+HYP) texts. The AED and Paraformer modes come with later slices.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass, field
+from typing import Iterable
+
+import numpy as np
 import torch
 
 from tpuasr_torch.audio.fbank import fbank_batch
@@ -21,6 +27,7 @@ from tpuasr_torch.decode.ctc_prefix_beam import ctc_prefix_beam_search
 from tpuasr_torch.decode.rnnt_beam import rnnt_beam_decode
 from tpuasr_torch.decode.rnnt_greedy import rnnt_greedy_decode
 from tpuasr_torch.decode.rnnt_rescoring import transducer_rescoring
+from tpuasr_torch.text.cer import CerCounts, cer_details
 
 MODES = ("rnnt_greedy", "rnnt_beam", "ctc_greedy", "ctc_prefix_beam", "rnnt_rescoring")
 # decode modes of the JAX package not ported yet, and the ROADMAP item that owns each
@@ -30,6 +37,21 @@ LATER_MODES = {
     "paraformer_greedy": "§1 item 5, Paraformer",
     "paraformer_beam": "§1 item 5, Paraformer",
 }
+
+
+@dataclass
+class EvalResult:
+    counts: CerCounts
+    samples: list = field(default_factory=list)  # (utt_id, ref, hyp)
+
+    @property
+    def cer(self) -> float:
+        return self.counts.cer
+
+
+def _strip_specials(ids, tokenizer):
+    specials = set(tokenizer.special_token_ids())
+    return [i for i in ids if i not in specials]
 
 
 def make_offline_decoder(model, cfg: Config, mode: str, beam_size: int = 4,
@@ -73,3 +95,34 @@ def make_offline_decoder(model, cfg: Config, mode: str, beam_size: int = 4,
         return toks, tok_lens
 
     return decode
+
+
+def evaluate_offline(model, batches: Iterable[dict], cfg: Config, tokenizer,
+                     mode: str = "rnnt_greedy", beam_size: int = 4, n_steps: int = 10,
+                     max_tokens: int = 200, max_samples: int = 5,
+                     ctc_fusion_weight: float = 0.0, rescoring_ctc_weight: float = 0.5
+                     ) -> EvalResult:
+    """Decode every batch (the pipeline's dicts: waves, wave_lens, texts,
+    text_lens, num_valid, utt_ids) in `mode` -> corpus S/D/I/N and the first
+    `max_samples` (utt_id, REF, HYP) texts."""
+    decode_fn = make_offline_decoder(model, cfg, mode, beam_size=beam_size, n_steps=n_steps,
+                                     max_tokens=max_tokens,
+                                     ctc_fusion_weight=ctc_fusion_weight,
+                                     rescoring_ctc_weight=rescoring_ctc_weight)
+    total = CerCounts(0, 0, 0, 0)
+    samples = []
+    for batch in batches:
+        toks, tok_lens = decode_fn(batch["waves"], batch["wave_lens"])
+        toks, tok_lens = toks.cpu().numpy(), tok_lens.cpu().numpy()
+        texts = np.asarray(batch["texts"])
+        text_lens = np.asarray(batch["text_lens"])
+        n_valid = int(batch.get("num_valid", toks.shape[0]))
+        for i in range(n_valid):
+            ref = _strip_specials(texts[i, : text_lens[i]].tolist(), tokenizer)
+            hyp = _strip_specials(toks[i, : tok_lens[i]].tolist(), tokenizer)
+            total = total + cer_details(ref, hyp)
+            if len(samples) < max_samples:
+                utt = batch.get("utt_ids", [str(i)] * (i + 1))[i]
+                samples.append((utt, " ".join(tokenizer.decode(ref)),
+                                " ".join(tokenizer.decode(hyp))))
+    return EvalResult(total, samples)

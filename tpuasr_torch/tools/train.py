@@ -2,7 +2,8 @@
 
     python -m tpuasr_torch.tools.train --workload online_rnnt|rnnt \\
         [--config cfg.yaml] [--set model.encoder.num_blocks=6 ...] \\
-        [--synthetic N] [--epochs E] [--resume SAVE_DIR/latest] [--device cuda|cpu]
+        [--synthetic N | --data_root DIR] [--epochs E] [--resume SAVE_DIR/latest] \
+        [--device cuda|cpu]
 
 On the card the defaults are the JAX trainer's TPU fast path (bf16 compute
 with fp32 parameters, the fused joint loss, the rel-pos attention kernels,
@@ -12,9 +13,12 @@ the JAX trainer applies it). `--resume`
 loads the config saved beside the checkpoint unless --config is given, and
 continues at the saved step and epoch with the saved plateau state. The
 workload online_rnnt makes the encoder causal with dynamic chunks (static
-chunk = streaming.chunk_size when unset). The ctc, aed and paraformer
-workloads and the BZNSYP corpus are not ported yet and raise
-NotImplementedError naming their ROADMAP item.
+chunk = streaming.chunk_size when unset). Without --synthetic it trains on
+the BZNSYP corpus on disk: the train and dev splits of cfg.data (wav.scp
+entries relative to --data_root), tokenized by cfg.data.vocab_file (the
+built-in pinyin table when the file is absent), with model.vocab_size set to
+the tokenizer's size. The ctc, aed and paraformer workloads are not ported
+yet and raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from __future__ import annotations
 import argparse
 import ast
 import json
+import os
 import sys
 
 UNPORTED_WORKLOADS = {
@@ -87,17 +92,17 @@ def main(argv=None):
     ap.add_argument("--synthetic", type=int, default=0,
                     help="train on N synthetic utterances instead of BZNSYP")
     ap.add_argument("--data_root", default="",
-                    help="the BZNSYP corpus root (not ported yet: without --synthetic the "
-                         "trainer raises NotImplementedError)")
+                    help="the BZNSYP corpus root that the split's wav.scp entries are "
+                         "relative to")
     ap.add_argument("--epochs", type=int, default=None)
     ap.add_argument("--resume", default=None)
     ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
 
     from tpuasr_torch.config import to_dict
-    from tpuasr_torch.data import synthetic_pipeline
-    from tpuasr_torch.data.corpus import CORPUS_TODO
+    from tpuasr_torch.data import make_pipeline, scan_split, synthetic_pipeline
     from tpuasr_torch.device import resolve_device
+    from tpuasr_torch.text import Tokenizer
     from tpuasr_torch.train import (
         TrainState, find_effective_config, load_info, make_optimizer, restore_checkpoint,
         train_loop,
@@ -113,10 +118,17 @@ def main(argv=None):
             print(f"resume: effective config {args.config}")
     cfg = effective_config(device.type, args.config, args.set)
 
-    if not args.synthetic:
-        raise NotImplementedError(CORPUS_TODO)
-    train_pipe = synthetic_pipeline(cfg, args.synthetic, seed=0)
-    dev_pipe = synthetic_pipeline(cfg, max(args.synthetic // 8, 4), seed=1)
+    if args.synthetic:
+        train_pipe = synthetic_pipeline(cfg, args.synthetic, seed=0)
+        dev_pipe = synthetic_pipeline(cfg, max(args.synthetic // 8, 4), seed=1)
+    else:
+        d = cfg.data
+        tokenizer = Tokenizer(d.vocab_file if os.path.exists(d.vocab_file) else None)
+        cfg.model.vocab_size = tokenizer.size
+        train_pipe = make_pipeline(scan_split(d.train_wav_scp, d.train_text, tokenizer,
+                                              args.data_root), cfg)
+        dev_pipe = make_pipeline(scan_split(d.dev_wav_scp, d.dev_text, tokenizer,
+                                            args.data_root), cfg)
 
     model = build_model(cfg, args.workload, device)
     # the effective config after the workload's changes (the loop saves it
