@@ -181,15 +181,49 @@ Phases (any failure exits non-zero):
    #10 while serving and #8 in rnnt_rescoring; each kernel is held against
    its plain version on the arguments the run gave it at every signature,
    the signature launched most timed.
+10. The CTC workload and the trainer's options. The CTC run (counts reset
+   before 10a, read after 10c; it must launch fbank by its tensor-core
+   route, #6 and #7 by their warp routes, and nothing else; each kernel is
+   then held against its plain version on the run's own recorded inputs, as
+   phase 9 holds its, the signature launched most timed):
+   a. `CTCModel` at CTCModelConfig's defaults (conv2d8, d256, 8 heads, 3
+      blocks, FFN 1024, conv 31; 412 tokens, blank 5, seeded weights, fp32)
+      on bench.py's 12 waves: one training step on the card and on the CPU
+      from the same features (the card's fbank at "default", copied), no
+      dropout: losses, every gradient leaf and the GuardedAdam step held as
+      6a holds them;
+   b. `python -m tpuasr_torch.tools.train --workload ctc` in this process at
+      the card's defaults on the hard synthetic corpus cut as phase 8 cuts
+      it, 2 epochs and a `--resume` for a third: finite losses, no skipped
+      step, the resume at the saved epoch and step; each step synced and
+      timed (median wall, audio-s/s), then one profiled step of the resumed
+      model (device busy ms, idle share);
+   c. `ctc_greedy_decode` and `ctc_forced_align` on the card and on the CPU
+      from the card's log-probs of 10a: tokens and alignments identical,
+      Viterbi scores within 1e-6; each side's own model's greedy hypotheses
+      compared (printed);
+   d. the flagship at 6b's configuration, in fp32 and in bf16, one forward
+      and backward with `encoder.gradient_checkpointing` off, on and off
+      again from the same generators, with `fused_ffn` off and on: loss
+      within 1e-4 relative, every gradient leaf within 1e-3 of its max in
+      fp32 and 2**-6 of it in bf16 (two bf16 steps: a step comes and goes
+      between two flag-off runs, whose spread is printed; the key
+      projections' biases, no gradient in exact arithmetic, within 1e-3 of
+      the largest entry), the flag's peak memory below the run without it, and #2 (and #10 with the fused FFN) launched twice as
+      often with it (the recompute);
+   e. four steps at 6b's configuration with `optim.accum_steps=2` and
+      attention dropout 0.1: finite losses, the weights unchanged after
+      micro-steps 1 and 3 and moved after 2 and 4, the Adam count 2, and
+      #2/#3 never launched (attention dropout takes the plain route).
 7. The kernels line: one JSON object with an entry per kernel and run
    (the serving run of phases 4-5b, the training runs of phases 6b, 6c and
-   6d, the trainer run of phase 8, the corpus run of phase 9; counts reset
-   just before each and read just after): that run's launches (fbank's: those of the route the
+   6d, the trainer run of phase 8, the corpus run of phase 9, the CTC run
+   of phase 10; counts reset just before each and read just after): that run's launches (fbank's: those of the route the
    record times, the FFT for serving, which takes that route alone, and the
    tensor-core route for training, which never takes the FFT), and the
    error, times and bound at the
    shape that run gives the kernel (phase 3's bench-shape records for 6b-6d;
-   for the trainer, the corpus run and #8 in serving the signature it
+   for the trainer, the corpus and CTC runs and #8 in serving the signature it
    launched most, with every signature's record under "shapes"). The CTC and RNN-T
    lattice entries carry their run's launches by route under "routes":
    each run that launches a lattice must take its warp route alone.
@@ -368,6 +402,33 @@ def main() -> dict:
     print("kernels against their plain versions on the corpus run's own inputs:")
     corpus_records = _corpus_kernel_records(torch, parts)
 
+    # ---------------------------------------------------------------- 10
+    t_phase = _phase("10a: the CTC workload, a training step card against CPU", t_phase)
+    ctc = {}
+    reset_launch_counts()
+    with _recording(torch) as seen:  # the CTC run, 10a-10c
+        ctc["card_vs_cpu"], lps = _ctc_card_vs_cpu(torch, dev, bench)
+        t_phase = _phase("10b: the trainer, --workload ctc, 2 epochs and a resume", t_phase)
+        ctc["trainer"] = _ctc_trainer(torch, dev)
+        t_phase = _phase("10c: CTC greedy decoding and forced alignment, card against CPU",
+                         t_phase)
+        ctc["decode_align"] = _ctc_decode_align(torch, dev, lps, bench)
+    runs["ctc"] = dict(LAUNCHES)
+    print(f"launches on the CTC run (10a-10c): {runs['ctc']}")
+    for name in KERNELS:
+        on_path = name in ("fbank", "ctc_alpha", "ctc_beta_grad")
+        require((runs["ctc"][name] > 0) == on_path,
+                f"the CTC run launched {name} {runs['ctc'][name]} times")
+    require(runs["ctc"]["fbank_tc"] == runs["ctc"]["fbank"],
+            "the CTC run did not take fbank's tensor-core route (precision \"default\") alone")
+    print("kernels against their plain versions on the CTC run's own inputs:")
+    ctc_records = _trainer_kernel_records(torch, seen, runs["ctc"], "ctc", timed=1)
+    t_phase = _phase("10d: gradient checkpointing at 6b's configuration", t_phase)
+    ctc["gradient_checkpointing"] = _remat_check(torch, dev, bench)
+    t_phase = _phase("10e: gradient accumulation and attention dropout at 6b's configuration",
+                     t_phase)
+    ctc["accumulation"] = _accum_check(torch, dev, bench)
+
     # ---------------------------------------------------------------- 7
     # one entry per kernel and run that launches it, with the record taken
     # at the shape that run gives it: 6b, 6c and 6d give the same shapes
@@ -377,17 +438,18 @@ def main() -> dict:
     _phase("7: the kernels line", t_phase)
     fused = ("training", "training_fused_ffn", "trainer", "corpus")  # the fused joint loss
     every = fused[:1] + ("training_materialized",) + fused[1:]
+    with_ctc = every + ("ctc",)  # the kernels of the CTC workload's run
     # (kernel, runs, record, launch count): fbank's records count the route
     # they time, "highest" by the FFT for serving and the tensor-core route
     # for training
     plan = [("fbank", ("serving",), "fbank", "fbank_fft"),
-            ("fbank", every, "fbank_training", "fbank_tc"),
+            ("fbank", with_ctc, "fbank_training", "fbank_tc"),
             ("relpos_attention", ("serving",), "attention"),
             ("relpos_attention", every, "attention_training"),
             ("relpos_attention_bwd", every, "attention_bwd"),
             ("rnnt_fused_fwd", fused, "rnnt_fused_fwd"),
             ("rnnt_fused_bwd", fused, "rnnt_fused_bwd"),
-            ("ctc_alpha", every, "ctc_alpha"), ("ctc_beta_grad", every, "ctc_beta_grad"),
+            ("ctc_alpha", with_ctc, "ctc_alpha"), ("ctc_beta_grad", with_ctc, "ctc_beta_grad"),
             ("rnnt_alpha", ("serving",), "rnnt_alpha_serving"),
             ("rnnt_alpha", every, "rnnt_alpha"), ("rnnt_beta_grad", every, "rnnt_beta_grad"),
             ("ffn_fwd", ("serving",), "ffn_fwd_serving"),
@@ -398,8 +460,8 @@ def main() -> dict:
         for run in run_names:
             launches = runs[run][count]
             require(launches > 0, f"the {run} run never launched {count}")
-            rec = {"trainer": trainer_records, "corpus": corpus_records}.get(
-                run, checks)[name if run in ("trainer", "corpus") else check]
+            own = {"trainer": trainer_records, "corpus": corpus_records, "ctc": ctc_records}
+            rec = own[run][name] if run in own else checks[check]
             entry = dict(rec, run=run, launches=launches,
                          **{f"launches_{r}": runs[r][count] for r in runs})
             if name in ("ctc_alpha", "ctc_beta_grad", "rnnt_alpha", "rnnt_beta_grad"):
@@ -415,6 +477,7 @@ def main() -> dict:
     print(json.dumps({"serving": serving}))
     print(json.dumps({"training": training}))
     print(json.dumps({"corpus": corpus}))
+    print(json.dumps({"ctc": ctc}))
     print(json.dumps({"kernels": kernels}))
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}
@@ -2197,23 +2260,44 @@ def _train_card_vs_cpu(torch, dev, fused_joint_loss: bool, fused_ffn: bool = Fal
         model = init_weights(Transducer(cfg.model, device=device), SEED)
         model.train()
         out = model(*(x.to(device) for x in host))
-        out["loss"].backward()
-        params = list(model.parameters())
-        p0 = [p.detach().cpu().clone() for p in params]
-        grads = [p.grad.detach().clone() for p in params]
-        gn = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-        st = tx.update_guarded(grads, tx.init(params), params, torch.isfinite(gn), 1.0, gn)
-        res[side] = {"losses": {k: float(v.detach()) for k, v in out.items()},
-                     "gn": float(gn), "grads": [g.cpu() for g in grads], "p0": p0,
-                     "p1": [p.detach().cpu() for p in params],
-                     "state": [None if x is None else x.cpu() for x in st]}
+        res[side] = _step_side(torch, model, tx, out)
+    return _step_card_vs_cpu(
+        torch, tx, res, f"fp32 training step (fused_joint_loss={fused_joint_loss}, fused_ffn="
+        f"{fused_ffn}), card vs CPU on [2, 256, 80] x 16 tokens",
+        "fp32 sums in another order through 12 blocks, the attention backward's atomics, the "
+        "fused joint's 3xTF32 products, the lattice")
+
+
+def _step_side(torch, model, tx, out: dict) -> dict:
+    """One side of a card-against-CPU training step: out["loss"]'s backward
+    and a GuardedAdam step from fresh moments; -> the losses, the gradient
+    norm, the gradients, the weights before and after, the Adam state (on
+    the CPU) and the parameters' names."""
+    out["loss"].backward()
+    named = list(model.named_parameters())
+    params = [p for _, p in named]
+    p0 = [p.detach().cpu().clone() for p in params]
+    grads = [p.grad.detach().clone() for p in params]
+    gn = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    st = tx.update_guarded(grads, tx.init(params), params, torch.isfinite(gn), 1.0, gn)
+    return {"losses": {k: float(v.detach()) for k, v in out.items()},
+            "gn": float(gn), "grads": [g.cpu() for g in grads], "p0": p0,
+            "p1": [p.detach().cpu() for p in params],
+            "state": [None if x is None else x.cpu() for x in st], "names": [n for n, _ in named]}
+
+
+def _step_card_vs_cpu(torch, tx, res: dict, what: str, why: str) -> dict:
+    """Hold a training step's card side against its CPU side (`_step_side`
+    each): losses and gradient norm within 1e-4 relative, every gradient
+    leaf within 1e-3 of the leaf's max |g| (`why`: the reason), the key
+    projections' biases (no gradient in exact arithmetic) within rounding
+    noise, and the GuardedAdam step (`_adam_card_vs_cpu`)."""
     card, cpu = res["card"], res["cpu"]
     (lc, gc, grads_c), (lh, gh, grads_h) = ((x["losses"], x["gn"], x["grads"])
                                             for x in (card, cpu))
     require(all(torch.equal(x, y) for x, y in zip(card["p0"], cpu["p0"])),
             "the card's and the CPU's initial weights differ")
-    names = [n for n, _ in init_weights(Transducer(cfg.model, device="cpu"),
-                                        SEED).named_parameters()]
+    names = cpu["names"]
     loss_ok = all(abs(lc[k] - lh[k]) <= 1e-4 * abs(lh[k]) + 1e-4 for k in lh)
     scale = max(float(g.abs().max()) for g in grads_h)
     # the key projection's bias gets no gradient in exact arithmetic (it adds
@@ -2227,14 +2311,9 @@ def _train_card_vs_cpu(torch, dev, fused_joint_loss: bool, fused_ffn: bool = Fal
     held = [i for i in range(len(names)) if i not in shift_free]
     order = sorted(held, key=lambda i: -rels[i])
     worst = order[0]
-    print(f"fp32 training step (fused_joint_loss={fused_joint_loss}, fused_ffn={fused_ffn}), "
-          f"card vs CPU on "
-          f"[2, 256, 80] x 16 tokens: losses card "
-          f"{lc} cpu {lh} (tol 1e-4 relative); grad norm {gc:.6g} vs {gh:.6g} (tol 1e-4 "
-          f"relative); gradient error / the leaf's max|g|, the three worst: "
-          f"{[(names[i], f'{rels[i]:.3g}') for i in order[:3]]} (tol 1e-3: fp32 sums in "
-          f"another order through 12 blocks, the attention backward's atomics, the "
-          f"fused joint's 3xTF32 products, the lattice); "
+    print(f"{what}: losses card {lc} cpu {lh} (tol 1e-4 relative); grad norm {gc:.6g} vs "
+          f"{gh:.6g} (tol 1e-4 relative); gradient error / the leaf's max|g|, the three worst: "
+          f"{[(names[i], f'{rels[i]:.3g}') for i in order[:3]]} (tol 1e-3: {why}); "
           f"the {len(shift_free)} key-projection biases (zero gradient in exact arithmetic) "
           f"reach {noise:.3g} against a largest gradient entry of {scale:.4g} (tol 1e-6 of "
           f"it: rounding noise)")
@@ -2276,7 +2355,7 @@ def _adam_card_vs_cpu(torch, tx, card: dict, cpu: dict) -> dict:
     ps = [p.clone() for p in card["p0"]]
     ref = tx.update_guarded(card["grads"], tx.init(ps), ps, torch.tensor(True), 1.0,
                             torch.tensor(card["gn"], dtype=torch.float32))
-    count_c, mu_c, nu_c, nm_c = card["state"]
+    count_c, mu_c, nu_c, nm_c = card["state"][:4]
     rel = lambda a, b_: float(((a - b_).abs() / b_.abs().clamp(min=1e-30)).max())
     m_err = {"mu": rel(mu_c, ref.mu), "nu": rel(nu_c, ref.nu)}
     if nm_c is not None:
@@ -2981,6 +3060,319 @@ def _trainer_kernel_records(torch, seen, launches, run: str = "trainer",
             {k: s[k] for k in ("inputs", "calls", "max_abs_err", "tol", "ms", "plain_ms",
                                "bound_ms", "bound_by", "library_ms")} for s in shapes])
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the CTC workload and the trainer's options
+# ---------------------------------------------------------------------------
+
+def _ctc_cfg():
+    """The CTC workload as the trainer builds it on the card: `CTCModel` at
+    CTCModelConfig's defaults (conv2d8, d256, 8 heads, 3 blocks, FFN 1024,
+    conv 31; fp32 whatever the compute type), 412 tokens, blank 5, fbank
+    precision "default"."""
+    from tpuasr_torch.config import Config
+
+    cfg = Config()
+    cfg.feature.fbank_precision = "default"
+    return cfg
+
+
+def _ctc_card_vs_cpu(torch, dev, bench) -> tuple[dict, dict]:
+    """10a: one fp32 training step of the CTC model on the card and on the
+    CPU from the same features (the card's fbank, kernel #1, at "default",
+    copied to the CPU), no dropout; -> (the step's stats, {side: (log-probs,
+    out_lens)} for 10c)."""
+    from tpuasr_torch.audio import fbank_batch
+    from tpuasr_torch.models import CTCModel, init_weights
+    from tpuasr_torch.train import make_optimizer
+
+    cfg = _ctc_cfg()
+    with torch.no_grad():
+        feats, feat_lens = fbank_batch(bench["waves"], bench["wave_lens"], cfg.feature,
+                                       device=dev)
+    host = (feats.cpu(), feat_lens.cpu(), bench["texts"].cpu(), bench["text_lens"].cpu())
+    tx = make_optimizer(cfg.optim)
+    res, lps = {}, {}
+    for side, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        model = init_weights(CTCModel(cfg.ctc_model, cfg.model.vocab_size, cfg.model.blank_id,
+                                      device), SEED)
+        lp, out_lens, loss = model(*(x.to(device) for x in host))  # eval(): no dropout
+        lps[side] = (lp.detach().cpu(), out_lens.cpu())
+        res[side] = _step_side(torch, model, tx, {"loss": loss})
+    require(torch.equal(*(x[1] for x in lps.values())), "card and CPU out_lens differ")
+    err = float((lps["card"][0] - lps["cpu"][0]).abs().max())
+    t, tp, c = feats.shape[1], lps["cpu"][0].shape[1], cfg.ctc_model
+    print(f"CTCModel ({c.subsampling}, d{c.hidden_dim}, {c.attention_heads} heads, "
+          f"{c.num_blocks} blocks, FFN {c.hidden_dim * c.ffn_factor}, conv {c.kernel_size}, "
+          f"{cfg.model.vocab_size} tokens, fp32) on bench.py's batch: {BENCH_B} x {t} fbank frames -> {tp} encoder frames, labels "
+          f"{bench['text_lens'].tolist()}; log-probs card vs CPU max |diff| {err:.3g}")
+    stats = _step_card_vs_cpu(
+        torch, tx, res, f"CTC training step card vs CPU on [{BENCH_B}, {t}, 80] features",
+        "fp32 sums in another order through 3 blocks and three subsampling convs, the lattice")
+    return dict(stats, log_prob_max_abs_diff=err, frames=t, encoder_frames=tp), lps
+
+
+def _ctc_trainer(torch, dev) -> dict:
+    """10b: `python -m tpuasr_torch.tools.train --workload ctc` in this
+    process at the card's defaults: the hard synthetic corpus as phase 8
+    cuts it (48 utterances, batch 12, prefetch depth 2, a 6-utterance dev
+    split), 2 epochs into a temporary directory under build/, then
+    `--resume` for a third. Each step is synced and timed (its wall and its
+    audio seconds); then one step of the resumed model, profiled, on the
+    first training batch."""
+    import tempfile
+
+    import tpuasr_torch.train as train_pkg
+    from tpuasr_torch.config import load_yaml
+    from tpuasr_torch.data import synthetic_pipeline, tensors
+    from tpuasr_torch.tools.train import main as train_main
+    from tpuasr_torch.train import latest_path, load_info, make_optimizer
+
+    walls, make = [], train_pkg.make_ctc_train_step
+
+    def timed_step(model, tx, cfg):
+        step = make(model, tx, cfg)
+
+        def run(state, batch, seed):
+            out, ms = _synced_ms(torch, lambda: step(state, batch, seed))
+            walls.append((ms, float(batch["wave_lens"].sum()) / cfg.feature.sample_rate))
+            return out
+
+        return run
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    train_pkg.make_ctc_train_step = timed_step
+    try:
+        with tempfile.TemporaryDirectory(prefix="ctc-", dir=ROOT / "build") as save_dir:
+            sets = ["data.synth_hard=True", "data.batch_size=12", "data.num_prefetch=2",
+                    f"train.save_dir={save_dir}", "train.log_dir=", "train.log_every=1"]
+            first, ms_first = _synced_ms(torch, lambda: train_main(
+                ["--workload", "ctc", "--synthetic", "48", "--epochs", "2", "--set", *sets]))
+            info = load_info(latest_path(save_dir))
+            cfg = load_yaml(str(Path(save_dir) / "train.yaml"))
+            require(cfg.ctc_model == _ctc_cfg().ctc_model
+                    and cfg.feature.fbank_precision == "default",
+                    "the CTC trainer's effective config is not CTCModelConfig's defaults with "
+                    "fbank \"default\"")
+            require(info["epoch"] == 1 and info["step"] == first.state.step,
+                    f"the checkpoint after 2 epochs holds epoch {info['epoch']} step "
+                    f"{info['step']}, the run ended at step {first.state.step}")
+            steps_e2 = synthetic_pipeline(cfg, 48, seed=0).steps_per_epoch(2)
+            n_first = len(walls)
+            second, ms_second = _synced_ms(torch, lambda: train_main(
+                ["--workload", "ctc", "--synthetic", "48", "--epochs", "3", "--resume",
+                 latest_path(save_dir)]))
+            info3 = load_info(latest_path(save_dir))
+    finally:
+        train_pkg.make_ctc_train_step = make
+    losses = first.train_losses + first.dev_losses + second.train_losses + second.dev_losses
+    ms = sorted(w for w, _ in walls)
+    med = ms[len(ms) // 2]
+    audio = sorted(a for _, a in walls)[len(walls) // 2]
+    tx = make_optimizer(cfg.optim)
+    batch = tensors(next(iter(synthetic_pipeline(cfg, 48, seed=0).batches(0))), dev)
+    state, busy, wall, kern = _profiled_step(torch, make(second.state.model, tx, cfg),
+                                             second.state, batch)
+    print(f"CTC trainer: 2 epochs of {first.state.step // 2} steps ({ms_first / 1e3:.1f} s), "
+          f"train losses {first.train_losses}, dev losses {first.dev_losses}; resumed at epoch "
+          f"{info3['epoch']} from step {info['step']}: {second.state.step - info['step']} steps "
+          f"({ms_second / 1e3:.1f} s), train loss {second.train_losses}, dev loss "
+          f"{second.dev_losses}; step wall (synced) median {med:.1f} ms (min {ms[0]:.1f}, max "
+          f"{ms[-1]:.1f}, {len(ms)} steps), median {audio:.2f} s of audio a step, "
+          f"{audio / med * 1e3:.1f} audio-s/s; one profiled step of batch "
+          f"{list(batch['waves'].shape)}: device busy {busy:.2f} ms of {wall:.1f} ms wall "
+          f"({100 * (1 - busy / wall):.0f}% idle), {sum(e.count for e in kern)} device "
+          f"operations")
+    require(len(walls) - n_first == second.state.step - info["step"] == steps_e2,
+            "the resumed CTC run did not take the saved epoch's steps")
+    require(len(second.train_losses) == 1 and info3["epoch"] == 2,
+            "the resumed CTC run did not continue at the saved epoch")
+    require(all(math.isfinite(x) for x in losses), "a CTC trainer loss is not finite")
+    require(int(second.state.skipped) == 0, "a CTC trainer step was skipped")
+    return {"train_losses": first.train_losses + second.train_losses,
+            "dev_losses": first.dev_losses + second.dev_losses, "steps": second.state.step,
+            "first_run_s": ms_first / 1e3, "resumed_run_s": ms_second / 1e3,
+            "step_ms": [w for w, _ in walls], "step_ms_median": med,
+            "audio_seconds_per_step_median": audio, "audio_s_per_s": audio / med * 1e3,
+            "profiled_step_device_busy_ms": busy, "profiled_step_wall_ms": wall,
+            "profiled_step_batch": list(batch["waves"].shape)}
+
+
+def _ctc_decode_align(torch, dev, lps: dict, bench) -> dict:
+    """10c: `ctc_greedy_decode` and `ctc_forced_align` (on the bench batch's
+    labels) on the card and on the CPU, from the card's log-probs on both:
+    tokens and alignments identical, Viterbi scores within 1e-6 relative;
+    then each side from its own model's log-probs (printed)."""
+    from tpuasr_torch.decode import ctc_forced_align, ctc_greedy_decode
+
+    lp, lens = lps["card"]
+    texts, tlens = bench["texts"].cpu(), bench["text_lens"].cpu()
+    out = {}
+    for side, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        x, n = lp.to(device), lens.to(device)
+        toks, tok_lens = ctc_greedy_decode(x, n, 5)
+        align, scores = ctc_forced_align(x, texts.to(device), n, tlens.to(device), 5)
+        out[side] = [t.cpu() for t in (toks, tok_lens, align, scores)]
+    (tc, lc, ac, sc), (th, lh, ah, sh) = out["card"], out["cpu"]
+    score_err = float(((sc - sh).abs() / sh.abs()).max())
+    own = ctc_greedy_decode(*lps["cpu"], 5)
+    same_own = sum(torch.equal(a[:m], b[:k]) for a, m, b, k in zip(tc, lc, own[0], own[1]))
+    print(f"10c: ctc_greedy_decode on the card's log-probs, card vs CPU: tokens identical "
+          f"{torch.equal(tc, th) and torch.equal(lc, lh)} ({int(lc.sum())} tokens); "
+          f"ctc_forced_align: alignments identical {torch.equal(ac, ah)}, Viterbi scores "
+          f"{[round(float(x), 3) for x in sc]}, max relative difference {score_err:.3g} (tol "
+          f"1e-6); greedy hypotheses of each side's own model identical on {same_own} of "
+          f"{len(lc)} utterances")
+    require(torch.equal(tc, th) and torch.equal(lc, lh), "greedy CTC tokens differ")
+    require(torch.equal(ac, ah), "forced alignments differ between the card and the CPU")
+    require(score_err <= 1e-6, "forced-alignment scores differ")
+    return {"greedy_tokens": int(lc.sum()), "align_score_max_rel_diff": score_err,
+            "own_model_greedy_identical": same_own}
+
+
+def _remat_check(torch, dev, bench) -> dict:
+    """10d: the flagship at 6b's configuration (dropout 0.1, dynamic chunk,
+    fused attention and joint loss; then also `fused_ffn=True`), in fp32 and
+    in bf16 (6b's numerics): one training forward and backward with
+    `encoder.gradient_checkpointing` off, on, and off again, on the same step
+    generators. Loss within 1e-4 relative. Every gradient leaf within 1e-3
+    of its max in fp32 (6a's tolerance), and within 2**-6 of it in bf16:
+    there a leaf's gradient is made of bf16 values, #3 adds dp, du and dvb
+    with fp32 atomics, and the rest of the backward can sum in another order
+    between calls, so one bf16 step (2**-8 to 2**-7 of the largest entry)
+    comes and goes between two flag-off runs as well (the two flag-off
+    runs' own spread is printed beside); two steps are the repo's bf16
+    gradient tolerance (tests/test_torch_cuda.py's attention backward and
+    FFN). The key projections' biases, whose gradient is noise, within 1e-3
+    of the largest entry. Each block's forward kernels (#2, and #10 with the
+    fused FFN) launched twice with the flag and once without, and the flag's
+    peak memory below the run without it."""
+    from tpuasr_torch.audio import fbank_batch
+    from tpuasr_torch.models import Transducer, init_weights
+    from tpuasr_torch.ops import LAUNCHES
+    from tpuasr_torch.train.step import step_generators
+
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        for ffn in (False, True):
+            res = []
+            for remat in (False, True, False):
+                cfg = _train_cfg(dtype, dropout=True, fused_ffn=ffn)
+                cfg.feature.fbank_precision = "default"
+                cfg.model.encoder.gradient_checkpointing = remat
+                model = init_weights(Transducer(cfg.model, device=dev), SEED)
+                model.train()
+                with torch.no_grad():
+                    feats, feat_lens = fbank_batch(bench["waves"], bench["wave_lens"],
+                                                   cfg.feature, device=dev)
+                chunk_gen, drop_gen = step_generators(SEED, 0, dev)
+                before = dict(LAUNCHES)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                t0 = time.perf_counter()
+                loss = model(feats, feat_lens, bench["texts"], bench["text_lens"],
+                             chunk_gen=chunk_gen, dropout_gen=drop_gen)["loss"]
+                loss.backward()
+                torch.cuda.synchronize()
+                res.append({"loss": float(loss.detach()),
+                            "ms": (time.perf_counter() - t0) * 1e3,
+                            "peak": torch.cuda.max_memory_allocated() - base,
+                            "grads": [p.grad.float() for p in model.parameters()],
+                            "names": [n for n, _ in model.named_parameters()],
+                            "launches": {k: LAUNCHES[k] - before[k] for k in
+                                         ("relpos_attention", "relpos_attention_bwd",
+                                          "ffn_fwd", "ffn_bwd")}})
+                del model, loss
+            off, on, again = res
+            names = off["names"]
+            top = max(float(g.abs().max()) for g in off["grads"])
+            # the key projections' biases get no gradient in exact arithmetic
+            # (6a): theirs is noise, held against the model's largest entry
+            shift_free = [i for i, n in enumerate(names) if n.endswith("self_attn.linear_k.bias")]
+            tol = 1e-3 if dtype == "float32" else 2**-6
+
+            def apart(x):  # -> (the key biases' |x - off|, {leaf: |x - off| / max|off|})
+                diffs = [float((a - b).abs().max()) for a, b in zip(x["grads"], off["grads"])]
+                return (max(diffs[i] for i in shift_free),
+                        {i: diffs[i] / max(float(off["grads"][i].abs().max()), 1e-30)
+                         for i in range(len(diffs)) if i not in shift_free})
+
+            noise, rels = apart(on)
+            _, spread = apart(again)
+            worst, wide = max(rels, key=rels.get), max(spread, key=spread.get)
+            tag = f"{dtype}, fused_ffn={ffn}"
+            print(f"10d ({tag}): gradient checkpointing off / on: loss {off['loss']:.6f} / "
+                  f"{on['loss']:.6f} (off again {again['loss']:.6f}); worst gradient leaf "
+                  f"|on - off| / max|off| {rels[worst]:.3g} ({names[worst]}; tol {tol:.3g}); "
+                  f"off again vs off {spread[wide]:.3g} ({names[wide]})"
+                  f"; the key-projection biases' |on - off| {noise:.3g} against a "
+                  f"largest gradient entry of {top:.4g} (tol 1e-3 of it); forward + backward "
+                  f"{off['ms']:.1f} / {on['ms']:.1f} ms (synced); peak memory above the model "
+                  f"and batch {off['peak'] / 2**30:.3f} / {on['peak'] / 2**30:.3f} GiB; "
+                  f"launches {off['launches']} / {on['launches']}")
+            require(abs(on["loss"] - off["loss"]) <= 1e-4 * abs(off["loss"]),
+                    f"the loss changes with gradient checkpointing ({tag})")
+            require(rels[worst] <= tol and noise <= 1e-3 * top,
+                    f"gradient checkpointing changes the gradients ({tag})")
+            require(on["peak"] < off["peak"], f"gradient checkpointing did not lower the peak "
+                                              f"memory ({tag})")
+            kernels = ("relpos_attention", "ffn_fwd") if ffn else ("relpos_attention",)
+            for k in kernels:
+                require(on["launches"][k] == 2 * off["launches"][k] > 0,
+                        f"with gradient checkpointing {k} launched {on['launches'][k]} times, "
+                        f"not twice the {off['launches'][k]} without ({tag})")
+            out[tag] = {"loss_off": off["loss"], "loss_on": on["loss"],
+                        "worst_grad_rel_diff": rels[worst], "tol": tol,
+                        "worst_grad_rel_diff_off_again": spread[wide],
+                        "key_bias_grad_diff": noise, "ms_off": off["ms"], "ms_on": on["ms"],
+                        "peak_bytes_off": off["peak"], "peak_bytes_on": on["peak"],
+                        "launches_off": off["launches"], "launches_on": on["launches"]}
+    return out
+
+
+def _accum_check(torch, dev, bench) -> dict:
+    """10e: four steps of `make_train_step` at 6b's configuration with
+    `optim.accum_steps=2` and attention dropout 0.1 (so the attention takes
+    the plain route, #2/#3 never launch): every loss finite, the weights
+    unchanged after each odd micro-step and changed after each even one,
+    the Adam count 2 at the end."""
+    from tpuasr_torch.models import Transducer, init_weights
+    from tpuasr_torch.ops import LAUNCHES
+    from tpuasr_torch.train import TrainState, make_optimizer, make_train_step
+
+    cfg = _train_cfg("bfloat16", dropout=True)
+    cfg.feature.fbank_precision = "default"
+    cfg.optim.accum_steps = 2
+    cfg.model.encoder.attention_dropout_rate = 0.1
+    model = init_weights(Transducer(cfg.model, device=dev), SEED)
+    tx = make_optimizer(cfg.optim)
+    state, step = TrainState.create(model, tx), make_train_step(model, tx, cfg)
+    snap = lambda: torch.cat([p.detach().reshape(-1) for p in model.parameters()])
+    before, prev = dict(LAUNCHES), snap()
+    losses, ms, moved = [], [], []
+    for i in range(4):
+        (state, metrics), dt = _synced_ms(torch, lambda: step(state, bench, SEED))
+        losses.append(float(metrics["loss"]))
+        ms.append(dt)
+        now = snap()
+        moved.append(not torch.equal(now, prev))
+        prev = now
+    launches = {k: LAUNCHES[k] - before[k] for k in ("relpos_attention", "relpos_attention_bwd",
+                                                     "rnnt_fused_fwd", "ctc_alpha")}
+    print(f"10e: accum_steps=2, attention dropout 0.1: losses {[round(x, 4) for x in losses]}, "
+          f"step ms {[round(x, 1) for x in ms]}; weights moved after micro-steps "
+          f"{[i + 1 for i, m in enumerate(moved) if m]}; Adam count "
+          f"{int(state.opt_state.count)}; launches {launches}")
+    require(all(math.isfinite(x) for x in losses), "an accumulated step's loss is not finite")
+    require(moved == [False, True, False, True], "the weights did not move on the even "
+                                                 "micro-steps alone")
+    require(int(state.opt_state.count) == 2 and int(state.opt_state.mini_step) == 0,
+            "the Adam count is not 2 after two cycles")
+    require(launches["relpos_attention"] == launches["relpos_attention_bwd"] == 0,
+            "attention dropout did not take the plain attention route")
+    return {"losses": losses, "step_ms": ms, "moved": moved, "launches": launches}
 
 
 if __name__ == "__main__":

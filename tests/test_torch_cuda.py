@@ -32,8 +32,14 @@ the training shape; its autograd Function against plain autograd, and the
 fused route against the module route of a training forward on the card; the
 decoders (plain PyTorch on the card): the beam searches' top-k order among
 ties, and a tiny model's RNN-T beam (one and three emissions a frame, CTC
-fusion) and CTC prefix beam (a context graph) against the CPU. This file
-imports no JAX, so it runs on a machine without it:
+fusion) and CTC prefix beam (a context graph) against the CPU; a tiny
+CTCModel (conv2d8 and conv2d6, an infeasible row) card against CPU
+(log-probs atol 1e-4, loss rtol 1e-5, gradients 1e-3 of each leaf's max:
+cuDNN's convs sum in another order), CTC forced alignment and greedy
+decoding card against CPU on the same log-probs (with ties: identical),
+and gradient checkpointing through the attention and FFN kernels on the
+card (the flag-off gradients to 1e-4 of the largest, #2 and #10 launched
+twice). This file imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
@@ -858,3 +864,107 @@ def test_beam_searches_on_card_match_cpu(card, n_steps, ctc_weight):
         assert torch.equal(got[0].cpu(), ref[0]) and torch.equal(got[1].cpu(), ref[1])
         assert float((got[2].cpu() - ref[2]).abs().max()) <= 1e-4
     assert int(outs["cpu"][0][1].max()) > 0
+
+
+@pytest.mark.parametrize("subsampling", ["conv2d8", "conv2d6"])
+def test_ctc_model_card_matches_cpu(card, subsampling):
+    """A tiny CTCModel (d32, 2 heads, 2 blocks, vocab 40; a row shorter
+    after subsampling than its labels) on the card against the CPU, same
+    weights and features: out_lens exact, log-probs atol 1e-4, loss rtol
+    1e-5, every gradient within 1e-3 of its leaf's max (fp32 sums in another
+    order, cuDNN's convs), and the loss through kernels #6/#7."""
+    from tpuasr_torch.config import CTCModelConfig
+    from tpuasr_torch.models import CTCModel, init_weights
+
+    c = CTCModelConfig(hidden_dim=32, attention_heads=2, num_blocks=2, kernel_size=7,
+                       subsampling=subsampling)
+    g = torch.Generator().manual_seed(4)
+    feats = torch.randn(3, 101, 80, generator=g)
+    batch = (feats, torch.tensor([101, 40, 77]), torch.randint(6, 40, (3, 6), generator=g),
+             torch.tensor([6, 6, 3]))
+    res = {}
+    for side, dev in (("card", card), ("cpu", torch.device("cpu"))):
+        model = init_weights(CTCModel(c, 40, 5, dev), 0)
+        before = (LAUNCHES["ctc_alpha"], LAUNCHES["ctc_beta_grad"])
+        lp, lens, loss = model(*(x.to(dev) for x in batch))
+        loss.backward()
+        if side == "card":
+            torch.cuda.synchronize()
+            assert (LAUNCHES["ctc_alpha"] - before[0], LAUNCHES["ctc_beta_grad"] - before[1]) \
+                == (1, 1)
+        res[side] = (lp.detach().cpu(), lens.cpu(), float(loss.detach()),
+                     {n: p.grad.cpu() for n, p in model.named_parameters()})
+    (lp_c, n_c, l_c, g_c), (lp_h, n_h, l_h, g_h) = res["card"], res["cpu"]
+    assert torch.equal(n_c, n_h) and int(n_h[1]) < 6
+    valid = torch.arange(lp_h.shape[1])[None, :] < n_h[:, None]
+    assert float((lp_c - lp_h).abs()[valid].max()) <= 1e-4
+    assert abs(l_c - l_h) <= 1e-5 * abs(l_h)
+    for name, x in g_h.items():
+        if name.endswith("linear_k.bias"):  # no gradient in exact arithmetic
+            continue
+        assert float((g_c[name] - x).abs().max()) <= 1e-3 * float(x.abs().max()), name
+
+
+@pytest.mark.parametrize("ties", [False, True])
+def test_forced_align_and_greedy_on_card_match_cpu(card, ties):
+    """`ctc_forced_align` and `ctc_greedy_decode` on the card against the
+    CPU on the same log-probs (with integer logits, many tied candidates):
+    alignments and tokens identical, scores within 1e-6 relative."""
+    from tpuasr_torch.decode import ctc_forced_align, ctc_greedy_decode
+
+    g = torch.Generator().manual_seed(2)
+    logits = torch.randn(4, 60, 12, generator=g) * 2
+    if ties:
+        logits = logits.round()
+    lp = torch.log_softmax(logits, -1)
+    labels = torch.randint(1, 12, (4, 9), generator=g)
+    il, ll = torch.tensor([60, 41, 5, 33]), torch.tensor([9, 7, 9, 0])
+    out = {}
+    for side, dev in (("card", card), ("cpu", torch.device("cpu"))):
+        a, s = ctc_forced_align(lp.to(dev), labels.to(dev), il.to(dev), ll.to(dev), 0)
+        t, n = ctc_greedy_decode(lp.to(dev), il.to(dev), 0)
+        out[side] = (a.cpu(), s.cpu(), t.cpu(), n.cpu())
+    (ac, sc, tc, nc), (ah, sh, th, nh) = out["card"], out["cpu"]
+    assert torch.equal(ac, ah) and torch.equal(tc, th) and torch.equal(nc, nh)
+    assert float(((sc - sh).abs() / sh.abs()).max()) <= 1e-6
+
+
+def test_gradient_checkpointing_on_card(card):
+    """A tiny transducer with the attention and FFN kernels (#2/#3,
+    #10/#11), dropout 0.1 and dynamic chunks: gradient checkpointing on the
+    card gives the flag-off loss and gradients (1e-4 of the largest: the
+    attention backward's atomics) from the same generators, and launches
+    #2 and #10 twice as often (the recompute)."""
+    import dataclasses
+
+    from tpuasr_torch.config import ModelConfig
+    from tpuasr_torch.models import Transducer, init_weights
+    from tpuasr_torch.train.step import step_generators
+
+    res = {}
+    for remat in (False, True):
+        mc = ModelConfig(vocab_size=64)
+        mc.encoder = dataclasses.replace(
+            mc.encoder, num_blocks=2, causal=True, use_dynamic_chunk=True, static_chunk_size=8,
+            fused_attention=True, fused_ffn=True, gradient_checkpointing=remat)
+        model = init_weights(Transducer(mc, device=card), seed=3)
+        model.train()
+        g = torch.Generator().manual_seed(1)
+        feats = torch.randn(2, 97, 80, generator=g).to(card)
+        texts = torch.randint(6, 64, (2, 6), generator=g).to(card)
+        chunk_gen, drop_gen = step_generators(7, 0, card)
+        before = {k: LAUNCHES[k] for k in ("relpos_attention", "ffn_fwd")}
+        out = model(feats, torch.tensor([97, 70], device=card), texts,
+                    torch.tensor([6, 4], device=card), chunk_gen=chunk_gen,
+                    dropout_gen=drop_gen)
+        out["loss"].backward()
+        torch.cuda.synchronize()
+        res[remat] = (float(out["loss"].detach()),
+                      {n: p.grad.clone() for n, p in model.named_parameters()},
+                      {k: LAUNCHES[k] - v for k, v in before.items()})
+    (l0, g0, n0), (l1, g1, n1) = res[False], res[True]
+    assert n1 == {k: 2 * v for k, v in n0.items()} and n0["ffn_fwd"] == 4
+    assert abs(l0 - l1) <= 1e-6 * abs(l0)
+    top = max(float(x.abs().max()) for x in g0.values())
+    for name, x in g0.items():
+        assert float((g1[name] - x).abs().max()) <= 1e-4 * top, name

@@ -15,8 +15,11 @@ dropout 0.1, SpecAugment, dynamic chunks) on the hard synthetic corpus
   kernels are deterministic at one thread);
 - `python -m tpuasr_torch.tools.train --device cpu --synthetic 8 --epochs 1`
   with a tiny `--set` exits 0 and leaves a checkpoint; the unported
-  workloads raise NotImplementedError naming their ROADMAP item (the corpus
-  on disk: tests/test_torch_eval_cli.py).
+  workloads and encoder families raise NotImplementedError naming their
+  ROADMAP item (the corpus on disk: tests/test_torch_eval_cli.py);
+- `--workload ctc` (a tiny CTCModel) trains an epoch and checkpoints it,
+  and a resume for the second epoch gives the uninterrupted run's losses
+  and step exactly.
 """
 
 import os
@@ -124,7 +127,29 @@ def test_trainer_cli_on_cpu(tmp_path):
     assert load_info(latest_path(str(tmp_path)))["epoch"] == 0
 
 
-@pytest.mark.parametrize("argv", [["--workload", "ctc", "--synthetic", "4"],
+CTC_TINY = ["ctc_model.hidden_dim=32", "ctc_model.attention_heads=2", "ctc_model.num_blocks=1",
+            "ctc_model.kernel_size=7", "model.vocab_size=64", "data.batch_size=4",
+            "data.synth_hard=True", "train.log_dir="]
+
+
+def test_trainer_cli_ctc_workload_and_resume(tmp_path):
+    run = lambda d, *extra: main(["--workload", "ctc", "--device", "cpu", "--synthetic", "8",
+                                  *extra, "--set", *CTC_TINY, f"train.save_dir={d}"])
+    first = run(tmp_path / "a", "--epochs", "1")
+    assert load_yaml(str(tmp_path / "a" / "train.yaml")).ctc_model.hidden_dim == 32
+    assert load_info(latest_path(str(tmp_path / "a")))["epoch"] == 0
+    resumed = main(["--workload", "ctc", "--device", "cpu", "--synthetic", "8", "--epochs", "2",
+                    "--resume", latest_path(str(tmp_path / "a"))])
+    straight = run(tmp_path / "b", "--epochs", "2")
+    assert resumed.train_losses == straight.train_losses[1:]
+    assert resumed.dev_losses == straight.dev_losses[1:]
+    assert resumed.state.step == straight.state.step == 2 * first.state.step
+    assert all(torch.isfinite(torch.tensor(straight.train_losses + straight.dev_losses)))
+    assert int(straight.state.skipped) == 0
+
+
+@pytest.mark.parametrize("argv", [["--workload", "rnnt", "--synthetic", "4", "--set",
+                                   "model.encoder.encoder_type=squeezeformer"],
                                   ["--workload", "aed", "--synthetic", "4"],
                                   ["--workload", "paraformer"]])
 def test_trainer_cli_refuses_what_is_not_ported(argv):

@@ -115,7 +115,7 @@ def test_measure_rtf_refuses_cpu():
 
 @pytest.mark.parametrize("bad", [
     {"encoder_type": "squeezeformer"}, {"attention_type": "rope"},
-    {"input_layer": "conv2d8"}, {"cnn_module_norm": "batch_norm"}, {"n_kv_head": 1},
+    {"input_layer": "conv2d_firered"}, {"cnn_module_norm": "batch_norm"}, {"n_kv_head": 1},
 ])
 def test_unported_options_raise(bad):
     with pytest.raises(NotImplementedError):
@@ -125,24 +125,27 @@ def test_unported_options_raise(bad):
 @pytest.mark.parametrize("remat", [True, False])
 def test_jax_gradient_checkpointing_is_read_and_refused(remat):
     """A JAX model dict with `encoder.gradient_checkpointing` keeps the field
-    through `from_dict`; True raises when the encoder is built (the port
-    does not recompute blocks), False builds."""
+    through `from_dict`, and the encoder honours it (it was refused before
+    the port recomputed blocks): with True a training forward and backward
+    runs each block twice (the recompute), with False once."""
     jm = jax_config.ModelConfig(vocab_size=64)
     jm.encoder = dataclasses.replace(jm.encoder, output_size=32, attention_heads=2,
                                      linear_units=64, num_blocks=1, cnn_module_kernel=7,
                                      gradient_checkpointing=remat)
     mc = from_dict(ModelConfig, jax_config.to_dict(jm))
     assert mc.encoder.gradient_checkpointing is remat
-    if remat:
-        with pytest.raises(NotImplementedError, match="gradient_checkpointing.*ROADMAP"):
-            Transducer(mc, device="cpu")
-    else:
-        Transducer(mc, device="cpu")
+    enc = Transducer(mc, device="cpu").encoder
+    calls = []
+    fwd = enc.blocks[0].forward
+    enc.blocks[0].forward = lambda *a, **k: calls.append(1) or fwd(*a, **k)
+    ys, _ = enc(torch.randn(1, 40, 80), torch.tensor([40]))
+    ys.sum().backward()
+    assert len(calls) == (2 if remat else 1)
 
 
 @pytest.mark.parametrize("where,key,value", [
     ("model", "rnnt_prune_range", 4), ("predictor", "predictor_type", "embedding"),
-    ("encoder", "attention_dropout_rate", 0.1), ("optim", "accum_steps", 2),
+    ("encoder", "pos_enc_layer_type", "abs_pos"), ("predictor", "predictor_type", "conv"),
     ("joint", "hat_joint", True),
 ])
 def test_unported_training_options_raise(where, key, value):

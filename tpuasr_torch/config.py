@@ -1,17 +1,16 @@
 """Configuration tree for the PyTorch port.
 
 An own copy of the parts of ``tpuasr/config.py``'s dataclasses that the
-serving and training paths read or check (features, model, SpecAugment,
-optimizer, the data pipeline, streaming, the training loop), with the same
-field names and defaults, so a ``train.yaml`` written by the JAX package
+serving and training paths read or check (features, the transducer and the
+CTC workload's model, SpecAugment, optimizer, the data pipeline, streaming,
+the training loop), with the same field names and defaults, so a ``train.yaml`` written by the JAX package
 loads here unchanged: `from_dict` drops every key this copy does not hold
 (the JAX-only loop switches such as donation, the RNG implementation and
 the host-RSS watchdog, the mesh, the scanned parameter layout, which
 `tpuasr_torch.convert` detects by itself, and the options of encoder and
 predictor families the port does not build, which their `*_type` fields
 already refuse). Values the port does not build raise NotImplementedError
-where they are read (`check_supported` in the encoder, `Transducer`,
-`make_optimizer`, `make_train_step`).
+where they are read (`check_supported` in the encoder, `Transducer`).
 
 The JAX package's ``adapt_to_backend`` is not copied: it strips TPU-only
 settings off the TPU, while the port runs its kernels whenever a tensor lies
@@ -64,7 +63,9 @@ class EncoderConfig:
     num_blocks: int = 12
     dropout_rate: float = 0.1
     positional_dropout_rate: float = 0.1
-    attention_dropout_rate: float = 0.0  # must be 0: not built
+    # dropout on the attention probabilities (the plain route: a rate above
+    # 0 takes it even with fused_attention, as the JAX gate does)
+    attention_dropout_rate: float = 0.0
     input_layer: str = "conv2d"  # linear | conv2d | conv2d6 | conv2d8
     pos_enc_layer_type: str = "rel_pos"
     attention_type: str = ""  # "" derives from pos_enc_layer_type
@@ -92,8 +93,8 @@ class EncoderConfig:
     use_dynamic_left_chunk: bool = False
     max_chunk_size: int = 25  # dynamic-chunk cap: 100 frames / subsampling 4
     max_len: int = 5000  # positional-encoding table length
-    # recompute each block in the backward (the JAX package's remat): must be
-    # False, not built (`check_supported`)
+    # recompute each block in the backward (the JAX package's remat), the
+    # block's dropout draws and the step's chunk masks replayed
     gradient_checkpointing: bool = False
     mlp_type: str = "position_wise_feed_forward"
     encoder_type: str = "conformer"
@@ -122,6 +123,21 @@ class JointConfig:
     joint_mode: str = "add"
     activation: str = "tanh"
     hat_joint: bool = False
+
+
+@dataclass
+class CTCModelConfig:
+    """The CTC workload's conformer (reference: model/model.py:262-305);
+    `tpuasr_torch.models.CTCModel` builds it in fp32."""
+
+    input_size: int = 80
+    hidden_dim: int = 256
+    attention_heads: int = 8
+    num_blocks: int = 3
+    ffn_factor: int = 4
+    dropout_rate: float = 0.1
+    subsampling: str = "conv2d8"
+    kernel_size: int = 31
 
 
 @dataclass
@@ -169,7 +185,8 @@ class OptimConfig:
     amsgrad: bool = True
     warmup_steps: int = 4000
     grad_clip: float = 1.0
-    accum_steps: int = 1  # must be 1: gradient accumulation is not ported
+    # micro-steps a parameter update averages (optax.MultiSteps' mean)
+    accum_steps: int = 1
     plateau_factor: float = 0.5
     plateau_patience: int = 2
     min_lr: float = 1e-6
@@ -250,6 +267,7 @@ class StreamingConfig:
 class Config:
     feature: FeatureConfig = field(default_factory=FeatureConfig)
     model: ModelConfig = field(default_factory=ModelConfig)
+    ctc_model: CTCModelConfig = field(default_factory=CTCModelConfig)
     specaug: SpecAugConfig = field(default_factory=SpecAugConfig)
     optim: OptimConfig = field(default_factory=OptimConfig)
     data: DataConfig = field(default_factory=DataConfig)

@@ -1,13 +1,15 @@
-"""Convert a JAX (flax) Transducer parameter tree into the port's state_dict.
+"""Convert a JAX (flax) Transducer or CTCModel parameter tree into the port's
+state_dict.
 
 Input: the flax params as nested dicts of numpy arrays (with or without the
 top-level "params" key), e.g. ``jax.tree.map(np.asarray, params)``; this
 module imports nothing of JAX. The layout differences it resolves:
 
 - flax ``Dense`` kernels are [in, out]; ``nn.Linear`` weights are [out, in];
-- ``Conv2dSubsampling4`` kernels are HWIO [3, 3, in, out]; torch's are OIHW
-  (the NHWC flatten order is handled by the module: it permutes to
-  [B, T', F', C] before the flatten, so the `out` weight is only transposed);
+- the subsampling convs (``conv1``..``conv3`` of conv2d / conv2d6 /
+  conv2d8) are HWIO [k, k, in, out]; torch's are OIHW (the NHWC flatten
+  order is handled by the module: it permutes to [B, T', F', C] before the
+  flatten, so the `out` weight is only transposed);
 - the depthwise conv kernel is [K, 1, C]; torch's is [C, 1, K];
 - flax ``LayerNorm`` params are ``scale``/``bias`` (eps 1e-6, set by the
   port's LayerNorm); ``nn.Embed`` is ``embedding``;
@@ -59,7 +61,8 @@ def _convert_leaf(path: tuple, x: np.ndarray) -> tuple[str, np.ndarray]:
 
 
 def convert_params(params: dict) -> dict[str, torch.Tensor]:
-    """flax Transducer params (nested numpy dicts) -> port state_dict."""
+    """flax Transducer or CTCModel params (nested numpy dicts) -> port
+    state_dict."""
     params = params.get("params", params)
     flat = _flatten(params)
     out = {}

@@ -12,8 +12,13 @@ the unrolled and the scanned JAX parameter layouts.
 Training: `forward` takes a chunk generator (the dynamic-chunk draw, on the
 host) and a dropout generator (on the model's device). Dropout sits where
 the JAX package has it: the FFN's inner activation, each block's residual
-branches (attention, conv, both FFNs) and the positional dropout of the
-scaled embedding; without a dropout generator (eval) there is none.
+branches (attention, conv, both FFNs), the attention probabilities (at
+`attention_dropout_rate`) and the positional dropout of the scaled
+embedding; without a dropout generator (eval) there is none.
+`encoder.gradient_checkpointing=True` recomputes each block in the backward
+(`_checkpointed_block`), with its dropout draws replayed, so the gradients
+are those without it (the JAX package rematerialises the whole forward,
+tpuasr/train/step.py:101-104; `jax.checkpoint` replays the same keys).
 
 `encoder.fused_ffn=True` runs both FFN branches, in `forward` and in
 `forward_chunk`, through `tpuasr_torch.ops.fused_ffn` (kernels #10/#11 on
@@ -26,10 +31,12 @@ backward reads the saved masks.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from tpuasr_torch.config import EncoderConfig
 from tpuasr_torch.nn.attention import RelPositionMultiHeadedAttention
@@ -44,15 +51,19 @@ from tpuasr_torch.ops.ffn import fused_ffn
 def check_supported(c: EncoderConfig) -> None:
     """Raise for encoder options this slice of the port does not build."""
     wanted = {
-        "encoder_type": "conformer", "input_layer": "conv2d",
-        "pos_enc_layer_type": "rel_pos", "cnn_module_norm": "layer_norm",
-        "activation_type": "swish", "mlp_type": "position_wise_feed_forward",
+        "encoder_type": "conformer", "pos_enc_layer_type": "rel_pos",
+        "cnn_module_norm": "layer_norm", "activation_type": "swish",
+        "mlp_type": "position_wise_feed_forward",
     }
     for key, value in wanted.items():
         if getattr(c, key) != value:
             raise NotImplementedError(
                 f"encoder.{key}={getattr(c, key)!r}: only {value!r} is ported so far "
                 "(ROADMAP: modules after the main path)")
+    if c.input_layer not in SUBSAMPLE_CLASSES:
+        raise NotImplementedError(
+            f"encoder.input_layer={c.input_layer!r}: only {sorted(SUBSAMPLE_CLASSES)} are "
+            "ported so far (ROADMAP: modules after the main path)")
     if c.attention_type not in ("", "rel_pos"):
         raise NotImplementedError(f"encoder.attention_type={c.attention_type!r} "
                                   "(ROADMAP: attention zoo)")
@@ -61,11 +72,6 @@ def check_supported(c: EncoderConfig) -> None:
                                   "(ROADMAP: attention zoo)")
     if not (c.normalize_before and c.macaron_style and c.use_cnn_module):
         raise NotImplementedError("only the pre-norm macaron conformer block is ported")
-    if c.gradient_checkpointing:
-        raise NotImplementedError(
-            "encoder.gradient_checkpointing=True: recomputing the blocks in the backward "
-            "is not built (ROADMAP §1 item 1: the recompute must replay each block's "
-            "dropout and chunk masks)")
 
 
 class PositionwiseFeedForward(nn.Module):
@@ -129,12 +135,50 @@ class ConformerBlock(nn.Module):
         conformer.py:210-280: x + drop(branch) for every residual)."""
         drop = lambda y: dropout(y, self.dropout_rate, gen)
         x = self._ffn_branch(self.feed_forward_macaron, self.norm_ff_macaron, x, gen)
-        x_att, new_att_cache = self.self_attn(self.norm_mha(x), att_mask, pos_emb, att_cache)
+        x_att, new_att_cache = self.self_attn(self.norm_mha(x), att_mask, pos_emb, att_cache,
+                                              gen)
         x = x + drop(x_att)
         y, new_cnn_cache = self.conv_module(self.norm_conv(x), mask_pad, cnn_cache)
         x = x + drop(y)
         x = self._ffn_branch(self.feed_forward, self.norm_ff, x, gen)
         return self.norm_final(x), new_att_cache, new_cnn_cache
+
+
+@contextlib.contextmanager
+def replay_generator(gen: torch.Generator | None, state: torch.Tensor | None):
+    """Within: `gen` set back to `state`, so its draws repeat those made from
+    it; on exit, `gen` where it was."""
+    if gen is None:
+        yield
+        return
+    outer = gen.get_state()
+    gen.set_state(state)
+    try:
+        yield
+    finally:
+        gen.set_state(outer)
+
+
+def _checkpointed_block(blk: ConformerBlock, x, att_mask, pos_emb, mask_pad, gen):
+    """blk's training forward under `torch.utils.checkpoint` (non-reentrant):
+    the backward recomputes the block's activations from its input instead
+    of keeping them. The recompute replays the forward's randomness: it runs
+    with the dropout generator set back to its state on entry to the block
+    (`replay_generator`; checkpoint's own `preserve_rng_state` covers only
+    the default generators), and it reads the step's chunk and pad masks,
+    drawn once before the blocks. The kernels' autograd Functions (#2/#3,
+    #10/#11) run inside it as in the forward."""
+    start = None if gen is None else gen.get_state()
+    replays = []
+
+    def run(x):
+        if not replays:  # the forward: the generator is at `start` already
+            replays.append(True)
+            return blk(x, att_mask, pos_emb, mask_pad, gen=gen)[0]
+        with replay_generator(gen, start):
+            return blk(x, att_mask, pos_emb, mask_pad, gen=gen)[0]
+
+    return checkpoint(run, x, use_reentrant=False, preserve_rng_state=False)
 
 
 @dataclass
@@ -191,8 +235,12 @@ class ConformerEncoder(nn.Module):
             num_decoding_left_chunks=num_decoding_left_chunks,
             use_dynamic_left_chunk=c.use_dynamic_left_chunk, chunk_gen=chunk_gen,
             max_chunk_size=c.max_chunk_size)
+        remat = c.gradient_checkpointing and torch.is_grad_enabled()
         for blk in self.blocks:
-            ys, _, _ = blk(ys, chunk_masks, pos_emb, masks, gen=gen)
+            if remat:
+                ys = _checkpointed_block(blk, ys, chunk_masks, pos_emb, masks, gen)
+            else:
+                ys, _, _ = blk(ys, chunk_masks, pos_emb, masks, gen=gen)
         return self.after_norm(ys), masks
 
     # ------------------------------------------------------------------

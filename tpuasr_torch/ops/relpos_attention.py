@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from tpuasr_torch.nn.layers import dropout
 from tpuasr_torch.ops import _build
 
 _NEG_INF = -1.0e9
@@ -44,7 +45,8 @@ def _probs(scores, mask):
 
 
 def relpos_attention_plain(q, k, p, v, u_bias, v_bias, mask, scale: float, n_head: int,
-                           saved: bool = False):
+                           saved: bool = False, dropout_rate: float = 0.0,
+                           gen: torch.Generator | None = None):
     """Plain PyTorch version, same contract as `relpos_attention`.
 
     q+u and q+v are formed in the input type; scores and softmax in fp32;
@@ -52,11 +54,14 @@ def relpos_attention_plain(q, k, p, v, u_bias, v_bias, mask, scale: float, n_hea
     accumulates in fp32. With `saved`, -> (out, out32, lse), what the
     forward saves for the backward: out32 = a.v in fp32 with a unrounded,
     lse fp32 [B, H, T], each row's log-sum-exp of its unmasked scaled
-    scores, -inf for a fully masked row."""
+    scores, -inf for a fully masked row. With a generator `gen` and a
+    `dropout_rate` above 0 (the attention module's training route, which
+    never asks for `saved`), the fp32 probabilities are dropped out
+    (`tpuasr_torch.nn.layers.dropout`) before the cast."""
     b, t, d = q.shape
     scores = _scores(_heads(q + u_bias, n_head), _heads(q + v_bias, n_head), _heads(k, n_head),
                      _heads(p, n_head), scale)
-    a = _probs(scores, mask)
+    a = dropout(_probs(scores, mask), dropout_rate, gen)
     vv = v.reshape(b, -1, n_head, d // n_head)
     out = torch.einsum("bhts,bshd->bthd", a.to(v.dtype).float(), vv.float())
     out = out.reshape(b, t, d).to(q.dtype)

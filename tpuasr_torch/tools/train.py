@@ -1,6 +1,6 @@
-"""Train the RNN-T workloads (port of ``tools/train.py``).
+"""Train the CTC and RNN-T workloads (port of ``tools/train.py``).
 
-    python -m tpuasr_torch.tools.train --workload online_rnnt|rnnt \\
+    python -m tpuasr_torch.tools.train --workload online_rnnt|rnnt|ctc \\
         [--config cfg.yaml] [--set model.encoder.num_blocks=6 ...] \\
         [--synthetic N | --data_root DIR] [--epochs E] [--resume SAVE_DIR/latest] \
         [--device cuda|cpu]
@@ -17,8 +17,12 @@ chunk = streaming.chunk_size when unset). Without --synthetic it trains on
 the BZNSYP corpus on disk: the train and dev splits of cfg.data (wav.scp
 entries relative to --data_root), tokenized by cfg.data.vocab_file (the
 built-in pinyin table when the file is absent), with model.vocab_size set to
-the tokenizer's size. The ctc, aed and paraformer workloads are not ported
-yet and raise NotImplementedError naming their ROADMAP item.
+the tokenizer's size. The ctc workload trains `CTCModel` (cfg.ctc_model,
+conv2d8 by default) in fp32 whatever model.compute_dtype and train.dtype
+say, as the JAX trainer's does; its steps run fbank (with the card's
+precision default) and the CTC loss, without SpecAugment or chunk masks.
+The aed and paraformer workloads are not ported yet and raise
+NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -30,7 +34,6 @@ import os
 import sys
 
 UNPORTED_WORKLOADS = {
-    "ctc": "the CTC workload (CTCModel): ROADMAP §1 item 3",
     "aed": "the AED workload (ASRModel, attention decoder): ROADMAP §1 item 5",
     "paraformer": "the Paraformer workload: ROADMAP §1 item 5",
 }
@@ -48,13 +51,17 @@ def parse_overrides(pairs) -> dict:
 
 
 def build_model(cfg, workload: str, device):
-    """The workload's Transducer on `device`, with seeded weights
-    (cfg.train.seed); online_rnnt first makes the encoder streamable."""
-    from tpuasr_torch.models import Transducer, init_weights
+    """The workload's model on `device`, with seeded weights
+    (cfg.train.seed): `CTCModel` for ctc, else the Transducer
+    (online_rnnt first makes the encoder streamable)."""
+    from tpuasr_torch.models import CTCModel, Transducer, init_weights
 
     if workload in UNPORTED_WORKLOADS:
         raise NotImplementedError(UNPORTED_WORKLOADS[workload])
     m = cfg.model
+    if workload == "ctc":
+        return init_weights(CTCModel(cfg.ctc_model, m.vocab_size, m.blank_id, device),
+                            cfg.train.seed)
     if workload == "online_rnnt":
         m.encoder.causal = True
         m.encoder.use_dynamic_chunk = True
@@ -104,8 +111,8 @@ def main(argv=None):
     from tpuasr_torch.device import resolve_device
     from tpuasr_torch.text import Tokenizer
     from tpuasr_torch.train import (
-        TrainState, find_effective_config, load_info, make_optimizer, restore_checkpoint,
-        train_loop,
+        TrainState, find_effective_config, load_info, make_ctc_eval_step, make_ctc_train_step,
+        make_optimizer, restore_checkpoint, train_loop,
     )
 
     if args.workload in UNPORTED_WORKLOADS:
@@ -134,7 +141,13 @@ def main(argv=None):
     # the effective config after the workload's changes (the loop saves it
     # as save_dir/train.yaml too)
     print(json.dumps(to_dict(cfg), default=str))
-    state = TrainState.create(model, make_optimizer(cfg.optim))
+    tx = make_optimizer(cfg.optim)
+    step_fn = eval_fn = None
+    if args.workload == "ctc":
+        print(f"ctc workload: CTCModel {to_dict(cfg.ctc_model)} in float32 (model.compute_dtype "
+              f"{cfg.model.compute_dtype!r} and the transducer's options are not read)")
+        step_fn, eval_fn = make_ctc_train_step(model, tx, cfg), make_ctc_eval_step(model, cfg)
+    state = TrainState.create(model, tx)
     start_epoch, plateau_init = 0, None
     if args.resume:
         state = restore_checkpoint(args.resume, state)
@@ -145,8 +158,8 @@ def main(argv=None):
         except FileNotFoundError:
             pass
         print(f"resumed from {args.resume}: step {state.step}, starting at epoch {start_epoch}")
-    result = train_loop(cfg, model, state, train_pipe, dev_pipe, epochs=args.epochs,
-                        start_epoch=start_epoch, plateau_init=plateau_init)
+    result = train_loop(cfg, model, state, train_pipe, dev_pipe, step_fn, eval_fn,
+                        epochs=args.epochs, start_epoch=start_epoch, plateau_init=plateau_init)
     print("final train loss:", result.train_losses[-1] if result.train_losses else None)
     return result
 

@@ -1,13 +1,16 @@
 """Checkpoint and resume (port of ``tpuasr/train/checkpoint.py``).
 
 A checkpoint is one ``torch.save`` file holding the model's state_dict, the
-`FusedAdamState` (count and the flat moments), the host step count, the
+`FusedAdamState` (count and the flat moments; with `optim.accum_steps` > 1
+also the gradient mean and the micro-step count, so a run resumed in the
+middle of an accumulation cycle goes on exactly), the host step count, the
 plateau scale and the count of skipped steps, all as CPU tensors so a card
 checkpoint restores on the CPU and back; a JSON info file beside it
 (``<path>.json``) carries the epoch, losses and plateau state, as the JAX
 package writes one beside its orbax directory. The JAX package's orbax
-checkpoints need JAX and tensorstore to read (ROADMAP: a loader through
-`tpuasr_torch.convert`).
+checkpoints need orbax, which imports JAX, to read, so their loader cannot
+live in this package (ROADMAP §1 item 1); `tpuasr_torch.convert` takes the
+flax tree such a loader returns.
 """
 
 from __future__ import annotations
@@ -49,7 +52,9 @@ def restore_checkpoint(path: str, target: TrainState) -> TrainState:
     model = target.model
     model.load_state_dict(ck["model"])
     dev = next(model.parameters()).device
-    opt = {k: None if v is None else v.to(dev) for k, v in ck["opt_state"].items()}
+    # a checkpoint written before gradient accumulation holds no acc / mini_step
+    opt = {k: None if ck["opt_state"].get(k) is None else ck["opt_state"][k].to(dev)
+           for k in FusedAdamState._fields}
     for k, v in opt.items():
         ref = getattr(target.opt_state, k)
         if (v is None) != (ref is None) or (v is not None and v.shape != ref.shape):

@@ -17,7 +17,7 @@ from __future__ import annotations
 import dataclasses
 import os
 from dataclasses import dataclass
-from typing import Iterable, Optional
+from typing import Callable, Iterable, Optional
 
 import numpy as np
 import torch
@@ -82,16 +82,22 @@ def train_loop(
     state: TrainState,
     train_pipeline,
     dev_pipeline=None,
+    step_fn: Optional[Callable] = None,
+    eval_fn: Optional[Callable] = None,
     epochs: Optional[int] = None,
     start_epoch: int = 0,
     plateau_init: Optional[dict] = None,
 ) -> LoopResult:
     """Train from `start_epoch` to `epochs` (default cfg.train.epochs) ->
     LoopResult(state, per-epoch train losses, per-epoch dev losses); the
-    batches go to the model's device."""
+    batches go to the model's device. step_fn(state, batch, seed) and
+    eval_fn(batch, seed) default to the transducer's (`make_train_step`,
+    `make_eval_step`); the CTC workload passes its own."""
     device = model.device
-    step_fn = make_train_step(model, make_optimizer(cfg.optim), cfg)
-    eval_fn = make_eval_step(model, cfg)
+    if step_fn is None:
+        step_fn = make_train_step(model, make_optimizer(cfg.optim), cfg)
+    if eval_fn is None:
+        eval_fn = make_eval_step(model, cfg)
 
     save_dir = cfg.train.save_dir
     writer = MetricsWriter(cfg.train.log_dir,

@@ -34,12 +34,17 @@ from tpuasr_torch.config import OptimConfig
 class FusedAdamState(NamedTuple):
     """Adam state: count (int32 0-d tensor, advances only on applied
     steps) and the flat fp32 moments mu, nu and nu_max (the running max of
-    the bias-corrected nu; None without amsgrad)."""
+    the bias-corrected nu; None without amsgrad). With gradient
+    accumulation (`AccumulatingAdam`) also acc, the flat fp32 running mean
+    of the cycle's gradients, and mini_step, the int32 0-d count of its
+    micro-steps so far; None without."""
 
     count: torch.Tensor
     mu: torch.Tensor
     nu: torch.Tensor
     nu_max: Optional[torch.Tensor]
+    acc: Optional[torch.Tensor] = None
+    mini_step: Optional[torch.Tensor] = None
 
 
 def flatten(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
@@ -103,15 +108,49 @@ class GuardedAdam:
         if nu_max is not None:
             state.nu_max.copy_(nu_max)
         torch._foreach_copy_(list(params), unflatten(p, params))
-        return FusedAdamState(count + finite.to(torch.int32), state.mu, state.nu,
-                              state.nu_max)
+        return state._replace(count=count + finite.to(torch.int32))
+
+
+class AccumulatingAdam(GuardedAdam):
+    """`optim.accum_steps` = k > 1: ``optax.MultiSteps`` over the Adam chain
+    with the JAX step's select guard after it (tpuasr/train/optim.py:141-149,
+    tpuasr/train/step.py:127-138).
+
+    Each micro-step folds its gradient into the running mean,
+    acc + (g - acc) / (n + 1) (MultiSteps' Welford form); the k-th applies
+    the Adam step to that mean (clipped by its own global norm) and sets
+    the mean back to zero, the others leave the parameters and the Adam
+    state as they are. So the Adam count, and the warmup and bias
+    correction read from it, advance once per k micro-steps, and the
+    plateau scale multiplies only those updates. A non-finite micro-step
+    changes nothing: parameters, moments, the mean and the micro-step
+    count stay as they were."""
+
+    def init(self, params: Sequence[torch.Tensor]) -> FusedAdamState:
+        st = super().init(params)
+        return st._replace(acc=torch.zeros_like(st.mu),
+                           mini_step=torch.zeros((), dtype=torch.int32, device=st.mu.device))
+
+    @torch.no_grad()
+    def update_guarded(self, grads: Sequence[torch.Tensor], state: FusedAdamState,
+                       params: Sequence[torch.Tensor], finite: torch.Tensor,
+                       lr_scale: float | torch.Tensor = 1.0,
+                       grad_norm: Optional[torch.Tensor] = None) -> FusedAdamState:
+        """One micro-step in place (`grad_norm`, the micro-step's own, is not
+        read: the update clips by the mean's norm) -> the new state."""
+        k = self.cfg.accum_steps
+        n = state.mini_step
+        acc = state.acc + (flatten(grads) - state.acc) / (n + 1).float()
+        emit = n == k - 1
+        new = super().update_guarded(unflatten(acc, params), state, params, finite & emit,
+                                     lr_scale, torch.linalg.vector_norm(acc))
+        state.acc.copy_(torch.where(finite, torch.where(emit, 0.0, acc), state.acc))
+        return new._replace(mini_step=torch.where(finite, (n + 1) % k, n))
 
 
 def make_optimizer(cfg: OptimConfig) -> GuardedAdam:
-    if cfg.accum_steps > 1:
-        raise NotImplementedError("optim.accum_steps > 1: gradient accumulation is not "
-                                  "ported yet (ROADMAP)")
-    return GuardedAdam(cfg)
+    """`GuardedAdam`, or `AccumulatingAdam` when optim.accum_steps > 1."""
+    return AccumulatingAdam(cfg) if cfg.accum_steps > 1 else GuardedAdam(cfg)
 
 
 @dataclass

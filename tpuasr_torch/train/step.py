@@ -3,8 +3,11 @@
 One step: waves -> log-mel fbank on the device (kernel #1, no gradient) ->
 SpecAugment when `specaug.enabled` (training only) -> the model's hybrid
 loss forward (dropout, dynamic chunk) -> backward -> global gradient norm,
-finite flag -> the NaN-guarded `GuardedAdam` update. Nothing in the step
-waits for the host: the metrics stay device tensors.
+finite flag -> the NaN-guarded `GuardedAdam` update (`AccumulatingAdam`
+with optim.accum_steps > 1). The CTC workload's steps
+(`make_ctc_train_step`, `make_ctc_eval_step`) take the same path without
+SpecAugment and the chunk draw. Nothing in a step waits for the host: the
+metrics stay device tensors.
 
 Randomness comes from an explicit seed per call, folded with the step
 count as `jax.random.fold_in(rng, state.step)` does (step.py:109): the same
@@ -73,6 +76,25 @@ def _features(model, cfg: Config, batch: dict):
         return fbank_batch(batch["waves"], batch["wave_lens"], cfg.feature, device=model.device)
 
 
+def _backward_and_update(state: TrainState, tx: GuardedAdam, loss: torch.Tensor):
+    """loss.backward(), the global gradient norm, the finite flag and the
+    guarded update; -> (new state, loss, grad norm, finite)."""
+    model = state.model
+    params = list(model.parameters())
+    loss.backward()
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
+    with torch.no_grad():
+        grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        loss = loss.detach()
+        finite = torch.isfinite(loss) & torch.isfinite(grad_norm)
+        opt_state = tx.update_guarded(grads, state.opt_state, params, finite,
+                                      state.lr_scale, grad_norm)
+    for p in params:
+        p.grad = None
+    return (TrainState(model, opt_state, state.step + 1, state.lr_scale,
+                       state.skipped + (~finite).to(torch.int32)), loss, grad_norm, finite)
+
+
 def make_train_step(model: torch.nn.Module, tx: GuardedAdam, cfg: Config) -> Callable:
     """-> train_step(state, batch, seed) -> (state, metrics). batch: waves
     [B, N] (float or int16 PCM), wave_lens, texts [B, U], text_lens on the
@@ -87,23 +109,11 @@ def make_train_step(model: torch.nn.Module, tx: GuardedAdam, cfg: Config) -> Cal
             feats = spec_augment(specaug_generator(seed, state.step, model.device), feats,
                                  feat_lens, sa.num_t_masks, sa.num_f_masks, sa.max_t, sa.max_f)
         model.train()
-        params = list(model.parameters())
-        for p in params:
+        for p in model.parameters():
             p.grad = None
         out = model(feats, feat_lens, batch["texts"], batch["text_lens"],
                     chunk_gen=chunk_gen, dropout_gen=drop_gen)
-        out["loss"].backward()
-        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
-        with torch.no_grad():
-            grad_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
-            loss = out["loss"].detach()
-            finite = torch.isfinite(loss) & torch.isfinite(grad_norm)
-            opt_state = tx.update_guarded(grads, state.opt_state, params, finite,
-                                          state.lr_scale, grad_norm)
-        for p in params:
-            p.grad = None
-        new_state = TrainState(model, opt_state, state.step + 1, state.lr_scale,
-                               state.skipped + (~finite).to(torch.int32))
+        new_state, loss, grad_norm, finite = _backward_and_update(state, tx, out["loss"])
         metrics = {"loss": loss, "grad_norm": grad_norm, "finite": finite,
                    "audio_seconds": batch["wave_lens"].sum() / cfg.feature.sample_rate}
         for k in ("loss_rnnt", "loss_ctc"):
@@ -126,5 +136,40 @@ def make_eval_step(model: torch.nn.Module, cfg: Config) -> Callable:
         model.eval()
         return model(feats, feat_lens, batch["texts"], batch["text_lens"],
                      chunk_gen=chunk_gen)
+
+    return eval_step
+
+
+def make_ctc_train_step(model: torch.nn.Module, tx: GuardedAdam, cfg: Config) -> Callable:
+    """The CTC workload's step (`CTCModel`; tools/train.py:251-300):
+    -> train_step(state, batch, seed) -> (state, metrics). fbank (kernel #1
+    on the card), no SpecAugment and no chunk draw, the model's CTC loss
+    with dropout from the step's generator, the guarded update. metrics:
+    loss, grad_norm, finite, audio_seconds, all device tensors."""
+
+    def train_step(state: TrainState, batch: dict, seed: int):
+        _, drop_gen = step_generators(seed, state.step, model.device)
+        feats, feat_lens = _features(model, cfg, batch)
+        model.train()
+        for p in model.parameters():
+            p.grad = None
+        _, _, loss = model(feats, feat_lens, batch["texts"], batch["text_lens"],
+                           dropout_gen=drop_gen)
+        new_state, loss, grad_norm, finite = _backward_and_update(state, tx, loss)
+        return new_state, {"loss": loss, "grad_norm": grad_norm, "finite": finite,
+                           "audio_seconds": batch["wave_lens"].sum() / cfg.feature.sample_rate}
+
+    return train_step
+
+
+def make_ctc_eval_step(model: torch.nn.Module, cfg: Config) -> Callable:
+    """-> eval_step(batch, seed) -> {"loss"}: the dev loss, no dropout
+    (tools/train.py:313-318)."""
+
+    @torch.no_grad()
+    def eval_step(batch: dict, seed: int):
+        feats, feat_lens = _features(model, cfg, batch)
+        model.eval()
+        return {"loss": model(feats, feat_lens, batch["texts"], batch["text_lens"])[2]}
 
     return eval_step
