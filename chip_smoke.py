@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (`tpuasr_torch`) through its serving path, its
-training step and its trainer on one NVIDIA card, and hold its hand-written
-kernels against their plain versions.
+training step, its trainer and its CTC and AED workloads on one NVIDIA card,
+and hold its hand-written kernels against their plain versions.
 
     python3 chip_smoke.py
 
@@ -215,15 +215,46 @@ Phases (any failure exits non-zero):
       attention dropout 0.1: finite losses, the weights unchanged after
       micro-steps 1 and 3 and moved after 2 and 4, the Adam count 2, and
       #2/#3 never launched (attention dropout takes the plain route).
+11. The AED workload: the hybrid CTC/attention `ASRModel` at the repo's own
+   defaults (the non-causal rel-pos conformer of EncoderConfig: 12 blocks,
+   d256, 4 heads, FFN 1024, conv 31, conv2d subsampling; a 6-block
+   transformer decoder, 4 heads, FFN 1024; 412 tokens, blank 5, sos 2, eos
+   3, ctc_weight 0.3, lsm_weight 0.1; `fused_attention`, fbank "default"),
+   built and seeded by the trainer's `build_model`. The AED run (counts
+   reset before 11a, read after 11c; it must launch fbank by its
+   tensor-core route, #2, #3, #6 and #7, and nothing else; each kernel is
+   then held against its plain version on the run's own recorded inputs,
+   as phase 10 holds its, the signature launched most timed):
+   a. one fp32 training step, no dropout, on the card and on the CPU from
+      the same features (the card's fbank of the first 4 of bench.py's 12
+      waves, copied): the losses, every gradient leaf and the GuardedAdam
+      step held as 6a holds them (the self- and cross-attention key biases
+      against the largest gradient entry), th_accuracy within one token;
+   b. `python -m tpuasr_torch.tools.train --workload aed` in this process
+      at the card's defaults (bf16) on the hard synthetic corpus cut as
+      phase 8 cuts it, 2 epochs and a `--resume` for a third: finite
+      losses, no skipped step, the resume at the saved epoch and step, each
+      step synced and timed, one profiled step;
+   c. `make_offline_decoder`'s four AED modes (ctc_greedy, ctc_prefix_beam,
+      attention, attention_rescoring; beam 4, 24 tokens) on the fixture
+      requests in fp32, card against CPU: the CTC head's blank logit fitted
+      as in 4b, the decoder's <eos> logit so that the attention beam's best
+      hypotheses average 12 tokens (a quarter to three quarters of 24
+      required); ctc_greedy tokens identical, each beam mode by 4b's 2d rule
+      on its n-best lists, each entry point giving its search's best, each
+      mode's latency, the attention search's steps and device busy ms
+      (profiler); then a model with a 3-block R2L decoder (reverse
+      weight 0.3) through attention_rescoring by the same rule.
 7. The kernels line: one JSON object with an entry per kernel and run
    (the serving run of phases 4-5b, the training runs of phases 6b, 6c and
    6d, the trainer run of phase 8, the corpus run of phase 9, the CTC run
-   of phase 10; counts reset just before each and read just after): that run's launches (fbank's: those of the route the
+   of phase 10, the AED run of phase 11; counts reset just before each and
+   read just after): that run's launches (fbank's: those of the route the
    record times, the FFT for serving, which takes that route alone, and the
    tensor-core route for training, which never takes the FFT), and the
    error, times and bound at the
    shape that run gives the kernel (phase 3's bench-shape records for 6b-6d;
-   for the trainer, the corpus and CTC runs and #8 in serving the signature it
+   for the trainer, the corpus, CTC and AED runs and #8 in serving the signature it
    launched most, with every signature's record under "shapes"). The CTC and RNN-T
    lattice entries carry their run's launches by route under "routes":
    each run that launches a lattice must take its warp route alone.
@@ -429,6 +460,28 @@ def main() -> dict:
                      t_phase)
     ctc["accumulation"] = _accum_check(torch, dev, bench)
 
+    # ---------------------------------------------------------------- 11
+    t_phase = _phase("11a: the AED workload, a training step card against CPU", t_phase)
+    aed = {}
+    reset_launch_counts()
+    with _recording(torch) as seen:  # the AED run, 11a-11c
+        aed["card_vs_cpu"] = _aed_card_vs_cpu(torch, dev, bench)
+        t_phase = _phase("11b: the trainer, --workload aed, 2 epochs and a resume", t_phase)
+        aed["trainer"] = _aed_trainer(torch, dev)
+        t_phase = _phase("11c: the AED decode modes, card against CPU", t_phase)
+        aed["decode"] = _aed_decode(torch, dev, data)
+    runs["aed"] = dict(LAUNCHES)
+    print(f"launches on the AED run (11a-11c): {runs['aed']}")
+    for name in KERNELS:
+        on_path = name in ("fbank", "relpos_attention", "relpos_attention_bwd", "ctc_alpha",
+                           "ctc_beta_grad")
+        require((runs["aed"][name] > 0) == on_path,
+                f"the AED run launched {name} {runs['aed'][name]} times")
+    require(runs["aed"]["fbank_tc"] == runs["aed"]["fbank"],
+            "the AED run did not take fbank's tensor-core route (precision \"default\") alone")
+    print("kernels against their plain versions on the AED run's own inputs:")
+    aed_records = _trainer_kernel_records(torch, seen, runs["aed"], "aed", timed=1)
+
     # ---------------------------------------------------------------- 7
     # one entry per kernel and run that launches it, with the record taken
     # at the shape that run gives it: 6b, 6c and 6d give the same shapes
@@ -439,17 +492,19 @@ def main() -> dict:
     fused = ("training", "training_fused_ffn", "trainer", "corpus")  # the fused joint loss
     every = fused[:1] + ("training_materialized",) + fused[1:]
     with_ctc = every + ("ctc",)  # the kernels of the CTC workload's run
+    # the AED run launches #1, #2, #3, #6 and #7
     # (kernel, runs, record, launch count): fbank's records count the route
     # they time, "highest" by the FFT for serving and the tensor-core route
     # for training
     plan = [("fbank", ("serving",), "fbank", "fbank_fft"),
-            ("fbank", with_ctc, "fbank_training", "fbank_tc"),
+            ("fbank", with_ctc + ("aed",), "fbank_training", "fbank_tc"),
             ("relpos_attention", ("serving",), "attention"),
-            ("relpos_attention", every, "attention_training"),
-            ("relpos_attention_bwd", every, "attention_bwd"),
+            ("relpos_attention", every + ("aed",), "attention_training"),
+            ("relpos_attention_bwd", every + ("aed",), "attention_bwd"),
             ("rnnt_fused_fwd", fused, "rnnt_fused_fwd"),
             ("rnnt_fused_bwd", fused, "rnnt_fused_bwd"),
-            ("ctc_alpha", with_ctc, "ctc_alpha"), ("ctc_beta_grad", with_ctc, "ctc_beta_grad"),
+            ("ctc_alpha", with_ctc + ("aed",), "ctc_alpha"),
+            ("ctc_beta_grad", with_ctc + ("aed",), "ctc_beta_grad"),
             ("rnnt_alpha", ("serving",), "rnnt_alpha_serving"),
             ("rnnt_alpha", every, "rnnt_alpha"), ("rnnt_beta_grad", every, "rnnt_beta_grad"),
             ("ffn_fwd", ("serving",), "ffn_fwd_serving"),
@@ -460,7 +515,8 @@ def main() -> dict:
         for run in run_names:
             launches = runs[run][count]
             require(launches > 0, f"the {run} run never launched {count}")
-            own = {"trainer": trainer_records, "corpus": corpus_records, "ctc": ctc_records}
+            own = {"trainer": trainer_records, "corpus": corpus_records, "ctc": ctc_records,
+                   "aed": aed_records}
             rec = own[run][name] if run in own else checks[check]
             entry = dict(rec, run=run, launches=launches,
                          **{f"launches_{r}": runs[r][count] for r in runs})
@@ -478,6 +534,7 @@ def main() -> dict:
     print(json.dumps({"training": training}))
     print(json.dumps({"corpus": corpus}))
     print(json.dumps({"ctc": ctc}))
+    print(json.dumps({"aed": aed}))
     print(json.dumps({"kernels": kernels}))
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}
@@ -1483,7 +1540,8 @@ def _fit_ctc_blank_bias(torch, model, enc, elens, target: float) -> float:
     every frame."""
     from tpuasr_torch.decode import ctc_greedy_decode
 
-    bias = model.ctc.ctc_lo.bias
+    # the transducer's CTC head, or the AED model's
+    bias = (model.ctc.ctc_lo if hasattr(model, "ctc") else model.ctc_lo).bias
     blank = model.cfg.blank_id
 
     def rate(b: float) -> float:
@@ -2303,7 +2361,9 @@ def _step_card_vs_cpu(torch, tx, res: dict, what: str, why: str) -> dict:
     # the key projection's bias gets no gradient in exact arithmetic (it adds
     # q.b_k to every score of a query: softmax is shift-invariant), so its
     # gradient is rounding noise on both sides; it is held to that instead
-    shift_free = [i for i, n in enumerate(names) if n.endswith("self_attn.linear_k.bias")]
+    # (the encoder's and the AED decoders' self- and cross-attention)
+    shift_free = [i for i, n in enumerate(names)
+                  if n.endswith(("self_attn.linear_k.bias", "src_attn.linear_k.bias"))]
     noise = max(max(float(grads_c[i].abs().max()), float(grads_h[i].abs().max()))
                 for i in shift_free)
     rels = [float((a - b_).abs().max() / b_.abs().max().clamp(min=1e-30))
@@ -3113,23 +3173,26 @@ def _ctc_card_vs_cpu(torch, dev, bench) -> tuple[dict, dict]:
     return dict(stats, log_prob_max_abs_diff=err, frames=t, encoder_frames=tp), lps
 
 
-def _ctc_trainer(torch, dev) -> dict:
-    """10b: `python -m tpuasr_torch.tools.train --workload ctc` in this
-    process at the card's defaults: the hard synthetic corpus as phase 8
-    cuts it (48 utterances, batch 12, prefetch depth 2, a 6-utterance dev
-    split), 2 epochs into a temporary directory under build/, then
-    `--resume` for a third. Each step is synced and timed (its wall and its
-    audio seconds); then one step of the resumed model, profiled, on the
-    first training batch."""
+def _workload_trainer(torch, dev, workload: str, step_home, step_attr: str, cfg_ok) -> dict:
+    """10b and 11b: `python -m tpuasr_torch.tools.train --workload <workload>`
+    in this process at the card's defaults: the hard synthetic corpus as
+    phase 8 cuts it (48 utterances, batch 12, prefetch depth 2, a
+    6-utterance dev split), 2 epochs into a temporary directory under
+    build/, then `--resume` for a third. Each step is synced and timed (its
+    wall and its audio seconds: the step factory the trainer calls,
+    `step_attr` of module `step_home`, is wrapped for the run); then one step
+    of the resumed model, profiled, on the first training batch.
+    `cfg_ok(cfg)` holds the saved effective config: -> None, or what is
+    wrong with it."""
     import tempfile
 
-    import tpuasr_torch.train as train_pkg
     from tpuasr_torch.config import load_yaml
     from tpuasr_torch.data import synthetic_pipeline, tensors
     from tpuasr_torch.tools.train import main as train_main
     from tpuasr_torch.train import latest_path, load_info, make_optimizer
 
-    walls, make = [], train_pkg.make_ctc_train_step
+    walls, make = [], getattr(step_home, step_attr)
+    label = f"the {workload} trainer"
 
     def timed_step(model, tx, cfg):
         step = make(model, tx, cfg)
@@ -3142,39 +3205,37 @@ def _ctc_trainer(torch, dev) -> dict:
         return run
 
     (ROOT / "build").mkdir(exist_ok=True)
-    train_pkg.make_ctc_train_step = timed_step
+    setattr(step_home, step_attr, timed_step)
     try:
-        with tempfile.TemporaryDirectory(prefix="ctc-", dir=ROOT / "build") as save_dir:
+        with tempfile.TemporaryDirectory(prefix=f"{workload}-", dir=ROOT / "build") as save_dir:
             sets = ["data.synth_hard=True", "data.batch_size=12", "data.num_prefetch=2",
                     f"train.save_dir={save_dir}", "train.log_dir=", "train.log_every=1"]
             first, ms_first = _synced_ms(torch, lambda: train_main(
-                ["--workload", "ctc", "--synthetic", "48", "--epochs", "2", "--set", *sets]))
+                ["--workload", workload, "--synthetic", "48", "--epochs", "2", "--set", *sets]))
             info = load_info(latest_path(save_dir))
             cfg = load_yaml(str(Path(save_dir) / "train.yaml"))
-            require(cfg.ctc_model == _ctc_cfg().ctc_model
-                    and cfg.feature.fbank_precision == "default",
-                    "the CTC trainer's effective config is not CTCModelConfig's defaults with "
-                    "fbank \"default\"")
+            wrong = cfg_ok(cfg)
+            require(wrong is None, f"{label}'s effective config: {wrong}")
             require(info["epoch"] == 1 and info["step"] == first.state.step,
                     f"the checkpoint after 2 epochs holds epoch {info['epoch']} step "
                     f"{info['step']}, the run ended at step {first.state.step}")
             steps_e2 = synthetic_pipeline(cfg, 48, seed=0).steps_per_epoch(2)
             n_first = len(walls)
             second, ms_second = _synced_ms(torch, lambda: train_main(
-                ["--workload", "ctc", "--synthetic", "48", "--epochs", "3", "--resume",
+                ["--workload", workload, "--synthetic", "48", "--epochs", "3", "--resume",
                  latest_path(save_dir)]))
             info3 = load_info(latest_path(save_dir))
     finally:
-        train_pkg.make_ctc_train_step = make
+        setattr(step_home, step_attr, make)
     losses = first.train_losses + first.dev_losses + second.train_losses + second.dev_losses
     ms = sorted(w for w, _ in walls)
     med = ms[len(ms) // 2]
     audio = sorted(a for _, a in walls)[len(walls) // 2]
-    tx = make_optimizer(cfg.optim)
     batch = tensors(next(iter(synthetic_pipeline(cfg, 48, seed=0).batches(0))), dev)
-    state, busy, wall, kern = _profiled_step(torch, make(second.state.model, tx, cfg),
-                                             second.state, batch)
-    print(f"CTC trainer: 2 epochs of {first.state.step // 2} steps ({ms_first / 1e3:.1f} s), "
+    state, busy, wall, kern = _profiled_step(
+        torch, make(second.state.model, make_optimizer(cfg.optim), cfg), second.state, batch)
+    ops = sum(e.count for e in kern)
+    print(f"{label}: 2 epochs of {first.state.step // 2} steps ({ms_first / 1e3:.1f} s), "
           f"train losses {first.train_losses}, dev losses {first.dev_losses}; resumed at epoch "
           f"{info3['epoch']} from step {info['step']}: {second.state.step - info['step']} steps "
           f"({ms_second / 1e3:.1f} s), train loss {second.train_losses}, dev loss "
@@ -3182,21 +3243,34 @@ def _ctc_trainer(torch, dev) -> dict:
           f"{ms[-1]:.1f}, {len(ms)} steps), median {audio:.2f} s of audio a step, "
           f"{audio / med * 1e3:.1f} audio-s/s; one profiled step of batch "
           f"{list(batch['waves'].shape)}: device busy {busy:.2f} ms of {wall:.1f} ms wall "
-          f"({100 * (1 - busy / wall):.0f}% idle), {sum(e.count for e in kern)} device "
-          f"operations")
+          f"({100 * (1 - busy / wall):.0f}% idle), {ops} device operations")
     require(len(walls) - n_first == second.state.step - info["step"] == steps_e2,
-            "the resumed CTC run did not take the saved epoch's steps")
+            f"the resumed run of {label} did not take the saved epoch's steps")
     require(len(second.train_losses) == 1 and info3["epoch"] == 2,
-            "the resumed CTC run did not continue at the saved epoch")
-    require(all(math.isfinite(x) for x in losses), "a CTC trainer loss is not finite")
-    require(int(second.state.skipped) == 0, "a CTC trainer step was skipped")
+            f"the resumed run of {label} did not continue at the saved epoch")
+    require(all(math.isfinite(x) for x in losses), f"a loss of {label} is not finite")
+    require(int(second.state.skipped) == 0, f"a step of {label} was skipped")
     return {"train_losses": first.train_losses + second.train_losses,
             "dev_losses": first.dev_losses + second.dev_losses, "steps": second.state.step,
             "first_run_s": ms_first / 1e3, "resumed_run_s": ms_second / 1e3,
             "step_ms": [w for w, _ in walls], "step_ms_median": med,
             "audio_seconds_per_step_median": audio, "audio_s_per_s": audio / med * 1e3,
             "profiled_step_device_busy_ms": busy, "profiled_step_wall_ms": wall,
+            "profiled_step_device_operations": ops,
             "profiled_step_batch": list(batch["waves"].shape)}
+
+
+def _ctc_trainer(torch, dev) -> dict:
+    """10b: the CTC trainer (`_workload_trainer`; the trainer's
+    `make_ctc_train_step` timed), at CTCModelConfig's defaults."""
+    import tpuasr_torch.train as train_pkg
+
+    def cfg_ok(cfg):
+        if cfg.ctc_model != _ctc_cfg().ctc_model or cfg.feature.fbank_precision != "default":
+            return "not CTCModelConfig's defaults with fbank \"default\""
+        return None
+
+    return _workload_trainer(torch, dev, "ctc", train_pkg, "make_ctc_train_step", cfg_ok)
 
 
 def _ctc_decode_align(torch, dev, lps: dict, bench) -> dict:
@@ -3373,6 +3447,235 @@ def _accum_check(torch, dev, bench) -> dict:
     require(launches["relpos_attention"] == launches["relpos_attention_bwd"] == 0,
             "attention dropout did not take the plain attention route")
     return {"losses": losses, "step_ms": ms, "moved": moved, "launches": launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the AED workload
+# ---------------------------------------------------------------------------
+
+AED_B, AED_BEAM, AED_MAX_TOKENS = 4, 4, 24
+AED_MODES = ("ctc_greedy", "ctc_prefix_beam", "attention", "attention_rescoring")
+
+
+def _aed_cfg(dropout: bool = True, r_blocks: int = 0):
+    """The AED workload at the repo's own defaults, as the trainer builds it
+    on the card: `ASRModel` over the non-causal rel-pos conformer of
+    EncoderConfig's defaults (12 blocks, d256, 4 heads, FFN 1024, conv 31,
+    conv2d subsampling) with `fused_attention`, a 6-block decoder (4 heads,
+    FFN 1024; with `r_blocks` an R2L decoder of that many blocks, reverse
+    weight 0.3), 412 tokens, blank 5, sos 2, eos 3, ctc_weight 0.3,
+    lsm_weight 0.1; fp32, fbank precision "default"; without `dropout`
+    every dropout rate 0."""
+    from tpuasr_torch.config import Config
+
+    cfg = Config()
+    cfg.model.encoder.fused_attention = True
+    cfg.feature.fbank_precision = "default"
+    cfg.model.att_decoder.r_blocks = r_blocks
+    if not dropout:
+        cfg.model.encoder.dropout_rate = cfg.model.encoder.positional_dropout_rate = 0.0
+    return cfg
+
+
+def _aed_model(cfg, device):
+    """The trainer's own build (`tools.train.build_model`, seed train.seed)."""
+    from tpuasr_torch.tools.train import build_model
+
+    return build_model(cfg, "aed", device)
+
+
+def _aed_card_vs_cpu(torch, dev, bench) -> dict:
+    """11a: one fp32 training step of the AED model on the card and on the
+    CPU from the same features (the card's fbank at "default" on the first
+    AED_B waves of bench.py's batch, copied), no dropout: the losses, every
+    gradient leaf and the GuardedAdam step held as 6a holds them; the
+    teacher-forced accuracy within one token (an argmax on a near tie may
+    flip)."""
+    from tpuasr_torch.audio import fbank_batch
+    from tpuasr_torch.train import make_optimizer
+
+    cfg = _aed_cfg(dropout=False)
+    with torch.no_grad():
+        feats, feat_lens = fbank_batch(bench["waves"][:AED_B], bench["wave_lens"][:AED_B],
+                                       cfg.feature, device=dev)
+    host = (feats.cpu(), feat_lens.cpu(), bench["texts"][:AED_B].cpu(),
+            bench["text_lens"][:AED_B].cpu())
+    tx = make_optimizer(cfg.optim)
+    res, acc = {}, {}
+    for side, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        model = _aed_model(cfg, device).train()  # no dropout rate: no generator needed
+        out = model(*(x.to(device) for x in host))
+        acc[side] = float(out.pop("th_accuracy"))
+        res[side] = _step_side(torch, model, tx, out)
+    n_tok = int(host[3].sum()) + AED_B  # the targets and their <eos>
+    t = feats.shape[1]
+    stats = _step_card_vs_cpu(
+        torch, tx, res, f"AED training step (fp32, fused_attention) card vs CPU on "
+        f"[{AED_B}, {t}, 80] features x labels {host[3].tolist()}",
+        "fp32 sums in another order through 12 encoder and 6 decoder blocks, the attention "
+        "kernels' atomics, the CTC lattice")
+    print(f"11a: th_accuracy card {acc['card']:.6f} CPU {acc['cpu']:.6f} over {n_tok} "
+          f"teacher-forced tokens (tol one token, {1 / n_tok:.4f})")
+    require(abs(acc["card"] - acc["cpu"]) <= 1 / n_tok + 1e-6, "th_accuracy differs")
+    return dict(stats, th_accuracy_card=acc["card"], th_accuracy_cpu=acc["cpu"], frames=t)
+
+
+def _aed_trainer(torch, dev) -> dict:
+    """11b: the AED trainer (`_workload_trainer`; the loop's
+    `make_train_step` timed), at the card's defaults (bf16,
+    `fused_attention`, fbank "default") and model.att_decoder's."""
+    import tpuasr_torch.train.loop as loop
+
+    def cfg_ok(cfg):
+        m = cfg.model
+        if not (m.compute_dtype == "bfloat16" and m.encoder.fused_attention
+                and cfg.feature.fbank_precision == "default"
+                and m.att_decoder == _aed_cfg().model.att_decoder):
+            return "not the card's defaults"
+        return None
+
+    return _workload_trainer(torch, dev, "aed", loop, "make_train_step", cfg_ok)
+
+
+def _fit_eos_bias(torch, model, enc, elens, target: float) -> tuple[float, float]:
+    """Set the attention decoder's <eos> logit (bisection on [-16, 16]) so
+    that attention beam search's best hypotheses average `target` tokens;
+    -> (the bias, the mean length it gives). With random weights the search
+    otherwise ends at once or never."""
+    from tpuasr_torch.decode import attention_beam_search
+
+    bias = model.decoder.output_layer.bias
+    c = model.cfg
+
+    def mean_len(b: float) -> float:
+        with torch.no_grad():
+            bias[c.eos_id] = b
+        lens = attention_beam_search(model, enc, elens, c.sos_id, c.eos_id, AED_BEAM,
+                                     AED_MAX_TOKENS)[1]
+        return float(lens.float().mean())
+
+    free = mean_len(0.0)
+    lo, hi = -16.0, 16.0
+    for _ in range(12):
+        mid = 0.5 * (lo + hi)
+        lo, hi = (mid, hi) if mean_len(mid) > target else (lo, mid)
+    got = mean_len(hi)
+    print(f"<eos> logit bias {hi:.4f}: attention beam search's best hypotheses average "
+          f"{got:.2f} tokens (target {target:.1f}, max_tokens {AED_MAX_TOKENS}); {free:.2f} "
+          f"with no bias")
+    return hi, got
+
+
+def _aed_searches(torch, model, enc, elens) -> dict:
+    """Every AED mode's search on one side's encoder output -> {mode:
+    (n-best tokens, lens, scores), or (tokens, lens) for ctc_greedy}."""
+    from tpuasr_torch.decode import (
+        attention_beam_search, ctc_greedy_decode, ctc_prefix_beam_search,
+    )
+    from tpuasr_torch.decode.dispatch import rescoring_inputs
+    from tpuasr_torch.models import attention_rescoring
+
+    c = model.cfg
+    lp = torch.log_softmax(model.ctc_logits(enc).float(), dim=-1)
+    nb = ctc_prefix_beam_search(lp, elens, c.blank_id, AED_BEAM, AED_MAX_TOKENS)[2]
+    att = attention_beam_search(model, enc, elens, c.sos_id, c.eos_id, AED_BEAM,
+                                AED_MAX_TOKENS, nbest=True)
+    r_enc, r_lens, rw = rescoring_inputs(model, lp, enc, elens)
+    return {"ctc_greedy": ctc_greedy_decode(lp, elens, c.blank_id), "ctc_prefix_beam": nb,
+            "attention": att[3] + (att[2],),
+            "attention_rescoring": nb[:2] + (attention_rescoring(
+                model, r_enc, r_lens, *nb, 0.5, reverse_weight=rw)[2],)}
+
+
+def _aed_decode(torch, dev, data) -> dict:
+    """11c: the four AED modes of `make_offline_decoder` on the fixture
+    requests, fp32 (fbank "default", as a checkpoint trained on the card
+    keeps it), card against CPU: the CTC head's blank logit fitted as phase
+    4b fits it, the decoder's <eos> logit so that the attention beam's best
+    hypotheses average half of AED_MAX_TOKENS; ctc_greedy tokens identical,
+    each beam mode by phase 4b's 2d rule on its n-best lists;
+    `make_offline_decoder` in each mode gives its search's best on the card;
+    each mode's synced latency after a warm-up call; the attention mode's
+    decoder steps and device busy ms over one call. Then the model with an
+    R2L decoder (3 blocks, reverse weight 0.3) through attention_rescoring,
+    card against CPU by the same rule."""
+    from tpuasr_torch.audio import fbank_batch
+    from tpuasr_torch.decode.rnnt_beam import first_argmax
+    from tpuasr_torch.eval import make_offline_decoder
+
+    waves, wave_lens = data["fixture"]
+    out = {}
+    for r_blocks in (0, 3):
+        label = "r2l" if r_blocks else "l2r"
+        cfg = _aed_cfg(r_blocks=r_blocks)
+        models = {"card": _aed_model(cfg, dev), "cpu": _aed_model(cfg, torch.device("cpu"))}
+        enc = {}
+        for side, model in models.items():
+            feats, flens = fbank_batch(waves, wave_lens, cfg.feature, device=model.device)
+            enc[side] = model.encode(feats, flens)
+        c = models["card"].cfg
+        target = float(data["text_lens"].sum()) / float(enc["cpu"][1].sum())
+        rec = {"ctc_blank_logit_bias": _fit_ctc_blank_bias(torch, models["card"],
+                                                           *enc["card"], target)}
+        eos, rec["attention_mean_len"] = _fit_eos_bias(torch, models["card"], *enc["card"],
+                                                       AED_MAX_TOKENS / 2)
+        rec["eos_logit_bias"] = eos
+        require(AED_MAX_TOKENS / 4 <= rec["attention_mean_len"] <= 3 * AED_MAX_TOKENS / 4,
+                f"{label}: the attention hypotheses average {rec['attention_mean_len']:.2f} "
+                f"tokens, outside a quarter to three quarters of {AED_MAX_TOKENS}")
+        with torch.no_grad():
+            models["cpu"].ctc_lo.bias[c.blank_id] = rec["ctc_blank_logit_bias"]
+            models["cpu"].decoder.output_layer.bias[c.eos_id] = eos
+        found = {side: _aed_searches(torch, m, *enc[side]) for side, m in models.items()}
+        card, cpu = found["card"], found["cpu"]
+        modes = AED_MODES if not r_blocks else ("attention_rescoring",)
+        if "ctc_greedy" in modes:
+            same = all(torch.equal(a.cpu(), b) for a, b in zip(card["ctc_greedy"],
+                                                               cpu["ctc_greedy"]))
+            print(f"{label} ctc_greedy card vs CPU on {len(wave_lens)} requests: tokens "
+                  f"identical {same} (emitted {int(cpu['ctc_greedy'][1].sum())})")
+            require(same, "AED ctc_greedy tokens on the card differ from the CPU run")
+        rec["agreement"] = {m: _nbest_agreement(torch, f"{label} {m}", card[m], cpu[m])
+                            for m in modes if m != "ctc_greedy"}
+        # the entry point: make_offline_decoder on the card gives the search's best
+        lat = {}
+        for mode in modes:
+            dec = make_offline_decoder(models["card"], cfg, mode, beam_size=AED_BEAM,
+                                       max_tokens=AED_MAX_TOKENS)
+            toks, lens = dec(waves, wave_lens)
+            if mode == "ctc_greedy":
+                ref_t, ref_l = card[mode]
+            else:
+                nb_t, nb_l, nb_s = card[mode]
+                rows = torch.arange(nb_t.shape[0], device=dev)
+                pick = first_argmax(nb_s, 1)
+                ref_t, ref_l = nb_t[rows, pick], nb_l[rows, pick]
+            require(torch.equal(toks, ref_t) and torch.equal(lens, ref_l),
+                    f"make_offline_decoder({mode!r}) differs from its search on the card")
+            lat[mode] = _synced_ms(torch, lambda: dec(waves, wave_lens))[1]
+            print(f"  {label} {mode}: {lat[mode]:.1f} ms for the {len(wave_lens)} fixture "
+                  f"requests (fp32, synced, after a warm-up call); best hypotheses "
+                  f"{int(lens.sum())} tokens")
+        rec["latency_ms"] = lat
+        if not r_blocks:
+            # the attention search's steps, and the device's share of its call
+            card_model, steps = models["card"], []
+            one = card_model.decoder_one_step
+            card_model.decoder_one_step = lambda *a: steps.append(1) or one(*a)
+            try:
+                busy, kern = _decode_busy(torch, make_offline_decoder(
+                    card_model, cfg, "attention", beam_size=AED_BEAM,
+                    max_tokens=AED_MAX_TOKENS), waves, wave_lens)
+            finally:
+                del card_model.decoder_one_step
+            ops = sum(e.count for e in kern)
+            print(f"  {label} attention: {len(steps)} decoder steps, device busy {busy:.2f} ms "
+                  f"(profiler) in {ops} device operations, {ops / max(len(steps), 1):.0f} a "
+                  f"step with the encoder's")
+            rec["attention_profile"] = {"decoder_steps": len(steps), "device_busy_ms": busy,
+                                        "device_operations": ops}
+        out[label] = rec
+    return out
 
 
 if __name__ == "__main__":

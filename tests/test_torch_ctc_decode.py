@@ -15,7 +15,7 @@ offline decode modes == JAX on the CPU.
 - `transducer_rescoring` of that n-best: choice and fused scores;
 - `make_offline_decoder` from waves in rnnt_beam (with CTC fusion),
   ctc_greedy, ctc_prefix_beam and rnnt_rescoring against the JAX
-  package's decoder; the AED and Paraformer modes still raise.
+  package's decoder; the Paraformer modes still raise.
 Tokens, lengths and times identical; scores within 1e-4 (fp32 sums in
 another order).
 """
@@ -208,8 +208,7 @@ def test_offline_decoder_from_waves_matches_jax(models, mode, kw):
 
 def test_offline_decoder_later_modes_raise(models):
     _, _, _, pcfg, port = models
-    assert sorted(LATER_MODES) == ["attention", "attention_rescoring", "paraformer_beam",
-                                   "paraformer_greedy"]
+    assert sorted(LATER_MODES) == ["paraformer_beam", "paraformer_greedy"]
     for mode in LATER_MODES:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_offline_decoder(port, pcfg, mode)

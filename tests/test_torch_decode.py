@@ -170,4 +170,4 @@ def test_offline_decoder_from_waves_matches_jax(models):
                                max_tokens=MAX_TOKENS)(waves, wave_lens)
     _same(got, ref)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_offline_decoder(port, pcfg, "attention")
+        make_offline_decoder(port, pcfg, "paraformer_greedy")

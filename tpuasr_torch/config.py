@@ -1,9 +1,10 @@
 """Configuration tree for the PyTorch port.
 
 An own copy of the parts of ``tpuasr/config.py``'s dataclasses that the
-serving and training paths read or check (features, the transducer and the
-CTC workload's model, SpecAugment, optimizer, the data pipeline, streaming,
-the training loop), with the same field names and defaults, so a ``train.yaml`` written by the JAX package
+serving and training paths read or check (features, the transducer, the
+CTC workload's model and the AED workload's attention decoder, SpecAugment,
+optimizer, the data pipeline, streaming, the training loop), with the same
+field names and defaults, so a ``train.yaml`` written by the JAX package
 loads here unchanged: `from_dict` drops every key this copy does not hold
 (the JAX-only loop switches such as donation, the RNG implementation and
 the host-RSS watchdog, the mesh, the scanned parameter layout, which
@@ -141,6 +142,23 @@ class CTCModelConfig:
 
 
 @dataclass
+class AttDecoderConfig:
+    """The attention decoder of the `aed` workload (the hybrid CTC/attention
+    `ASRModel`); the encoder comes from `model.encoder`. The Paraformer
+    fields of the JAX block (`sampler`, `sampling_ratio`) are not held yet."""
+
+    blocks: int = 6
+    heads: int = 4
+    ffn: int = 1024
+    lsm_weight: float = 0.1
+    # a right-to-left second decoder with r_blocks > 0 (BiTransformerDecoder)
+    r_blocks: int = 0
+    reverse_weight: float = 0.3
+    # feed the decoder only the frames whose CTC argmax is not blank
+    apply_non_blank_embedding: bool = False
+
+
+@dataclass
 class ModelConfig:
     vocab_size: int = 412  # 406 pinyin syllables + 6 specials
     blank_id: int = 5
@@ -159,6 +177,7 @@ class ModelConfig:
     encoder: EncoderConfig = field(default_factory=EncoderConfig)
     predictor: PredictorConfig = field(default_factory=PredictorConfig)
     joint: JointConfig = field(default_factory=JointConfig)
+    att_decoder: AttDecoderConfig = field(default_factory=AttDecoderConfig)
 
 
 @dataclass

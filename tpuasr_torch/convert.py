@@ -1,5 +1,5 @@
-"""Convert a JAX (flax) Transducer or CTCModel parameter tree into the port's
-state_dict.
+"""Convert a JAX (flax) Transducer, CTCModel or ASRModel parameter tree into
+the port's state_dict.
 
 Input: the flax params as nested dicts of numpy arrays (with or without the
 top-level "params" key), e.g. ``jax.tree.map(np.asarray, params)``; this
@@ -17,7 +17,8 @@ module imports nothing of JAX. The layout differences it resolves:
   its [H, 4H] layout, the cell is written out); the joint head's raw
   ``ffn_out_kernel [D, V]`` and ``pos_bias_u/v [H, dk]`` keep theirs;
 - encoder blocks come either unrolled (``block{i}``) or scanned
-  (``layers/block`` with a leading [L] axis); both become ``blocks.{i}``.
+  (``layers/block`` with a leading [L] axis); both become ``blocks.{i}``;
+- the attention decoders' layers ``layer{i}`` become ``layers.{i}``.
 """
 
 from __future__ import annotations
@@ -38,6 +39,10 @@ def _flatten(tree: dict, prefix: tuple = ()) -> dict[tuple, np.ndarray]:
     return out
 
 
+# flax's numbered submodules -> the port's ModuleList / ParameterList names
+_LISTS = {"block": "blocks", "layer": "layers", "wx_": "wx", "wh_": "wh"}
+
+
 def _convert_leaf(path: tuple, x: np.ndarray) -> tuple[str, np.ndarray]:
     *parents, leaf = path
     if leaf == "kernel":
@@ -54,15 +59,14 @@ def _convert_leaf(path: tuple, x: np.ndarray) -> tuple[str, np.ndarray]:
         leaf = "weight"
     names = []
     for p in (*parents, leaf):
-        m = re.fullmatch(r"(block|wx_|wh_)(\d+)", p)
-        names.append(f"{'blocks' if m.group(1) == 'block' else m.group(1)[:2]}.{m.group(2)}"
-                     if m else p)
+        m = re.fullmatch(r"(block|layer|wx_|wh_)(\d+)", p)
+        names.append(f"{_LISTS[m.group(1)]}.{m.group(2)}" if m else p)
     return ".".join(names), x
 
 
 def convert_params(params: dict) -> dict[str, torch.Tensor]:
-    """flax Transducer or CTCModel params (nested numpy dicts) -> port
-    state_dict."""
+    """flax Transducer, CTCModel or ASRModel params (nested numpy dicts) ->
+    port state_dict."""
     params = params.get("params", params)
     flat = _flatten(params)
     out = {}

@@ -2,14 +2,19 @@
 (port of ``tpuasr/eval/cer_eval.py``).
 
 `make_offline_decoder` decodes waves on the model's device: fbank, the
-full-context encoder, then one search: `rnnt_greedy`, `rnnt_beam`
-(optionally with per-frame CTC fusion), `ctc_greedy`, `ctc_prefix_beam`, or
-`rnnt_rescoring` (the CTC prefix-beam n-best rescored by the transducer
-through the RNN-T lattice). The CTC modes need the model's CTC head
-(`ctc_weight > 0`). `evaluate_offline` runs it over a pipeline's batches and
-sums S/D/I over the valid rows, with every special id stripped from
-reference and hypothesis alike, keeping the first `max_samples` (utt, REF,
-HYP) texts. The AED and Paraformer modes come with later slices.
+full-context encoder, then one search: the transducer's `rnnt_greedy`,
+`rnnt_beam` (optionally with per-frame CTC fusion) or `rnnt_rescoring` (the
+CTC prefix-beam n-best rescored by the transducer through the RNN-T
+lattice); the AED model's `attention` (attention beam search) or
+`attention_rescoring` (the CTC prefix-beam n-best rescored by the attention
+decoder, fused with the R2L decoder when the model has one, over the
+blank-filtered frames when it was trained on them); `ctc_greedy` or
+`ctc_prefix_beam` for either model. The CTC modes need the model's CTC head
+(a transducer's `ctc_weight > 0`). `evaluate_offline` runs it over a
+pipeline's batches and sums S/D/I over the valid rows, with every special
+id stripped from reference and hypothesis alike, keeping the first
+`max_samples` (utt, REF, HYP) texts. The Paraformer modes come with a later
+slice.
 """
 
 from __future__ import annotations
@@ -22,18 +27,20 @@ import torch
 
 from tpuasr_torch.audio.fbank import fbank_batch
 from tpuasr_torch.config import Config
+from tpuasr_torch.decode.attention_beam import attention_beam_search
 from tpuasr_torch.decode.ctc_greedy import ctc_greedy_decode
 from tpuasr_torch.decode.ctc_prefix_beam import ctc_prefix_beam_search
 from tpuasr_torch.decode.rnnt_beam import rnnt_beam_decode
 from tpuasr_torch.decode.rnnt_greedy import rnnt_greedy_decode
+from tpuasr_torch.decode.dispatch import rescoring_inputs
 from tpuasr_torch.decode.rnnt_rescoring import transducer_rescoring
+from tpuasr_torch.models.asr_model import attention_rescoring
 from tpuasr_torch.text.cer import CerCounts, cer_details
 
-MODES = ("rnnt_greedy", "rnnt_beam", "ctc_greedy", "ctc_prefix_beam", "rnnt_rescoring")
+MODES = ("rnnt_greedy", "rnnt_beam", "ctc_greedy", "ctc_prefix_beam", "rnnt_rescoring",
+         "attention", "attention_rescoring")
 # decode modes of the JAX package not ported yet, and the ROADMAP item that owns each
 LATER_MODES = {
-    "attention": "§1 item 5, AED (asr_model.py, decoder.py, attention_beam.py)",
-    "attention_rescoring": "§1 item 5, AED (asr_model.py, decoder.py, attention_beam.py)",
     "paraformer_greedy": "§1 item 5, Paraformer",
     "paraformer_beam": "§1 item 5, Paraformer",
 }
@@ -60,9 +67,9 @@ def make_offline_decoder(model, cfg: Config, mode: str, beam_size: int = 4,
     """-> decode(waves [B, N], wave_lens [B]) -> (tokens, token_lens [B]),
     run on the model's device. Tokens are [B, max_tokens], or [B, T'] for
     `ctc_greedy`. `ctc_fusion_weight` is `rnnt_beam`'s per-frame CTC
-    fusion; `rescoring_ctc_weight` belongs to `attention_rescoring` (not
-    ported) and is accepted for the JAX signature; `rnnt_rescoring` fuses
-    with cfg.model's transducer_weight and ctc_weight."""
+    fusion; `rescoring_ctc_weight` is `attention_rescoring`'s CTC weight;
+    `rnnt_rescoring` fuses with cfg.model's transducer_weight and
+    ctc_weight."""
     if mode in LATER_MODES:
         raise NotImplementedError(
             f"decode mode {mode!r} is not ported yet (ROADMAP {LATER_MODES[mode]})")
@@ -85,9 +92,20 @@ def make_offline_decoder(model, cfg: Config, mode: str, beam_size: int = 4,
             return toks, tok_lens
         if mode == "ctc_greedy":
             return ctc_greedy_decode(ctc_lp(), enc_lens, blank_id)
+        if mode == "attention":
+            toks, tok_lens, _ = attention_beam_search(model, enc, enc_lens, model.cfg.sos_id,
+                                                      model.cfg.eos_id, beam_size, max_tokens)
+            return toks, tok_lens
+        lp = ctc_lp()
         toks, tok_lens, (nb_tok, nb_len, nb_score) = ctc_prefix_beam_search(
-            ctc_lp(), enc_lens, blank_id, beam_size, max_tokens)
+            lp, enc_lens, blank_id, beam_size, max_tokens)
         if mode == "ctc_prefix_beam":
+            return toks, tok_lens
+        if mode == "attention_rescoring":
+            r_enc, r_lens, rw = rescoring_inputs(model, lp, enc, enc_lens)
+            toks, tok_lens, _ = attention_rescoring(model, r_enc, r_lens, nb_tok, nb_len,
+                                                    nb_score, rescoring_ctc_weight,
+                                                    reverse_weight=rw)
             return toks, tok_lens
         toks, tok_lens, _ = transducer_rescoring(
             model, enc, enc_lens, nb_tok, nb_len, nb_score, blank_id,

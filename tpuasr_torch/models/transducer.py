@@ -171,7 +171,8 @@ class Transducer(nn.Module):
 def init_weights(model: nn.Module, seed: int) -> nn.Module:
     """Seeded random weights with the JAX package's initializer scales:
     lecun-normal dense/conv kernels, zero biases, unit layer norms, xavier
-    u/v biases and recurrent matrices, unit-normal embeddings. Values are
+    u/v biases and recurrent matrices, unit-normal embeddings (the attention
+    decoder's: std 1/sqrt(d), flax nn.Embed's default). Values are
     drawn on the CPU, so a seed gives the same weights on every device."""
     g = torch.Generator().manual_seed(seed)
 
@@ -187,7 +188,7 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
             if isinstance(mod, LayerNorm):
                 new = torch.ones(p.shape) if name == "weight" else torch.zeros(p.shape)
             elif isinstance(mod, nn.Embedding):
-                new = normal(p.shape, 1.0)
+                new = normal(p.shape, getattr(mod, "init_std", 1.0))
             elif name == "bias" or name == "ffn_out_bias":
                 new = torch.zeros(p.shape)
             elif isinstance(mod, RelPositionMultiHeadedAttention) and name.startswith("pos_bias"):

@@ -1,5 +1,5 @@
 """Sinusoidal positional encodings with streaming offsets (port of
-``tpuasr/nn/embedding.py``, the rel-pos subset)."""
+``tpuasr/nn/embedding.py``, the rel-pos and abs-pos subset)."""
 
 from __future__ import annotations
 
@@ -40,6 +40,12 @@ class PositionalEncodingTable:
         shift = max(offset + size - self.max_len, 0)
         pos = torch.arange(size, device=self.table.device) + (offset - shift)
         return self.table[pos.clamp(0, self.max_len - 1)][None]
+
+    def add_abs(self, x: torch.Tensor, offset: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
+        """abs_pos: (x * xscale + PE window, PE window), the scale in x's
+        type as the JAX package rounds it."""
+        pe = self.position_encoding(offset, x.shape[1]).to(x.dtype)
+        return x * torch.tensor(self.xscale, dtype=x.dtype) + pe, pe
 
     def rel(self, x: torch.Tensor, offset: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
         """rel_pos: (x * xscale, PE window) — the PE is consumed by attention."""

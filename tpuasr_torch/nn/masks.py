@@ -15,6 +15,12 @@ def make_pad_mask(lengths: torch.Tensor, max_len: int) -> torch.Tensor:
     return idx >= lengths[:, None]
 
 
+def subsequent_mask(size: int, device=None) -> torch.Tensor:
+    """[size, size] lower-triangular causal mask (True = attend)."""
+    i = torch.arange(size, device=device)
+    return i[None, :] <= i[:, None]
+
+
 def chunk_mask(size: int, chunk_size: int, num_left_chunks: int,
                device=None) -> torch.Tensor:
     """[size, size] block-chunk mask; True = attend.

@@ -3,15 +3,18 @@ test split and print corpus CER with its S/D/I/N breakdown and REF/HYP
 samples.
 
     python -m tpuasr_torch.tools.evaluate --checkpoint exp/latest \\
-        [--workload online_rnnt|rnnt] [--mode rnnt_greedy|rnnt_beam|ctc_greedy|
-        ctc_prefix_beam|rnnt_rescoring] [--split dev|test] [--beam_size 4] \\
+        [--workload online_rnnt|rnnt|aed] [--mode rnnt_greedy|rnnt_beam|ctc_greedy|
+        ctc_prefix_beam|rnnt_rescoring|attention|attention_rescoring] \\
+        [--split dev|test] [--beam_size 4] \\
         [--ctc_fusion_weight W] [--synthetic N --seed S] [--data_root DIR] \\
         [--config cfg.yaml] [--set k=v ...] [--device cuda|cpu]
 
 The checkpoint is the port's (`tpuasr_torch.tools.train`); its train.yaml
-gives the architecture unless --config is given. The attention and
-Paraformer modes and the aed and paraformer workloads are not ported yet
-and raise NotImplementedError naming their ROADMAP item.
+gives the architecture unless --config is given. The transducer workloads
+decode in the rnnt modes and the CTC ones; the aed workload (an `ASRModel`
+checkpoint) in ctc_greedy, ctc_prefix_beam, attention and
+attention_rescoring. The Paraformer modes and the paraformer workload are
+not ported yet and raise NotImplementedError naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -21,6 +24,8 @@ import sys
 
 from tpuasr_torch.tools.common import add_config_args
 
+CTC_MODES = ("ctc_greedy", "ctc_prefix_beam")  # the CTC head of either model
+AED_MODES = CTC_MODES + ("attention", "attention_rescoring")
 MODES = ["ctc_greedy", "rnnt_greedy", "rnnt_beam", "rnnt_rescoring", "ctc_prefix_beam",
          "attention", "attention_rescoring", "paraformer_greedy", "paraformer_beam"]
 
@@ -55,6 +60,9 @@ def main(argv=None):
                                   f"(ROADMAP {LATER_MODES[args.mode]})")
     if args.workload in UNPORTED_WORKLOADS:
         raise NotImplementedError(UNPORTED_WORKLOADS[args.workload])
+    if (args.workload == "aed") != (args.mode in AED_MODES) and args.mode not in CTC_MODES:
+        raise ValueError(f"mode {args.mode!r} does not decode the {args.workload} workload "
+                         f"(aed: {', '.join(AED_MODES)})")
     device = resolve_device(args.device)
     cfg = eval_config(args.checkpoint, args.config, args.set, device)
     tokenizer, pipe = eval_split(cfg, args.split, args.synthetic, args.seed, args.data_root)

@@ -1,6 +1,6 @@
-"""Train the CTC and RNN-T workloads (port of ``tools/train.py``).
+"""Train the CTC, RNN-T and AED workloads (port of ``tools/train.py``).
 
-    python -m tpuasr_torch.tools.train --workload online_rnnt|rnnt|ctc \\
+    python -m tpuasr_torch.tools.train --workload online_rnnt|rnnt|ctc|aed \\
         [--config cfg.yaml] [--set model.encoder.num_blocks=6 ...] \\
         [--synthetic N | --data_root DIR] [--epochs E] [--resume SAVE_DIR/latest] \
         [--device cuda|cpu]
@@ -21,8 +21,11 @@ the tokenizer's size. The ctc workload trains `CTCModel` (cfg.ctc_model,
 conv2d8 by default) in fp32 whatever model.compute_dtype and train.dtype
 say, as the JAX trainer's does; its steps run fbank (with the card's
 precision default) and the CTC loss, without SpecAugment or chunk masks.
-The aed and paraformer workloads are not ported yet and raise
-NotImplementedError naming their ROADMAP item.
+The aed workload trains the hybrid CTC/attention `ASRModel` (the encoder of
+model.encoder, the decoders of model.att_decoder, model.ctc_weight) through
+the transducer's steps: SpecAugment, the chunk draw and dropout as there;
+its logs add loss_att and th_accuracy. The paraformer workload is not
+ported yet and raises NotImplementedError naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -34,7 +37,6 @@ import os
 import sys
 
 UNPORTED_WORKLOADS = {
-    "aed": "the AED workload (ASRModel, attention decoder): ROADMAP §1 item 5",
     "paraformer": "the Paraformer workload: ROADMAP §1 item 5",
 }
 
@@ -52,9 +54,9 @@ def parse_overrides(pairs) -> dict:
 
 def build_model(cfg, workload: str, device):
     """The workload's model on `device`, with seeded weights
-    (cfg.train.seed): `CTCModel` for ctc, else the Transducer
-    (online_rnnt first makes the encoder streamable)."""
-    from tpuasr_torch.models import CTCModel, Transducer, init_weights
+    (cfg.train.seed): `CTCModel` for ctc, `ASRModel` for aed, else the
+    Transducer (online_rnnt first makes the encoder streamable)."""
+    from tpuasr_torch.models import AEDConfig, ASRModel, CTCModel, Transducer, init_weights
 
     if workload in UNPORTED_WORKLOADS:
         raise NotImplementedError(UNPORTED_WORKLOADS[workload])
@@ -62,6 +64,14 @@ def build_model(cfg, workload: str, device):
     if workload == "ctc":
         return init_weights(CTCModel(cfg.ctc_model, m.vocab_size, m.blank_id, device),
                             cfg.train.seed)
+    if workload == "aed":
+        d = m.att_decoder
+        return init_weights(ASRModel(AEDConfig(
+            vocab_size=m.vocab_size, blank_id=m.blank_id, ctc_weight=m.ctc_weight,
+            lsm_weight=d.lsm_weight, decoder_blocks=d.blocks, decoder_heads=d.heads,
+            decoder_ffn=d.ffn, r_decoder_blocks=d.r_blocks, reverse_weight=d.reverse_weight,
+            apply_non_blank_embedding=d.apply_non_blank_embedding,
+            compute_dtype=m.compute_dtype, encoder=m.encoder), device), cfg.train.seed)
     if workload == "online_rnnt":
         m.encoder.causal = True
         m.encoder.use_dynamic_chunk = True

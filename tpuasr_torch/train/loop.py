@@ -52,11 +52,14 @@ def run_epoch(step_fn, state: TrainState, batches: Iterable[dict], seed: int,
         if cv_hook is not None and step % cfg.train.save_interval == 0:
             cv_hook(state, epoch, step)
         if step % cfg.train.log_every == 0:
-            writer.scalars({k: v for k, v in metrics.items()
-                            if k.startswith("loss") or k == "grad_norm"}, step, prefix="train/")
+            writer.scalars({k: v for k, v in metrics.items() if k.startswith("loss")
+                            or k in ("grad_norm", "th_accuracy")}, step, prefix="train/")
             writer.scalar("train/steps_per_second", timer.steps_per_second, step)
             writer.scalar("train/audio_seconds_per_second", timer.audio_seconds_per_second, step)
-            writer.log(f"epoch {epoch} step {step} loss {float(metrics['loss']):.4f} "
+            # the AED model's attention loss and teacher-forced accuracy
+            aed = "".join(f" {k} {float(metrics[k]):.4f}" for k in ("loss_att", "th_accuracy")
+                          if k in metrics)
+            writer.log(f"epoch {epoch} step {step} loss {float(metrics['loss']):.4f}{aed} "
                        f"({timer.audio_seconds_per_second:.1f} audio-s/s)")
     # one copy to the host for the epoch's losses
     values = torch.stack(losses).float().cpu().tolist() if losses else []

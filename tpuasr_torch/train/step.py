@@ -2,7 +2,8 @@
 
 One step: waves -> log-mel fbank on the device (kernel #1, no gradient) ->
 SpecAugment when `specaug.enabled` (training only) -> the model's hybrid
-loss forward (dropout, dynamic chunk) -> backward -> global gradient norm,
+loss forward (the transducer's RNN-T + CTC or the AED model's CTC +
+attention; dropout, dynamic chunk) -> backward -> global gradient norm,
 finite flag -> the NaN-guarded `GuardedAdam` update (`AccumulatingAdam`
 with optim.accum_steps > 1). The CTC workload's steps
 (`make_ctc_train_step`, `make_ctc_eval_step`) take the same path without
@@ -98,8 +99,10 @@ def _backward_and_update(state: TrainState, tx: GuardedAdam, loss: torch.Tensor)
 def make_train_step(model: torch.nn.Module, tx: GuardedAdam, cfg: Config) -> Callable:
     """-> train_step(state, batch, seed) -> (state, metrics). batch: waves
     [B, N] (float or int16 PCM), wave_lens, texts [B, U], text_lens on the
-    model's device. metrics: loss, loss_rnnt, loss_ctc, grad_norm, finite,
-    audio_seconds, all device tensors. The model is put in train() mode."""
+    model's device. The model is a Transducer or an ASRModel (the AED
+    workload). metrics: loss, the model's loss_rnnt, loss_ctc, loss_att and
+    th_accuracy where it has them, grad_norm, finite, audio_seconds, all
+    device tensors. The model is put in train() mode."""
     sa = cfg.specaug
 
     def train_step(state: TrainState, batch: dict, seed: int):
@@ -116,7 +119,7 @@ def make_train_step(model: torch.nn.Module, tx: GuardedAdam, cfg: Config) -> Cal
         new_state, loss, grad_norm, finite = _backward_and_update(state, tx, out["loss"])
         metrics = {"loss": loss, "grad_norm": grad_norm, "finite": finite,
                    "audio_seconds": batch["wave_lens"].sum() / cfg.feature.sample_rate}
-        for k in ("loss_rnnt", "loss_ctc"):
+        for k in ("loss_rnnt", "loss_ctc", "loss_att", "th_accuracy"):
             if k in out:
                 metrics[k] = out[k].detach()
         return new_state, metrics
