@@ -245,16 +245,43 @@ Phases (any failure exits non-zero):
       mode's latency, the attention search's steps and device busy ms
       (profiler); then a model with a 3-block R2L decoder (reverse
       weight 0.3) through attention_rescoring by the same rule.
+12. The transducer's other options, each the online_rnnt flagship with
+   only the fields of `ZOO` changed, seed-0 weights. The zoo run (counts
+   reset before 12a, read after 12c) must launch every kernel, fbank by its
+   FFT and tensor-core routes alone; each kernel is then held against its
+   plain version on the run's own recorded inputs, the signature launched
+   most timed:
+   a. the stateless pruned transducer (the embedding predictor, history 2,
+      4 heads; `rnnt_prune_range` 5; fused attention and FFN): one fp32
+      training step card against CPU as 6a holds it; the trainer
+      (`--workload online_rnnt`, the card's bf16 defaults, one epoch of the
+      hard corpus cut as phase 8 cuts it) at `rnnt_prune_range` 5 and, for
+      comparison, 0 (the fused joint loss): the median step, audio-s/s, the
+      peak memory and one profiled step's device ms each; serving in fp32
+      on the fixture requests: rnnt_greedy tokens identical card vs CPU,
+      rnnt_beam and rnnt_rescoring by 4b's 2d rule, streaming greedy ==
+      chunk-masked offline on the card;
+   b. the zoo transducer (RoPE with 2 K/V heads, no positional table, MoE
+      FFNs of 8 experts with 2 active, RMS-normed conv modules, the conv
+      predictor, a HAT joint, which takes the materialized loss): one fp32
+      step card vs CPU; a bf16 step at bench.py's configuration and batch,
+      profiled (device ms, operations, peak memory); rnnt_greedy identical, rnnt_beam by the 2d rule,
+      streaming == chunk-masked offline;
+   c. full context (FireRed's front end and attention, gated FFNs, batch
+      norm in evaluation with seeded running statistics, a post-join
+      linear): rnnt_greedy identical and rnnt_beam by the 2d rule.
+   Then, outside the counted run, the pruned, fused and materialized losses
+   alone at bench.py's shape: forward and backward wall and peak memory.
 7. The kernels line: one JSON object with an entry per kernel and run
    (the serving run of phases 4-5b, the training runs of phases 6b, 6c and
    6d, the trainer run of phase 8, the corpus run of phase 9, the CTC run
-   of phase 10, the AED run of phase 11; counts reset just before each and
-   read just after): that run's launches (fbank's: those of the route the
+   of phase 10, the AED run of phase 11, the zoo run of phase 12; counts
+   reset just before each and read just after): that run's launches (fbank's: those of the route the
    record times, the FFT for serving, which takes that route alone, and the
    tensor-core route for training, which never takes the FFT), and the
    error, times and bound at the
    shape that run gives the kernel (phase 3's bench-shape records for 6b-6d;
-   for the trainer, the corpus, CTC and AED runs and #8 in serving the signature it
+   for the trainer, the corpus, CTC, AED and zoo runs and #8 in serving the signature it
    launched most, with every signature's record under "shapes"). The CTC and RNN-T
    lattice entries carry their run's launches by route under "routes":
    each run that launches a lattice must take its warp route alone.
@@ -482,6 +509,22 @@ def main() -> dict:
     print("kernels against their plain versions on the AED run's own inputs:")
     aed_records = _trainer_kernel_records(torch, seen, runs["aed"], "aed", timed=1)
 
+    # ---------------------------------------------------------------- 12
+    t_phase = _phase("12: the transducer's other options (12a stateless pruned, 12b zoo, "
+                     "12c full context)", t_phase)
+    reset_launch_counts()
+    with _recording(torch) as seen:  # the zoo run, 12a-12c
+        zoo = _zoo_phase(torch, dev, data, bench)
+    runs["zoo"] = dict(LAUNCHES)
+    print(f"launches on the zoo run (12a-12c): {runs['zoo']}")
+    for name in KERNELS:
+        require(runs["zoo"][name] > 0, f"the zoo run never launched {name}")
+    require(runs["zoo"]["fbank_fp32"] == 0, "the zoo run took fbank's dense fp32 route")
+    print("kernels against their plain versions on the zoo run's own inputs:")
+    zoo_records = _trainer_kernel_records(torch, seen, runs["zoo"], "zoo", timed=1)
+    zoo["loss_routes"] = _loss_routes(torch, dev, bench)
+    print(f"(phase 12: {time.perf_counter() - t_phase:.1f} s)")
+
     # ---------------------------------------------------------------- 7
     # one entry per kernel and run that launches it, with the record taken
     # at the shape that run gives it: 6b, 6c and 6d give the same shapes
@@ -509,6 +552,9 @@ def main() -> dict:
             ("rnnt_alpha", every, "rnnt_alpha"), ("rnnt_beta_grad", every, "rnnt_beta_grad"),
             ("ffn_fwd", ("serving",), "ffn_fwd_serving"),
             ("ffn_fwd", fused[1:], "ffn_fwd"), ("ffn_bwd", fused[1:], "ffn_bwd")]
+    # the zoo run (phase 12) launches every kernel: its records at the
+    # signature it launched most
+    plan += [(name, ("zoo",), name) for name in KERNELS]
     kernels = []
     for name, run_names, check, *count in plan:
         count = count[0] if count else name
@@ -516,7 +562,7 @@ def main() -> dict:
             launches = runs[run][count]
             require(launches > 0, f"the {run} run never launched {count}")
             own = {"trainer": trainer_records, "corpus": corpus_records, "ctc": ctc_records,
-                   "aed": aed_records}
+                   "aed": aed_records, "zoo": zoo_records}
             rec = own[run][name] if run in own else checks[check]
             entry = dict(rec, run=run, launches=launches,
                          **{f"launches_{r}": runs[r][count] for r in runs})
@@ -535,6 +581,7 @@ def main() -> dict:
     print(json.dumps({"corpus": corpus}))
     print(json.dumps({"ctc": ctc}))
     print(json.dumps({"aed": aed}))
+    print(json.dumps({"zoo": zoo}))
     print(json.dumps({"kernels": kernels}))
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}
@@ -1361,7 +1408,8 @@ def _model(torch, cfg, device, blank_bias: float = 0.0, ctc_blank_bias: float = 
 
 
 def _fit_blank_bias(torch, model, cfg, waves, wave_lens, text_lens) -> float:
-    """Set the blank logit (bisection on [0, 16]) so that greedy search on
+    """Set the blank logit (bisection on [0, 16]; a HAT joint's blank bias on
+    [-16, 16]) so that greedy search on
     the requests emits as many tokens per encoder frame as their
     transcripts hold; -> the bias. A random model otherwise emits up to
     n_steps tokens per frame, and the greedy loop's cost scales with that."""
@@ -1371,17 +1419,20 @@ def _fit_blank_bias(torch, model, cfg, waves, wave_lens, text_lens) -> float:
     feats, flens = fbank_batch(waves, wave_lens, cfg.feature, device=model.device)
     enc, elens = model.encode(feats, flens)
     target = float(text_lens.sum()) / float(elens.sum())
-    bias = model.joint.ffn_out_bias
     blank = cfg.model.blank_id
+    # the plain head's blank logit; a HAT joint's blank head's bias (on [-16,
+    # 16]: its log-sigmoid already gives the blank about half the mass)
+    bias, at, lo = ((model.joint.blank_pred.bias, 0, -16.0) if cfg.model.joint.hat_joint
+                    else (model.joint.ffn_out_bias, blank, 0.0))
 
     def rate(b: float) -> float:
         with torch.no_grad():
-            bias[blank] = b
+            bias[at] = b
         _, lens = rnnt_greedy_decode(model, enc, elens, blank)
         return float(lens.sum()) / float(elens.sum())
 
     free = rate(0.0)
-    lo, hi = 0.0, 16.0
+    hi = 16.0
     for _ in range(12):
         mid = 0.5 * (lo + hi)
         lo, hi = (mid, hi) if rate(mid) > target else (lo, mid)
@@ -2296,16 +2347,20 @@ def _train_cfg(dtype: str, dropout: bool, fused_joint_loss: bool = True,
     return cfg
 
 
-def _train_card_vs_cpu(torch, dev, fused_joint_loss: bool, fused_ffn: bool = False) -> dict:
+def _train_card_vs_cpu(torch, dev, fused_joint_loss: bool, fused_ffn: bool = False,
+                       cfg=None, label: str = "") -> dict:
     """Phase 6a: one forward, backward and GuardedAdam step of the fp32
-    flagship on the card and on the CPU, same weights and batch."""
+    flagship on the card and on the CPU, same weights and batch; 12a / 12b
+    pass their own fp32 `cfg` (and its `label`)."""
     import numpy as np
 
     from tpuasr_torch.models import Transducer, init_weights
     from tpuasr_torch.train import make_optimizer
 
-    cfg = _train_cfg("float32", dropout=False, fused_joint_loss=fused_joint_loss,
-                     fused_ffn=fused_ffn)
+    if cfg is None:
+        cfg = _train_cfg("float32", dropout=False, fused_joint_loss=fused_joint_loss,
+                         fused_ffn=fused_ffn)
+        label = f"fused_joint_loss={fused_joint_loss}, fused_ffn={fused_ffn}"
     r = np.random.default_rng(SEED + 11)
     b, t, u = 2, 256, 16  # the shape of __graft_entry__.entry()
     host = (torch.from_numpy(r.standard_normal((b, t, 80)).astype(np.float32)),
@@ -2320,10 +2375,10 @@ def _train_card_vs_cpu(torch, dev, fused_joint_loss: bool, fused_ffn: bool = Fal
         out = model(*(x.to(device) for x in host))
         res[side] = _step_side(torch, model, tx, out)
     return _step_card_vs_cpu(
-        torch, tx, res, f"fp32 training step (fused_joint_loss={fused_joint_loss}, fused_ffn="
-        f"{fused_ffn}), card vs CPU on [2, 256, 80] x 16 tokens",
-        "fp32 sums in another order through 12 blocks, the attention backward's atomics, the "
-        "fused joint's 3xTF32 products, the lattice")
+        torch, tx, res, f"fp32 training step ({label}), card vs CPU on [2, 256, 80] x 16 "
+        f"tokens", "fp32 sums in another order through 12 blocks, the attention backward's "
+        "atomics, the fused joint's 3xTF32 products, the lattice",
+        rope=cfg.model.encoder.attention_type == "rope")
 
 
 def _step_side(torch, model, tx, out: dict) -> dict:
@@ -2344,7 +2399,7 @@ def _step_side(torch, model, tx, out: dict) -> dict:
             "state": [None if x is None else x.cpu() for x in st], "names": [n for n, _ in named]}
 
 
-def _step_card_vs_cpu(torch, tx, res: dict, what: str, why: str) -> dict:
+def _step_card_vs_cpu(torch, tx, res: dict, what: str, why: str, rope: bool = False) -> dict:
     """Hold a training step's card side against its CPU side (`_step_side`
     each): losses and gradient norm within 1e-4 relative, every gradient
     leaf within 1e-3 of the leaf's max |g| (`why`: the reason), the key
@@ -2362,10 +2417,11 @@ def _step_card_vs_cpu(torch, tx, res: dict, what: str, why: str) -> dict:
     # q.b_k to every score of a query: softmax is shift-invariant), so its
     # gradient is rounding noise on both sides; it is held to that instead
     # (the encoder's and the AED decoders' self- and cross-attention)
-    shift_free = [i for i, n in enumerate(names)
-                  if n.endswith(("self_attn.linear_k.bias", "src_attn.linear_k.bias"))]
-    noise = max(max(float(grads_c[i].abs().max()), float(grads_h[i].abs().max()))
-                for i in shift_free)
+    # (RoPE rotates the key bias by the key's position: there it is a weight)
+    shift_free = [i for i, n in enumerate(names) if not rope
+                  and n.endswith(("self_attn.linear_k.bias", "src_attn.linear_k.bias"))]
+    noise = max((max(float(grads_c[i].abs().max()), float(grads_h[i].abs().max()))
+                 for i in shift_free), default=0.0)
     rels = [float((a - b_).abs().max() / b_.abs().max().clamp(min=1e-30))
             for a, b_ in zip(grads_c, grads_h)]
     held = [i for i in range(len(names)) if i not in shift_free]
@@ -3173,6 +3229,30 @@ def _ctc_card_vs_cpu(torch, dev, bench) -> tuple[dict, dict]:
     return dict(stats, log_prob_max_abs_diff=err, frames=t, encoder_frames=tp), lps
 
 
+@contextlib.contextmanager
+def _timed_steps(torch, step_home, step_attr: str):
+    """While inside, each step made by the step factory `step_attr` of
+    module `step_home` (what the trainer calls) is synced and timed; ->
+    the list of (wall ms, audio seconds) a step, filled as the run goes."""
+    walls, make = [], getattr(step_home, step_attr)
+
+    def timed_step(model, tx, cfg):
+        step = make(model, tx, cfg)
+
+        def run(state, batch, seed):
+            out, ms = _synced_ms(torch, lambda: step(state, batch, seed))
+            walls.append((ms, float(batch["wave_lens"].sum()) / cfg.feature.sample_rate))
+            return out
+
+        return run
+
+    setattr(step_home, step_attr, timed_step)
+    try:
+        yield walls
+    finally:
+        setattr(step_home, step_attr, make)
+
+
 def _workload_trainer(torch, dev, workload: str, step_home, step_attr: str, cfg_ok) -> dict:
     """10b and 11b: `python -m tpuasr_torch.tools.train --workload <workload>`
     in this process at the card's defaults: the hard synthetic corpus as
@@ -3191,22 +3271,11 @@ def _workload_trainer(torch, dev, workload: str, step_home, step_attr: str, cfg_
     from tpuasr_torch.tools.train import main as train_main
     from tpuasr_torch.train import latest_path, load_info, make_optimizer
 
-    walls, make = [], getattr(step_home, step_attr)
+    make = getattr(step_home, step_attr)
     label = f"the {workload} trainer"
 
-    def timed_step(model, tx, cfg):
-        step = make(model, tx, cfg)
-
-        def run(state, batch, seed):
-            out, ms = _synced_ms(torch, lambda: step(state, batch, seed))
-            walls.append((ms, float(batch["wave_lens"].sum()) / cfg.feature.sample_rate))
-            return out
-
-        return run
-
     (ROOT / "build").mkdir(exist_ok=True)
-    setattr(step_home, step_attr, timed_step)
-    try:
+    with _timed_steps(torch, step_home, step_attr) as walls:
         with tempfile.TemporaryDirectory(prefix=f"{workload}-", dir=ROOT / "build") as save_dir:
             sets = ["data.synth_hard=True", "data.batch_size=12", "data.num_prefetch=2",
                     f"train.save_dir={save_dir}", "train.log_dir=", "train.log_every=1"]
@@ -3225,8 +3294,6 @@ def _workload_trainer(torch, dev, workload: str, step_home, step_attr: str, cfg_
                 ["--workload", workload, "--synthetic", "48", "--epochs", "3", "--resume",
                  latest_path(save_dir)]))
             info3 = load_info(latest_path(save_dir))
-    finally:
-        setattr(step_home, step_attr, make)
     losses = first.train_losses + first.dev_losses + second.train_losses + second.dev_losses
     ms = sorted(w for w, _ in walls)
     med = ms[len(ms) // 2]
@@ -3676,6 +3743,304 @@ def _aed_decode(torch, dev, data) -> dict:
                                         "device_operations": ops}
         out[label] = rec
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the transducer's other model options
+# ---------------------------------------------------------------------------
+
+ZOO = {
+    # 12a, icefall-style: the stateless embedding predictor (history 2, 4
+    # heads, embed = output = 256) and the pruned loss over 5 label positions
+    "stateless_pruned": {"model.predictor.predictor_type": "embedding",
+                         "model.rnnt_prune_range": 5},
+    # 12b: RoPE with 2 K/V heads, no positional table, MoE FFNs (8 experts, 2
+    # active), RMS-normed conv modules, the conv predictor and a HAT joint
+    "zoo": {"model.encoder.attention_type": "rope", "model.encoder.n_kv_head": 2,
+            "model.encoder.pos_enc_layer_type": "no_pos", "model.encoder.mlp_type": "moe",
+            "model.encoder.n_expert": 8, "model.encoder.n_expert_activated": 2,
+            "model.encoder.cnn_module_norm": "rms_norm", "model.predictor.predictor_type": "conv",
+            "model.joint.hat_joint": True},
+    # 12c, full context: FireRed's front end and attention, gated FFNs, batch
+    # norm (evaluation, seeded running statistics) and a post-join linear
+    "full_context": {"model.encoder.encoder_type": "firered", "model.encoder.mlp_type": "gated",
+                     "model.encoder.cnn_module_norm": "batch_norm",
+                     "model.joint.postjoin_linear": True},
+}
+
+
+def _zoo(cfg, name: str):
+    """`cfg` with phase 12's configuration `name` set on it (ZOO)."""
+    from tpuasr_torch.config import override
+
+    return override(cfg, ZOO[name])
+
+
+def _zoo_models(torch, dev, name: str, data) -> dict:
+    """The fp32 flagship (`_flagship`; 12a with the fused FFN) with ZOO[name],
+    seed-0 weights on the
+    card and the CPU (batch norms' running statistics drawn from a seeded
+    numpy generator: mean N(0, 0.3), variance U(0.5, 2)), the joint's blank
+    logit and the CTC head's fitted on the card (`_fit_blank_bias`,
+    `_fit_ctc_blank_bias`) and copied to the CPU; each side's encoder output
+    from the card's features of the fixture requests (shared: a 1e-5 dB
+    fbank difference moves a dB value near a first-conv ReLU's edge, and
+    MoE routing and RoPE carry it further than phase 4's encoder)."""
+    import numpy as np
+
+    from tpuasr_torch.audio import fbank_batch
+    from tpuasr_torch.models import Transducer, init_weights
+
+    cfg = _zoo(_flagship("float32", fused_ffn=name == "stateless_pruned"), name)
+    card = init_weights(Transducer(cfg.model, device=dev), SEED)
+    r = np.random.default_rng(SEED + 12)
+    with torch.no_grad():
+        for key, buf in card.named_buffers():
+            if key.endswith(".mean"):
+                buf.copy_(torch.from_numpy(r.normal(0.0, 0.3, buf.shape).astype(np.float32)))
+            elif key.endswith(".var"):
+                buf.copy_(torch.from_numpy(r.uniform(0.5, 2.0, buf.shape).astype(np.float32)))
+    waves, wave_lens = data["fixture"]
+    bias = _fit_blank_bias(torch, card, cfg, waves, wave_lens, data["text_lens"])
+    feats, flens = fbank_batch(waves, wave_lens, cfg.feature, device=dev)
+    enc = {"card": card.encode(feats, flens)}
+    target = float(data["text_lens"].sum()) / float(enc["card"][1].sum())
+    ctc_bias = _fit_ctc_blank_bias(torch, card, *enc["card"], target)
+    cpu = Transducer(cfg.model, device="cpu")
+    cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    enc["cpu"] = cpu.encode(feats.cpu(), flens.cpu())
+    err = float((enc["card"][0].cpu() - enc["cpu"][0]).abs().max())
+    print(f"{name}: fp32 encoder card vs CPU on the card's features of the {len(wave_lens)} "
+          f"fixture requests: max_abs_err {err:.3g} (tol 2e-3, as phase 4)")
+    require(err <= 2e-3, f"{name}: card and CPU encoder outputs differ")
+    return {"cfg": cfg, "card": card, "cpu": cpu, "enc": enc, "blank_logit_bias": bias,
+            "ctc_blank_logit_bias": ctc_bias, "encoder_max_abs_err": err}
+
+
+def _zoo_serve(torch, dev, data, m, modes, streaming: bool) -> dict:
+    """12a-12c's serving, fp32, card against CPU on the fixture requests
+    (each side's search on its encoder output of `_zoo_models`): greedy
+    tokens identical, `make_offline_decoder`'s on the card its search's, the
+    beam modes of
+    `modes` (rnnt_beam beam 4, rnnt_rescoring of the CTC prefix beam's
+    n-best) by phase 4b's 2d rule; with `streaming`, streaming greedy ==
+    chunk-masked offline greedy on the card, as phase 5 holds it."""
+    from tpuasr_torch.audio import fbank_batch
+    from tpuasr_torch.decode import (
+        ctc_prefix_beam_search, rnnt_beam_decode, rnnt_greedy_decode, streaming_greedy_decode,
+        transducer_rescoring,
+    )
+    from tpuasr_torch.eval import make_offline_decoder
+    from tpuasr_torch.streaming import num_chunks
+
+    cfg, c = m["cfg"], m["cfg"].model
+    waves, wave_lens = data["fixture"]
+    toks = {side: rnnt_greedy_decode(m[side], *m["enc"][side], c.blank_id)
+            for side in ("card", "cpu")}
+    same = all(torch.equal(a.cpu(), b) for a, b in zip(toks["card"], toks["cpu"]))
+    dec = make_offline_decoder(m["card"], cfg, "rnnt_greedy")
+    entry, ms = _synced_ms(torch, lambda: dec(waves, wave_lens))
+    print(f"rnnt_greedy card vs CPU: tokens identical {same} (emitted "
+          f"{int(toks['cpu'][1].sum())}); make_offline_decoder on the card {ms:.1f} ms for the "
+          f"{len(wave_lens)} requests")
+    require(same, "rnnt_greedy tokens on the card differ from the CPU run")
+    require(all(torch.equal(a, b) for a, b in zip(entry, toks["card"])),
+            "make_offline_decoder('rnnt_greedy') differs from its search on the card")
+    out = {"rnnt_greedy_identical": same, "rnnt_greedy_ms": ms,
+           "rnnt_greedy_tokens": int(toks["cpu"][1].sum()), "agreement": {}}
+
+    def searches(model, e, el):
+        found = {}
+        if "rnnt_beam" in modes:
+            found["rnnt_beam"] = rnnt_beam_decode(model, e, el, c.blank_id, 4, 200)[2:]
+        if "rnnt_rescoring" in modes:
+            lp = torch.log_softmax(model.ctc_logits(e).float(), dim=-1)
+            nb = ctc_prefix_beam_search(lp, el, c.blank_id, 4, 200)[2]
+            found["rnnt_rescoring"] = nb[:2] + (transducer_rescoring(
+                model, e, el, *nb, c.blank_id, c.transducer_weight, c.ctc_weight)[2],)
+        return found
+
+    card, cpu = (searches(m[side], *m["enc"][side]) for side in ("card", "cpu"))
+    for mode in modes:
+        out["agreement"][mode] = _nbest_agreement(torch, mode, card[mode], cpu[mode])
+        out[f"{mode}_ms"] = _synced_ms(torch, lambda: make_offline_decoder(
+            m["card"], cfg, mode)(waves, wave_lens))[1]
+        print(f"  {mode}: {out[f'{mode}_ms']:.1f} ms on the card")
+    if streaming:
+        model = m["card"]
+        feats, flens = fbank_batch(waves, wave_lens, cfg.feature, device=dev)
+        full, full_lens = model.encode(feats, flens, CHUNK, LEFT)
+        n = num_chunks(feats.shape[1], CHUNK, 4, 6)
+        whole = torch.clamp(full_lens.long(), max=n * CHUNK) // CHUNK * CHUNK
+        off = rnnt_greedy_decode(model, full, whole, c.blank_id)
+        st = streaming_greedy_decode(model, feats, whole * 4 + 3, CHUNK, LEFT, c.blank_id)[:2]
+        ok = all(torch.equal(a, b) for a, b in zip(st, off))
+        print(f"streaming greedy == chunk-masked offline on the card ({int(whole.sum())} "
+              f"frames, {int(st[1].sum())} tokens): {ok}")
+        require(ok, "streaming tokens differ from chunk-masked offline")
+        out["streaming_equals_offline"] = ok
+    return out
+
+
+def _zoo_trainer(torch, dev, prune: int) -> dict:
+    """12a's trainer: `python -m tpuasr_torch.tools.train --workload
+    online_rnnt` in this process at the card's defaults (bf16, fused
+    attention, fbank "default", the fused joint loss) with the fused FFN,
+    the embedding predictor and `model.rnnt_prune_range=prune` (0: the fused
+    joint loss, 5: the pruned one), one epoch of the hard synthetic corpus
+    cut as phase 8 cuts it (48 utterances, batch 12) into a temporary
+    directory under build/. Each step synced and timed; the peak memory
+    over the run; then one profiled step on the first training batch."""
+    import tempfile
+
+    import tpuasr_torch.train.loop as loop
+    from tpuasr_torch.config import load_yaml
+    from tpuasr_torch.data import synthetic_pipeline, tensors
+    from tpuasr_torch.tools.train import main as train_main
+    from tpuasr_torch.train import make_optimizer
+
+    make = loop.make_train_step
+    (ROOT / "build").mkdir(exist_ok=True)
+    with _timed_steps(torch, loop, "make_train_step") as walls:
+        with tempfile.TemporaryDirectory(prefix="zoo-", dir=ROOT / "build") as save_dir:
+            sets = [f"{k}={v}" for k, v in ZOO["stateless_pruned"].items()] + [
+                f"model.rnnt_prune_range={prune}", "model.encoder.fused_ffn=True",
+                "data.synth_hard=True", "data.batch_size=12", f"train.save_dir={save_dir}",
+                "train.log_dir=", "train.log_every=1"]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            run = train_main(["--workload", "online_rnnt", "--synthetic", "48", "--epochs", "1",
+                              "--set", *sets])
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            cfg = load_yaml(str(Path(save_dir) / "train.yaml"))
+    require(cfg.model.rnnt_prune_range == prune and cfg.model.compute_dtype == "bfloat16"
+            and cfg.model.predictor.predictor_type == "embedding"
+            and cfg.model.encoder.fused_ffn and cfg.model.fused_joint_loss,
+            "12a's trainer config is not the one asked for")
+    require(all(math.isfinite(x) for x in run.train_losses + run.dev_losses)
+            and int(run.state.skipped) == 0, f"12a's trainer (prune {prune}): a loss is not "
+                                             f"finite or a step was skipped")
+    ms = sorted(w for w, _ in walls)
+    med, audio = ms[len(ms) // 2], sorted(a for _, a in walls)[len(walls) // 2]
+    batch = tensors(next(iter(synthetic_pipeline(cfg, 48, seed=0).batches(0))), dev)
+    _, busy, wall, kern = _profiled_step(
+        torch, make(run.state.model, make_optimizer(cfg.optim), cfg), run.state, batch)
+    print(f"12a trainer, rnnt_prune_range={prune}: {len(ms)} steps, train loss "
+          f"{run.train_losses}, dev loss {run.dev_losses}; step wall (synced) median "
+          f"{med:.1f} ms (min {ms[0]:.1f}, max {ms[-1]:.1f}), {audio / med * 1e3:.1f} "
+          f"audio-s/s; peak memory {peak:.3f} GiB; one profiled step of batch "
+          f"{list(batch['waves'].shape)}: device busy {busy:.2f} ms of {wall:.1f} ms wall, "
+          f"{sum(e.count for e in kern)} device operations")
+    return {"steps": len(ms), "step_ms": [w for w, _ in walls], "step_ms_median": med,
+            "audio_s_per_s": audio / med * 1e3, "peak_gib": peak,
+            "train_losses": run.train_losses, "dev_losses": run.dev_losses,
+            "profiled_step_device_busy_ms": busy, "profiled_step_wall_ms": wall,
+            "profiled_step_device_operations": sum(e.count for e in kern)}
+
+
+def _loss_routes(torch, dev, bench) -> dict:
+    """12a's loss alone at bench.py's shape, outside the counted run: the
+    joint-projected encoder and predictor of the 6b batch's lengths ([12,
+    191, 256] and [12, 33, 256], fp32, seeded), the flagship head over 412
+    tokens; forward and backward of the pruned loss (band 5, plain PyTorch),
+    the fused joint loss (#4/#5, #8/#9) and the materialized one (full
+    logits, #8/#9): the median synced wall of 5 calls and the peak memory
+    above the inputs."""
+    import numpy as np
+
+    from tpuasr_torch.losses import rnnt_loss_from_logits, rnnt_loss_pruned
+    from tpuasr_torch.ops import rnnt_loss_fused_mean
+
+    b, t, u, d, v = BENCH_B, int(_enc_len(bench["wave_lens"]).max()), BENCH_TOKENS, 256, 412
+    r = np.random.default_rng(SEED + 5)
+    enc, pred = (torch.from_numpy((0.5 * r.standard_normal(sh)).astype(np.float32)).to(dev)
+                 for sh in ((b, t, d), (b, u + 1, d)))
+    w = torch.from_numpy((r.standard_normal((d, v)) / 16).astype(np.float32)).to(dev)
+    bias = torch.zeros(v, device=dev)
+    t_lens, labels, u_lens = _enc_len(bench["wave_lens"]), bench["texts"], bench["text_lens"]
+    routes = {
+        "pruned_5": lambda *x: rnnt_loss_pruned(*x, labels, t_lens, u_lens, 5, 5),
+        "fused": lambda *x: rnnt_loss_fused_mean(*x, labels, t_lens, u_lens, 5),
+        "materialized": lambda e, p, w_, b_: rnnt_loss_from_logits(
+            torch.tanh(e[:, :, None] + p[:, None]) @ w_ + b_, labels, t_lens, u_lens, 5),
+    }
+    out = {}
+    for name, fn in routes.items():
+        xs = [x.clone().requires_grad_() for x in (enc, pred, w, bias)]
+
+        def call():
+            loss = fn(*xs)
+            loss.backward()
+            return loss
+
+        call()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        walls = sorted(_synced_ms(torch, call)[1] for _ in range(5))
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        out[name] = {"ms": walls[2], "peak_mib": peak, "loss": float(call().detach())}
+        print(f"12a loss route {name} at [{b}, {t}, {u + 1}, {v}]: forward + backward "
+              f"{walls[2]:.2f} ms (median synced wall of 5), peak {peak:.1f} MiB above the "
+              f"inputs, loss {out[name]['loss']:.4f}")
+    return out
+
+
+def _zoo_step_profile(torch, dev, bench) -> dict:
+    """12b's training step at bench.py's configuration and batch (6b: bf16,
+    dropout 0.1, dynamic chunks) with the zoo's options: one step, then a
+    profiled one (`_profiled_step`): its device busy ms, wall, device
+    operations, and the peak memory over both."""
+    from tpuasr_torch.models import Transducer, init_weights
+    from tpuasr_torch.train import TrainState, make_optimizer, make_train_step
+
+    cfg = _zoo(_train_cfg("bfloat16", dropout=True), "zoo")
+    model = init_weights(Transducer(cfg.model, device=dev), SEED)
+    tx = make_optimizer(cfg.optim)
+    step = make_train_step(model, tx, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state, metrics = step(TrainState.create(model, tx), bench, SEED)
+    state, busy, wall, kern = _profiled_step(torch, step, state, bench)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    ops = sum(e.count for e in kern)
+    require(math.isfinite(float(metrics["loss"])), "12b's bf16 step gave a non-finite loss")
+    print(f"12b's step at bench.py's configuration (bf16, batch {list(bench['waves'].shape)}): "
+          f"loss {float(metrics['loss']):.4f}; device busy {busy:.2f} ms of {wall:.1f} ms wall "
+          f"in {ops} device operations; peak memory {peak:.3f} GiB")
+    return {"device_busy_ms": busy, "wall_ms": wall, "device_operations": ops,
+            "peak_gib": peak, "loss": float(metrics["loss"])}
+
+
+def _zoo_phase(torch, dev, data, bench) -> dict:
+    """Phase 12a-12c (each configuration the online_rnnt flagship with
+    ZOO's fields changed) -> the records."""
+    zoo = {}
+    print("12a: the stateless pruned transducer")
+    step_cfg = _zoo(_train_cfg("float32", dropout=False, fused_ffn=True), "stateless_pruned")
+    zoo["stateless_pruned_step"] = _train_card_vs_cpu(
+        torch, dev, True, True, step_cfg, "12a: the embedding predictor, rnnt_prune_range=5, "
+                                          "fused attention and FFN")
+    zoo["stateless_pruned_trainer"] = {p: _zoo_trainer(torch, dev, p) for p in (5, 0)}
+    m = _zoo_models(torch, dev, "stateless_pruned", data)
+    zoo["stateless_pruned_serving"] = dict(
+        _zoo_serve(torch, dev, data, m, ("rnnt_beam", "rnnt_rescoring"), True),
+        blank_logit_bias=m["blank_logit_bias"], encoder_max_abs_err=m["encoder_max_abs_err"])
+    print("12b: the zoo transducer (rope, GQA, MoE, rms_norm, the conv predictor, HAT)")
+    step_cfg = _zoo(_train_cfg("float32", dropout=False), "zoo")
+    zoo["zoo_step"] = _train_card_vs_cpu(torch, dev, True, False, step_cfg,
+                                         "12b: rope, GQA, MoE, rms_norm, conv predictor, HAT")
+    zoo["zoo_step_bf16"] = _zoo_step_profile(torch, dev, bench)
+    m = _zoo_models(torch, dev, "zoo", data)
+    zoo["zoo_serving"] = dict(_zoo_serve(torch, dev, data, m, ("rnnt_beam",), True),
+                              blank_logit_bias=m["blank_logit_bias"],
+                              encoder_max_abs_err=m["encoder_max_abs_err"])
+    print("12c: full context (FireRed, gated FFNs, batch norm, post-join linear)")
+    m = _zoo_models(torch, dev, "full_context", data)
+    zoo["full_context_serving"] = dict(_zoo_serve(torch, dev, data, m, ("rnnt_beam",), False),
+                                       blank_logit_bias=m["blank_logit_bias"],
+                                       encoder_max_abs_err=m["encoder_max_abs_err"])
+    return zoo
 
 
 if __name__ == "__main__":

@@ -33,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.test_torch_zoo import flax_variables
 from tpuasr.config import EncoderConfig as JaxEncoderConfig
 from tpuasr.config import to_dict as jax_to_dict
 from tpuasr.models import asr_model as jax_asr
@@ -79,21 +80,7 @@ def flax_template(jm):
 def flax_params(jm, port) -> dict:
     """The port's weights in `jm`'s flax layout: each leaf through the
     converter's own index map, inverted."""
-    sd = port.state_dict()
-
-    def walk(tree, path):
-        out = {}
-        for k, v in tree.items():
-            if isinstance(v, dict):
-                out[k] = walk(v, path + (k,))
-                continue
-            key, idx = _convert_leaf(path + (k,), np.arange(np.prod(v.shape)).reshape(v.shape))
-            y = np.empty(int(np.prod(v.shape)), np.float32)
-            y[np.asarray(idx).ravel()] = sd[key].numpy().ravel()
-            out[k] = y.reshape(v.shape)
-        return out
-
-    return {"params": walk(flax_template(jm), ())}
+    return flax_variables(jm, port, *batch())
 
 
 def port_model(jc, seed: int = 3) -> ASRModel:

@@ -151,7 +151,7 @@ def test_trainer_cli_ctc_workload_and_resume(tmp_path):
 @pytest.mark.parametrize("argv", [["--workload", "rnnt", "--synthetic", "4", "--set",
                                    "model.encoder.encoder_type=squeezeformer"],
                                   ["--workload", "rnnt", "--synthetic", "4", "--set",
-                                   "model.rnnt_prune_range=4"],
+                                   "model.encoder.encoder_type=efficient_conformer"],
                                   ["--workload", "paraformer"]])
 def test_trainer_cli_refuses_what_is_not_ported(argv):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

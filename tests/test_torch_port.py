@@ -114,12 +114,26 @@ def test_measure_rtf_refuses_cpu():
 
 
 @pytest.mark.parametrize("bad", [
-    {"encoder_type": "squeezeformer"}, {"attention_type": "rope"},
-    {"input_layer": "conv2d_firered"}, {"cnn_module_norm": "batch_norm"}, {"n_kv_head": 1},
+    ({"encoder_type": "squeezeformer"}, "build"),
+    ({"encoder_type": "efficient_conformer"}, "build"),
+    ({"normalize_before": False}, "build"),
+    ({"cnn_module_norm": "batch_norm"}, "train"),
+    ({"encoder_type": "firered"}, "stream"),
 ])
 def test_unported_options_raise(bad):
+    """What the port does not build raises NotImplementedError where it is
+    used: the encoder families at construction, the JAX block's unread
+    normalize_before, batch-norm training (the JAX package cannot train it
+    either) and FireRed's streaming (full context only)."""
+    enc, use = bad
     with pytest.raises(NotImplementedError):
-        Transducer(_tiny_cfg(**bad), device="cpu")
+        model = Transducer(_tiny_cfg(**enc), device="cpu")
+        if use == "train":
+            model.train()
+            model(torch.randn(1, 40, 80), torch.tensor([40]), torch.tensor([[7, 8]]),
+                  torch.tensor([2]), dropout_gen=torch.Generator().manual_seed(0))
+        elif use == "stream":
+            model.encode_chunk(torch.zeros(1, 19, 80), model.init_encoder_state(1, 4, 2))
 
 
 @pytest.mark.parametrize("remat", [True, False])
@@ -146,19 +160,39 @@ def test_jax_gradient_checkpointing_is_read_and_refused(remat):
 @pytest.mark.parametrize("where,key,value", [
     ("model", "rnnt_prune_range", 4), ("predictor", "predictor_type", "embedding"),
     ("encoder", "pos_enc_layer_type", "abs_pos"), ("predictor", "predictor_type", "conv"),
-    ("joint", "hat_joint", True),
+    ("joint", "hat_joint", True), ("encoder", "normalize_before", False),
+    ("encoder", "encoder_type", "squeezeformer"),
 ])
 def test_unported_training_options_raise(where, key, value):
-    from tpuasr_torch.train import make_optimizer, make_train_step
+    """The trainer's model options: the ones refused before the transducer's
+    options were ported (the pruned loss, the stateless predictors, abs_pos,
+    HAT) now take a training step with a finite loss and gradient through
+    `make_train_step`; what stays unported still raises NotImplementedError."""
+    from tpuasr_torch.models import init_weights
+    from tpuasr_torch.train import TrainState, make_optimizer, make_train_step
 
     cfg = Config()
     cfg.model = _tiny_cfg()
     target = {"model": cfg.model, "encoder": cfg.model.encoder, "optim": cfg.optim,
               "predictor": cfg.model.predictor, "joint": cfg.model.joint}[where]
     setattr(target, key, value)
-    with pytest.raises(NotImplementedError):
-        model = Transducer(cfg.model, device="cpu")
-        make_train_step(model, make_optimizer(cfg.optim), cfg)
+    if where == "predictor":
+        cfg.model.predictor.embed_size = cfg.model.predictor.output_size
+    if (key, value) in (("normalize_before", False), ("encoder_type", "squeezeformer")):
+        with pytest.raises(NotImplementedError):
+            Transducer(cfg.model, device="cpu")
+        return
+    cfg.feature.sample_rate = 16000
+    model = init_weights(Transducer(cfg.model, device="cpu"), 0)
+    tx = make_optimizer(cfg.optim)
+    r = np.random.default_rng(1)
+    batch = {"waves": torch.from_numpy((0.1 * r.standard_normal((2, 40 * 512)))
+                                       .astype(np.float32)),
+             "wave_lens": torch.tensor([40 * 512, 31 * 512]),
+             "texts": torch.from_numpy(r.integers(6, 64, (2, 5))),
+             "text_lens": torch.tensor([5, 2])}
+    _, metrics = make_train_step(model, tx, cfg)(TrainState.create(model, tx), batch, 0)
+    assert bool(metrics["finite"]) and float(metrics["loss"]) > 0
 
 
 def test_lattice_and_materialized_loss_refuse_other_devices():

@@ -8,10 +8,11 @@ field names and defaults, so a ``train.yaml`` written by the JAX package
 loads here unchanged: `from_dict` drops every key this copy does not hold
 (the JAX-only loop switches such as donation, the RNG implementation and
 the host-RSS watchdog, the mesh, the scanned parameter layout, which
-`tpuasr_torch.convert` detects by itself, and the options of encoder and
-predictor families the port does not build, which their `*_type` fields
-already refuse). Values the port does not build raise NotImplementedError
-where they are read (`check_supported` in the encoder, `Transducer`).
+`tpuasr_torch.convert` detects by itself, and the options of the
+squeezeformer and efficient-conformer encoders, which `encoder_type`
+already refuses). Values the port does not build raise NotImplementedError
+where they are read (`check_supported` in the encoder, batch-norm training
+in the conv module).
 
 The JAX package's ``adapt_to_backend`` is not copied: it strips TPU-only
 settings off the TPU, while the port runs its kernels whenever a tensor lies
@@ -54,8 +55,10 @@ class EncoderConfig:
     """Conformer encoder (reference: model/rnnt_model.py:90-109,
     model/online_rnnt_model.py:85-107, wenet/transformer/encoder.py:437-551).
 
-    The port builds the conformer/rel_pos/conv2d/layer_norm/swish subset and
-    raises NotImplementedError for the rest (`check_supported`)."""
+    The port builds the conformer and firered families with every attention,
+    positional encoding, FFN, conv norm, activation and front end of the
+    JAX package, and raises NotImplementedError for the rest
+    (`check_supported`)."""
 
     input_size: int = 80
     output_size: int = 256
@@ -67,10 +70,14 @@ class EncoderConfig:
     # dropout on the attention probabilities (the plain route: a rate above
     # 0 takes it even with fused_attention, as the JAX gate does)
     attention_dropout_rate: float = 0.0
-    input_layer: str = "conv2d"  # linear | conv2d | conv2d6 | conv2d8
+    # linear | conv1d2 | stack2 | conv2d | conv2d6 | conv2d8 | conv2d_firered
+    input_layer: str = "conv2d"
+    # rel_pos | abs_pos | no_pos | abs_pos_whisper | abs_pos_learnable
     pos_enc_layer_type: str = "rel_pos"
-    attention_type: str = ""  # "" derives from pos_enc_layer_type
-    n_kv_head: int = 0  # 0 or attention_heads: no grouped K/V heads yet
+    # mha | rel_pos | shaw_rel_pos | rope | firered_rel_pos; "" derives from
+    # pos_enc_layer_type (rel_pos -> rel_pos, else mha)
+    attention_type: str = ""
+    n_kv_head: int = 0  # K/V heads of mha and rope (GQA; 1 = MQA); 0 = attention_heads
     # the full-context (serving and training) attention path: True = the
     # rel-pos attention kernels (`tpuasr_torch.ops.relpos_attention`:
     # forward #2, backward #3), False = the plain formula in torch ops
@@ -86,9 +93,9 @@ class EncoderConfig:
     macaron_style: bool = True
     use_cnn_module: bool = True
     cnn_module_kernel: int = 31
-    cnn_module_norm: str = "layer_norm"
+    cnn_module_norm: str = "layer_norm"  # layer_norm | rms_norm | batch_norm (eval only)
     causal: bool = False
-    activation_type: str = "swish"
+    activation_type: str = "swish"  # swish | relu | gelu
     static_chunk_size: int = 0
     use_dynamic_chunk: bool = False
     use_dynamic_left_chunk: bool = False
@@ -97,13 +104,18 @@ class EncoderConfig:
     # recompute each block in the backward (the JAX package's remat), the
     # block's dropout draws and the step's chunk masks replayed
     gradient_checkpointing: bool = False
+    # position_wise_feed_forward | gated (gelu-gated) | moe (top-k of n_expert)
     mlp_type: str = "position_wise_feed_forward"
-    encoder_type: str = "conformer"
+    n_expert: int = 8
+    n_expert_activated: int = 2
+    encoder_type: str = "conformer"  # conformer | firered
 
 
 @dataclass
 class PredictorConfig:
-    """Label predictor (reference: model/component/predictor.py:11-98)."""
+    """Label predictor (reference: model/component/predictor.py:11-98 for the
+    LSTM; wenet/transducer/predictor.py:213-499 for the stateless embedding
+    and causal-conv variants)."""
 
     predictor_type: str = "rnn"  # rnn | embedding | conv
     embed_size: int = 256
@@ -112,6 +124,10 @@ class PredictorConfig:
     num_layers: int = 1
     embed_dropout: float = 0.0
     dropout: float = 0.1  # between LSTM layers
+    # embedding/conv predictors
+    history_size: int = 2
+    n_head: int = 4  # embedding predictor attention heads
+    activation: str = "swish"  # swish | relu
 
 
 @dataclass
@@ -122,7 +138,9 @@ class JointConfig:
     prejoin_linear: bool = True
     postjoin_linear: bool = False
     joint_mode: str = "add"
-    activation: str = "tanh"
+    activation: str = "tanh"  # tanh | relu | gelu
+    # HAT factorization (wenet/transducer/joint.py:51-106): a log-sigmoid
+    # blank head; the output is a normalized log-distribution
     hat_joint: bool = False
 
 
@@ -170,7 +188,9 @@ class ModelConfig:
     # the joint's full logits and `rnnt_loss_from_logits`. Both routes run
     # the lattice kernels of tpuasr_torch/csrc/rnnt_lattice.cu on the card
     fused_joint_loss: bool = False
-    rnnt_prune_range: int = 0  # must be 0: the pruned loss is not ported
+    # > 0: the pruned RNN-T loss over a band of this many label positions a
+    # frame (`tpuasr_torch.losses.rnnt_loss_pruned`; the plain head only)
+    rnnt_prune_range: int = 0
     ctc_weight: float = 0.3  # > 0 builds the CTC head
     transducer_weight: float = 0.7
     ctc_dropout_rate: float = 0.1

@@ -2,17 +2,24 @@
 the port's state_dict.
 
 Input: the flax params as nested dicts of numpy arrays (with or without the
-top-level "params" key), e.g. ``jax.tree.map(np.asarray, params)``; this
-module imports nothing of JAX. The layout differences it resolves:
+top-level "params" key), e.g. ``jax.tree.map(np.asarray, params)``, or the
+whole variables dict, whose ``batch_stats`` collection (the conv modules'
+batch-norm running ``mean``/``var``) lands in the buffers of those names;
+this module imports nothing of JAX. The layout differences it resolves:
 
 - flax ``Dense`` kernels are [in, out]; ``nn.Linear`` weights are [out, in];
 - the subsampling convs (``conv1``..``conv3`` of conv2d / conv2d6 /
   conv2d8) are HWIO [k, k, in, out]; torch's are OIHW (the NHWC flatten
   order is handled by the module: it permutes to [B, T', F', C] before the
   flatten, so the `out` weight is only transposed);
-- the depthwise conv kernel is [K, 1, C]; torch's is [C, 1, K];
-- flax ``LayerNorm`` params are ``scale``/``bias`` (eps 1e-6, set by the
-  port's LayerNorm); ``nn.Embed`` is ``embedding``;
+- 1-D conv kernels (the conv modules' and the conv predictor's depthwise
+  [K, 1, C], conv1d2's [K, in, out]) become torch's [out, in, K];
+- flax ``LayerNorm``, ``RMSNorm`` and ``BatchNorm`` params are
+  ``scale``/``bias``; ``nn.Embed`` is ``embedding``;
+- raw parameters keep the JAX layout: the joint head's ``ffn_out_kernel``,
+  the MoE experts' ``w1 [E, D, H]`` / ``w2 [E, H, D]``, the embedding
+  predictor's ``pos_embed [H, E, ctx]``, Shaw's ``rel_k_embed`` and the
+  encoder's ``learned_pe``;
 - the predictor's ``wx_l``/``wh_l`` become ``wx.{l}``/``wh.{l}`` (wh keeps
   its [H, 4H] layout, the cell is written out); the joint head's raw
   ``ffn_out_kernel [D, V]`` and ``pos_bias_u/v [H, dk]`` keep theirs;
@@ -46,8 +53,8 @@ _LISTS = {"block": "blocks", "layer": "layers", "wx_": "wx", "wh_": "wh"}
 def _convert_leaf(path: tuple, x: np.ndarray) -> tuple[str, np.ndarray]:
     *parents, leaf = path
     if leaf == "kernel":
-        if parents[-1] == "depthwise_conv":
-            x = x.transpose(2, 1, 0)  # [K, 1, C] -> [C, 1, K]
+        if x.ndim == 3:
+            x = x.transpose(2, 1, 0)  # [K, in, out] -> [out, in, K]
         elif x.ndim == 4:
             x = x.transpose(3, 2, 0, 1)  # HWIO -> OIHW
         elif x.ndim == 2:
@@ -65,10 +72,11 @@ def _convert_leaf(path: tuple, x: np.ndarray) -> tuple[str, np.ndarray]:
 
 
 def convert_params(params: dict) -> dict[str, torch.Tensor]:
-    """flax Transducer, CTCModel or ASRModel params (nested numpy dicts) ->
-    port state_dict."""
-    params = params.get("params", params)
-    flat = _flatten(params)
+    """flax Transducer, CTCModel or ASRModel params (nested numpy dicts), or
+    their variables with a `batch_stats` collection -> port state_dict."""
+    flat = _flatten(params.get("params", params))
+    if "params" in params:
+        flat.update(_flatten(params.get("batch_stats", {})))
     out = {}
     for path, x in flat.items():
         if path[:3] == ("encoder", "layers", "block"):  # scanned: leading [L]

@@ -9,15 +9,27 @@ generator is given. Its RNN-T routes:
 - `fused_joint_loss=True`: `tpuasr_torch.ops.rnnt_loss_fused_mean` (kernels
   #4/#5 on the card), so [B, T, U+1, V] never exists;
 - `fused_joint_loss=False` (the JAX default): the joint's full logits in the
-  compute type and `rnnt_loss_from_logits`.
-Both routes run the lattice through kernels #8/#9 on the card and the plain
-lattice on the CPU.
+  compute type and `rnnt_loss_from_logits`;
+- `rnnt_prune_range > 0`: `tpuasr_torch.losses.rnnt_loss_pruned`, the joint
+  on a band of that many label positions a frame (plain PyTorch on every
+  device, as the JAX package's is no TPU kernel); it takes precedence over
+  the fused loss.
+The fused and the pruned routes compute the plain head alone (tanh . W +
+b): a HAT or post-join joint takes the materialized route whatever the two
+switches say (tpuasr/models/transducer.py:237, :260). The fused and the
+materialized routes run the lattice through kernels #8/#9 on the card and
+the plain lattice on the CPU.
+
+`encoder.encoder_type=firered` builds the conformer stack with FireRed's
+front end (`conv2d_firered`) and attention (`firered_rel_pos`), as
+`tpuasr/models/transducer.py:37-47` does; it is full-context only.
 The module owns its weights; they come from `init_weights` (seeded) or from
 a JAX checkpoint through `tpuasr_torch.convert`.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -25,21 +37,40 @@ from torch import nn
 
 from tpuasr_torch.config import EncoderConfig, ModelConfig
 from tpuasr_torch.device import resolve_device
-from tpuasr_torch.losses import ctc_loss_from_logits, rnnt_loss_from_logits
-from tpuasr_torch.nn.attention import RelPositionMultiHeadedAttention
+from tpuasr_torch.losses import ctc_loss_from_logits, rnnt_loss_from_logits, rnnt_loss_pruned
+from tpuasr_torch.nn.attention import (
+    FireRedRelPositionAttention, RelPositionMultiHeadedAttention,
+)
 from tpuasr_torch.nn.conformer import ConformerEncoder, EncoderStreamState
+from tpuasr_torch.nn.convolution import BatchNormEval, RMSNorm
 from tpuasr_torch.nn.joint import TransducerJoint
 from tpuasr_torch.nn.layers import Dense, LayerNorm, dropout
-from tpuasr_torch.nn.predictor import RNNPredictor
+from tpuasr_torch.nn.predictor import PREDICTOR_CLASSES
 from tpuasr_torch.nn.subsampling import subsampled_len
 from tpuasr_torch.ops.rnnt_fused import rnnt_loss_fused_mean
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
+def family_config(enc_cfg: EncoderConfig) -> EncoderConfig:
+    """The conformer configuration an encoder family builds: FireRed is the
+    conformer stack with its padded front end and Transformer-XL attention
+    (tpuasr/models/transducer.py:37-47)."""
+    if enc_cfg.encoder_type == "firered":
+        return dataclasses.replace(enc_cfg, input_layer="conv2d_firered",
+                                   attention_type="firered_rel_pos")
+    return enc_cfg
+
+
+def encoder_output_len(enc_cfg: EncoderConfig, feat_lens):
+    """Encoder frame count for padded inputs, per family
+    (tpuasr/models/transducer.py:94-101)."""
+    return subsampled_len(family_config(enc_cfg).input_layer, feat_lens)
+
+
 def stream_output_len(enc_cfg: EncoderConfig, feat_lens):
-    """Encoder output frame count for feature lengths (conformer: the
-    subsampled length)."""
+    """Encoder output frame count for feature lengths in streaming (the
+    conformer: the subsampled length)."""
     return subsampled_len(enc_cfg.input_layer, feat_lens)
 
 
@@ -67,22 +98,21 @@ class Transducer(nn.Module):
         dev = resolve_device(device)
         if cfg.compute_dtype not in DTYPES:
             raise ValueError(f"compute_dtype {cfg.compute_dtype!r} not in {sorted(DTYPES)}")
-        if cfg.rnnt_prune_range > 0:
-            raise NotImplementedError("model.rnnt_prune_range > 0: the pruned RNN-T loss is "
-                                      "not ported yet (ROADMAP: after the main path)")
         self.cfg = cfg
         self.dtype = DTYPES[cfg.compute_dtype]
-        self.encoder = ConformerEncoder(cfg.encoder, self.dtype, dev)
-        self.predictor = RNNPredictor(cfg.predictor, cfg.vocab_size, self.dtype, dev)
+        self.encoder = ConformerEncoder(family_config(cfg.encoder), self.dtype, dev)
+        self.predictor = PREDICTOR_CLASSES[cfg.predictor.predictor_type](
+            cfg.predictor, cfg.vocab_size, self.dtype, dev)
         self.joint = TransducerJoint(cfg.joint, cfg.encoder.output_size,
-                                     cfg.predictor.output_size, cfg.vocab_size, dev)
+                                     cfg.predictor.output_size, cfg.vocab_size, cfg.blank_id,
+                                     dev)
         self.ctc = (CTCHead(cfg.encoder.output_size, cfg.vocab_size, cfg.ctc_dropout_rate, dev)
                     if cfg.ctc_weight > 0 else None)
         self.eval()
 
     @property
     def device(self) -> torch.device:
-        return self.joint.ffn_out_bias.device
+        return self.encoder.after_norm.weight.device
 
     # -------------------------------------------------- encoder entry points
 
@@ -91,7 +121,7 @@ class Transducer(nn.Module):
                decoding_chunk_size: int = 0, num_decoding_left_chunks: int = -1):
         """-> (enc_out [B, T', D], enc_lens [B])."""
         ys, _ = self.encoder(feats, feat_lens, decoding_chunk_size, num_decoding_left_chunks)
-        return ys, stream_output_len(self.cfg.encoder, feat_lens)
+        return ys, encoder_output_len(self.cfg.encoder, feat_lens)
 
     @torch.no_grad()
     def encode_chunk(self, xs: torch.Tensor, state: EncoderStreamState):
@@ -139,9 +169,15 @@ class Transducer(nn.Module):
             raise ValueError("a model in train() mode needs a dropout generator "
                              "(or eval() for no dropout)")
         enc_out, _ = self.encoder(feats, feat_lens, chunk_gen=chunk_gen, gen=gen)
-        enc_lens = stream_output_len(c.encoder, feat_lens)
+        enc_lens = encoder_output_len(c.encoder, feat_lens)
         pred_out = self.predictor(add_blank(texts.long(), c.blank_id), gen=gen)
-        if c.fused_joint_loss:
+        plain = self.joint.plain_head
+        if plain and c.rnnt_prune_range > 0:
+            w, b = self.joint.head_params()
+            loss_rnnt = rnnt_loss_pruned(
+                self.joint.project_enc(enc_out), self.joint.project_pred(pred_out), w, b,
+                texts, enc_lens, text_lens, c.blank_id, c.rnnt_prune_range, "mean")
+        elif plain and c.fused_joint_loss:
             w, b = self.joint.head_params()
             loss_rnnt = rnnt_loss_fused_mean(
                 self.joint.project_enc(enc_out), self.joint.project_pred(pred_out), w, b,
@@ -170,10 +206,14 @@ class Transducer(nn.Module):
 @torch.no_grad()
 def init_weights(model: nn.Module, seed: int) -> nn.Module:
     """Seeded random weights with the JAX package's initializer scales:
-    lecun-normal dense/conv kernels, zero biases, unit layer norms, xavier
-    u/v biases and recurrent matrices, unit-normal embeddings (the attention
-    decoder's: std 1/sqrt(d), flax nn.Embed's default). Values are
-    drawn on the CPU, so a seed gives the same weights on every device."""
+    lecun-normal dense/conv kernels (raw parameters in the JAX layout [...,
+    in, out], the joint head, the MoE experts, the embedding predictor's
+    pos_embed: fan-in all axes but the last), zero biases, unit layer, RMS
+    and batch norms, xavier u/v biases and recurrent matrices, unit-normal
+    embeddings (the attention decoder's: std 1/sqrt(d), flax nn.Embed's
+    default), std 0.02 for Shaw's table and the learned positions. Values
+    are drawn on the CPU, so a seed gives the same weights on every device.
+    Batch norms' running statistics (buffers) stay at mean 0, variance 1."""
     g = torch.Generator().manual_seed(seed)
 
     def normal(shape, std):
@@ -185,18 +225,21 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
 
     for mod in model.modules():
         for name, p in mod.named_parameters(recurse=False):
-            if isinstance(mod, LayerNorm):
+            if isinstance(mod, (LayerNorm, RMSNorm, BatchNormEval)):
                 new = torch.ones(p.shape) if name == "weight" else torch.zeros(p.shape)
             elif isinstance(mod, nn.Embedding):
                 new = normal(p.shape, getattr(mod, "init_std", 1.0))
             elif name == "bias" or name == "ffn_out_bias":
                 new = torch.zeros(p.shape)
-            elif isinstance(mod, RelPositionMultiHeadedAttention) and name.startswith("pos_bias"):
+            elif (isinstance(mod, (RelPositionMultiHeadedAttention, FireRedRelPositionAttention))
+                  and name.startswith("pos_bias")):
                 new = xavier(p.shape)
             elif isinstance(mod, nn.ParameterList):  # predictor wh.{l}: [H, 4H]
                 new = xavier(p.shape)
-            elif name == "ffn_out_kernel":  # [D, V]
-                new = normal(p.shape, 1.0 / math.sqrt(p.shape[0]))
+            elif name in ("rel_k_embed", "learned_pe"):
+                new = normal(p.shape, 0.02)
+            elif name in ("ffn_out_kernel", "w1", "w2", "pos_embed"):  # the JAX layout
+                new = normal(p.shape, 1.0 / math.sqrt(p[..., 0].numel()))
             else:  # torch layout [out, in, ...]: fan_in = in * receptive field
                 new = normal(p.shape, 1.0 / math.sqrt(p[0].numel()))
             p.copy_(new)

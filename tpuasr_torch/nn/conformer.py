@@ -1,8 +1,14 @@
 """Conformer encoder: full-context / chunk-masked forward and the
 fixed-shape streaming `forward_chunk` (port of ``tpuasr/nn/conformer.py``).
 
-Layer order (wenet encoder_layer.py:130-265): ½FF (macaron) → rel-pos MHA →
-conv module → ½FF → final LN, pre-norm residuals. Streaming keeps the JAX
+Layer order (wenet encoder_layer.py:130-265): ½FF (macaron) → self-attention
+→ conv module → ½FF → final LN, pre-norm residuals. Every option of the JAX
+block builds: the attention by `attention_type_of` (rel_pos, mha with
+grouped K/V heads, shaw_rel_pos, rope, firered_rel_pos), the positional
+encodings (rel_pos, abs_pos, no_pos, abs_pos_whisper, abs_pos_learnable),
+the FFN by `mlp_type` (position-wise, gated, MoE), the swish / relu / gelu
+activations, the conv module's norms, and the block without its macaron
+FFN (FFN scale 1) or without its conv module. Streaming keeps the JAX
 package's fixed-capacity right-aligned caches — att_k/att_v [L, B, A, H, dk]
 with A = chunk * num_left_chunks, cnn [L, B, lorder, D] — and a stream
 offset, so chunked output equals the full-context chunk-masked forward.
@@ -35,85 +41,185 @@ import contextlib
 from dataclasses import dataclass
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from tpuasr_torch.config import EncoderConfig
-from tpuasr_torch.nn.attention import RelPositionMultiHeadedAttention
+from tpuasr_torch.nn.attention import (
+    FireRedRelPositionAttention, MultiHeadedAttention, RelPositionMultiHeadedAttention,
+    RopeMultiHeadedAttention, ShawRelPositionMultiHeadedAttention,
+)
 from tpuasr_torch.nn.convolution import ConvolutionModule
-from tpuasr_torch.nn.embedding import PositionalEncodingTable
-from tpuasr_torch.nn.layers import Dense, LayerNorm, dropout
+from tpuasr_torch.nn.embedding import PositionalEncodingTable, whisper_sinusoid_table
+from tpuasr_torch.nn.layers import Dense, LayerNorm, dropout, gelu
 from tpuasr_torch.nn.masks import add_optional_chunk_mask, make_pad_mask
 from tpuasr_torch.nn.subsampling import SUBSAMPLE_CLASSES, subsampled_mask
 from tpuasr_torch.ops.ffn import fused_ffn
 
 
+ACTIVATIONS = {"swish": lambda x: x * torch.sigmoid(x), "relu": torch.relu, "gelu": gelu}
+
+
+def attention_type_of(c: EncoderConfig) -> str:
+    """The attention family: `attention_type`, else rel_pos for the rel_pos
+    encoding and mha for the others (tpuasr/nn/conformer.py:52-59)."""
+    if c.attention_type:
+        return c.attention_type
+    return "rel_pos" if c.pos_enc_layer_type == "rel_pos" else "mha"
+
+
 def check_supported(c: EncoderConfig) -> None:
-    """Raise for encoder options this slice of the port does not build."""
-    wanted = {
-        "encoder_type": "conformer", "pos_enc_layer_type": "rel_pos",
-        "cnn_module_norm": "layer_norm", "activation_type": "swish",
-        "mlp_type": "position_wise_feed_forward",
-    }
-    for key, value in wanted.items():
-        if getattr(c, key) != value:
-            raise NotImplementedError(
-                f"encoder.{key}={getattr(c, key)!r}: only {value!r} is ported so far "
-                "(ROADMAP: modules after the main path)")
-    if c.input_layer not in SUBSAMPLE_CLASSES:
+    """Raise for the encoder options the port does not build, each with why."""
+    if c.encoder_type in ("squeezeformer", "efficient_conformer"):
         raise NotImplementedError(
-            f"encoder.input_layer={c.input_layer!r}: only {sorted(SUBSAMPLE_CLASSES)} are "
-            "ported so far (ROADMAP: modules after the main path)")
-    if c.attention_type not in ("", "rel_pos"):
-        raise NotImplementedError(f"encoder.attention_type={c.attention_type!r} "
-                                  "(ROADMAP: attention zoo)")
-    if c.n_kv_head not in (0, c.attention_heads):
-        raise NotImplementedError(f"encoder.n_kv_head={c.n_kv_head}: grouped K/V heads "
-                                  "(ROADMAP: attention zoo)")
-    if not (c.normalize_before and c.macaron_style and c.use_cnn_module):
-        raise NotImplementedError("only the pre-norm macaron conformer block is ported")
+            f"encoder.encoder_type={c.encoder_type!r}: not ported yet (ROADMAP: the encoder "
+            "families, with their stream caches and stream_output_factor)")
+    if c.encoder_type not in ("conformer", "firered"):
+        raise ValueError(f"unknown encoder_type {c.encoder_type!r}")
+    if not c.normalize_before:
+        raise NotImplementedError(
+            "encoder.normalize_before=False: the JAX block ignores the field (always "
+            "pre-norm, tpuasr/nn/conformer.py:210-281), so there is no post-norm block to "
+            "port; leave it True")
+    if c.input_layer not in SUBSAMPLE_CLASSES:
+        raise ValueError(f"unknown input_layer {c.input_layer!r}")
+    if attention_type_of(c) not in ATTENTIONS:
+        raise ValueError(f"unknown attention_type {c.attention_type!r}")
+    if c.mlp_type not in MLP_CLASSES:
+        raise ValueError(f"unknown mlp_type {c.mlp_type!r}")
+    if c.activation_type not in ACTIVATIONS:
+        raise ValueError(f"unknown activation_type {c.activation_type!r}")
 
 
 class PositionwiseFeedForward(nn.Module):
-    """w_1 → swish → dropout → w_2 (tpuasr/nn/conformer.py:62-74)."""
+    """w_1 → activation → dropout → w_2 (tpuasr/nn/conformer.py:62-74)."""
 
-    def __init__(self, idim: int, hidden: int, dropout_rate: float = 0.0, device=None):
+    def __init__(self, idim: int, hidden: int, dropout_rate: float = 0.0,
+                 activation: str = "swish", device=None):
         super().__init__()
-        self.dropout_rate = dropout_rate
+        self.dropout_rate, self.act = dropout_rate, ACTIVATIONS[activation]
         self.w_1 = Dense(idim, hidden, device=device)
         self.w_2 = Dense(hidden, idim, device=device)
 
     def forward(self, x, gen=None):
-        y = self.w_1(x)
-        return self.w_2(dropout(y * torch.sigmoid(y), self.dropout_rate, gen))
+        return self.w_2(dropout(self.act(self.w_1(x)), self.dropout_rate, gen))
+
+
+class GatedVariantsMLP(nn.Module):
+    """Gated MLP (wenet positionwise_feed_forward.py:124-159;
+    tpuasr/nn/conformer.py:77-93): w_2(drop(gelu(gate(x)) * w_1(x))), the
+    gate bias-free; gelu whatever `activation_type`, as in the JAX block."""
+
+    def __init__(self, idim: int, hidden: int, dropout_rate: float = 0.0, device=None):
+        super().__init__()
+        self.dropout_rate = dropout_rate
+        self.gate = Dense(idim, hidden, bias=False, device=device)
+        self.w_1 = Dense(idim, hidden, device=device)
+        self.w_2 = Dense(hidden, idim, device=device)
+
+    def forward(self, x, gen=None):
+        fuse = gelu(self.gate(x)) * self.w_1(x)
+        return self.w_2(dropout(fuse, self.dropout_rate, gen))
+
+
+class MoEFFNLayer(nn.Module):
+    """Top-k routed mixture of experts (wenet positionwise_feed_forward.py:
+    61-121; tpuasr/nn/conformer.py:96-137) computed densely as the JAX
+    package does: the router's top k logits (ties to the lower index, as
+    `jax.lax.top_k`), their softmax in fp32 as the combine weights, and
+    every expert run on every token as one batched product over the raw
+    [E, D, H] / [E, H, D] weights."""
+
+    def __init__(self, idim: int, hidden: int, dropout_rate: float = 0.0, n_expert: int = 8,
+                 n_expert_activated: int = 2, activation: str = "swish", device=None):
+        super().__init__()
+        self.dropout_rate, self.act = dropout_rate, ACTIVATIONS[activation]
+        self.n_expert, self.k = n_expert, n_expert_activated
+        self.gate = Dense(idim, n_expert, bias=False, device=device)
+        self.w1 = nn.Parameter(torch.zeros(n_expert, idim, hidden, device=device))
+        self.w2 = nn.Parameter(torch.zeros(n_expert, hidden, idim, device=device))
+
+    def forward(self, x, gen=None):
+        dt = x.dtype
+        router = self.gate(x)
+        top, idx = torch.sort(router, dim=-1, descending=True, stable=True)
+        top, idx = top[..., :self.k], idx[..., :self.k]
+        weights = torch.softmax(top.float(), dim=-1).to(dt)
+        combine = (weights[..., None] * F.one_hot(idx, self.n_expert).to(dt)).sum(-2)  # [..., E]
+        h = self.act(torch.einsum("...d,edh->...eh", x, self.w1.to(dt)))
+        h = dropout(h, self.dropout_rate, gen)
+        y = torch.einsum("...eh,eho->...eo", h, self.w2.to(dt))
+        return (combine[..., None] * y).sum(-2)
+
+
+MLP_CLASSES = {"position_wise_feed_forward": PositionwiseFeedForward,
+               "gated": GatedVariantsMLP, "moe": MoEFFNLayer}
+
+ATTENTIONS = {"rel_pos", "mha", "shaw_rel_pos", "rope", "firered_rel_pos"}
+
+
+def _attention(c: EncoderConfig, device):
+    """The block's self-attention by `attention_type_of` (tpuasr/nn/
+    conformer.py:174-198); n_kv_head serves mha and rope."""
+    kind, d, h, rate = attention_type_of(c), c.output_size, c.attention_heads, \
+        c.attention_dropout_rate
+    if kind == "rel_pos":
+        return RelPositionMultiHeadedAttention(h, d, rate, fused=c.fused_attention,
+                                               device=device)
+    if kind == "shaw_rel_pos":
+        return ShawRelPositionMultiHeadedAttention(h, d, rate, device=device)
+    if kind == "firered_rel_pos":
+        return FireRedRelPositionAttention(h, d, rate, device=device)
+    cls = RopeMultiHeadedAttention if kind == "rope" else MultiHeadedAttention
+    return cls(h, d, rate, n_kv_head=c.n_kv_head, device=device)
+
+
+def _ffn(c: EncoderConfig, device):
+    d, hidden, rate = c.output_size, c.linear_units, c.dropout_rate
+    if c.mlp_type == "moe":
+        return MoEFFNLayer(d, hidden, rate, c.n_expert, c.n_expert_activated,
+                           c.activation_type, device)
+    if c.mlp_type == "gated":
+        return GatedVariantsMLP(d, hidden, rate, device)
+    return PositionwiseFeedForward(d, hidden, rate, c.activation_type, device)
 
 
 class ConformerBlock(nn.Module):
+    """(½FF macaron) → self-attention → (conv module) → FF → (final LN), each
+    a pre-norm residual; the FFN scale is ½ with the macaron FFN and 1
+    without it, and the final LN exists only with the conv module, as in
+    the JAX block (tpuasr/nn/conformer.py:147-280)."""
+
     def __init__(self, c: EncoderConfig, device=None):
         super().__init__()
         d = c.output_size
         self.dropout_rate = c.dropout_rate
-        self.fused_ffn = c.fused_ffn
-        self.feed_forward_macaron = PositionwiseFeedForward(d, c.linear_units,
-                                                            c.dropout_rate, device)
-        self.norm_ff_macaron = LayerNorm(d, device=device)
-        self.feed_forward = PositionwiseFeedForward(d, c.linear_units, c.dropout_rate, device)
-        self.self_attn = RelPositionMultiHeadedAttention(
-            c.attention_heads, d, c.attention_dropout_rate, fused=c.fused_attention,
-            device=device)
+        self.ff_scale = 0.5 if c.macaron_style else 1.0
+        # the fused FFN (kernels #10/#11) computes the swish position-wise FFN
+        # alone (tpuasr/nn/conformer.py:229-232)
+        self.fused_ffn = (c.fused_ffn and c.mlp_type == "position_wise_feed_forward"
+                          and c.activation_type == "swish")
+        if c.macaron_style:
+            self.feed_forward_macaron = _ffn(c, device)
+            self.norm_ff_macaron = LayerNorm(d, device=device)
+        self.feed_forward = _ffn(c, device)
+        self.self_attn = _attention(c, device)
         self.norm_mha = LayerNorm(d, device=device)
         self.norm_ff = LayerNorm(d, device=device)
-        self.conv_module = ConvolutionModule(d, c.cnn_module_kernel, c.cnn_module_norm,
-                                             c.causal, device=device)
-        self.norm_conv = LayerNorm(d, device=device)
-        self.norm_final = LayerNorm(d, device=device)
+        self.use_cnn_module = c.use_cnn_module
+        if c.use_cnn_module:
+            self.conv_module = ConvolutionModule(d, c.cnn_module_kernel, c.cnn_module_norm,
+                                                 c.causal, device=device)
+            self.norm_conv = LayerNorm(d, device=device)
+            self.norm_final = LayerNorm(d, device=device)
 
-    def _ffn_branch(self, ffn: PositionwiseFeedForward, norm: LayerNorm, x, gen):
-        """x + 0.5 * drop(ffn(norm(x))): the fused FFN (kernels #10/#11) or
-        the module chain; the same parameters either way."""
+    def _ffn_branch(self, ffn: nn.Module, norm: LayerNorm, x, gen):
+        """x + ff_scale * drop(ffn(norm(x))): the fused FFN (kernels #10/#11)
+        or the module chain; the same parameters either way."""
         rate = self.dropout_rate
         if not self.fused_ffn:
-            return x + 0.5 * dropout(ffn(norm(x), gen), rate, gen)
+            return x + self.ff_scale * dropout(ffn(norm(x), gen), rate, gen)
         b, t, d = x.shape
         m1 = m2 = None
         if gen is not None and rate > 0.0:
@@ -126,7 +232,7 @@ class ConformerBlock(nn.Module):
         dt = x.dtype
         y = fused_ffn(x.reshape(b * t, d).contiguous(), norm.weight, norm.bias,
                       ffn.w_1.weight.to(dt), ffn.w_1.bias, ffn.w_2.weight.to(dt), ffn.w_2.bias,
-                      m1, m2, rate, 0.5)
+                      m1, m2, rate, self.ff_scale)
         return y.reshape(b, t, d)
 
     def forward(self, x, att_mask, pos_emb, mask_pad=None, att_cache=None, cnn_cache=None,
@@ -134,14 +240,19 @@ class ConformerBlock(nn.Module):
         """gen: the dropout generator, None for no dropout (tpuasr/nn/
         conformer.py:210-280: x + drop(branch) for every residual)."""
         drop = lambda y: dropout(y, self.dropout_rate, gen)
-        x = self._ffn_branch(self.feed_forward_macaron, self.norm_ff_macaron, x, gen)
+        if hasattr(self, "feed_forward_macaron"):
+            x = self._ffn_branch(self.feed_forward_macaron, self.norm_ff_macaron, x, gen)
         x_att, new_att_cache = self.self_attn(self.norm_mha(x), att_mask, pos_emb, att_cache,
                                               gen)
         x = x + drop(x_att)
-        y, new_cnn_cache = self.conv_module(self.norm_conv(x), mask_pad, cnn_cache)
-        x = x + drop(y)
+        new_cnn_cache = None
+        if self.use_cnn_module:
+            y, new_cnn_cache = self.conv_module(self.norm_conv(x), mask_pad, cnn_cache)
+            x = x + drop(y)
         x = self._ffn_branch(self.feed_forward, self.norm_ff, x, gen)
-        return self.norm_final(x), new_att_cache, new_cnn_cache
+        if self.use_cnn_module:
+            x = self.norm_final(x)
+        return x, new_att_cache, new_cnn_cache
 
 
 @contextlib.contextmanager
@@ -206,8 +317,66 @@ class ConformerEncoder(nn.Module):
         self.cfg, self.dtype = c, dtype
         self.embed = SUBSAMPLE_CLASSES[c.input_layer](c.input_size, c.output_size, device)
         self.pe = PositionalEncodingTable(c.output_size, c.max_len, device)
+        if c.pos_enc_layer_type == "abs_pos_learnable":
+            # whisper-decoder-style learned positions (tpuasr/nn/conformer.py:399-404)
+            self.learned_pe = nn.Parameter(torch.zeros(c.max_len, c.output_size,
+                                                       device=device))
+        elif c.pos_enc_layer_type == "abs_pos_whisper":
+            self.whisper_pe = torch.from_numpy(
+                whisper_sinusoid_table(c.max_len, c.output_size)).to(device)
         self.blocks = nn.ModuleList(ConformerBlock(c, device) for _ in range(c.num_blocks))
         self.after_norm = LayerNorm(c.output_size, device=device)
+
+    def _abs_pe_window(self, offset: int, size: int) -> torch.Tensor:
+        """[1, size, D] rows offset .. offset+size-1 (clamped to the table) of
+        the whisper or the learned table; both have xscale 1."""
+        table = getattr(self, "learned_pe", None)
+        if table is None:
+            table = self.whisper_pe
+        idx = (torch.arange(size, device=table.device) + offset).clamp(0, self.cfg.max_len - 1)
+        return table[idx][None]
+
+    def _scaled(self, ys: torch.Tensor) -> torch.Tensor:
+        return ys * torch.tensor(self.pe.xscale, dtype=ys.dtype)
+
+    def _positions(self, ys: torch.Tensor):
+        """The full-context forward's positional branch (tpuasr/nn/
+        conformer.py:460-477) -> (ys, pos_emb)."""
+        c, t = self.cfg, ys.shape[1]
+        kind = attention_type_of(c)
+        if kind == "rope":
+            return self._scaled(ys), self.pe.rope_window(0, t, c.output_size // c.attention_heads)
+        if kind == "firered_rel_pos":
+            return self.pe.rel_bidirectional(ys)
+        if c.pos_enc_layer_type == "rel_pos":
+            return self.pe.rel(ys, 0)
+        if c.pos_enc_layer_type == "no_pos":
+            return self._scaled(ys), self.pe.position_encoding(0, t).to(ys.dtype)
+        if c.pos_enc_layer_type in ("abs_pos_whisper", "abs_pos_learnable"):
+            pe = self._abs_pe_window(0, t).to(ys.dtype)
+            return ys + pe, pe
+        return self.pe.add_abs(ys, 0)
+
+    def _chunk_positions(self, ys: torch.Tensor, offset: int, a: int):
+        """forward_chunk's positional branch (tpuasr/nn/conformer.py:549-567)
+        for a chunk at `offset` behind a cache of capacity `a` -> (ys,
+        pos_emb)."""
+        c, chunk = self.cfg, ys.shape[1]
+        kind = attention_type_of(c)
+        if kind == "firered_rel_pos":
+            raise NotImplementedError("FireRed attention is full-context only: forward_chunk "
+                                      "refuses it, as the JAX package does")
+        if kind == "rope":
+            # cached keys carry their own rotation: the chunk's angles alone
+            return self._scaled(ys), self.pe.rope_window(offset, chunk,
+                                                         c.output_size // c.attention_heads)
+        window = lambda: self.pe.position_encoding(offset - a, a + chunk).to(ys.dtype)
+        if c.pos_enc_layer_type in ("rel_pos", "no_pos"):
+            return self._scaled(ys), window()
+        if c.pos_enc_layer_type in ("abs_pos_whisper", "abs_pos_learnable"):
+            pe = self._abs_pe_window(offset, chunk).to(ys.dtype)
+            return ys + pe, pe
+        return self.pe.add_abs(ys, offset)[0], window()
 
     def forward(self, xs: torch.Tensor, xs_lens: torch.Tensor, decoding_chunk_size: int = 0,
                 num_decoding_left_chunks: int = -1, chunk_gen: torch.Generator | None = None,
@@ -222,7 +391,7 @@ class ConformerEncoder(nn.Module):
         masks = ~make_pad_mask(xs_lens, t)[:, None, :]
         ys = self.embed(xs.to(self.dtype))
         masks = subsampled_mask(masks, c.input_layer)
-        ys, pos_emb = self.pe.rel(ys, 0)
+        ys, pos_emb = self._positions(ys)
         ys = dropout(ys, c.positional_dropout_rate, gen)
         # a dynamic-chunk model without a chunk policy or generator runs with
         # full context (tpuasr/nn/conformer.py:482)
@@ -253,9 +422,12 @@ class ConformerEncoder(nn.Module):
         c = self.cfg
         dev = self.after_norm.weight.device
         dk = c.output_size // c.attention_heads
+        h = c.attention_heads
+        if attention_type_of(c) in ("mha", "rope") and c.n_kv_head:
+            h = c.n_kv_head  # GQA caches K/V at the K/V head count
         a = chunk_size * max(num_left_chunks, 0)
         lorder = c.cnn_module_kernel - 1 if c.causal else 0
-        att = (c.num_blocks, batch, a, c.attention_heads, dk)
+        att = (c.num_blocks, batch, a, h, dk)
         return EncoderStreamState(
             att_k=torch.zeros(att, dtype=self.dtype, device=dev),
             att_v=torch.zeros(att, dtype=self.dtype, device=dev),
@@ -272,8 +444,7 @@ class ConformerEncoder(nn.Module):
         a = state.att_k.shape[2]
         ys = self.embed(xs.to(self.dtype))
         b, chunk, _ = ys.shape
-        ys = ys * self.pe.xscale
-        pos_emb = self.pe.position_encoding(state.offset - a, a + chunk).to(ys.dtype)
+        ys, pos_emb = self._chunk_positions(ys, state.offset, a)
         valid = min(state.offset, a)
         j = torch.arange(a + chunk, device=ys.device)
         att_mask = (j >= a - valid)[None, None, :].expand(b, chunk, a + chunk)

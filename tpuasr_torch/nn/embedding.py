@@ -1,5 +1,8 @@
-"""Sinusoidal positional encodings with streaming offsets (port of
-``tpuasr/nn/embedding.py``, the rel-pos and abs-pos subset)."""
+"""Positional encodings with streaming offsets (port of
+``tpuasr/nn/embedding.py``): the sinusoid table of the rel-pos, abs-pos and
+no-pos encoders, whisper's table, FireRed's bidirectional window and the
+rotary (cos, sin) tables. The learnable table is the encoder's `learned_pe`
+parameter."""
 
 from __future__ import annotations
 
@@ -7,6 +10,16 @@ import math
 
 import numpy as np
 import torch
+
+
+def whisper_sinusoid_table(max_len: int, d_model: int, dtype=np.float32) -> np.ndarray:
+    """OpenAI-whisper encoder PE layout: concat(sin, cos) over half-dim
+    timescales, xscale 1 (wenet embedding.py:150-165)."""
+    half = d_model // 2
+    inc = math.log(10000.0) / (half - 1)
+    inv = np.exp(-inc * np.arange(half, dtype=np.float64))
+    scaled = np.arange(max_len, dtype=np.float64)[:, None] * inv[None, :]
+    return np.concatenate([np.sin(scaled), np.cos(scaled)], axis=1).astype(dtype)
 
 
 def sinusoid_table(max_len: int, d_model: int, dtype=np.float32) -> np.ndarray:
@@ -51,3 +64,29 @@ class PositionalEncodingTable:
         """rel_pos: (x * xscale, PE window) — the PE is consumed by attention."""
         pe = self.position_encoding(offset, x.shape[1]).to(x.dtype)
         return x * self.xscale, pe
+
+    def rel_bidirectional(self, x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Transformer-XL bidirectional PE window for FireRed's rel_shift
+        attention: positions T-1 .. -(T-1) -> (x * xscale, pe [1, 2T-1, d]).
+        sin(-p) = -sin(p) and cos(-p) = cos(p), so the negative half is the
+        table with its sin (even) lanes negated."""
+        t = x.shape[1]
+        pos = self.table[:t].flip(0)  # positions T-1 .. 0
+        sign = torch.ones(self.d_model, dtype=self.table.dtype, device=self.table.device)
+        sign[0::2] = -1.0
+        pe = torch.cat([pos, self.table[1:t] * sign])[None].to(x.dtype)
+        return x * torch.tensor(self.xscale, dtype=x.dtype), pe
+
+    def rope_window(self, offset: int, size: int, head_dim: int,
+                    theta: float = 10000.0) -> tuple[torch.Tensor, torch.Tensor]:
+        """Rotary (cos, sin) tables for positions offset .. offset+size-1,
+        the non-interleaved half-split layout (wenet rope_utils' 'google'
+        style) -> each [1, size, head_dim], fp32."""
+        half = head_dim // 2
+        inv = 1.0 / (theta ** (np.arange(0, half, dtype=np.float64) * 2 / head_dim))
+        inv = torch.from_numpy(inv.astype(np.float32)).to(self.table.device)
+        pos = torch.arange(offset, offset + size, device=self.table.device,
+                           dtype=torch.float32)
+        ang = pos[:, None] * inv[None, :]
+        ang = torch.cat([ang, ang], dim=-1)
+        return ang.cos()[None], ang.sin()[None]

@@ -3,7 +3,8 @@
 Parameters stay fp32 and products run in the type of their input, as flax
 ``Dense(dtype=compute_dtype)`` does; layer norms use flax's eps 1e-6 and
 compute their statistics in fp32 whatever the compute type. `dropout` is
-flax's, drawn from an explicit generator.
+flax's, drawn from an explicit generator; `gelu` is flax's tanh
+approximation.
 """
 
 from __future__ import annotations
@@ -31,6 +32,11 @@ class LayerNorm(nn.LayerNorm):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
         return y.to(x.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """flax's ``nn.gelu``: the tanh approximation (its default)."""
+    return F.gelu(x, approximate="tanh")
 
 
 def dropout(x: torch.Tensor, rate: float, gen: torch.Generator | None) -> torch.Tensor:
