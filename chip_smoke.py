@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (`tpuasr_torch`) through its serving path, its
-training step, its trainer and its CTC and AED workloads on one NVIDIA card,
+training step, its trainer, its CTC and AED workloads, the transducer's
+model options and its encoder families on one NVIDIA card,
 and hold its hand-written kernels against their plain versions.
 
     python3 chip_smoke.py
@@ -272,16 +273,45 @@ Phases (any failure exits non-zero):
       linear): rnnt_greedy identical and rnnt_beam by the 2d rule.
    Then, outside the counted run, the pruned, fused and materialized losses
    alone at bench.py's shape: forward and backward wall and peak memory.
+13. The encoder families, each the online_rnnt flagship with the family's
+   fields (FAMILIES; the JAX `EncoderConfig` defaults of each family's own
+   fields). The families run (counts reset before 13a, read after 13c)
+   must launch #1 (fbank by its tensor-core route in training and its FFT
+   in serving, never the dense one) and #4-#9, and never #2, #3, #10 or
+   #11: the families' attention and FFNs are plain in the JAX package
+   whatever fused_attention and fused_ffn say; each kernel is then held
+   against its plain version on the run's own recorded inputs:
+   a. squeezeformer (reduce at block 5, recover at 11, the "stream" time
+      reduction) and the efficient conformer (a stride after block 3,
+      groups of 3): one fp32 training step card against CPU through each
+      loss route, as 6a holds it (the grouped attention's key bias is a
+      weight where a block's frames do not fill whole groups);
+   b. the trainer (`--workload online_rnnt`, the card's bf16 defaults, one
+      epoch of the hard corpus) for each: median step, audio-s/s, peak
+      memory and one profiled step's device ms;
+   c. fp32 serving on the fixture requests for each: rnnt_greedy identical
+      card vs CPU, rnnt_beam, ctc_prefix_beam and rnnt_rescoring by 4b's
+      2d rule; streaming greedy and beam == chunk-masked offline on the
+      card (squeezeformer chunk 32 and 6 left chunks, the efficient
+      conformer chunk 24 and 8: its chunk emits 12 frames) over the whole
+      chunks of each request's valid frames; streaming greedy RTF p50/p90
+      on the synthetic batch. The non-causal squeezeformer with the "conv"
+      reduction, which the caches refuse: the same offline modes, and
+      prefix recomputation of a seeded 60 s request (chunk 32, the
+      receptive field's look-ahead) equal to the chunk-masked full forward
+      over every frame it emitted.
 7. The kernels line: one JSON object with an entry per kernel and run
    (the serving run of phases 4-5b, the training runs of phases 6b, 6c and
    6d, the trainer run of phase 8, the corpus run of phase 9, the CTC run
-   of phase 10, the AED run of phase 11, the zoo run of phase 12; counts
+   of phase 10, the AED run of phase 11, the zoo run of phase 12, the
+   families run of phase 13; counts
    reset just before each and read just after): that run's launches (fbank's: those of the route the
    record times, the FFT for serving, which takes that route alone, and the
    tensor-core route for training, which never takes the FFT), and the
    error, times and bound at the
    shape that run gives the kernel (phase 3's bench-shape records for 6b-6d;
-   for the trainer, the corpus, CTC, AED and zoo runs and #8 in serving the signature it
+   for the trainer, the corpus, CTC, AED, zoo and families runs and #8 in serving the
+   signature it
    launched most, with every signature's record under "shapes"). The CTC and RNN-T
    lattice entries carry their run's launches by route under "routes":
    each run that launches a lattice must take its warp route alone.
@@ -525,6 +555,12 @@ def main() -> dict:
     zoo["loss_routes"] = _loss_routes(torch, dev, bench)
     print(f"(phase 12: {time.perf_counter() - t_phase:.1f} s)")
 
+    # ---------------------------------------------------------------- 13
+    t_phase = _phase("13: the encoder families (13a steps card vs CPU, 13b the trainer, "
+                     "13c serving, streaming and prefix recomputation)", t_phase)
+    families, runs["families"], families_records = _families_run(torch, dev, data)
+    print(f"(phase 13: {time.perf_counter() - t_phase:.1f} s)")
+
     # ---------------------------------------------------------------- 7
     # one entry per kernel and run that launches it, with the record taken
     # at the shape that run gives it: 6b, 6c and 6d give the same shapes
@@ -555,6 +591,8 @@ def main() -> dict:
     # the zoo run (phase 12) launches every kernel: its records at the
     # signature it launched most
     plan += [(name, ("zoo",), name) for name in KERNELS]
+    # the families run (phase 13) launches #1 and #4-#9
+    plan += [(name, ("families",), name) for name in KERNELS if runs["families"][name] > 0]
     kernels = []
     for name, run_names, check, *count in plan:
         count = count[0] if count else name
@@ -562,7 +600,7 @@ def main() -> dict:
             launches = runs[run][count]
             require(launches > 0, f"the {run} run never launched {count}")
             own = {"trainer": trainer_records, "corpus": corpus_records, "ctc": ctc_records,
-                   "aed": aed_records, "zoo": zoo_records}
+                   "aed": aed_records, "zoo": zoo_records, "families": families_records}
             rec = own[run][name] if run in own else checks[check]
             entry = dict(rec, run=run, launches=launches,
                          **{f"launches_{r}": runs[r][count] for r in runs})
@@ -582,6 +620,7 @@ def main() -> dict:
     print(json.dumps({"ctc": ctc}))
     print(json.dumps({"aed": aed}))
     print(json.dumps({"zoo": zoo}))
+    print(json.dumps({"families": families}))
     print(json.dumps({"kernels": kernels}))
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}
@@ -2374,11 +2413,12 @@ def _train_card_vs_cpu(torch, dev, fused_joint_loss: bool, fused_ffn: bool = Fal
         model.train()
         out = model(*(x.to(device) for x in host))
         res[side] = _step_side(torch, model, tx, out)
+    enc = cfg.model.encoder
     return _step_card_vs_cpu(
         torch, tx, res, f"fp32 training step ({label}), card vs CPU on [2, 256, 80] x 16 "
         f"tokens", "fp32 sums in another order through 12 blocks, the attention backward's "
         "atomics, the fused joint's 3xTF32 products, the lattice",
-        rope=cfg.model.encoder.attention_type == "rope")
+        rope=enc.attention_type == "rope", grouped=enc.encoder_type == "efficient_conformer")
 
 
 def _step_side(torch, model, tx, out: dict) -> dict:
@@ -2399,7 +2439,8 @@ def _step_side(torch, model, tx, out: dict) -> dict:
             "state": [None if x is None else x.cpu() for x in st], "names": [n for n, _ in named]}
 
 
-def _step_card_vs_cpu(torch, tx, res: dict, what: str, why: str, rope: bool = False) -> dict:
+def _step_card_vs_cpu(torch, tx, res: dict, what: str, why: str, rope: bool = False,
+                      grouped: bool = False) -> dict:
     """Hold a training step's card side against its CPU side (`_step_side`
     each): losses and gradient norm within 1e-4 relative, every gradient
     leaf within 1e-3 of the leaf's max |g| (`why`: the reason), the key
@@ -2417,13 +2458,23 @@ def _step_card_vs_cpu(torch, tx, res: dict, what: str, why: str, rope: bool = Fa
     # q.b_k to every score of a query: softmax is shift-invariant), so its
     # gradient is rounding noise on both sides; it is held to that instead
     # (the encoder's and the AED decoders' self- and cross-attention)
-    # (RoPE rotates the key bias by the key's position: there it is a weight)
-    shift_free = [i for i, n in enumerate(names) if not rope
-                  and n.endswith(("self_attn.linear_k.bias", "src_attn.linear_k.bias"))]
+    # (RoPE rotates the key bias by the key's position: there it is a weight;
+    # the efficient conformer's grouped attention zero-pads the last key
+    # group, bias and all, so the bias is a weight in the blocks whose frames
+    # do not fill whole groups and shift-free in the others: with `grouped`
+    # each key bias is held as a leaf whose error may add the noise, 1e-6 of
+    # the largest gradient entry)
+    key_bias = [i for i, n in enumerate(names) if not rope
+                and n.endswith(("self_attn.linear_k.bias", "src_attn.linear_k.bias"))]
+    shift_free = [] if grouped else key_bias
     noise = max((max(float(grads_c[i].abs().max()), float(grads_h[i].abs().max()))
                  for i in shift_free), default=0.0)
     rels = [float((a - b_).abs().max() / b_.abs().max().clamp(min=1e-30))
             for a, b_ in zip(grads_c, grads_h)]
+    if grouped:
+        for i in key_bias:
+            rels[i] = float((grads_c[i] - grads_h[i]).abs().max()
+                            / (grads_h[i].abs().max() + 1e-3 * scale))
     held = [i for i in range(len(names)) if i not in shift_free]
     order = sorted(held, key=lambda i: -rels[i])
     worst = order[0]
@@ -3770,15 +3821,16 @@ ZOO = {
 
 
 def _zoo(cfg, name: str):
-    """`cfg` with phase 12's configuration `name` set on it (ZOO)."""
+    """`cfg` with phase 12's configuration `name` set on it (ZOO), or phase
+    13's (FAMILIES)."""
     from tpuasr_torch.config import override
 
-    return override(cfg, ZOO[name])
+    return override(cfg, ZOO[name] if name in ZOO else FAMILIES[name])
 
 
 def _zoo_models(torch, dev, name: str, data) -> dict:
-    """The fp32 flagship (`_flagship`; 12a with the fused FFN) with ZOO[name],
-    seed-0 weights on the
+    """The fp32 flagship (`_flagship`; 12a with the fused FFN) with ZOO[name]
+    (or phase 13's FAMILIES[name]), seed-0 weights on the
     card and the CPU (batch norms' running statistics drawn from a seeded
     numpy generator: mean N(0, 0.3), variance U(0.5, 2)), the joint's blank
     logit and the CTC head's fitted on the card (`_fit_blank_bias`,
@@ -3817,20 +3869,26 @@ def _zoo_models(torch, dev, name: str, data) -> dict:
             "ctc_blank_logit_bias": ctc_bias, "encoder_max_abs_err": err}
 
 
-def _zoo_serve(torch, dev, data, m, modes, streaming: bool) -> dict:
-    """12a-12c's serving, fp32, card against CPU on the fixture requests
-    (each side's search on its encoder output of `_zoo_models`): greedy
-    tokens identical, `make_offline_decoder`'s on the card its search's, the
-    beam modes of
-    `modes` (rnnt_beam beam 4, rnnt_rescoring of the CTC prefix beam's
-    n-best) by phase 4b's 2d rule; with `streaming`, streaming greedy ==
-    chunk-masked offline greedy on the card, as phase 5 holds it."""
+def _zoo_serve(torch, dev, data, m, modes, streaming: bool, stream_beam: bool = False) -> dict:
+    """12a-12c's and 13c's serving, fp32, card against CPU on the fixture
+    requests (each side's search on its encoder output of `_zoo_models`):
+    greedy tokens identical, `make_offline_decoder`'s on the card its
+    search's, the beam modes of `modes` (rnnt_beam beam 4, ctc_prefix_beam
+    beam 4, rnnt_rescoring of the CTC prefix beam's n-best) by phase 4b's 2d
+    rule; with `streaming`, streaming greedy == chunk-masked offline greedy
+    on the card, as phase 5 holds it, at the configuration's chunk and left
+    chunks over the frames whole chunks cover (at the encoder's output rate:
+    the efficient conformer's chunk emits chunk / 2 frames), and with
+    `stream_beam` streaming beam == chunk-masked offline beam, as phase 5b
+    holds it."""
     from tpuasr_torch.audio import fbank_batch
     from tpuasr_torch.decode import (
-        ctc_prefix_beam_search, rnnt_beam_decode, rnnt_greedy_decode, streaming_greedy_decode,
-        transducer_rescoring,
+        ctc_prefix_beam_search, rnnt_beam_decode, rnnt_greedy_decode, streaming_beam_decode,
+        streaming_greedy_decode, transducer_rescoring,
     )
     from tpuasr_torch.eval import make_offline_decoder
+    from tpuasr_torch.models.transducer import stream_output_factor
+    from tpuasr_torch.nn.subsampling import subsampled_len
     from tpuasr_torch.streaming import num_chunks
 
     cfg, c = m["cfg"], m["cfg"].model
@@ -3853,9 +3911,10 @@ def _zoo_serve(torch, dev, data, m, modes, streaming: bool) -> dict:
         found = {}
         if "rnnt_beam" in modes:
             found["rnnt_beam"] = rnnt_beam_decode(model, e, el, c.blank_id, 4, 200)[2:]
-        if "rnnt_rescoring" in modes:
+        if "rnnt_rescoring" in modes or "ctc_prefix_beam" in modes:
             lp = torch.log_softmax(model.ctc_logits(e).float(), dim=-1)
             nb = ctc_prefix_beam_search(lp, el, c.blank_id, 4, 200)[2]
+            found["ctc_prefix_beam"] = nb
             found["rnnt_rescoring"] = nb[:2] + (transducer_rescoring(
                 model, e, el, *nb, c.blank_id, c.transducer_weight, c.ctc_weight)[2],)
         return found
@@ -3868,29 +3927,60 @@ def _zoo_serve(torch, dev, data, m, modes, streaming: bool) -> dict:
         print(f"  {mode}: {out[f'{mode}_ms']:.1f} ms on the card")
     if streaming:
         model = m["card"]
+        chunk, left = cfg.streaming.chunk_size, cfg.streaming.num_left_chunks
+        f = stream_output_factor(c.encoder)
         feats, flens = fbank_batch(waves, wave_lens, cfg.feature, device=dev)
-        full, full_lens = model.encode(feats, flens, CHUNK, LEFT)
-        n = num_chunks(feats.shape[1], CHUNK, 4, 6)
-        whole = torch.clamp(full_lens.long(), max=n * CHUNK) // CHUNK * CHUNK
+        full, _ = model.encode(feats, flens, chunk, left)
+        n = num_chunks(feats.shape[1], chunk, 4, 6)
+        # the whole chunks of each request's valid encoder frames (at the
+        # full rate: a stride may round an odd count up past the last one)
+        valid = subsampled_len(c.encoder.input_layer, flens.long())
+        covered = torch.clamp(valid, max=n * chunk) // chunk * chunk
+        whole = covered // f  # at the output rate: chunk / f frames a chunk
+        stream_lens = covered * 4 + 3  # feature frames whose output is `whole`
         off = rnnt_greedy_decode(model, full, whole, c.blank_id)
-        st = streaming_greedy_decode(model, feats, whole * 4 + 3, CHUNK, LEFT, c.blank_id)[:2]
+        st = streaming_greedy_decode(model, feats, stream_lens, chunk, left, c.blank_id)[:2]
         ok = all(torch.equal(a, b) for a, b in zip(st, off))
-        print(f"streaming greedy == chunk-masked offline on the card ({int(whole.sum())} "
-              f"frames, {int(st[1].sum())} tokens): {ok}")
+        print(f"streaming greedy == chunk-masked offline on the card (chunk {chunk}, {left} "
+              f"left, {int(whole.sum())} frames, {int(st[1].sum())} tokens): {ok}")
         require(ok, "streaming tokens differ from chunk-masked offline")
         out["streaming_equals_offline"] = ok
+        if stream_beam:
+            for n_steps, cw in ((1, 0.0), (cfg.streaming.n_steps, 0.3)):
+                ob = rnnt_beam_decode(model, full, whole, c.blank_id, 4, 200, n_steps=n_steps,
+                                      ctc_weight=cw, transducer_weight=c.transducer_weight)
+                sb = streaming_beam_decode(model, feats, stream_lens, chunk, left, c.blank_id,
+                                           4, 200, n_steps, cw, c.transducer_weight)
+                ok = torch.equal(sb[0], ob[0]) and torch.equal(sb[1], ob[1])
+                print(f"streaming beam == chunk-masked offline beam, n_steps {n_steps}, CTC "
+                      f"fusion {cw} ({int(sb[1].sum())} tokens): {ok}")
+                require(ok, f"streaming beam tokens differ from chunk-masked offline beam "
+                            f"(n_steps {n_steps}, fusion {cw})")
+            out["streaming_beam_equals_offline"] = True
     return out
 
 
 def _zoo_trainer(torch, dev, prune: int) -> dict:
-    """12a's trainer: `python -m tpuasr_torch.tools.train --workload
-    online_rnnt` in this process at the card's defaults (bf16, fused
-    attention, fbank "default", the fused joint loss) with the fused FFN,
-    the embedding predictor and `model.rnnt_prune_range=prune` (0: the fused
-    joint loss, 5: the pruned one), one epoch of the hard synthetic corpus
-    cut as phase 8 cuts it (48 utterances, batch 12) into a temporary
-    directory under build/. Each step synced and timed; the peak memory
-    over the run; then one profiled step on the first training batch."""
+    """12a's trainer: the fused FFN, the embedding predictor and
+    `model.rnnt_prune_range=prune` (0: the fused joint loss, 5: the pruned
+    one), through `_option_trainer`."""
+    sets = {**ZOO["stateless_pruned"], "model.rnnt_prune_range": prune,
+            "model.encoder.fused_ffn": True}
+    return _option_trainer(
+        torch, dev, sets, f"12a trainer, rnnt_prune_range={prune}",
+        lambda cfg: cfg.model.rnnt_prune_range == prune
+        and cfg.model.predictor.predictor_type == "embedding" and cfg.model.encoder.fused_ffn)
+
+
+def _option_trainer(torch, dev, sets: dict, label: str, cfg_ok) -> dict:
+    """12a's and 13b's trainer: `python -m tpuasr_torch.tools.train
+    --workload online_rnnt` in this process at the card's defaults (bf16,
+    fused attention, fbank "default", the fused joint loss) with the
+    dotted `sets`, one epoch of the hard synthetic corpus cut as phase 8
+    cuts it (48 utterances, batch 12) into a temporary directory under
+    build/; `cfg_ok(train.yaml's config)` must hold. Each step synced and
+    timed; the peak memory over the run; then one profiled step on the
+    first training batch."""
     import tempfile
 
     import tpuasr_torch.train.loop as loop
@@ -3903,34 +3993,30 @@ def _zoo_trainer(torch, dev, prune: int) -> dict:
     (ROOT / "build").mkdir(exist_ok=True)
     with _timed_steps(torch, loop, "make_train_step") as walls:
         with tempfile.TemporaryDirectory(prefix="zoo-", dir=ROOT / "build") as save_dir:
-            sets = [f"{k}={v}" for k, v in ZOO["stateless_pruned"].items()] + [
-                f"model.rnnt_prune_range={prune}", "model.encoder.fused_ffn=True",
+            args = [f"{k}={list(v) if isinstance(v, tuple) else v}" for k, v in sets.items()] + [
                 "data.synth_hard=True", "data.batch_size=12", f"train.save_dir={save_dir}",
                 "train.log_dir=", "train.log_every=1"]
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             run = train_main(["--workload", "online_rnnt", "--synthetic", "48", "--epochs", "1",
-                              "--set", *sets])
+                              "--set", *args])
             peak = torch.cuda.max_memory_allocated() / 2**30
             cfg = load_yaml(str(Path(save_dir) / "train.yaml"))
-    require(cfg.model.rnnt_prune_range == prune and cfg.model.compute_dtype == "bfloat16"
-            and cfg.model.predictor.predictor_type == "embedding"
-            and cfg.model.encoder.fused_ffn and cfg.model.fused_joint_loss,
-            "12a's trainer config is not the one asked for")
+    require(cfg_ok(cfg) and cfg.model.compute_dtype == "bfloat16" and cfg.model.fused_joint_loss,
+            f"{label}: the trainer's config is not the one asked for")
     require(all(math.isfinite(x) for x in run.train_losses + run.dev_losses)
-            and int(run.state.skipped) == 0, f"12a's trainer (prune {prune}): a loss is not "
-                                             f"finite or a step was skipped")
+            and int(run.state.skipped) == 0, f"{label}: a loss is not finite or a step was "
+                                             f"skipped")
     ms = sorted(w for w, _ in walls)
     med, audio = ms[len(ms) // 2], sorted(a for _, a in walls)[len(walls) // 2]
     batch = tensors(next(iter(synthetic_pipeline(cfg, 48, seed=0).batches(0))), dev)
     _, busy, wall, kern = _profiled_step(
         torch, make(run.state.model, make_optimizer(cfg.optim), cfg), run.state, batch)
-    print(f"12a trainer, rnnt_prune_range={prune}: {len(ms)} steps, train loss "
-          f"{run.train_losses}, dev loss {run.dev_losses}; step wall (synced) median "
-          f"{med:.1f} ms (min {ms[0]:.1f}, max {ms[-1]:.1f}), {audio / med * 1e3:.1f} "
-          f"audio-s/s; peak memory {peak:.3f} GiB; one profiled step of batch "
-          f"{list(batch['waves'].shape)}: device busy {busy:.2f} ms of {wall:.1f} ms wall, "
-          f"{sum(e.count for e in kern)} device operations")
+    print(f"{label}: {len(ms)} steps, train loss {run.train_losses}, dev loss "
+          f"{run.dev_losses}; step wall (synced) median {med:.1f} ms (min {ms[0]:.1f}, max "
+          f"{ms[-1]:.1f}), {audio / med * 1e3:.1f} audio-s/s; peak memory {peak:.3f} GiB; one "
+          f"profiled step of batch {list(batch['waves'].shape)}: device busy {busy:.2f} ms of "
+          f"{wall:.1f} ms wall, {sum(e.count for e in kern)} device operations")
     return {"steps": len(ms), "step_ms": [w for w, _ in walls], "step_ms_median": med,
             "audio_s_per_s": audio / med * 1e3, "peak_gib": peak,
             "train_losses": run.train_losses, "dev_losses": run.dev_losses,
@@ -4041,6 +4127,162 @@ def _zoo_phase(torch, dev, data, bench) -> dict:
                                        blank_logit_bias=m["blank_logit_bias"],
                                        encoder_max_abs_err=m["encoder_max_abs_err"])
     return zoo
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the encoder families
+# ---------------------------------------------------------------------------
+
+FAMILIES = {
+    # wenet's U-Net family: the rate halved at block 5 and recovered at 11;
+    # cached streaming needs causal blocks, the chunk-local "stream" time
+    # reduction and an even chunk: the flagship's 32 and 6 left chunks
+    "squeezeformer": {"model.encoder.encoder_type": "squeezeformer",
+                      "model.encoder.reduce_idx": (5,), "model.encoder.recover_idx": (11,),
+                      "model.encoder.time_reduction_type": "stream",
+                      "streaming.chunk_size": 32, "streaming.num_left_chunks": 6},
+    # grouped attention (groups of 3) and a stride after block 3: a chunk must
+    # be divisible by factor x group at every block, so 24 (and 8 left
+    # chunks: the flagship's 192 frames of left context)
+    "efficient_conformer": {"model.encoder.encoder_type": "efficient_conformer",
+                            "model.encoder.stride_layer_idx": (3,),
+                            "model.encoder.group_size": 3, "model.encoder.input_layer": "conv2d",
+                            "model.encoder.static_chunk_size": 24,
+                            "streaming.chunk_size": 24, "streaming.num_left_chunks": 8},
+    # the configuration the caches refuse (non-causal, the look-ahead "conv"
+    # time reduction): streamed by prefix recomputation
+    "squeezeformer_full_context": {"model.encoder.encoder_type": "squeezeformer",
+                                   "model.encoder.causal": False,
+                                   "model.encoder.time_reduction_type": "conv"},
+}
+CACHED_FAMILIES = ("squeezeformer", "efficient_conformer")
+
+
+def _prefix_lookahead(model, chunk: int) -> int:
+    """Encoder frames a chunk-masked non-causal squeezeformer's output frame
+    waits for: each block's conv looks kernel // 2 frames ahead and its
+    chunked attention to the end of the frame's chunk, both at the block's
+    own rate (f full-rate frames a frame), and the time reduction's conv 2
+    frames and the recovery's repeat 1 more."""
+    enc = model.encoder
+    k = enc.cfg.cnn_module_kernel
+    blocks = sum(enc.layer_factor(i) * (chunk // enc.layer_factor(i) - 1 + k // 2)
+                 for i in range(enc.cfg.num_blocks))
+    return blocks + 3
+
+
+def _prefix_recompute_check(torch, dev, m, data) -> dict:
+    """13c for the configuration the caches refuse: the card model streamed
+    by `chunked_prefix_encode` (chunk 32, every left chunk, the receptive
+    field's look-ahead `_prefix_lookahead`) over a seeded 60 s request, so
+    frames are emitted before the last chunk flushes; the increments,
+    joined, must equal the chunk-masked full forward over every frame they
+    hold (2e-3, tests/test_prefix_recompute.py's tolerance)."""
+    import numpy as np
+
+    from tpuasr_torch.audio import fbank_batch
+    from tpuasr_torch.models.transducer import stream_output_len
+    from tpuasr_torch.streaming import chunked_prefix_encode
+
+    model, cfg = m["card"], m["cfg"]
+    r = np.random.default_rng(SEED + 13)
+    seconds = 60
+    wave = (0.1 * r.standard_normal((1, seconds * 48000))).astype(np.float32)
+    feats, flens = fbank_batch(wave, np.array([wave.shape[1]]), cfg.feature, device=dev)
+    lookahead = _prefix_lookahead(model, CHUNK)
+    out_len = lambda n: int(stream_output_len(cfg.model.encoder, torch.tensor(n)))
+    encode = lambda f, l: model.encode(f, l, CHUNK, -1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = chunked_prefix_encode(encode, feats, flens, CHUNK, 4, 6, out_len, lookahead)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    inc = torch.cat(outs, 1)
+    full = encode(feats, flens)[0]
+    err = float((inc - full[:, :inc.shape[1]]).abs().max())
+    before_flush = sum(o.shape[1] for o in outs[:-1])
+    print(f"13c prefix recomputation, {seconds} s request ({feats.shape[1]} feature frames, "
+          f"{full.shape[1]} encoder frames), chunk {CHUNK}, look-ahead {lookahead} frames: "
+          f"{len(outs)} increments, {before_flush} frames emitted before the last flush, "
+          f"{inc.shape[1]} in all; max_abs_err against the chunk-masked full forward {err:.3g} "
+          f"(tol 2e-3); {ms:.1f} ms of prefix forwards")
+    require(inc.shape[1] == full.shape[1] and before_flush > 0,
+            "prefix recomputation emitted the wrong frames")
+    require(err <= 2e-3, "prefix recomputation differs from the chunk-masked full forward")
+    return {"seconds": seconds, "encoder_frames": full.shape[1], "lookahead": lookahead,
+            "increments": len(outs), "frames_before_flush": before_flush,
+            "max_abs_err": err, "ms": ms}
+
+
+def _families_phase(torch, dev, data) -> dict:
+    """Phase 13a-13c (each configuration the online_rnnt flagship with
+    FAMILIES' fields changed) -> the records."""
+    from tpuasr_torch.audio import fbank_batch
+    from tpuasr_torch.eval import measure_rtf
+
+    out = {}
+    for name in CACHED_FAMILIES:
+        for fused in (True, False):
+            print(f"13a: {name}, one fp32 step card vs CPU, fused_joint_loss={fused}")
+            cfg = _zoo(_train_cfg("float32", dropout=False, fused_joint_loss=fused), name)
+            out[f"{name}_step_fused_joint_loss_{fused}"] = _train_card_vs_cpu(
+                torch, dev, fused, False, cfg, f"13a: {name}, fused_joint_loss={fused}")
+    for name in CACHED_FAMILIES:
+        sets = {k: v for k, v in FAMILIES[name].items() if k != "model.encoder.static_chunk_size"}
+        out[f"{name}_trainer"] = _option_trainer(
+            torch, dev, sets, f"13b trainer, {name}",
+            lambda cfg, name=name: cfg.model.encoder.encoder_type == FAMILIES[name][
+                "model.encoder.encoder_type"] and cfg.model.encoder.causal)
+    for name in CACHED_FAMILIES:
+        print(f"13c: {name}, serving")
+        m = _zoo_models(torch, dev, name, data)
+        rec = _zoo_serve(torch, dev, data, m, ("rnnt_beam", "ctc_prefix_beam", "rnnt_rescoring"),
+                         True, stream_beam=True)
+        feats, _ = fbank_batch(*data["synthetic"], m["cfg"].feature, device=dev)
+        st = measure_rtf(m["card"], feats, m["cfg"])
+        print(f"13c {name} streaming greedy RTF (fp32, {feats.shape[0]} streams, "
+              f"{st.n_chunks} chunks of {st.chunk_audio_seconds:.3f} s): p50 {st.rtf_p50:.5f} "
+              f"p90 {st.rtf_p90:.5f} (probe p50 {st.probe_p50_ms:.4f} ms)")
+        out[f"{name}_serving"] = dict(rec, rtf_p50=st.rtf_p50, rtf_p90=st.rtf_p90,
+                                      rtf_probe_p50_ms=st.probe_p50_ms,
+                                      blank_logit_bias=m["blank_logit_bias"],
+                                      encoder_max_abs_err=m["encoder_max_abs_err"])
+        del m
+    print("13c: squeezeformer_full_context, serving and prefix recomputation")
+    m = _zoo_models(torch, dev, "squeezeformer_full_context", data)
+    out["squeezeformer_full_context_serving"] = dict(
+        _zoo_serve(torch, dev, data, m, ("rnnt_beam", "ctc_prefix_beam", "rnnt_rescoring"),
+                   False),
+        blank_logit_bias=m["blank_logit_bias"], encoder_max_abs_err=m["encoder_max_abs_err"],
+        prefix_recompute=_prefix_recompute_check(torch, dev, m, data))
+    return out
+
+
+def _families_run(torch, dev, data) -> tuple[dict, dict, dict]:
+    """Phase 13 as one counted run: launch counts reset before 13a and read
+    after 13c, the kernels' card calls recorded, then each held against its
+    plain version on them; -> (the records, the launch counts, the kernel
+    records)."""
+    from tpuasr_torch.ops import KERNELS, LAUNCHES, reset_launch_counts
+
+    reset_launch_counts()
+    with _recording(torch) as seen:  # the families run, 13a-13c
+        families = _families_phase(torch, dev, data)
+    launches = dict(LAUNCHES)
+    print(f"launches on the families run (13a-13c): {launches}")
+    # the families' attention and FFNs are plain in the JAX package: #2, #3,
+    # #10 and #11 stay off whatever fused_attention and fused_ffn say
+    for name in KERNELS:
+        off_path = name in ("relpos_attention", "relpos_attention_bwd", "ffn_fwd", "ffn_bwd")
+        require((launches[name] > 0) != off_path,
+                f"the families run launched {name} {launches[name]} times")
+    require(launches["fbank_tc"] > 0 and launches["fbank_fft"] > 0
+            and launches["fbank_fp32"] == 0,
+            "the families run did not take fbank's tensor-core route in training and its FFT "
+            "route in serving alone")
+    print("kernels against their plain versions on the families run's own inputs:")
+    records = _trainer_kernel_records(torch, seen, launches, "families", timed=1)
+    return families, launches, records
 
 
 if __name__ == "__main__":

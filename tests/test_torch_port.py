@@ -114,18 +114,25 @@ def test_measure_rtf_refuses_cpu():
 
 
 @pytest.mark.parametrize("bad", [
-    ({"encoder_type": "squeezeformer"}, "build"),
-    ({"encoder_type": "efficient_conformer"}, "build"),
+    ({"encoder_type": "squeezeformer", "time_reduction_type": "stream"}, "streams"),
+    ({"encoder_type": "efficient_conformer"}, "streams"),
     ({"normalize_before": False}, "build"),
     ({"cnn_module_norm": "batch_norm"}, "train"),
     ({"encoder_type": "firered"}, "stream"),
 ])
 def test_unported_options_raise(bad):
     """What the port does not build raises NotImplementedError where it is
-    used: the encoder families at construction, the JAX block's unread
-    normalize_before, batch-norm training (the JAX package cannot train it
-    either) and FireRed's streaming (full context only)."""
+    used: the JAX block's unread normalize_before, batch-norm training (the
+    JAX package cannot train it either) and FireRed's streaming (full
+    context only). The encoder families, refused at construction until they
+    were ported, now build and stream a chunk through their own caches."""
     enc, use = bad
+    if use == "streams":
+        model = Transducer(_tiny_cfg(**enc), device="cpu")
+        state = model.init_encoder_state(1, 6, 2)
+        ys, state = model.encode_chunk(torch.zeros(1, 27, 80), state)
+        assert ys.shape == (1, 6, 32) and state.offset == 6 and len(state.att) == 2
+        return
     with pytest.raises(NotImplementedError):
         model = Transducer(_tiny_cfg(**enc), device="cpu")
         if use == "train":
@@ -165,9 +172,10 @@ def test_jax_gradient_checkpointing_is_read_and_refused(remat):
 ])
 def test_unported_training_options_raise(where, key, value):
     """The trainer's model options: the ones refused before the transducer's
-    options were ported (the pruned loss, the stateless predictors, abs_pos,
-    HAT) now take a training step with a finite loss and gradient through
-    `make_train_step`; what stays unported still raises NotImplementedError."""
+    options and the encoder families were ported (the pruned loss, the
+    stateless predictors, abs_pos, HAT, squeezeformer) now take a training
+    step with a finite loss and gradient through `make_train_step`; what
+    stays unported still raises NotImplementedError."""
     from tpuasr_torch.models import init_weights
     from tpuasr_torch.train import TrainState, make_optimizer, make_train_step
 
@@ -178,7 +186,7 @@ def test_unported_training_options_raise(where, key, value):
     setattr(target, key, value)
     if where == "predictor":
         cfg.model.predictor.embed_size = cfg.model.predictor.output_size
-    if (key, value) in (("normalize_before", False), ("encoder_type", "squeezeformer")):
+    if (key, value) == ("normalize_before", False):
         with pytest.raises(NotImplementedError):
             Transducer(cfg.model, device="cpu")
         return

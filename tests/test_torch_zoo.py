@@ -21,8 +21,10 @@ JAX init is compiled), fp32:
   expert, as `jax.lax.top_k`.
 - The front ends (linear, conv1d2, stack2, conv2d_firered): output,
   `output_len` and `subsampled_mask` against the JAX modules.
-- `check_supported` raises for what stays unported, with its reason.
-- The converter lands every flax leaf once, `batch_stats` included.
+- `check_supported` raises for what stays unported, with its reason, and
+  passes the encoder families, which build their own encoders.
+- The converter lands every flax leaf once, `batch_stats` included, the
+  encoder families' too.
 """
 
 import dataclasses
@@ -46,7 +48,10 @@ from tpuasr_torch.config import ModelConfig, from_dict
 from tpuasr_torch.convert import _convert_leaf, convert_params, load_jax_params
 from tpuasr_torch.models import Transducer, init_weights
 from tpuasr_torch.nn import subsampling as port_sub
+from tpuasr_torch.models.transducer import build_encoder
 from tpuasr_torch.nn.conformer import MoEFFNLayer, check_supported
+from tpuasr_torch.nn.efficient_conformer import EfficientConformerEncoder
+from tpuasr_torch.nn.squeezeformer import SqueezeformerEncoder
 from tpuasr_torch.streaming import chunk_windows, num_chunks
 
 torch.set_num_threads(1)  # six test workers share the cores
@@ -269,7 +274,16 @@ def test_front_end_matches_jax(layer):
     ("normalize_before", False, "ignores the field"),
 ])
 def test_check_supported_names_why(field, value, reason):
+    """What stays unported raises with its reason; the encoder families,
+    refused until they were ported, pass the check and build their own
+    encoder."""
     enc = dataclasses.replace(port_cfg(jax_cfg()).encoder, **{field: value})
+    if reason == "encoder families":
+        check_supported(enc)
+        built = build_encoder(enc, torch.float32, "cpu")
+        assert type(built) is {"squeezeformer": SqueezeformerEncoder,
+                               "efficient_conformer": EfficientConformerEncoder}[value]
+        return
     with pytest.raises(NotImplementedError, match=reason):
         check_supported(enc)
 
@@ -283,11 +297,20 @@ SINKS = {  # every leaf kind of the converter
         dict(encoder_type="firered", causal=False, mlp_type="gated", cnn_module_norm="rms_norm",
              input_layer="conv2d"),
         dict(predictor_type="embedding", embed_size=32), dict(prejoin_linear=False)),
+    # the encoder families: squeezeformer's depthwise front end, adaptive
+    # scales (flax `scale` -> `weight`), time reduction and recovery; the
+    # efficient conformer's grouped [H, g*dk] u/v biases and strided conv
+    "squeezeformer": jax_cfg(dict(encoder_type="squeezeformer", num_blocks=4, reduce_idx=(1,),
+                                  recover_idx=(3,), time_reduction_type="stream")),
+    "efficient_conformer": jax_cfg(dict(encoder_type="efficient_conformer", num_blocks=4,
+                                        stride_layer_idx=(1,), group_size=2)),
 }
+# the JAX families never scan their layers (tpuasr/config.py:116-119)
+LAYOUTS = [(sink, layout) for sink in SINKS for layout in ("unrolled", "scanned")
+           if layout == "unrolled" or SINKS[sink].encoder.encoder_type in ("conformer", "firered")]
 
 
-@pytest.mark.parametrize("layout", ["unrolled", "scanned"])
-@pytest.mark.parametrize("sink", list(SINKS))
+@pytest.mark.parametrize("sink,layout", LAYOUTS, ids=[f"{s}-{l}" for s, l in LAYOUTS])
 def test_every_flax_leaf_converts_once(sink, layout):
     """Each leaf of every collection (params and batch_stats, unrolled or
     scanned) lands on one port parameter or buffer, and every one is

@@ -7,12 +7,10 @@ optimizer, the data pipeline, streaming, the training loop), with the same
 field names and defaults, so a ``train.yaml`` written by the JAX package
 loads here unchanged: `from_dict` drops every key this copy does not hold
 (the JAX-only loop switches such as donation, the RNG implementation and
-the host-RSS watchdog, the mesh, the scanned parameter layout, which
-`tpuasr_torch.convert` detects by itself, and the options of the
-squeezeformer and efficient-conformer encoders, which `encoder_type`
-already refuses). Values the port does not build raise NotImplementedError
-where they are read (`check_supported` in the encoder, batch-norm training
-in the conv module).
+the host-RSS watchdog, the mesh, and the scanned parameter layout, which
+`tpuasr_torch.convert` detects by itself). Values the port does not build
+raise NotImplementedError where they are read (`check_supported` in the
+encoder, batch-norm training in the conv module).
 
 The JAX package's ``adapt_to_backend`` is not copied: it strips TPU-only
 settings off the TPU, while the port runs its kernels whenever a tensor lies
@@ -55,10 +53,12 @@ class EncoderConfig:
     """Conformer encoder (reference: model/rnnt_model.py:90-109,
     model/online_rnnt_model.py:85-107, wenet/transformer/encoder.py:437-551).
 
-    The port builds the conformer and firered families with every attention,
-    positional encoding, FFN, conv norm, activation and front end of the
-    JAX package, and raises NotImplementedError for the rest
-    (`check_supported`)."""
+    The port builds every encoder family of the JAX package: the conformer
+    and firered with every attention, positional encoding, FFN, conv norm,
+    activation and front end, squeezeformer and efficient_conformer with
+    their own fields below (the stride of the efficient conformer's strided
+    layers is 2, as `tpuasr/models/transducer.py:116` reads it; there is no
+    field). It raises NotImplementedError for the rest (`check_supported`)."""
 
     input_size: int = 80
     output_size: int = 256
@@ -108,7 +108,16 @@ class EncoderConfig:
     mlp_type: str = "position_wise_feed_forward"
     n_expert: int = 8
     n_expert_activated: int = 2
-    encoder_type: str = "conformer"  # conformer | firered
+    encoder_type: str = "conformer"  # conformer | firered | squeezeformer | efficient_conformer
+    # squeezeformer time reduction / recovery layer indices
+    reduce_idx: tuple = (5,)
+    recover_idx: tuple = (11,)
+    # squeezeformer reduction layer: conv (k 5, looks ahead: full context) |
+    # stream (k 1, chunk-local: required for cached streaming)
+    time_reduction_type: str = "conv"
+    # efficient-conformer strided layers + attention group size
+    stride_layer_idx: tuple = (3,)
+    group_size: int = 3
 
 
 @dataclass

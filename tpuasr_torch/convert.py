@@ -24,7 +24,16 @@ this module imports nothing of JAX. The layout differences it resolves:
   its [H, 4H] layout, the cell is written out); the joint head's raw
   ``ffn_out_kernel [D, V]`` and ``pos_bias_u/v [H, dk]`` keep theirs;
 - encoder blocks come either unrolled (``block{i}``) or scanned
-  (``layers/block`` with a leading [L] axis); both become ``blocks.{i}``;
+  (``layers/block`` with a leading [L] axis); both become ``blocks.{i}``
+  (the squeezeformer and efficient-conformer families come unrolled only:
+  the JAX package never scans them);
+- the encoder families' leaves need no rule of their own: squeezeformer's
+  depthwise front end (``embed/pw_conv``, ``embed/dw_conv``: HWIO [3, 3, 1,
+  C] -> OIHW [C, 1, 3, 3]), ``time_reduction/{dw,pw}`` (1-D kernels),
+  ``time_recover`` and the adaptive scales ``scale_*``,
+  whose ``scale`` leaf becomes ``weight`` as every flax ``scale`` does;
+  the efficient conformer's grouped ``pos_bias_u/v [H, g*dk]`` keep their
+  layout;
 - the attention decoders' layers ``layer{i}`` become ``layers.{i}``.
 """
 

@@ -9,6 +9,12 @@ carry of `decode.rnnt_beam` (per-hypothesis predictor states), with the
 chunk's CTC log-probs fused into every frame when `ctc_weight > 0`.
 `streaming_greedy_decode` and `streaming_beam_decode` run a whole
 utterance chunk by chunk.
+
+The encoder state's offset counts full-rate encoder frames; a chunk's
+output frames are indexed `offset // stream_output_factor + j` (the
+efficient conformer's strides leave chunk / factor output frames a chunk,
+tpuasr/decode/rnnt_streaming.py:68-76), and each stream's decode is gated
+at its `stream_output_len`.
 """
 
 from __future__ import annotations
@@ -19,17 +25,18 @@ import torch
 
 from tpuasr_torch.decode.rnnt_beam import BeamCarry, beam_frames, init_beam_carry, take_best
 from tpuasr_torch.decode.rnnt_greedy import GreedyCarry, greedy_frames, init_greedy_carry
-from tpuasr_torch.models.transducer import stream_output_len
+from tpuasr_torch.models.transducer import stream_output_factor, stream_output_len
 from tpuasr_torch.nn.conformer import EncoderStreamState
 from tpuasr_torch.nn.subsampling import SUBSAMPLE_CLASSES
 from tpuasr_torch.streaming.chunkwise import chunk_windows, num_chunks
+from tpuasr_torch.streaming.family_cache import FamilyStreamState
 
 _INT32_MAX = 2**31 - 1
 
 
 @dataclass
 class StreamingState:
-    enc: EncoderStreamState
+    enc: EncoderStreamState | FamilyStreamState
     dec: GreedyCarry
     enc_lens: torch.Tensor  # [B] valid encoder frames per stream (decode gate)
 
@@ -49,13 +56,13 @@ def init_streaming_state(model, batch: int, chunk_size: int, num_left_chunks: in
                           enc_lens=_enc_lens(model, batch, enc_lens))
 
 
-def _chunk_frames(model, chunk_feats: torch.Tensor, enc: EncoderStreamState,
-                  enc_lens: torch.Tensor):
-    """Encode one chunk window -> (frames [B, chunk, D], their validity
-    [B, chunk], the new encoder state). The encoder's output factor is 1
-    (one decoded frame per encoder frame)."""
+def _chunk_frames(model, chunk_feats: torch.Tensor, enc, enc_lens: torch.Tensor):
+    """Encode one chunk window -> (output frames [B, chunk / f, D], their
+    validity [B, chunk / f], the new encoder state); f is the encoder's
+    `stream_output_factor` and the state's offset counts full-rate frames."""
     ys, enc_state = model.encode_chunk(chunk_feats, enc)
-    frame_idx = enc.offset + torch.arange(ys.shape[1], device=ys.device)[None, :]
+    first = enc.offset // stream_output_factor(model.cfg.encoder)
+    frame_idx = first + torch.arange(ys.shape[1], device=ys.device)[None, :]
     return ys, frame_idx < enc_lens[:, None], enc_state
 
 
@@ -100,7 +107,7 @@ def streaming_greedy_decode(model, feats: torch.Tensor, feat_lens, chunk_size: i
 
 @dataclass
 class StreamingBeamState:
-    enc: EncoderStreamState
+    enc: EncoderStreamState | FamilyStreamState
     beam: BeamCarry
     enc_lens: torch.Tensor  # [B]
 

@@ -11,6 +11,10 @@ subsampling_rate * hop / sr), with mean/p50/p80/p90/p95/max. The first
 window: the dispatch-and-sync probe, so a shift of RTF between runs can be
 told apart from a shift of the host's own latency.
 
+A chunk covers chunk * subsampling_rate feature frames of audio whatever
+the encoder family; the efficient conformer emits chunk / its
+`stream_output_factor` frames for it.
+
 `measure_first_token_delay`: audio seconds consumed before each stream's
 first non-blank emission plus the processing time up to that chunk. The
 chunk loop (`first_emissions`) runs on any device; the timing functions
@@ -29,7 +33,8 @@ from tpuasr_torch.config import Config
 from tpuasr_torch.decode.rnnt_streaming import (
     init_streaming_beam_state, init_streaming_state, process_chunk, process_chunk_beam,
 )
-from tpuasr_torch.nn.subsampling import SUBSAMPLE_CLASSES, subsampled_len
+from tpuasr_torch.models.transducer import stream_output_len
+from tpuasr_torch.nn.subsampling import SUBSAMPLE_CLASSES
 from tpuasr_torch.streaming.chunkwise import chunk_windows, num_chunks
 
 
@@ -130,7 +135,7 @@ def first_emissions(model, feats: torch.Tensor, feat_lens, cfg: Config, n_steps:
     c = cfg.model
     windows, chunk_audio = _chunking(model, feats, cfg)
     b = feats.shape[0]
-    enc_lens = subsampled_len(c.encoder.input_layer, torch.as_tensor(feat_lens).to(model.device))
+    enc_lens = stream_output_len(c.encoder, torch.as_tensor(feat_lens).to(model.device))
     state = init_streaming_state(model, b, cfg.streaming.chunk_size,
                                  cfg.streaming.num_left_chunks, c.blank_id, enc_lens=enc_lens)
     process_chunk(model, windows[0], state, c.blank_id, n_steps)  # warm-up, discarded

@@ -20,9 +20,16 @@ switches say (tpuasr/models/transducer.py:237, :260). The fused and the
 materialized routes run the lattice through kernels #8/#9 on the card and
 the plain lattice on the CPU.
 
-`encoder.encoder_type=firered` builds the conformer stack with FireRed's
-front end (`conv2d_firered`) and attention (`firered_rel_pos`), as
-`tpuasr/models/transducer.py:37-47` does; it is full-context only.
+The encoder comes from `build_encoder`, by `encoder.encoder_type`, as
+`tpuasr/models/transducer.py:30-96` builds it: the conformer; firered (the
+conformer stack with FireRed's front end `conv2d_firered` and attention
+`firered_rel_pos`, full-context only); squeezeformer and
+efficient_conformer (`tpuasr_torch.nn.squeezeformer`,
+`tpuasr_torch.nn.efficient_conformer`: plain attention and FFNs whatever
+the fused switches say, as in the JAX package; their streams keep per-layer
+caches at each layer's frame rate, `tpuasr_torch.streaming.family_cache`).
+The efficient conformer's strides leave `stream_output_factor` encoder
+frames of a chunk for each output frame.
 The module owns its weights; they come from `init_weights` (seeded) or from
 a JAX checkpoint through `tpuasr_torch.convert`.
 """
@@ -41,13 +48,18 @@ from tpuasr_torch.losses import ctc_loss_from_logits, rnnt_loss_from_logits, rnn
 from tpuasr_torch.nn.attention import (
     FireRedRelPositionAttention, RelPositionMultiHeadedAttention,
 )
-from tpuasr_torch.nn.conformer import ConformerEncoder, EncoderStreamState
+from tpuasr_torch.nn.conformer import ConformerEncoder, EncoderStreamState, check_supported
 from tpuasr_torch.nn.convolution import BatchNormEval, RMSNorm
+from tpuasr_torch.nn.efficient_conformer import (
+    STRIDE, EfficientConformerEncoder, GroupedRelPositionAttention, efficient_output_len,
+)
 from tpuasr_torch.nn.joint import TransducerJoint
 from tpuasr_torch.nn.layers import Dense, LayerNorm, dropout
 from tpuasr_torch.nn.predictor import PREDICTOR_CLASSES
+from tpuasr_torch.nn.squeezeformer import AdaptiveScale, SqueezeformerEncoder
 from tpuasr_torch.nn.subsampling import subsampled_len
 from tpuasr_torch.ops.rnnt_fused import rnnt_loss_fused_mean
+from tpuasr_torch.streaming.family_cache import FamilyStreamState
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -62,16 +74,42 @@ def family_config(enc_cfg: EncoderConfig) -> EncoderConfig:
     return enc_cfg
 
 
+def build_encoder(enc_cfg: EncoderConfig, dtype: torch.dtype, device) -> nn.Module:
+    """The encoder of `enc_cfg.encoder_type` (tpuasr/models/transducer.py:
+    30-96): conformer | firered | squeezeformer | efficient_conformer."""
+    check_supported(enc_cfg)
+    if enc_cfg.encoder_type == "squeezeformer":
+        return SqueezeformerEncoder(enc_cfg, dtype, device)
+    if enc_cfg.encoder_type == "efficient_conformer":
+        return EfficientConformerEncoder(enc_cfg, dtype, device)
+    return ConformerEncoder(family_config(enc_cfg), dtype, device)
+
+
 def encoder_output_len(enc_cfg: EncoderConfig, feat_lens):
     """Encoder frame count for padded inputs, per family
-    (tpuasr/models/transducer.py:94-101)."""
+    (tpuasr/models/transducer.py:99-106): the efficient conformer's
+    (`efficient_output_len`: a ceil division per stride), else the front
+    end's."""
+    if enc_cfg.encoder_type == "efficient_conformer":
+        return efficient_output_len(enc_cfg, feat_lens)
     return subsampled_len(family_config(enc_cfg).input_layer, feat_lens)
 
 
+def stream_output_factor(enc_cfg: EncoderConfig) -> int:
+    """Encoder frames of a streaming chunk per output frame
+    (tpuasr/models/transducer.py:109-118): the product of the efficient
+    conformer's strides, 1 for the other families."""
+    if enc_cfg.encoder_type == "efficient_conformer":
+        return STRIDE ** len(enc_cfg.stride_layer_idx)
+    return 1
+
+
 def stream_output_len(enc_cfg: EncoderConfig, feat_lens):
-    """Encoder output frame count for feature lengths in streaming (the
-    conformer: the subsampled length)."""
-    return subsampled_len(enc_cfg.input_layer, feat_lens)
+    """Output frame count at the encoder's final rate in streaming
+    (tpuasr/models/transducer.py:121-125): the front end's length, divided
+    by `stream_output_factor` rounding up."""
+    f = stream_output_factor(enc_cfg)
+    return (subsampled_len(enc_cfg.input_layer, feat_lens) + f - 1) // f
 
 
 def add_blank(texts: torch.Tensor, blank_id: int) -> torch.Tensor:
@@ -100,7 +138,7 @@ class Transducer(nn.Module):
             raise ValueError(f"compute_dtype {cfg.compute_dtype!r} not in {sorted(DTYPES)}")
         self.cfg = cfg
         self.dtype = DTYPES[cfg.compute_dtype]
-        self.encoder = ConformerEncoder(family_config(cfg.encoder), self.dtype, dev)
+        self.encoder = build_encoder(cfg.encoder, self.dtype, dev)
         self.predictor = PREDICTOR_CLASSES[cfg.predictor.predictor_type](
             cfg.predictor, cfg.vocab_size, self.dtype, dev)
         self.joint = TransducerJoint(cfg.joint, cfg.encoder.output_size,
@@ -112,7 +150,7 @@ class Transducer(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return self.encoder.after_norm.weight.device
+        return next(self.parameters()).device
 
     # -------------------------------------------------- encoder entry points
 
@@ -124,12 +162,15 @@ class Transducer(nn.Module):
         return ys, encoder_output_len(self.cfg.encoder, feat_lens)
 
     @torch.no_grad()
-    def encode_chunk(self, xs: torch.Tensor, state: EncoderStreamState):
-        """One streaming chunk -> ([B, chunk, D], new encoder state)."""
+    def encode_chunk(self, xs: torch.Tensor, state: EncoderStreamState | FamilyStreamState):
+        """One streaming chunk -> ([B, chunk / stream_output_factor, D], new
+        encoder state); the family's own cached path."""
         return self.encoder.forward_chunk(xs, state)
 
-    def init_encoder_state(self, batch: int, chunk_size: int,
-                           num_left_chunks: int) -> EncoderStreamState:
+    def init_encoder_state(self, batch: int, chunk_size: int, num_left_chunks: int
+                           ) -> EncoderStreamState | FamilyStreamState:
+        """The family's zeroed stream caches (the conformer's stacked
+        `EncoderStreamState`, the families' per-layer `FamilyStreamState`)."""
         return self.encoder.init_stream_state(batch, chunk_size, num_left_chunks)
 
     # -------------------------------------------------- predictor / joint
@@ -209,7 +250,8 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
     lecun-normal dense/conv kernels (raw parameters in the JAX layout [...,
     in, out], the joint head, the MoE experts, the embedding predictor's
     pos_embed: fan-in all axes but the last), zero biases, unit layer, RMS
-    and batch norms, xavier u/v biases and recurrent matrices, unit-normal
+    and batch norms and squeezeformer's adaptive scales, xavier u/v biases
+    (the grouped attention's [H, g*dk] too) and recurrent matrices, unit-normal
     embeddings (the attention decoder's: std 1/sqrt(d), flax nn.Embed's
     default), std 0.02 for Shaw's table and the learned positions. Values
     are drawn on the CPU, so a seed gives the same weights on every device.
@@ -225,13 +267,14 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
 
     for mod in model.modules():
         for name, p in mod.named_parameters(recurse=False):
-            if isinstance(mod, (LayerNorm, RMSNorm, BatchNormEval)):
+            if isinstance(mod, (LayerNorm, RMSNorm, BatchNormEval, AdaptiveScale)):
                 new = torch.ones(p.shape) if name == "weight" else torch.zeros(p.shape)
             elif isinstance(mod, nn.Embedding):
                 new = normal(p.shape, getattr(mod, "init_std", 1.0))
             elif name == "bias" or name == "ffn_out_bias":
                 new = torch.zeros(p.shape)
-            elif (isinstance(mod, (RelPositionMultiHeadedAttention, FireRedRelPositionAttention))
+            elif (isinstance(mod, (RelPositionMultiHeadedAttention, FireRedRelPositionAttention,
+                                   GroupedRelPositionAttention))
                   and name.startswith("pos_bias")):
                 new = xavier(p.shape)
             elif isinstance(mod, nn.ParameterList):  # predictor wh.{l}: [H, 4H]

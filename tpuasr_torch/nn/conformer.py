@@ -69,14 +69,31 @@ def attention_type_of(c: EncoderConfig) -> str:
     return "rel_pos" if c.pos_enc_layer_type == "rel_pos" else "mha"
 
 
+ENCODER_TYPES = ("conformer", "firered", "squeezeformer", "efficient_conformer")
+
+
 def check_supported(c: EncoderConfig) -> None:
-    """Raise for the encoder options the port does not build, each with why."""
-    if c.encoder_type in ("squeezeformer", "efficient_conformer"):
-        raise NotImplementedError(
-            f"encoder.encoder_type={c.encoder_type!r}: not ported yet (ROADMAP: the encoder "
-            "families, with their stream caches and stream_output_factor)")
-    if c.encoder_type not in ("conformer", "firered"):
+    """Raise for the encoder options the port does not build, each with why.
+    Every family of `ENCODER_TYPES` builds (`tpuasr_torch.models.transducer.
+    build_encoder`); squeezeformer and efficient_conformer read their own
+    fields and the activation and, as in the JAX package, none of the
+    conformer block's options."""
+    if c.encoder_type not in ENCODER_TYPES:
         raise ValueError(f"unknown encoder_type {c.encoder_type!r}")
+    if c.encoder_type == "squeezeformer":
+        if c.time_reduction_type not in ("conv", "stream"):
+            raise ValueError(f"unknown time_reduction_type {c.time_reduction_type!r}")
+    elif c.encoder_type == "efficient_conformer":
+        if c.input_layer not in SUBSAMPLE_CLASSES:
+            raise ValueError(f"unknown input_layer {c.input_layer!r}")
+    else:
+        check_conformer(c)
+    if c.activation_type not in ACTIVATIONS:
+        raise ValueError(f"unknown activation_type {c.activation_type!r}")
+
+
+def check_conformer(c: EncoderConfig) -> None:
+    """Raise for the conformer block's options the port does not build."""
     if not c.normalize_before:
         raise NotImplementedError(
             "encoder.normalize_before=False: the JAX block ignores the field (always "
@@ -309,11 +326,13 @@ class EncoderStreamState:
 
 
 class ConformerEncoder(nn.Module):
-    """Conv-subsampled stack of conformer blocks."""
+    """Conv-subsampled stack of conformer blocks. It reads no `encoder_type`:
+    the AED and CTC models build it for every value, as the JAX package
+    does; the transducer picks the family (`build_encoder`)."""
 
     def __init__(self, c: EncoderConfig, dtype: torch.dtype = torch.float32, device=None):
         super().__init__()
-        check_supported(c)
+        check_conformer(c)
         self.cfg, self.dtype = c, dtype
         self.embed = SUBSAMPLE_CLASSES[c.input_layer](c.input_size, c.output_size, device)
         self.pe = PositionalEncodingTable(c.output_size, c.max_len, device)

@@ -41,17 +41,21 @@ class PositionalEncodingTable:
         self.xscale = math.sqrt(d_model)
         self.table = torch.from_numpy(sinusoid_table(max_len, d_model)).to(device)
 
-    def position_encoding(self, offset: int, size: int) -> torch.Tensor:
-        """PE window [1, size, d] for positions offset .. offset+size-1.
+    def position_encoding(self, offset: int, size: int, stride: int = 1) -> torch.Tensor:
+        """PE window [1, size, d] for positions offset, offset + stride, ...,
+        offset + (size - 1) * stride.
 
-        Positions below zero clamp to 0 (callers mask those slots). When the
-        window would end past `max_len`, it is rebased to end at the table
+        `stride` serves the reduced-rate layers of the encoder families,
+        whose full-context forward samples ``pos_emb[:, ::f]``. Positions
+        below zero clamp to 0 (callers mask those slots). When the window's
+        span would end past `max_len`, it is rebased to end at the table
         top, so the relative geometry inside the window stays exact for
         arbitrarily long streams (tpuasr/nn/embedding.py:51-81)."""
-        if 0 <= offset and offset + size <= self.max_len:
-            return self.table[offset:offset + size][None]
-        shift = max(offset + size - self.max_len, 0)
-        pos = torch.arange(size, device=self.table.device) + (offset - shift)
+        span = (size - 1) * stride + 1  # the window's extent in table rows
+        if 0 <= offset and offset + span <= self.max_len:
+            return self.table[offset:offset + span:stride][None]
+        shift = max(offset + span - self.max_len, 0)
+        pos = torch.arange(size, device=self.table.device) * stride + (offset - shift)
         return self.table[pos.clamp(0, self.max_len - 1)][None]
 
     def add_abs(self, x: torch.Tensor, offset: int = 0) -> tuple[torch.Tensor, torch.Tensor]:
