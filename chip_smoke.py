@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (`tpuasr_torch`) through its serving path, its
-training step, its trainer, its CTC and AED workloads, the transducer's
-model options and its encoder families on one NVIDIA card,
+training step, its trainer, its CTC, AED and Paraformer workloads, the
+transducer's model options and its encoder families on one NVIDIA card,
 and hold its hand-written kernels against their plain versions.
 
     python3 chip_smoke.py
@@ -300,21 +300,57 @@ Phases (any failure exits non-zero):
       prefix recomputation of a seeded 60 s request (chunk 32, the
       receptive field's look-ahead) equal to the chunk-masked full forward
       over every frame it emitted.
+14. The Paraformer workload at the repo's defaults, as the trainer builds
+   it (`paraformer_config`): 412 tokens, max 64, <eos> 3, the CIF head
+   (tail threshold 0.45, dropout 0.1), the glancing sampler at 0.75, a
+   6-block NAR decoder (4 heads, FFN 1024); the conformer stack of
+   EncoderConfig's defaults (12 non-causal rel-pos blocks, d256, conv 31,
+   `fused_attention`) with the TransformerDecoder over the fired
+   embeddings, or the SANM stack (LFR 7/6, 12 SANM blocks at d256, FSMN
+   kernel 11, the SANM decoder). The paraformer run (counts reset before
+   14a, read after 14c) must launch #1 (its tensor-core route in training,
+   the FFT in serving), #2, #3, #6 and #7 and nothing else; the conformer
+   stack's trainer #1, #2 and #3; 14a's CTC-branch step #6 and #7; the SANM
+   stack's parts none of #2, #3, #10, #11 (each part's launches from the
+   counts' deltas); each kernel is then held against its plain version on
+   the run's own recorded inputs, the signature launched most timed:
+   a. one fp32 training step card vs CPU on 6a's batch, no dropout, the
+      sampler on the same seeded scores on both sides, for the conformer
+      stack, the conformer stack with `ctc_weight=0.3` and
+      `timestamp_branch=True`, and the SANM stack: held as 6a holds a step;
+   b. `python -m tpuasr_torch.tools.train --workload paraformer` in this
+      process at the card's defaults (bf16, fbank "default"), one epoch of
+      the hard corpus cut as phase 8 cuts it, for each stack: finite
+      losses, no skipped step, the median step, audio-s/s, the peak memory
+      and one profiled step's device ms;
+   c. fp32 serving of the 16 fixture requests for each stack, card vs CPU,
+      the CIF output bias fitted to the transcripts' tokens a frame (at
+      random weights the weights sit near 0.5 and the counts clip at 64):
+      CIF's floors (the counts, floor of the weights' sum, and the peaks,
+      the cumsum's floor-crossings) are not continuous, so they are held
+      by a margin rule: d = the largest |card - CPU| of the fired weights'
+      cumsum and sum, and every row whose CPU distance to the nearest
+      integer exceeds 2d must give the same count (peaks: over its
+      cumsum); greedy tokens identical where the counts agree, the fire
+      frames where the peaks are held, `paraformer_beam` (beam 10) by 4b's
+      2d rule on those rows; `make_offline_decoder` in both modes gives
+      the model's own search; each mode's latency; `evaluate` in both
+      modes on a checkpoint of these weights (its wall).
 7. The kernels line: one JSON object with an entry per kernel and run
    (the serving run of phases 4-5b, the training runs of phases 6b, 6c and
    6d, the trainer run of phase 8, the corpus run of phase 9, the CTC run
    of phase 10, the AED run of phase 11, the zoo run of phase 12, the
-   families run of phase 13; counts
-   reset just before each and read just after): that run's launches (fbank's: those of the route the
-   record times, the FFT for serving, which takes that route alone, and the
-   tensor-core route for training, which never takes the FFT), and the
-   error, times and bound at the
-   shape that run gives the kernel (phase 3's bench-shape records for 6b-6d;
-   for the trainer, the corpus, CTC, AED, zoo and families runs and #8 in serving the
-   signature it
-   launched most, with every signature's record under "shapes"). The CTC and RNN-T
-   lattice entries carry their run's launches by route under "routes":
-   each run that launches a lattice must take its warp route alone.
+   families run of phase 13, the paraformer run of phase 14; counts
+   reset just before each and read just after): that run's launches
+   (fbank's: those of the route the record times, the FFT for serving,
+   which takes that route alone, and the tensor-core route for training,
+   which never takes the FFT), and the error, times and bound at the shape
+   that run gives the kernel (phase 3's bench-shape records for 6b-6d; for
+   the trainer, the corpus, CTC, AED, zoo, families and paraformer runs and
+   #8 in serving the signature it launched most, with every signature's
+   record under "shapes"). The CTC and RNN-T lattice entries carry their
+   run's launches by route under "routes": each run that launches a
+   lattice must take its warp route alone.
 
 Each phase prints its seconds.
 TF32 is off throughout (cuBLAS and cuDNN), so every fp32 comparison is fp32.
@@ -561,6 +597,12 @@ def main() -> dict:
     families, runs["families"], families_records = _families_run(torch, dev, data)
     print(f"(phase 13: {time.perf_counter() - t_phase:.1f} s)")
 
+    # ---------------------------------------------------------------- 14
+    t_phase = _phase("14: the Paraformer workload (14a steps card vs CPU, 14b the trainer, "
+                     "14c serving and the evaluate CLI)", t_phase)
+    para, runs["paraformer"], para_records = _para_run(torch, dev, data)
+    print(f"(phase 14: {time.perf_counter() - t_phase:.1f} s)")
+
     # ---------------------------------------------------------------- 7
     # one entry per kernel and run that launches it, with the record taken
     # at the shape that run gives it: 6b, 6c and 6d give the same shapes
@@ -593,6 +635,8 @@ def main() -> dict:
     plan += [(name, ("zoo",), name) for name in KERNELS]
     # the families run (phase 13) launches #1 and #4-#9
     plan += [(name, ("families",), name) for name in KERNELS if runs["families"][name] > 0]
+    # the paraformer run (phase 14) launches #1, #2, #3, #6 and #7
+    plan += [(name, ("paraformer",), name) for name in KERNELS if runs["paraformer"][name] > 0]
     kernels = []
     for name, run_names, check, *count in plan:
         count = count[0] if count else name
@@ -600,7 +644,8 @@ def main() -> dict:
             launches = runs[run][count]
             require(launches > 0, f"the {run} run never launched {count}")
             own = {"trainer": trainer_records, "corpus": corpus_records, "ctc": ctc_records,
-                   "aed": aed_records, "zoo": zoo_records, "families": families_records}
+                   "aed": aed_records, "zoo": zoo_records, "families": families_records,
+                   "paraformer": para_records}
             rec = own[run][name] if run in own else checks[check]
             entry = dict(rec, run=run, launches=launches,
                          **{f"launches_{r}": runs[r][count] for r in runs})
@@ -621,6 +666,7 @@ def main() -> dict:
     print(json.dumps({"aed": aed}))
     print(json.dumps({"zoo": zoo}))
     print(json.dumps({"families": families}))
+    print(json.dumps({"paraformer": para}))
     print(json.dumps({"kernels": kernels}))
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}
@@ -3972,9 +4018,10 @@ def _zoo_trainer(torch, dev, prune: int) -> dict:
         and cfg.model.predictor.predictor_type == "embedding" and cfg.model.encoder.fused_ffn)
 
 
-def _option_trainer(torch, dev, sets: dict, label: str, cfg_ok) -> dict:
-    """12a's and 13b's trainer: `python -m tpuasr_torch.tools.train
-    --workload online_rnnt` in this process at the card's defaults (bf16,
+def _option_trainer(torch, dev, sets: dict, label: str, cfg_ok,
+                    workload: str = "online_rnnt") -> dict:
+    """12a's, 13b's and 14b's trainer: `python -m tpuasr_torch.tools.train
+    --workload <workload>` in this process at the card's defaults (bf16,
     fused attention, fbank "default", the fused joint loss) with the
     dotted `sets`, one epoch of the hard synthetic corpus cut as phase 8
     cuts it (48 utterances, batch 12) into a temporary directory under
@@ -3992,13 +4039,13 @@ def _option_trainer(torch, dev, sets: dict, label: str, cfg_ok) -> dict:
     make = loop.make_train_step
     (ROOT / "build").mkdir(exist_ok=True)
     with _timed_steps(torch, loop, "make_train_step") as walls:
-        with tempfile.TemporaryDirectory(prefix="zoo-", dir=ROOT / "build") as save_dir:
+        with tempfile.TemporaryDirectory(prefix=f"{workload}-", dir=ROOT / "build") as save_dir:
             args = [f"{k}={list(v) if isinstance(v, tuple) else v}" for k, v in sets.items()] + [
                 "data.synth_hard=True", "data.batch_size=12", f"train.save_dir={save_dir}",
                 "train.log_dir=", "train.log_every=1"]
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
-            run = train_main(["--workload", "online_rnnt", "--synthetic", "48", "--epochs", "1",
+            run = train_main(["--workload", workload, "--synthetic", "48", "--epochs", "1",
                               "--set", *args])
             peak = torch.cuda.max_memory_allocated() / 2**30
             cfg = load_yaml(str(Path(save_dir) / "train.yaml"))
@@ -4283,6 +4330,289 @@ def _families_run(torch, dev, data) -> tuple[dict, dict, dict]:
     print("kernels against their plain versions on the families run's own inputs:")
     records = _trainer_kernel_records(torch, seen, launches, "families", timed=1)
     return families, launches, records
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the Paraformer workload
+# ---------------------------------------------------------------------------
+
+PARA_STACKS = {"conformer": {}, "sanm": {"model.encoder.encoder_type": "sanm"}}
+PARA_BEAM = 10
+
+
+def _para_cfg(stack: str, dropout: bool = True):
+    """The paraformer workload at the repo's defaults, as the trainer builds
+    it: 412 tokens, the NAR decoder of model.att_decoder (6 blocks, 4 heads,
+    FFN 1024, lsm_weight 0.1, the sampler at 0.75), max 64 tokens, <eos> 3,
+    the CIF head's tail threshold 0.45 and dropout 0.1; the conformer stack
+    of EncoderConfig's defaults (12 non-causal rel-pos blocks, d256, 4
+    heads, FFN 1024, conv 31) with `fused_attention`, or the SANM stack (LFR
+    7/6, 12 blocks at d256, FSMN kernel 11); fp32, fbank "highest"; without
+    `dropout` the encoder's rates 0."""
+    from tpuasr_torch.config import Config, override
+
+    cfg = override(Config(), PARA_STACKS[stack])
+    cfg.model.encoder.fused_attention = True
+    if not dropout:
+        cfg.model.encoder.dropout_rate = cfg.model.encoder.positional_dropout_rate = 0.0
+    return cfg
+
+
+def _para_model(cfg, device, **extra):
+    """The trainer's Paraformer (`paraformer_config`, seed train.seed), with
+    `extra` fields set (the CTC and timestamp branches, the CIF dropout)."""
+    from tpuasr_torch.models import Paraformer, init_weights
+    from tpuasr_torch.tools.train import paraformer_config
+
+    return init_weights(Paraformer(paraformer_config(cfg, **extra), device), cfg.train.seed)
+
+
+def _para_card_vs_cpu(torch, dev, stack: str, **extra) -> dict:
+    """14a: one fp32 training step of the Paraformer card vs CPU on 6a's
+    batch ([2, 256, 80] seeded features x 16 tokens), no dropout, the
+    glancing sampler on the same seeded scores on both sides; held as 6a
+    holds a step."""
+    import numpy as np
+
+    from tpuasr_torch.train import make_optimizer
+
+    cfg = _para_cfg(stack, dropout=False)
+    r = np.random.default_rng(SEED + 11)
+    b, t, u = 2, 256, 16
+    host = (torch.from_numpy(r.standard_normal((b, t, 80)).astype(np.float32)),
+            torch.tensor([t, 200], dtype=torch.int32),
+            torch.from_numpy(r.integers(6, cfg.model.vocab_size, (b, u))),
+            torch.tensor([u, 11], dtype=torch.int32))
+    scores = torch.from_numpy(r.uniform(size=(b, u + 1)).astype(np.float32))
+    tx = make_optimizer(cfg.optim)
+    res = {}
+    for side, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        model = _para_model(cfg, device, cif_dropout=0.0, **extra).train()
+        out = model(*(x.to(device) for x in host), sampler_scores=scores.to(device))
+        res[side] = _step_side(torch, model, tx, out)
+    label = f"14a: Paraformer {stack} stack, fp32 step card vs CPU on [2, 256, 80] x 16 tokens"
+    if extra:
+        label += f" ({', '.join(f'{k}={v}' for k, v in extra.items())})"
+    return _step_card_vs_cpu(
+        torch, tx, res, label, "fp32 sums in another order through 12 encoder and 6 decoder "
+        "blocks, the attention kernels' atomics, the CIF cumsum, the CTC lattice")
+
+
+def _fit_cif_bias(torch, model, enc, elens, target: float) -> float:
+    """Set the CIF head's output bias (bisection on [-16, 16]) so that the
+    weights sum to `target` tokens per encoder frame; -> the bias. At random
+    weights they sit near 0.5 a frame and the counts clip at max_tokens."""
+    from tpuasr_torch.nn.masks import make_pad_mask
+
+    bias = model.predictor.cif_output.bias
+    mask = ~make_pad_mask(elens, enc.shape[1])
+    rate = lambda: float(model.predictor.alpha(enc, mask).sum() / elens.sum())
+    lo, hi = -16.0, 16.0
+    with torch.no_grad():
+        free = rate()
+        for _ in range(30):
+            bias.fill_(0.5 * (lo + hi))
+            lo, hi = (lo, 0.5 * (lo + hi)) if rate() > target else (0.5 * (lo + hi), hi)
+        bias.fill_(0.5 * (lo + hi))
+        got = rate()
+    print(f"CIF output bias {0.5 * (lo + hi):.4f}: {got:.4f} tokens a frame (target "
+          f"{target:.4f}; {free:.4f} with the seeded bias)")
+    return 0.5 * (lo + hi)
+
+
+def _cif_margins(torch, sums: dict) -> dict:
+    """The margin rule for CIF's floors, card against CPU: sums = {side:
+    (the fired weights' cumsum [B, T'+1], their sum [B], ...), each computed
+    on its side's device, copied to the CPU}. d = the largest |card - CPU|
+    of the cumsum and of the sum; a row's count margin is its CPU sum's
+    distance to the nearest integer, its peak margin the least such
+    distance over its cumsum. -> d, each row's margins and which rows lie
+    inside 2d."""
+    c = {s: v[0] for s, v in sums.items()}
+    tot = {s: v[1] for s, v in sums.items()}
+    d = max(float((c["card"] - c["cpu"]).abs().max()),
+            float((tot["card"] - tot["cpu"]).abs().max()))
+    dist = lambda x: (x - torch.round(x)).abs()
+    count_margin = dist(tot["cpu"])
+    peak_margin = dist(c["cpu"]).amin(dim=1)
+    return {"d": d, "count_margin": count_margin, "peak_margin": peak_margin,
+            "count_inside": [i for i, m in enumerate(count_margin.tolist()) if m <= 2 * d],
+            "peak_inside": [i for i, m in enumerate(peak_margin.tolist()) if m <= 2 * d]}
+
+
+def _para_serve(torch, dev, data, stack: str) -> dict:
+    """14c for one stack: fp32 serving of the fixture requests, card vs CPU,
+    after the CIF bias is fitted to the transcripts' tokens a frame.
+    `paraformer_greedy`: counts and peaks equal on every row outside the
+    margin rule's 2d, tokens identical where the counts agree;
+    `paraformer_beam` (beam 10): phase 4b's 2d rule on the n-best of the
+    rows whose counts agree; `greedy_decode_with_times`: the fire frames
+    equal where the peaks are held; `make_offline_decoder` in each mode
+    gives the model's own search on the card; each mode's synced latency
+    after a warm-up call; then `evaluate` in both modes on a checkpoint of
+    these weights, on the card."""
+    import tempfile
+
+    from tpuasr_torch.audio import fbank_batch
+    from tpuasr_torch.config import save_yaml
+    from tpuasr_torch.eval import make_offline_decoder
+    from tpuasr_torch.nn.cif import cif_peaks
+    from tpuasr_torch.nn.masks import make_pad_mask
+    from tpuasr_torch.tools import evaluate
+    from tpuasr_torch.train import TrainState, make_optimizer, save_checkpoint
+
+    waves, wave_lens = data["fixture"]
+    cfg = _para_cfg(stack)
+    models = {"card": _para_model(cfg, dev), "cpu": _para_model(cfg, torch.device("cpu"))}
+    feats, enc = {}, {}
+    for side, m in models.items():
+        feats[side] = fbank_batch(waves, wave_lens, cfg.feature, device=m.device)
+        enc[side] = m.encode(*feats[side])
+    k = models["card"].cfg.max_tokens
+    target = float(data["text_lens"].sum()) / float(enc["cpu"][1].sum())
+    bias = _fit_cif_bias(torch, models["card"], *enc["card"], target)
+    with torch.no_grad():
+        models["cpu"].predictor.cif_output.bias.fill_(bias)
+    sums = {}
+    for side, m in models.items():  # each side's cumsum, sum and peaks on its own device
+        e, el = enc[side]
+        with torch.no_grad():
+            a = m.predictor(e, ~make_pad_mask(el, e.shape[1]), k)[2]
+        sums[side] = [x.cpu() for x in (torch.cumsum(a, dim=1), a.sum(dim=1), cif_peaks(a))]
+    mg = _cif_margins(torch, sums)
+    out = {"cif_output_bias": bias, "d": mg["d"], "count_inside_2d": mg["count_inside"],
+           "peak_inside_2d": mg["peak_inside"]}
+    found = {side: (m.greedy_decode_with_times(*feats[side]),
+                    m.beam_decode(*feats[side], PARA_BEAM)) for side, m in models.items()}
+    (gc, bc), (gp, bp) = ([[x.cpu() for x in part] for part in found[s]]
+                          for s in ("card", "cpu"))
+    n = len(wave_lens)
+    held = [i for i in range(n) if i not in mg["count_inside"]]
+    require(all(int(gc[1][i]) == int(gp[1][i]) for i in held),
+            f"{stack}: a count outside the margin rule's 2d differs card vs CPU")
+    same_count = [i for i in range(n) if int(gc[1][i]) == int(gp[1][i])]
+    require(all(torch.equal(gc[0][i], gp[0][i]) for i in same_count),
+            f"{stack}: paraformer_greedy tokens differ where the counts agree")
+    peak_rows = [i for i in range(n) if i not in mg["peak_inside"]]
+    require(all(torch.equal(sums["card"][2][i], sums["cpu"][2][i]) for i in peak_rows),
+            f"{stack}: CIF peaks outside the margin rule's 2d differ card vs CPU")
+    require(all(torch.equal(gc[2][i], gp[2][i]) for i in peak_rows if i in same_count),
+            f"{stack}: fire times differ where the peaks are held")
+    tokens = int(gp[1].sum())
+    print(f"14c {stack}: d = {mg['d']:.3g} (the largest |card - CPU| of the fired weights' "
+          f"cumsum and sum); rows inside 2d: counts {mg['count_inside']}, peaks "
+          f"{mg['peak_inside']} of {n}; least CPU margins: count "
+          f"{float(mg['count_margin'].min()):.4g}, peak {float(mg['peak_margin'].min()):.4g}; "
+          f"counts card {gc[1].tolist()} CPU {gp[1].tolist()} ({tokens} tokens, target "
+          f"{int(data['text_lens'].sum())}); greedy tokens identical on the {len(same_count)} "
+          f"rows whose counts agree; peaks and fire times identical on {len(peak_rows)} rows")
+    rows = torch.tensor(same_count)
+    nb = lambda x: (x[0][rows], x[2][rows, None].expand(-1, PARA_BEAM), x[1][rows])
+    out["beam_agreement"] = _nbest_agreement(torch, f"14c {stack} paraformer_beam", nb(bc),
+                                             nb(bp))
+    lat = {}
+    for mode in ("paraformer_greedy", "paraformer_beam"):
+        dec = make_offline_decoder(models["card"], cfg, mode, beam_size=PARA_BEAM)
+        toks, lens = dec(waves, wave_lens)
+        ref = (gc[0], gc[1]) if mode == "paraformer_greedy" else (bc[0][:, 0], bc[2])
+        require(torch.equal(toks.cpu(), ref[0]) and torch.equal(lens.cpu(), ref[1]),
+                f"make_offline_decoder({mode!r}) differs from the model's search on the card")
+        lat[mode] = _synced_ms(torch, lambda: dec(waves, wave_lens))[1]
+    lat["greedy_decode_with_times"] = _synced_ms(
+        torch, lambda: models["card"].greedy_decode_with_times(*feats["card"]))[1]
+    print(f"14c {stack} latency, fp32, the {n} fixture requests, synced after a warm-up call: "
+          + ", ".join(f"{m} {v:.1f} ms" for m, v in lat.items()))
+    out["latency_ms"] = lat
+    walls = {}
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="para-", dir=ROOT / "build") as save_dir:
+        save_yaml(cfg, str(Path(save_dir) / "train.yaml"))
+        ckpt = str(Path(save_dir) / "latest")
+        save_checkpoint(ckpt, TrainState.create(models["card"], make_optimizer(cfg.optim)),
+                        {"epoch": 0, "step": 0})
+        for mode in ("paraformer_greedy", "paraformer_beam"):
+            res, walls[mode] = _synced_ms(torch, lambda: evaluate.main(
+                ["--checkpoint", ckpt, "--workload", "paraformer", "--mode", mode,
+                 "--synthetic", "16", "--beam_size", str(PARA_BEAM), "--max_samples", "0"]))
+            require(res.counts.ref_len > 0, f"evaluate --mode {mode} decoded nothing")
+    print(f"14c {stack} evaluate CLI walls (synced, the build and restore included, 16 "
+          f"synthetic utterances): " + ", ".join(f"{m} {v / 1e3:.2f} s" for m, v in walls.items()))
+    out["evaluate_wall_s"] = {m: v / 1e3 for m, v in walls.items()}
+    return out
+
+
+def _para_phase(torch, dev, data) -> dict:
+    """Phase 14a-14c, each part's launches checked from the counts' deltas:
+    the conformer stack's trainer launches #1, #2 and #3, 14a's CTC-branch
+    step #6 and #7, and the SANM stack's parts (its step, trainer and
+    serving) none of #2, #3, #10 or #11."""
+    from tpuasr_torch.ops import LAUNCHES
+
+    out, deltas = {}, {}
+
+    @contextlib.contextmanager
+    def counted(part):
+        before = dict(LAUNCHES)
+        yield
+        deltas[part] = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
+
+    for stack, extra in (("conformer", {}), ("conformer", {"ctc_weight": 0.3,
+                                                           "timestamp_branch": True}),
+                         ("sanm", {})):
+        part = f"14a_{stack}" + ("_ctc_tp" if extra else "")
+        with counted(part):
+            out[part] = _para_card_vs_cpu(torch, dev, stack, **extra)
+    t0 = time.perf_counter()
+    for stack in PARA_STACKS:
+        with counted(f"14b_{stack}"):
+            out[f"14b_{stack}"] = _option_trainer(
+                torch, dev, PARA_STACKS[stack], f"14b trainer, Paraformer {stack} stack",
+                lambda cfg, stack=stack: (cfg.model.encoder.encoder_type == "sanm")
+                == (stack == "sanm") and cfg.model.att_decoder.sampler, workload="paraformer")
+    print(f"(14b: {time.perf_counter() - t0:.1f} s)")
+    for stack in PARA_STACKS:
+        with counted(f"14c_{stack}"):
+            out[f"14c_{stack}"] = _para_serve(torch, dev, data, stack)
+    for part, d in deltas.items():
+        print(f"launches in {part}: { {k: v for k, v in d.items() if v} }")
+    conf = deltas["14b_conformer"]
+    require(conf["fbank"] > 0 and conf["relpos_attention"] > 0
+            and conf["relpos_attention_bwd"] > 0,
+            "the conformer stack's trainer did not launch #1, #2 and #3")
+    require(deltas["14a_conformer_ctc_tp"]["ctc_alpha"] > 0
+            and deltas["14a_conformer_ctc_tp"]["ctc_beta_grad"] > 0,
+            "14a's CTC-branch step did not launch #6 and #7")
+    for part in ("14a_sanm", "14b_sanm", "14c_sanm"):
+        for name in ("relpos_attention", "relpos_attention_bwd", "ffn_fwd", "ffn_bwd"):
+            require(deltas[part][name] == 0, f"{part} (the SANM stack) launched {name}")
+    out["launches_by_part"] = {p: {k: v for k, v in d.items() if v} for p, d in deltas.items()}
+    return out
+
+
+def _para_run(torch, dev, data) -> tuple[dict, dict, dict]:
+    """Phase 14 as one counted run: launch counts reset before 14a and read
+    after 14c, the kernels' card calls recorded, then each held against its
+    plain version on them; -> (the records, the launch counts, the kernel
+    records)."""
+    from tpuasr_torch.ops import KERNELS, LAUNCHES, reset_launch_counts
+
+    reset_launch_counts()
+    with _recording(torch) as seen:  # the paraformer run, 14a-14c
+        para = _para_phase(torch, dev, data)
+    launches = dict(LAUNCHES)
+    print(f"launches on the paraformer run (14a-14c): {launches}")
+    for name in KERNELS:
+        on_path = name in ("fbank", "relpos_attention", "relpos_attention_bwd", "ctc_alpha",
+                           "ctc_beta_grad")
+        require((launches[name] > 0) == on_path,
+                f"the paraformer run launched {name} {launches[name]} times")
+    require(launches["fbank_tc"] > 0 and launches["fbank_fft"] > 0
+            and launches["fbank_fp32"] == 0,
+            "the paraformer run did not take fbank's tensor-core route in training and its FFT "
+            "route in serving alone")
+    print("kernels against their plain versions on the paraformer run's own inputs:")
+    records = _trainer_kernel_records(torch, seen, launches, "paraformer", timed=1)
+    return para, launches, records
 
 
 if __name__ == "__main__":

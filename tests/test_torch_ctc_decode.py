@@ -15,7 +15,8 @@ offline decode modes == JAX on the CPU.
 - `transducer_rescoring` of that n-best: choice and fused scores;
 - `make_offline_decoder` from waves in rnnt_beam (with CTC fusion),
   ctc_greedy, ctc_prefix_beam and rnnt_rescoring against the JAX
-  package's decoder; the Paraformer modes still raise.
+  package's decoder; the Paraformer modes (a tiny Paraformer) give its
+  own greedy and beam hypotheses.
 Tokens, lengths and times identical; scores within 1e-4 (fp32 sums in
 another order).
 """
@@ -42,7 +43,9 @@ from tpuasr_torch.decode import (
     remove_duplicates_and_blank, transducer_rescoring,
 )
 from tpuasr_torch.decode import ctc_prefix_beam
-from tpuasr_torch.eval import LATER_MODES, make_offline_decoder
+from tests.test_torch_paraformer import tiny as tiny_paraformer
+from tpuasr_torch.audio import fbank_batch
+from tpuasr_torch.eval import make_offline_decoder
 from tpuasr_torch.models import Transducer
 
 torch.set_num_threads(1)  # six test workers share the cores
@@ -207,10 +210,19 @@ def test_offline_decoder_from_waves_matches_jax(models, mode, kw):
 
 
 def test_offline_decoder_later_modes_raise(models):
+    """The modes once left for a later slice, the Paraformer's, now decode:
+    from waves they give the model's own greedy and beam (n-best slot 0)
+    hypotheses; an unknown mode still raises."""
     _, _, _, pcfg, port = models
-    assert sorted(LATER_MODES) == ["paraformer_beam", "paraformer_greedy"]
-    for mode in LATER_MODES:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_offline_decoder(port, pcfg, mode)
+    para = tiny_paraformer()
+    r = np.random.default_rng(1)
+    waves = (r.standard_normal((2, 12000)) * 0.1).astype(np.float32)
+    wave_lens = np.array([12000, 9000], np.int32)
+    feats, feat_lens = fbank_batch(waves, wave_lens, pcfg.feature, device="cpu")
+    nb, _, nb_lens = para.beam_decode(feats, feat_lens, 3)
+    for mode, want in (("paraformer_greedy", para.greedy_decode(feats, feat_lens)),
+                       ("paraformer_beam", (nb[:, 0], nb_lens))):
+        got = make_offline_decoder(para, pcfg, mode, beam_size=3)(waves, wave_lens)
+        assert all(torch.equal(g, w) for g, w in zip(got, want)) and int(got[1].max()) > 0
     with pytest.raises(ValueError):
         make_offline_decoder(port, pcfg, "no_such_mode")

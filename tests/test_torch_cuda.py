@@ -39,7 +39,9 @@ cuDNN's convs sum in another order), CTC forced alignment and greedy
 decoding card against CPU on the same log-probs (with ties: identical),
 and gradient checkpointing through the attention and FFN kernels on the
 card (the flag-off gradients to 1e-4 of the largest, #2 and #10 launched
-twice). This file imports no JAX, so it runs on a machine without it:
+twice); the Paraformer's CIF fire twice bit-identical on the card and a
+tiny Paraformer of each stack decoding greedily to the CPU's counts, tokens
+and fire frames. This file imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
@@ -968,3 +970,43 @@ def test_gradient_checkpointing_on_card(card):
     top = max(float(x.abs().max()) for x in g0.values())
     for name, x in g0.items():
         assert float((g1[name] - x).abs().max()) <= 1e-4 * top, name
+
+
+def test_paraformer_cif_and_greedy_on_card(card):
+    """The CIF fire by its weight matrix and one batched product (no
+    atomics): two identical calls on the card give the same bits, within 8
+    ulps of the largest cumsum times the largest |hidden| of the CPU's (the
+    card's cumsum adds in another order, and a frame's shares move with it);
+    a tiny Paraformer of each stack (the CIF bias at -1,
+    so counts stay under max_tokens) decodes greedily on the card to the
+    CPU's counts, tokens and fire frames (fp32; rows whose CIF sums lie
+    within rounding of an integer would be exempt, and none does here)."""
+    from tpuasr_torch.config import EncoderConfig
+    from tpuasr_torch.models import Paraformer, ParaformerConfig, init_weights
+    from tpuasr_torch.nn.cif import cif_fire
+
+    g = torch.Generator().manual_seed(3)
+    hidden = torch.randn(4, 190, 256, generator=g)
+    alpha = torch.rand(4, 190, generator=g) * 0.5
+    alpha[1, 120:] = 0.0
+    on_card = [cif_fire(hidden.to(card), alpha.to(card), 64) for _ in range(2)]
+    assert torch.equal(*on_card)
+    c_max = float(alpha.sum(1).max())
+    tol = 8 * torch.finfo(torch.float32).eps * c_max * float(hidden.abs().max())
+    assert float((on_card[0].cpu() - cif_fire(hidden, alpha, 64)).abs().max()) <= tol
+    enc = EncoderConfig(output_size=64, attention_heads=2, linear_units=128, num_blocks=2,
+                        cnn_module_kernel=7, fused_attention=True)
+    feats = torch.randn(3, 301, 80, generator=g)
+    lens = torch.tensor([301, 250, 120])
+    for stack in ("conformer", "sanm"):
+        cfg = ParaformerConfig(vocab_size=64, encoder=enc, decoder_blocks=2, decoder_heads=2,
+                               decoder_ffn=128, max_tokens=24, encoder_type=stack)
+        got = {}
+        for dev in (card, torch.device("cpu")):
+            model = init_weights(Paraformer(cfg, device=dev), 5)
+            with torch.no_grad():
+                model.predictor.cif_output.bias.fill_(-1.0)
+            got[dev.type] = [x.cpu() for x in model.greedy_decode_with_times(
+                feats.to(dev), lens.to(dev))]
+        assert all(torch.equal(a, b) for a, b in zip(got["cuda"], got["cpu"])), stack
+        assert 0 < int(got["cpu"][1].min()) and int(got["cpu"][1].max()) < 24

@@ -5,7 +5,9 @@ end), `streaming_greedy_decode`, and `make_offline_decoder` from waves, on
 converted weights of the tiny flagship (2 blocks, d32, vocab 64, blank 5,
 16 kHz). Tokens and lengths must be identical. Plus the streaming gate of
 tests/test_streaming.py on the port: streaming decode == offline greedy over
-the chunk-masked full-context encoder.
+the chunk-masked full-context encoder. The Paraformer's greedy mode of
+`make_offline_decoder`, refused before it was ported, decodes the same
+waves to the model's own greedy hypotheses.
 """
 
 import dataclasses
@@ -17,11 +19,13 @@ import pytest
 import torch
 
 from __graft_entry__ import _flagship_config
+from tests.test_torch_paraformer import tiny as tiny_paraformer
 from tpuasr.config import to_dict
 from tpuasr.decode.rnnt_greedy import rnnt_greedy_decode as jax_greedy
 from tpuasr.decode.rnnt_streaming import streaming_greedy_decode as jax_streaming
 from tpuasr.eval.cer_eval import make_offline_decoder as jax_offline_decoder
 from tpuasr.models import Transducer as JaxTransducer
+from tpuasr_torch.audio import fbank_batch
 from tpuasr_torch.config import Config, ModelConfig, from_dict
 from tpuasr_torch.convert import load_jax_params
 from tpuasr_torch.decode import rnnt_greedy_decode, streaming_greedy_decode
@@ -169,5 +173,8 @@ def test_offline_decoder_from_waves_matches_jax(models):
     got = make_offline_decoder(port, pcfg, "rnnt_greedy", n_steps=N_STEPS,
                                max_tokens=MAX_TOKENS)(waves, wave_lens)
     _same(got, ref)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        make_offline_decoder(port, pcfg, "paraformer_greedy")
+    # the Paraformer's greedy mode, once refused, decodes the same waves
+    para = tiny_paraformer("sanm")
+    toks, lens = make_offline_decoder(para, pcfg, "paraformer_greedy")(waves, wave_lens)
+    want = para.greedy_decode(*fbank_batch(waves, wave_lens, pcfg.feature, device="cpu"))
+    assert torch.equal(toks, want[0]) and torch.equal(lens, want[1]) and int(lens.max()) > 0

@@ -14,10 +14,9 @@ dropout 0.1, SpecAugment, dynamic chunks) on the hard synthetic corpus
   from (seed, step), the data order from (seed, epoch), and the CPU's
   kernels are deterministic at one thread);
 - `python -m tpuasr_torch.tools.train --device cpu --synthetic 8 --epochs 1`
-  with a tiny `--set` exits 0 and leaves a checkpoint; the unported
-  workloads raise NotImplementedError naming their ROADMAP item, and the
-  encoder families, refused until they were ported, train an epoch (the
-  corpus on disk: tests/test_torch_eval_cli.py);
+  with a tiny `--set` exits 0 and leaves a checkpoint; the encoder
+  families and the Paraformer workload, refused until they were ported,
+  train an epoch (the corpus on disk: tests/test_torch_eval_cli.py);
 - `--workload ctc` (a tiny CTCModel) trains an epoch and checkpoints it,
   and a resume for the second epoch gives the uninterrupted run's losses
   and step exactly.
@@ -161,19 +160,22 @@ FAMILY_TINY = [f"{k}={v}" for k, v in TINY.items() if k != "model.encoder.num_bl
     ["--workload", "online_rnnt", "--synthetic", "8", "--set",
      "model.encoder.encoder_type=efficient_conformer", "model.encoder.stride_layer_idx=[1]",
      "model.encoder.group_size=2", *FAMILY_TINY],
-    ["--workload", "paraformer"]])
+    ["--workload", "paraformer", "--synthetic", "8", "--set", "model.encoder.encoder_type=sanm",
+     "model.att_decoder.blocks=1", "model.att_decoder.heads=2", "model.att_decoder.ffn=64",
+     *FAMILY_TINY]])
 def test_trainer_cli_refuses_what_is_not_ported(argv, tmp_path):
-    """The unported workload raises naming its ROADMAP item; the encoder
-    families (refused before they were ported) train an epoch of the tiny
-    hard corpus with finite losses and no skipped step, and their config
-    reaches the checkpoint's train.yaml."""
-    if "paraformer" in argv:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            main(argv + ["--device", "cpu"])
-        return
+    """What the trainer refused before it was ported, the encoder families
+    and the Paraformer workload (its SANM stack here), trains an epoch of
+    the tiny hard corpus with finite losses and no skipped step, and its
+    config reaches the checkpoint's train.yaml."""
     run = main(argv + [f"train.save_dir={tmp_path}", "--device", "cpu", "--epochs", "1"])
     assert all(torch.isfinite(torch.tensor(run.train_losses + run.dev_losses)))
     assert int(run.state.skipped) == 0 and run.state.step > 0
     enc = load_yaml(str(tmp_path / "train.yaml")).model.encoder
     assert f"model.encoder.encoder_type={enc.encoder_type}" in argv and enc.num_blocks == 4
-    assert (enc.reduce_idx, enc.stride_layer_idx) in (((1,), (3,)), ((5,), (1,)))
+    if "paraformer" in argv:
+        model = run.state.model
+        assert type(model).__name__ == "Paraformer" and len(model.decoder.layers) == 1
+        assert type(model.encoder).__name__ == "SanmEncoder"
+    else:
+        assert (enc.reduce_idx, enc.stride_layer_idx) in (((1,), (3,)), ((5,), (1,)))

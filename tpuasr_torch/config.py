@@ -2,7 +2,7 @@
 
 An own copy of the parts of ``tpuasr/config.py``'s dataclasses that the
 serving and training paths read or check (features, the transducer, the
-CTC workload's model and the AED workload's attention decoder, SpecAugment,
+CTC workload's model and the AED and Paraformer workloads' decoder, SpecAugment,
 optimizer, the data pipeline, streaming, the training loop), with the same
 field names and defaults, so a ``train.yaml`` written by the JAX package
 loads here unchanged: `from_dict` drops every key this copy does not hold
@@ -108,7 +108,10 @@ class EncoderConfig:
     mlp_type: str = "position_wise_feed_forward"
     n_expert: int = 8
     n_expert_activated: int = 2
-    encoder_type: str = "conformer"  # conformer | firered | squeezeformer | efficient_conformer
+    # conformer | firered | squeezeformer | efficient_conformer | sanm (the
+    # Paraformer's LFR + SANM stack: `tpuasr_torch.models.Paraformer` builds
+    # it; a transducer's `build_encoder` refuses it, as the JAX one does)
+    encoder_type: str = "conformer"
     # squeezeformer time reduction / recovery layer indices
     reduce_idx: tuple = (5,)
     recover_idx: tuple = (11,)
@@ -171,8 +174,8 @@ class CTCModelConfig:
 @dataclass
 class AttDecoderConfig:
     """The attention decoder of the `aed` workload (the hybrid CTC/attention
-    `ASRModel`); the encoder comes from `model.encoder`. The Paraformer
-    fields of the JAX block (`sampler`, `sampling_ratio`) are not held yet."""
+    `ASRModel`) and the NAR decoder of the `paraformer` workload; the
+    encoder comes from `model.encoder`."""
 
     blocks: int = 6
     heads: int = 4
@@ -183,6 +186,10 @@ class AttDecoderConfig:
     reverse_weight: float = 0.3
     # feed the decoder only the frames whose CTC argmax is not blank
     apply_non_blank_embedding: bool = False
+    # paraformer only: the glancing sampler and the share of its wrong
+    # positions it replaces by the target tokens' embeddings
+    sampler: bool = True
+    sampling_ratio: float = 0.75
 
 
 @dataclass

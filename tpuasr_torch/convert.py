@@ -1,5 +1,5 @@
-"""Convert a JAX (flax) Transducer, CTCModel or ASRModel parameter tree into
-the port's state_dict.
+"""Convert a JAX (flax) Transducer, CTCModel, ASRModel or Paraformer
+parameter tree into the port's state_dict.
 
 Input: the flax params as nested dicts of numpy arrays (with or without the
 top-level "params" key), e.g. ``jax.tree.map(np.asarray, params)``, or the
@@ -34,7 +34,15 @@ this module imports nothing of JAX. The layout differences it resolves:
   whose ``scale`` leaf becomes ``weight`` as every flax ``scale`` does;
   the efficient conformer's grouped ``pos_bias_u/v [H, g*dk]`` keep their
   layout;
-- the attention decoders' layers ``layer{i}`` become ``layers.{i}``.
+- the attention decoders' layers ``layer{i}`` become ``layers.{i}``, as do
+  the SANM encoder's and decoder's;
+- the Paraformer's timestamp branch: flax's ``ConvTranspose``
+  (``tp_upsample_cnn``, ``transpose_kernel=False``) runs its taps in the
+  opposite order to ``torch.nn.ConvTranspose1d``, so its [K, in, out]
+  kernel is flipped along K and becomes [in, out, K]; the BLSTM's raw
+  ``fwd_wh`` / ``bwd_wh`` [H, 4H] keep their layout. The CIF head
+  (``predictor/cif_conv``, ``cif_output``), ``sampler_embed`` and
+  ``ctc_lo`` need no rule of their own.
 """
 
 from __future__ import annotations
@@ -61,7 +69,10 @@ _LISTS = {"block": "blocks", "layer": "layers", "wx_": "wx", "wh_": "wh"}
 
 def _convert_leaf(path: tuple, x: np.ndarray) -> tuple[str, np.ndarray]:
     *parents, leaf = path
-    if leaf == "kernel":
+    if leaf == "kernel" and parents[-1:] == ["tp_upsample_cnn"]:
+        x = x[::-1].transpose(1, 2, 0)  # flax ConvTranspose [K, in, out] -> [in, out, K]
+        leaf = "weight"
+    elif leaf == "kernel":
         if x.ndim == 3:
             x = x.transpose(2, 1, 0)  # [K, in, out] -> [out, in, K]
         elif x.ndim == 4:
@@ -81,8 +92,9 @@ def _convert_leaf(path: tuple, x: np.ndarray) -> tuple[str, np.ndarray]:
 
 
 def convert_params(params: dict) -> dict[str, torch.Tensor]:
-    """flax Transducer, CTCModel or ASRModel params (nested numpy dicts), or
-    their variables with a `batch_stats` collection -> port state_dict."""
+    """flax Transducer, CTCModel, ASRModel or Paraformer params (nested numpy
+    dicts), or their variables with a `batch_stats` collection -> port
+    state_dict."""
     flat = _flatten(params.get("params", params))
     if "params" in params:
         flat.update(_flatten(params.get("batch_stats", {})))

@@ -1,12 +1,12 @@
 from tpuasr_torch.eval.cer_eval import (
-    LATER_MODES, MODES, EvalResult, evaluate_offline, make_offline_decoder,
+    MODES, EvalResult, evaluate_offline, make_offline_decoder,
 )
 from tpuasr_torch.eval.rtf import (
     RtfStats, first_emissions, first_token_delay_stats, measure_first_token_delay, measure_rtf,
 )
 from tpuasr_torch.eval.streaming_eval import StreamingEvalResult, evaluate_streaming
 
-__all__ = ["LATER_MODES", "MODES", "EvalResult", "evaluate_offline", "make_offline_decoder",
+__all__ = ["MODES", "EvalResult", "evaluate_offline", "make_offline_decoder",
            "RtfStats", "first_emissions", "first_token_delay_stats",
            "measure_first_token_delay", "measure_rtf", "StreamingEvalResult",
            "evaluate_streaming"]

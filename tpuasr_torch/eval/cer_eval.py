@@ -13,8 +13,9 @@ blank-filtered frames when it was trained on them); `ctc_greedy` or
 (a transducer's `ctc_weight > 0`). `evaluate_offline` runs it over a
 pipeline's batches and sums S/D/I over the valid rows, with every special
 id stripped from reference and hypothesis alike, keeping the first
-`max_samples` (utt, REF, HYP) texts. The Paraformer modes come with a later
-slice.
+`max_samples` (utt, REF, HYP) texts. A `Paraformer` decodes in
+`paraformer_greedy` (one NAR pass) or `paraformer_beam` (the positionwise
+beam, its n-best's first slot).
 """
 
 from __future__ import annotations
@@ -38,12 +39,7 @@ from tpuasr_torch.models.asr_model import attention_rescoring
 from tpuasr_torch.text.cer import CerCounts, cer_details
 
 MODES = ("rnnt_greedy", "rnnt_beam", "ctc_greedy", "ctc_prefix_beam", "rnnt_rescoring",
-         "attention", "attention_rescoring")
-# decode modes of the JAX package not ported yet, and the ROADMAP item that owns each
-LATER_MODES = {
-    "paraformer_greedy": "§1 item 5, Paraformer",
-    "paraformer_beam": "§1 item 5, Paraformer",
-}
+         "attention", "attention_rescoring", "paraformer_greedy", "paraformer_beam")
 
 
 @dataclass
@@ -66,15 +62,23 @@ def make_offline_decoder(model, cfg: Config, mode: str, beam_size: int = 4,
                          ctc_fusion_weight: float = 0.0, rescoring_ctc_weight: float = 0.5):
     """-> decode(waves [B, N], wave_lens [B]) -> (tokens, token_lens [B]),
     run on the model's device. Tokens are [B, max_tokens], or [B, T'] for
-    `ctc_greedy`. `ctc_fusion_weight` is `rnnt_beam`'s per-frame CTC
-    fusion; `rescoring_ctc_weight` is `attention_rescoring`'s CTC weight;
+    `ctc_greedy` ([B, model.cfg.max_tokens] for the Paraformer modes).
+    `ctc_fusion_weight` is `rnnt_beam`'s per-frame CTC fusion;
+    `rescoring_ctc_weight` is `attention_rescoring`'s CTC weight;
     `rnnt_rescoring` fuses with cfg.model's transducer_weight and
-    ctc_weight."""
-    if mode in LATER_MODES:
-        raise NotImplementedError(
-            f"decode mode {mode!r} is not ported yet (ROADMAP {LATER_MODES[mode]})")
+    ctc_weight; `paraformer_beam` searches `beam_size` hypotheses."""
     if mode not in MODES:
         raise ValueError(mode)
+    if mode.startswith("paraformer"):
+        @torch.no_grad()
+        def decode_nar(waves, wave_lens):
+            feats, feat_lens = fbank_batch(waves, wave_lens, cfg.feature, device=model.device)
+            if mode == "paraformer_greedy":
+                return model.greedy_decode(feats, feat_lens)
+            nb_toks, _, tok_lens = model.beam_decode(feats, feat_lens, beam_size)
+            return nb_toks[:, 0], tok_lens
+
+        return decode_nar
     c = cfg.model
     blank_id = model.cfg.blank_id
 

@@ -1,8 +1,10 @@
 from tpuasr_torch.models.asr_model import AEDConfig, ASRModel, attention_rescoring
 from tpuasr_torch.models.ctc_model import CTCModel
+from tpuasr_torch.models.paraformer import Paraformer, ParaformerConfig
 from tpuasr_torch.models.transducer import (
     CTCHead, Transducer, add_blank, init_weights, stream_output_len,
 )
 
-__all__ = ["AEDConfig", "ASRModel", "CTCHead", "CTCModel", "Transducer", "add_blank",
-           "attention_rescoring", "init_weights", "stream_output_len"]
+__all__ = ["AEDConfig", "ASRModel", "CTCHead", "CTCModel", "Paraformer", "ParaformerConfig",
+           "Transducer", "add_blank", "attention_rescoring", "init_weights",
+           "stream_output_len"]

@@ -277,8 +277,8 @@ def init_weights(model: nn.Module, seed: int) -> nn.Module:
                                    GroupedRelPositionAttention))
                   and name.startswith("pos_bias")):
                 new = xavier(p.shape)
-            elif isinstance(mod, nn.ParameterList):  # predictor wh.{l}: [H, 4H]
-                new = xavier(p.shape)
+            elif isinstance(mod, nn.ParameterList) or name in ("fwd_wh", "bwd_wh"):
+                new = xavier(p.shape)  # the predictor's wh.{l}, the BLSTM's: [H, 4H]
             elif name in ("rel_k_embed", "learned_pe"):
                 new = normal(p.shape, 0.02)
             elif name in ("ffn_out_kernel", "w1", "w2", "pos_embed"):  # the JAX layout

@@ -1,10 +1,10 @@
 """Linear and layer-norm building blocks with the JAX package's numerics.
 
 Parameters stay fp32 and products run in the type of their input, as flax
-``Dense(dtype=compute_dtype)`` does; layer norms use flax's eps 1e-6 and
-compute their statistics in fp32 whatever the compute type. `dropout` is
-flax's, drawn from an explicit generator; `gelu` is flax's tanh
-approximation.
+``Dense(dtype=compute_dtype)`` does; layer norms use flax's eps 1e-6 (or
+the one a module gives, as the SANM decoder's 1e-12) and compute their
+statistics in fp32 whatever the compute type. `dropout` is flax's, drawn
+from an explicit generator; `gelu` is flax's tanh approximation.
 """
 
 from __future__ import annotations
@@ -24,10 +24,11 @@ class Dense(nn.Linear):
 
 
 class LayerNorm(nn.LayerNorm):
-    """LayerNorm with eps 1e-6, fp32 statistics, output in the input's type."""
+    """LayerNorm with eps 1e-6 (flax's default) unless given, fp32
+    statistics, output in the input's type."""
 
-    def __init__(self, d: int, device=None):
-        super().__init__(d, eps=1e-6, device=device)
+    def __init__(self, d: int, device=None, eps: float = 1e-6):
+        super().__init__(d, eps=eps, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)

@@ -3,8 +3,9 @@ test split and print corpus CER with its S/D/I/N breakdown and REF/HYP
 samples.
 
     python -m tpuasr_torch.tools.evaluate --checkpoint exp/latest \\
-        [--workload online_rnnt|rnnt|aed] [--mode rnnt_greedy|rnnt_beam|ctc_greedy|
-        ctc_prefix_beam|rnnt_rescoring|attention|attention_rescoring] \\
+        [--workload online_rnnt|rnnt|aed|paraformer] [--mode rnnt_greedy|rnnt_beam|
+        ctc_greedy|ctc_prefix_beam|rnnt_rescoring|attention|attention_rescoring|
+        paraformer_greedy|paraformer_beam] \\
         [--split dev|test] [--beam_size 4] \\
         [--ctc_fusion_weight W] [--synthetic N --seed S] [--data_root DIR] \\
         [--config cfg.yaml] [--set k=v ...] [--device cuda|cpu]
@@ -13,8 +14,8 @@ The checkpoint is the port's (`tpuasr_torch.tools.train`); its train.yaml
 gives the architecture unless --config is given. The transducer workloads
 decode in the rnnt modes and the CTC ones; the aed workload (an `ASRModel`
 checkpoint) in ctc_greedy, ctc_prefix_beam, attention and
-attention_rescoring. The Paraformer modes and the paraformer workload are
-not ported yet and raise NotImplementedError naming their ROADMAP item.
+attention_rescoring; the paraformer workload in paraformer_greedy and
+paraformer_beam (--beam_size hypotheses, the n-best's first slot).
 """
 
 from __future__ import annotations
@@ -25,7 +26,10 @@ import sys
 from tpuasr_torch.tools.common import add_config_args
 
 CTC_MODES = ("ctc_greedy", "ctc_prefix_beam")  # the CTC head of either model
-AED_MODES = CTC_MODES + ("attention", "attention_rescoring")
+# the modes each workload decodes in (the transducer workloads: the rest)
+WORKLOAD_MODES = {"aed": CTC_MODES + ("attention", "attention_rescoring"),
+                  "paraformer": ("paraformer_greedy", "paraformer_beam")}
+TRANSDUCER_MODES = ("rnnt_greedy", "rnnt_beam", "rnnt_rescoring") + CTC_MODES
 MODES = ["ctc_greedy", "rnnt_greedy", "rnnt_beam", "rnnt_rescoring", "ctc_prefix_beam",
          "attention", "attention_rescoring", "paraformer_greedy", "paraformer_beam"]
 
@@ -51,18 +55,13 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     from tpuasr_torch.device import resolve_device
-    from tpuasr_torch.eval import LATER_MODES, evaluate_offline
+    from tpuasr_torch.eval import evaluate_offline
     from tpuasr_torch.tools.common import eval_config, eval_split, restore_model
-    from tpuasr_torch.tools.train import UNPORTED_WORKLOADS
 
-    if args.mode in LATER_MODES:
-        raise NotImplementedError(f"decode mode {args.mode!r} is not ported yet "
-                                  f"(ROADMAP {LATER_MODES[args.mode]})")
-    if args.workload in UNPORTED_WORKLOADS:
-        raise NotImplementedError(UNPORTED_WORKLOADS[args.workload])
-    if (args.workload == "aed") != (args.mode in AED_MODES) and args.mode not in CTC_MODES:
+    allowed = WORKLOAD_MODES.get(args.workload, TRANSDUCER_MODES)
+    if args.mode not in allowed:
         raise ValueError(f"mode {args.mode!r} does not decode the {args.workload} workload "
-                         f"(aed: {', '.join(AED_MODES)})")
+                         f"({', '.join(allowed)})")
     device = resolve_device(args.device)
     cfg = eval_config(args.checkpoint, args.config, args.set, device)
     tokenizer, pipe = eval_split(cfg, args.split, args.synthetic, args.seed, args.data_root)

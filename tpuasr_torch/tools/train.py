@@ -1,6 +1,7 @@
-"""Train the CTC, RNN-T and AED workloads (port of ``tools/train.py``).
+"""Train the CTC, RNN-T, AED and Paraformer workloads (port of
+``tools/train.py``).
 
-    python -m tpuasr_torch.tools.train --workload online_rnnt|rnnt|ctc|aed \\
+    python -m tpuasr_torch.tools.train --workload online_rnnt|rnnt|ctc|aed|paraformer \\
         [--config cfg.yaml] [--set model.encoder.num_blocks=6 ...] \\
         [--synthetic N | --data_root DIR] [--epochs E] [--resume SAVE_DIR/latest] \
         [--device cuda|cpu]
@@ -24,8 +25,11 @@ precision default) and the CTC loss, without SpecAugment or chunk masks.
 The aed workload trains the hybrid CTC/attention `ASRModel` (the encoder of
 model.encoder, the decoders of model.att_decoder, model.ctc_weight) through
 the transducer's steps: SpecAugment, the chunk draw and dropout as there;
-its logs add loss_att and th_accuracy. The paraformer workload is not
-ported yet and raises NotImplementedError naming its ROADMAP item.
+its logs add loss_att and th_accuracy. The paraformer workload trains the
+CIF `Paraformer` (model.att_decoder's blocks, heads, FFN, lsm_weight,
+sampler and sampling_ratio; the conformer stack of model.encoder, or the
+LFR + SANM stack with model.encoder.encoder_type=sanm) through the same
+steps, which add the glancing sampler's generator.
 """
 
 from __future__ import annotations
@@ -35,11 +39,6 @@ import ast
 import json
 import os
 import sys
-
-UNPORTED_WORKLOADS = {
-    "paraformer": "the Paraformer workload: ROADMAP §1 item 5",
-}
-
 
 def parse_overrides(pairs) -> dict:
     out = {}
@@ -54,12 +53,13 @@ def parse_overrides(pairs) -> dict:
 
 def build_model(cfg, workload: str, device):
     """The workload's model on `device`, with seeded weights
-    (cfg.train.seed): `CTCModel` for ctc, `ASRModel` for aed, else the
-    Transducer (online_rnnt first makes the encoder streamable)."""
-    from tpuasr_torch.models import AEDConfig, ASRModel, CTCModel, Transducer, init_weights
+    (cfg.train.seed): `CTCModel` for ctc, `ASRModel` for aed, `Paraformer`
+    for paraformer, else the Transducer (online_rnnt first makes the
+    encoder streamable)."""
+    from tpuasr_torch.models import (
+        AEDConfig, ASRModel, CTCModel, Paraformer, Transducer, init_weights,
+    )
 
-    if workload in UNPORTED_WORKLOADS:
-        raise NotImplementedError(UNPORTED_WORKLOADS[workload])
     m = cfg.model
     if workload == "ctc":
         return init_weights(CTCModel(cfg.ctc_model, m.vocab_size, m.blank_id, device),
@@ -72,12 +72,30 @@ def build_model(cfg, workload: str, device):
             decoder_ffn=d.ffn, r_decoder_blocks=d.r_blocks, reverse_weight=d.reverse_weight,
             apply_non_blank_embedding=d.apply_non_blank_embedding,
             compute_dtype=m.compute_dtype, encoder=m.encoder), device), cfg.train.seed)
+    if workload == "paraformer":
+        return init_weights(Paraformer(paraformer_config(cfg), device), cfg.train.seed)
     if workload == "online_rnnt":
         m.encoder.causal = True
         m.encoder.use_dynamic_chunk = True
         if m.encoder.static_chunk_size == 0:
             m.encoder.static_chunk_size = cfg.streaming.chunk_size
     return init_weights(Transducer(m, device=device), cfg.train.seed)
+
+
+def paraformer_config(cfg, **extra):
+    """The paraformer workload's `ParaformerConfig` (tools/train.py:55-66):
+    model.att_decoder's blocks, heads, FFN, lsm_weight and sampler fields,
+    model.vocab_size, model.compute_dtype and model.encoder, the SANM stack
+    when model.encoder.encoder_type is sanm; `extra` sets other fields (the
+    CTC and timestamp branches, which the workload leaves off)."""
+    from tpuasr_torch.models import ParaformerConfig
+
+    m, d = cfg.model, cfg.model.att_decoder
+    return ParaformerConfig(
+        vocab_size=m.vocab_size, lsm_weight=d.lsm_weight, decoder_blocks=d.blocks,
+        decoder_heads=d.heads, decoder_ffn=d.ffn, sampler=d.sampler,
+        sampling_ratio=d.sampling_ratio, compute_dtype=m.compute_dtype, encoder=m.encoder,
+        encoder_type="sanm" if m.encoder.encoder_type == "sanm" else "conformer", **extra)
 
 
 def effective_config(device_type: str, config_path: str | None, sets):
@@ -125,8 +143,6 @@ def main(argv=None):
         make_optimizer, restore_checkpoint, train_loop,
     )
 
-    if args.workload in UNPORTED_WORKLOADS:
-        raise NotImplementedError(UNPORTED_WORKLOADS[args.workload])
     device = resolve_device(args.device)
     if args.resume and args.config is None:
         # continue with the numerics the checkpoint was trained with

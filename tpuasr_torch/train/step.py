@@ -18,8 +18,11 @@ device; the dynamic-chunk draw, two host integers, from a CPU generator, so
 building the mask never syncs. SpecAugment draws from a third generator of
 its own on the device, as the JAX step splits off a fourth key for it
 (tpuasr/train/step.py:50), so turning it on changes no dropout mask or
-chunk draw. The bits differ from JAX's (another generator); the
-distributions are the same.
+chunk draw. A Paraformer's glancing sampler draws from a fourth generator
+on the device, passed on training steps only (the JAX step gives its
+"sampler" rng to training steps alone, so its dev pass does not sample).
+The bits differ from JAX's (another generator); the distributions are the
+same.
 """
 
 from __future__ import annotations
@@ -51,6 +54,13 @@ def specaug_generator(seed: int, step: int, device: torch.device) -> torch.Gener
     step) apart from `step_generators`' two."""
     base = (int(seed) * 0x9E3779B97F4A7C15 + int(step) * 0xBF58476D1CE4E5B9) & _MASK63
     return torch.Generator(device=device).manual_seed((base ^ 0x2545F4914F6CDD1D) & _MASK63)
+
+
+def sampler_generator(seed: int, step: int, device: torch.device) -> torch.Generator:
+    """The glancing sampler's generator on `device` for one step, seeded
+    from (seed, step) apart from the other three."""
+    base = (int(seed) * 0x9E3779B97F4A7C15 + int(step) * 0xBF58476D1CE4E5B9) & _MASK63
+    return torch.Generator(device=device).manual_seed((base ^ 0x3C6EF372FE94F82B) & _MASK63)
 
 
 @dataclass
@@ -99,11 +109,15 @@ def _backward_and_update(state: TrainState, tx: GuardedAdam, loss: torch.Tensor)
 def make_train_step(model: torch.nn.Module, tx: GuardedAdam, cfg: Config) -> Callable:
     """-> train_step(state, batch, seed) -> (state, metrics). batch: waves
     [B, N] (float or int16 PCM), wave_lens, texts [B, U], text_lens on the
-    model's device. The model is a Transducer or an ASRModel (the AED
-    workload). metrics: loss, the model's loss_rnnt, loss_ctc, loss_att and
-    th_accuracy where it has them, grad_norm, finite, audio_seconds, all
-    device tensors. The model is put in train() mode."""
+    model's device. The model is a Transducer, an ASRModel (the AED
+    workload) or a Paraformer (given its sampler's generator). metrics:
+    loss, the model's loss_rnnt, loss_ctc, loss_att and th_accuracy where
+    it has them, grad_norm, finite, audio_seconds, all device tensors. The
+    model is put in train() mode."""
+    from tpuasr_torch.models.paraformer import Paraformer
+
     sa = cfg.specaug
+    samples = isinstance(model, Paraformer)
 
     def train_step(state: TrainState, batch: dict, seed: int):
         chunk_gen, drop_gen = step_generators(seed, state.step, model.device)
@@ -114,8 +128,10 @@ def make_train_step(model: torch.nn.Module, tx: GuardedAdam, cfg: Config) -> Cal
         model.train()
         for p in model.parameters():
             p.grad = None
+        extra = {"sampler_gen": sampler_generator(seed, state.step, model.device)} \
+            if samples else {}
         out = model(feats, feat_lens, batch["texts"], batch["text_lens"],
-                    chunk_gen=chunk_gen, dropout_gen=drop_gen)
+                    chunk_gen=chunk_gen, dropout_gen=drop_gen, **extra)
         new_state, loss, grad_norm, finite = _backward_and_update(state, tx, out["loss"])
         metrics = {"loss": loss, "grad_norm": grad_norm, "finite": finite,
                    "audio_seconds": batch["wave_lens"].sum() / cfg.feature.sample_rate}
