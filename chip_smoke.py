@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (`tpuasr_torch`) through its serving path, its
-training step, its trainer, its CTC, AED and Paraformer workloads, the
-transducer's model options and its encoder families on one NVIDIA card,
-and hold its hand-written kernels against their plain versions.
+training step, its trainer, its CTC, AED, Paraformer and Whisper
+workloads, the transducer's model options, its encoder families and its
+serving export on one NVIDIA card, and hold its hand-written kernels
+against their plain versions.
 
     python3 chip_smoke.py
 
@@ -336,18 +337,50 @@ Phases (any failure exits non-zero):
       2d rule on those rows; `make_offline_decoder` in both modes gives
       the model's own search; each mode's latency; `evaluate` in both
       modes on a checkpoint of these weights (its wall).
+15. Whisper at WhisperConfig's defaults: 412 tokens, 2 languages, a
+   6-block decoder (4 heads, FFN 1024), the conformer of EncoderConfig's
+   defaults (12 non-causal rel-pos blocks, d256, conv 31) with
+   `fused_attention` and `fused_ffn`; fp32, the fixture requests' fbank
+   ("highest"), each request's task and language in turn (transcribe,
+   translate, VAD; both languages). The whisper run (counts reset before
+   15a, read after 15c) must launch #1 by its FFT route, #2, #3, #10 and
+   #11 and nothing else; each kernel is then held against its plain
+   version on the run's own recorded inputs:
+   a. one loss + backward + GuardedAdam step card vs CPU on the first 4
+      requests' features and seeded labels, held as 6a holds a step;
+   b. the decoder's eot logit fitted so that greedy hypotheses average
+      half of 24 tokens, then `whisper_greedy_decode` card vs CPU: tokens
+      identical;
+   c. `whisper_beam_decode` (beam 4) by 4b's 2d rule on the n-best lists;
+      the latency of the encoder, greedy and beam on the card.
+16. The serving export of the flagship with `fused_ffn` (fp32, chunk
+   CHUNK, LEFT left chunks, the fitted blank logit of phase 4):
+   `export_streaming` for the 16 fixture streams on the card (the emission
+   loop's depth cut to n_steps 3 to keep the trace short), saved and
+   loaded (`load_exported`); the loaded `process_chunk` chained over every
+   chunk of the fixture requests and of the same requests played eight
+   times over (past the attention cache's capacity): tokens identical to
+   `streaming_greedy_decode` on the card, as are the eager `process_chunk`
+   with and without `sync_free`; the export run (the artifact's chunks,
+   counts reset before and read after) launches #10 24 times a chunk and
+   nothing else, and #10 is held against its plain version on the inputs
+   the artifact gave it; the per-chunk latency of the artifact against
+   the eager paths; `tools/export_stream --verify` on the card at one
+   block, d64.
 7. The kernels line: one JSON object with an entry per kernel and run
    (the serving run of phases 4-5b, the training runs of phases 6b, 6c and
    6d, the trainer run of phase 8, the corpus run of phase 9, the CTC run
    of phase 10, the AED run of phase 11, the zoo run of phase 12, the
-   families run of phase 13, the paraformer run of phase 14; counts
+   families run of phase 13, the paraformer run of phase 14, the whisper
+   run of phase 15, the export run of phase 16; counts
    reset just before each and read just after): that run's launches
    (fbank's: those of the route the record times, the FFT for serving,
    which takes that route alone, and the tensor-core route for training,
    which never takes the FFT), and the error, times and bound at the shape
    that run gives the kernel (phase 3's bench-shape records for 6b-6d; for
-   the trainer, the corpus, CTC, AED, zoo, families and paraformer runs and
-   #8 in serving the signature it launched most, with every signature's
+   the trainer, the corpus, CTC, AED, zoo, families, paraformer, whisper
+   and export runs and #8 in serving the signature it launched most, with
+   every signature's
    record under "shapes"). The CTC and RNN-T lattice entries carry their
    run's launches by route under "routes": each run that launches a
    lattice must take its warp route alone.
@@ -465,7 +498,7 @@ def main() -> dict:
             "rnnt_rescoring did not launch #8 by its warp route alone")
     print("#8 against its plain version on the inputs rnnt_rescoring gave it:")
     checks["rnnt_alpha_serving"] = _serving_lattice_record(torch, seen, runs["serving"])
-    gpu32, cfg32 = served["gpu32"], served["cfg32"]
+    gpu32, cfg32, blank_bias = served["gpu32"], served["cfg32"], served["bias"]
     serving["offline_device_busy_ms_by_fbank_route"] = _fbank_route_ab(
         torch, gpu32, cfg32, *data["fixture"])
     del gpu32, served
@@ -603,6 +636,16 @@ def main() -> dict:
     para, runs["paraformer"], para_records = _para_run(torch, dev, data)
     print(f"(phase 14: {time.perf_counter() - t_phase:.1f} s)")
 
+    # ---------------------------------------------------------------- 15
+    t_phase = _phase("15: Whisper (15a a step card vs CPU, 15b greedy, 15c beam and "
+                     "latency)", t_phase)
+    whisper, runs["whisper"], whisper_records = _whisper_run(torch, dev, data)
+
+    # ---------------------------------------------------------------- 16
+    t_phase = _phase("16: the serving export (torch.export artifacts of the streaming "
+                     "surface)", t_phase)
+    export, runs["export"], export_records = _export_phase(torch, dev, data, blank_bias)
+
     # ---------------------------------------------------------------- 7
     # one entry per kernel and run that launches it, with the record taken
     # at the shape that run gives it: 6b, 6c and 6d give the same shapes
@@ -637,6 +680,10 @@ def main() -> dict:
     plan += [(name, ("families",), name) for name in KERNELS if runs["families"][name] > 0]
     # the paraformer run (phase 14) launches #1, #2, #3, #6 and #7
     plan += [(name, ("paraformer",), name) for name in KERNELS if runs["paraformer"][name] > 0]
+    # the whisper run (phase 15) launches #1, #2, #3, #10 and #11; the export
+    # run (phase 16's loaded process_chunk) #10 alone
+    plan += [(name, ("whisper",), name) for name in KERNELS if runs["whisper"][name] > 0]
+    plan += [("ffn_fwd", ("export",), "ffn_fwd")]
     kernels = []
     for name, run_names, check, *count in plan:
         count = count[0] if count else name
@@ -645,7 +692,8 @@ def main() -> dict:
             require(launches > 0, f"the {run} run never launched {count}")
             own = {"trainer": trainer_records, "corpus": corpus_records, "ctc": ctc_records,
                    "aed": aed_records, "zoo": zoo_records, "families": families_records,
-                   "paraformer": para_records}
+                   "paraformer": para_records, "whisper": whisper_records,
+                   "export": export_records}
             rec = own[run][name] if run in own else checks[check]
             entry = dict(rec, run=run, launches=launches,
                          **{f"launches_{r}": runs[r][count] for r in runs})
@@ -667,6 +715,8 @@ def main() -> dict:
     print(json.dumps({"zoo": zoo}))
     print(json.dumps({"families": families}))
     print(json.dumps({"paraformer": para}))
+    print(json.dumps({"whisper": whisper}))
+    print(json.dumps({"export": export}))
     print(json.dumps({"kernels": kernels}))
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}
@@ -1968,26 +2018,27 @@ def _synced_ms(torch, fn):
 
 def _count_steps(model):
     """Count predictor steps (= emission-loop iterations, one host sync
-    each) by wrapping the model's predict_step; -> (counter, restore)."""
+    each) by wrapping the predictor's forward_step, which greedy and beam
+    search call; -> (counter, restore)."""
     steps = [0]
-    step = model.predict_step
+    step = model.predictor.forward_step
 
     def counted(*a, **k):
         steps[0] += 1
         return step(*a, **k)
 
-    model.predict_step = counted
-    return steps, lambda: delattr(model, "predict_step")
+    model.predictor.forward_step = counted
+    return steps, lambda: delattr(model.predictor, "forward_step")
 
 
-def _decode_busy(torch, dec, waves, wave_lens) -> tuple[float, list]:
-    """The device's busy ms over one offline decode (torch.profiler), and
-    its device items."""
+def _decode_busy(torch, dec, *args) -> tuple[float, list]:
+    """The device's busy ms over one call dec(*args), an offline decode or
+    a streaming chunk (torch.profiler), and its device items."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        dec(waves, wave_lens)
+        dec(*args)
         torch.cuda.synchronize()
     kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     return sum(e.self_device_time_total for e in kern) / 1e3, kern
@@ -4613,6 +4664,319 @@ def _para_run(torch, dev, data) -> tuple[dict, dict, dict]:
     print("kernels against their plain versions on the paraformer run's own inputs:")
     records = _trainer_kernel_records(torch, seen, launches, "paraformer", timed=1)
     return para, launches, records
+
+
+# ---------------------------------------------------------------------------
+# phase 15: Whisper
+# ---------------------------------------------------------------------------
+
+WHISPER_BEAM, WHISPER_MAX_TOKENS, WHISPER_STEP_B = 4, 24, 4
+
+
+def _whisper_cfg():
+    """Whisper at WhisperConfig's defaults: 412 tokens, blank 5, 2
+    languages, sot 2 and eot 3, a 6-block decoder (4 heads, FFN 1024),
+    lsm_weight 0.1, ctc_weight 0; the conformer of EncoderConfig's defaults
+    (12 non-causal rel-pos blocks, d256, 4 heads, FFN 1024, conv 31, conv2d
+    subsampling) with `fused_attention` and `fused_ffn`, as the card's
+    trainer sets them; fp32; every dropout rate 0, so a training step held
+    card vs CPU needs no generator."""
+    from tpuasr_torch.config import EncoderConfig
+    from tpuasr_torch.models import WhisperConfig
+
+    return WhisperConfig(encoder=EncoderConfig(fused_attention=True, fused_ffn=True,
+                                               dropout_rate=0.0, positional_dropout_rate=0.0))
+
+
+def _whisper_model(torch, cfg, device, eot_bias: float = 0.0):
+    from tpuasr_torch.models import WhisperModel, init_weights
+
+    model = init_weights(WhisperModel(cfg, device), SEED)
+    with torch.no_grad():
+        model.decoder.output_layer.bias[cfg.special.eot] = eot_bias
+    return model
+
+
+def _whisper_rows(torch, n: int):
+    """Each request's language and task: the 2 languages and transcribe,
+    translate and VAD in turn."""
+    i = torch.arange(n)
+    return i % 2, i % 3
+
+
+def _fit_eot_bias(torch, model, enc, elens, langs, tasks, target: float) -> tuple[float, float]:
+    """Set the decoder's eot logit (bisection on [-16, 16]) so that greedy
+    decoding's hypotheses average `target` tokens; -> (the bias, the mean
+    length it gives). With random weights the search otherwise ends at once
+    or never."""
+    from tpuasr_torch.models import whisper_greedy_decode
+
+    bias, eot = model.decoder.output_layer.bias, model.cfg.special.eot
+
+    def mean_len(b: float) -> float:
+        with torch.no_grad():
+            bias[eot] = b
+        lens = whisper_greedy_decode(model, enc, elens, langs, tasks, WHISPER_MAX_TOKENS)[1]
+        return float(lens.float().mean())
+
+    free = mean_len(0.0)
+    lo, hi = -16.0, 16.0
+    for _ in range(12):
+        mid = 0.5 * (lo + hi)
+        lo, hi = (mid, hi) if mean_len(mid) > target else (lo, mid)
+    got = mean_len(hi)
+    print(f"eot logit bias {hi:.4f}: greedy hypotheses average {got:.2f} tokens (target "
+          f"{target:.1f}, max_tokens {WHISPER_MAX_TOKENS}); {free:.2f} with no bias")
+    return hi, got
+
+
+def _whisper_phase(torch, dev, data) -> dict:
+    """15a-15c (see the module's docstring)."""
+    import numpy as np
+
+    from tpuasr_torch.audio import fbank_batch
+    from tpuasr_torch.config import Config
+    from tpuasr_torch.models import whisper_beam_decode, whisper_greedy_decode
+    from tpuasr_torch.train import make_optimizer
+
+    cfg = _whisper_cfg()
+    feature = Config().feature
+    waves, wave_lens = data["fixture"]
+    n = len(wave_lens)
+    langs, tasks = _whisper_rows(torch, n)
+    out = {}
+
+    # 15a: a loss + backward + GuardedAdam step, card vs CPU
+    b = WHISPER_STEP_B
+    feats, flens = fbank_batch(waves[:b], wave_lens[:b], feature, device=dev)
+    r = np.random.default_rng(SEED + 15)
+    text_lens = torch.tensor([16, 11, 7, 13])
+    host = (feats.cpu(), flens.cpu(), torch.from_numpy(r.integers(12, cfg.vocab_size, (b, 16))),
+            text_lens, langs[:b], tasks[:b])
+    tx = make_optimizer(Config().optim)
+    res = {}
+    for side, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        model = _whisper_model(torch, cfg, device).train()
+        res[side] = _step_side(torch, model, tx, model(*(x.to(device) for x in host)))
+    out["15a_step"] = _step_card_vs_cpu(
+        torch, tx, res, f"15a: Whisper fp32 step card vs CPU on [{b}, {feats.shape[1]}, 80] "
+        f"fixture features x labels {text_lens.tolist()} (tasks {tasks[:b].tolist()}, "
+        f"languages {langs[:b].tolist()})",
+        "fp32 sums in another order through 12 encoder and 6 decoder blocks, the attention "
+        "kernels' atomics")
+    del res
+
+    # 15b-15c: greedy and beam decoding of the fixture requests
+    models = {"card": _whisper_model(torch, cfg, dev),
+              "cpu": _whisper_model(torch, cfg, torch.device("cpu"))}
+    enc = {}
+    for side, m in models.items():
+        enc[side] = m.encode(*fbank_batch(waves, wave_lens, feature, device=m.device))
+    eot, out["greedy_mean_len"] = _fit_eot_bias(torch, models["card"], *enc["card"], langs,
+                                                tasks, WHISPER_MAX_TOKENS / 2)
+    require(WHISPER_MAX_TOKENS / 4 <= out["greedy_mean_len"] <= 3 * WHISPER_MAX_TOKENS / 4,
+            f"Whisper greedy hypotheses average {out['greedy_mean_len']:.2f} tokens, outside "
+            f"a quarter to three quarters of {WHISPER_MAX_TOKENS}")
+    out["eot_logit_bias"] = eot
+    with torch.no_grad():
+        models["cpu"].decoder.output_layer.bias[cfg.special.eot] = eot
+    greedy = lambda side: whisper_greedy_decode(models[side], *enc[side], langs, tasks,
+                                                WHISPER_MAX_TOKENS)
+    beam = lambda side: whisper_beam_decode(models[side], *enc[side], langs, tasks,
+                                            WHISPER_BEAM, WHISPER_MAX_TOKENS, nbest=True)
+    (gt, gl), (pt, pl) = greedy("card"), greedy("cpu")
+    same = torch.equal(gt.cpu(), pt) and torch.equal(gl.cpu(), pl)
+    print(f"15b: Whisper greedy card vs CPU on the {n} fixture requests (tasks "
+          f"{tasks.tolist()}, languages {langs.tolist()}): tokens identical {same} "
+          f"({int(pl.sum())} tokens, lens {pl.tolist()})")
+    require(same, "Whisper greedy tokens on the card differ from the CPU run")
+    found = {}
+    for side in ("card", "cpu"):
+        _, _, scores, (nb_t, nb_l) = beam(side)
+        found[side] = (nb_t, nb_l, scores)
+    out["beam_agreement"] = _nbest_agreement(torch, f"15c: Whisper beam {WHISPER_BEAM}",
+                                             found["card"], found["cpu"])
+    card = models["card"]
+    lat = {"encode": _synced_ms(torch, lambda: card.encode(*fbank_batch(
+               waves, wave_lens, feature, device=dev)))[1],
+           "greedy": _synced_ms(torch, lambda: greedy("card"))[1],
+           "beam": _synced_ms(torch, lambda: beam("card"))[1]}
+    print(f"15c: Whisper latency, fp32, the {n} fixture requests, synced after a warm-up "
+          f"call: fbank + encode {lat['encode']:.1f} ms, greedy {lat['greedy']:.1f} ms, beam "
+          f"{WHISPER_BEAM} {lat['beam']:.1f} ms ({WHISPER_MAX_TOKENS} tokens at most)")
+    out["latency_ms"] = lat
+    return out
+
+
+def _whisper_run(torch, dev, data) -> tuple[dict, dict, dict]:
+    """Phase 15 as one counted run: launch counts reset before 15a and read
+    after 15c, the kernels' card calls recorded, then each held against its
+    plain version on them; -> (the records, the launch counts, the kernel
+    records)."""
+    from tpuasr_torch.ops import KERNELS, LAUNCHES, reset_launch_counts
+
+    reset_launch_counts()
+    with _recording(torch) as seen:  # the whisper run, 15a-15c
+        whisper = _whisper_phase(torch, dev, data)
+    launches = dict(LAUNCHES)
+    print(f"launches on the whisper run (15a-15c): {launches}")
+    for name in KERNELS:
+        on_path = name in ("fbank", "relpos_attention", "relpos_attention_bwd", "ffn_fwd",
+                           "ffn_bwd")
+        require((launches[name] > 0) == on_path,
+                f"the whisper run launched {name} {launches[name]} times")
+    require(launches["fbank_fft"] == launches["fbank"],
+            "the whisper run did not take fbank's FFT route (precision \"highest\") alone")
+    print("kernels against their plain versions on the whisper run's own inputs:")
+    records = _trainer_kernel_records(torch, seen, launches, "whisper", timed=1)
+    return whisper, launches, records
+
+
+# ---------------------------------------------------------------------------
+# phase 16: the serving export
+# ---------------------------------------------------------------------------
+
+# the fixture's streams played 8 times over run 9 chunks, past the
+# attention cache's capacity of LEFT chunks
+EXPORT_N_STEPS, EXPORT_MAX_TOKENS, EXPORT_LOOPS = 3, 200, 8
+
+
+def _looped(np, waves, wave_lens, times: int):
+    """Each request's valid samples played `times` over, zero-padded."""
+    lens = wave_lens * times
+    out = np.zeros((len(waves), int(lens.max())), waves.dtype)
+    for i, (w, k) in enumerate(zip(waves, wave_lens)):
+        out[i, :k * times] = np.tile(w[:k], times)
+    return out, lens
+
+
+def _export_phase(torch, dev, data, blank_bias: float) -> tuple[dict, dict, dict]:
+    """16 (see the module's docstring); -> (the records, the artifact run's
+    launch counts, its kernel records)."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from tpuasr_torch.audio import fbank_batch
+    from tpuasr_torch.decode import streaming_greedy_decode
+    from tpuasr_torch.decode.rnnt_streaming import init_streaming_state, process_chunk
+    from tpuasr_torch.export import export_streaming, load_exported
+    from tpuasr_torch.models import stream_output_len
+    from tpuasr_torch.ops import KERNELS, LAUNCHES, reset_launch_counts
+    from tpuasr_torch.streaming import chunk_windows, num_chunks
+    from tpuasr_torch.tools import export_stream
+
+    cfg = _flagship("float32", fused_ffn=True)
+    s = cfg.streaming
+    s.chunk_size, s.num_left_chunks, s.n_steps = CHUNK, LEFT, EXPORT_N_STEPS
+    model = _model(torch, cfg, dev, blank_bias)
+    blank = cfg.model.blank_id
+    waves, wave_lens = data["fixture"]
+    sets = {"fixture": (waves, wave_lens),
+            f"fixture_x{EXPORT_LOOPS}": _looped(np, waves, wave_lens, EXPORT_LOOPS)}
+    inputs = {}
+    for name, (w, wl) in sets.items():
+        feats, flens = fbank_batch(w, wl, cfg.feature, device=dev)
+        n = num_chunks(feats.shape[1], CHUNK, 4, 6)
+        inputs[name] = (chunk_windows(feats, CHUNK, 4, 6, n),
+                        stream_output_len(cfg.model.encoder, flens),
+                        streaming_greedy_decode(model, feats, flens, CHUNK, LEFT, blank,
+                                                EXPORT_N_STEPS, EXPORT_MAX_TOKENS)[:2])
+    b = len(wave_lens)
+    out = {"n_steps": EXPORT_N_STEPS, "chunks": {k: len(v[0]) for k, v in inputs.items()}}
+
+    def chain(step, name):
+        """Every chunk of `name`'s streams through `step` -> (the final
+        state, each chunk's synced ms)."""
+        windows, enc_lens, _ = inputs[name]
+        st = init_streaming_state(model, b, CHUNK, LEFT, blank, EXPORT_MAX_TOKENS, enc_lens)
+        times = []
+        for w in windows:
+            st, ms = _synced_ms(torch, lambda: step(w, st))
+            times.append(ms)
+        return st, times
+
+    eager = lambda w, st: process_chunk(model, w, st, blank, EXPORT_N_STEPS)
+    eager_sf = lambda w, st: process_chunk(model, w, st, blank, EXPORT_N_STEPS, sync_free=True)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="export-", dir=ROOT / "build") as out_dir:
+        t0 = time.perf_counter()
+        manifest = export_streaming(model, cfg, out_dir, batch=b, max_tokens=EXPORT_MAX_TOKENS)
+        t_export = time.perf_counter() - t0
+        fns = load_exported(out_dir)
+        t_load = time.perf_counter() - t0 - t_export
+        sizes = {k: os.path.getsize(Path(out_dir) / v["file"]) / 2**20
+                 for k, v in manifest["functions"].items()}
+        print(f"16: exported {sorted(manifest['functions'])} for {b} streams on "
+              f"{manifest['functions']['process_chunk']['platforms']} in {t_export:.1f} s, "
+              f"loaded in {t_load:.1f} s; MiB {', '.join(f'{k} {v:.1f}' for k, v in sizes.items())}")
+        out.update(export_s=t_export, load_s=t_load, artifact_mib=sizes)
+        require(manifest["functions"]["process_chunk"]["platforms"] == ["cuda"],
+                "the artifacts were not traced for the card")
+        for step in (fns["process_chunk"], eager, eager_sf):  # first calls, untimed
+            step(inputs["fixture"][0][0], init_streaming_state(
+                model, b, CHUNK, LEFT, blank, EXPORT_MAX_TOKENS, inputs["fixture"][1]))
+        reset_launch_counts()
+        with _recording(torch, only=("ffn_fwd",)) as seen:  # the export run
+            got = {name: chain(fns["process_chunk"], name) for name in inputs}
+        launches = dict(LAUNCHES)
+        chunks = sum(len(v[0]) for v in inputs.values())
+        print(f"launches on the export run (the loaded process_chunk over {chunks} chunks): "
+              f"{ {k: v for k, v in launches.items() if v} }")
+        for name in KERNELS:
+            want = 24 * chunks if name == "ffn_fwd" else 0  # 12 blocks x 2 FFNs a chunk
+            require(launches[name] == want, f"the export run launched {name} "
+                                            f"{launches[name]} times, not {want}")
+        lat = {}
+        steps = {"artifact": fns["process_chunk"], "eager": eager, "eager_sync_free": eager_sf}
+        for name, (windows, _, (ref_t, ref_l)) in inputs.items():
+            st, t_art = got[name]
+            st_e, t_e = chain(eager, name)
+            st_sf, t_sf = chain(eager_sf, name)
+            for label, x in (("artifact", st), ("eager sync_free", st_sf), ("eager", st_e)):
+                require(torch.equal(x.dec.hyp[:, :EXPORT_MAX_TOKENS], ref_t)
+                        and torch.equal(x.dec.hyp_len, ref_l),
+                        f"16 {name}: the {label} process_chunk's tokens differ from "
+                        f"streaming_greedy_decode")
+            if name != "fixture":
+                require(int(st.enc.offset) > CHUNK * LEFT, f"16 {name}: the streams ended "
+                        f"at offset {int(st.enc.offset)}, inside the cache's capacity")
+            med = lambda t: sorted(t)[len(t) // 2]
+            lat[name] = {"artifact": med(t_art), "eager": med(t_e), "eager_sync_free": med(t_sf)}
+            print(f"16 {name}: {len(windows)} chunks of {b} streams, offset "
+                  f"{int(st.enc.offset)} (cache capacity {CHUNK * LEFT}); the artifact's, the "
+                  f"eager sync-free and the eager early-exit tokens identical to "
+                  f"streaming_greedy_decode ({int(ref_l.sum())} tokens); per-chunk ms "
+                  f"(median, synced): artifact {lat[name]['artifact']:.2f}, eager sync_free "
+                  f"{lat[name]['eager_sync_free']:.2f}, eager {lat[name]['eager']:.2f}")
+        out["chunk_ms_median"] = lat
+        # the device's share of one chunk (the first of the looped streams)
+        windows, enc_lens, _ = inputs[f"fixture_x{EXPORT_LOOPS}"]
+        fresh = init_streaming_state(model, b, CHUNK, LEFT, blank, EXPORT_MAX_TOKENS, enc_lens)
+        busy = {}
+        for label, step in steps.items():
+            ms, kern = _decode_busy(torch, step, windows[0], fresh)
+            busy[label] = {"device_busy_ms": ms, "device_operations": sum(e.count for e in kern)}
+        print(f"16: one chunk of {b} streams, device busy ms (profiler) and device operations: "
+              + ", ".join(f"{k} {v['device_busy_ms']:.2f} ms in {v['device_operations']}"
+                          for k, v in busy.items()))
+        out["chunk_device"] = busy
+        print("#10 against its plain version on the inputs the loaded artifact gave it:")
+        records = _trainer_kernel_records(torch, seen, launches, "export", timed=1)
+    with tempfile.TemporaryDirectory(prefix="export-cli-", dir=ROOT / "build") as cli_dir:
+        argv = ["--out", cli_dir, "--verify", "--max_tokens", "8", "--device", "cuda",
+                "--set", "model.encoder.num_blocks=1", "model.encoder.output_size=64",
+                "model.encoder.attention_heads=2", "model.encoder.linear_units=128",
+                "model.encoder.cnn_module_kernel=3", "model.encoder.static_chunk_size=4",
+                "model.encoder.fused_ffn=True", "streaming.chunk_size=4", "streaming.n_steps=2"]
+        cli, wall = _synced_ms(torch, lambda: export_stream.main(argv))
+        require(all(v["platforms"] == ["cuda"] for v in cli["functions"].values()),
+                "export_stream --device cuda traced for another device")
+        print(f"16: tools/export_stream --verify on the card (1 block, d64, fused_ffn): "
+              f"{sorted(cli['functions'])} in {wall / 1e3:.1f} s")
+        out["cli_wall_s"] = wall / 1e3
+    return out, launches, records
 
 
 if __name__ == "__main__":

@@ -41,7 +41,10 @@ and gradient checkpointing through the attention and FFN kernels on the
 card (the flag-off gradients to 1e-4 of the largest, #2 and #10 launched
 twice); the Paraformer's CIF fire twice bit-identical on the card and a
 tiny Paraformer of each stack decoding greedily to the CPU's counts, tokens
-and fire frames. This file imports no JAX, so it runs on a machine without it:
+and fire frames; a tiny Whisper's greedy decode card against CPU (tokens
+identical); the serving export traced on the card, its loaded artifacts
+against the eager path with #10 launched by the artifact. This file
+imports no JAX, so it runs on a machine without it:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
@@ -1010,3 +1013,82 @@ def test_paraformer_cif_and_greedy_on_card(card):
                 feats.to(dev), lens.to(dev))]
         assert all(torch.equal(a, b) for a, b in zip(got["cuda"], got["cpu"])), stack
         assert 0 < int(got["cpu"][1].min()) and int(got["cpu"][1].max()) < 24
+
+
+def test_whisper_greedy_on_card_matches_cpu(card):
+    """A tiny Whisper (2 + 2 blocks at d64, the attention and FFN kernels
+    on) decodes greedily on the card to the CPU's tokens and lengths, for
+    a batch of mixed tasks and languages (the eot logit raised so that
+    hypotheses end at different lengths)."""
+    from tpuasr_torch.config import EncoderConfig
+    from tpuasr_torch.models import (
+        WhisperConfig, WhisperModel, init_weights, whisper_greedy_decode,
+    )
+
+    enc = EncoderConfig(output_size=64, attention_heads=2, linear_units=128, num_blocks=2,
+                        cnn_module_kernel=7, fused_attention=True, fused_ffn=True)
+    cfg = WhisperConfig(vocab_size=64, decoder_blocks=2, decoder_heads=2, decoder_ffn=128,
+                        encoder=enc)
+    g = torch.Generator().manual_seed(4)
+    feats = torch.randn(4, 201, 80, generator=g)
+    lens = torch.tensor([201, 180, 150, 97])
+    langs, tasks = torch.tensor([0, 1, 0, 1]), torch.tensor([0, 1, 2, 0])
+    got = {}
+    for dev in (card, torch.device("cpu")):
+        model = init_weights(WhisperModel(cfg, device=dev), 6)
+        with torch.no_grad():
+            model.decoder.output_layer.bias[cfg.special.eot] = 2.0
+        enc_out, enc_lens = model.encode(feats.to(dev), lens.to(dev))
+        got[dev.type] = [x.cpu() for x in whisper_greedy_decode(
+            model, enc_out, enc_lens, langs, tasks, max_tokens=16)]
+    assert all(torch.equal(a, b) for a, b in zip(got["cuda"], got["cpu"]))
+    n = got["cpu"][1]
+    assert int(n.max()) > 0 and int(n.min()) < 16  # emits, and stops early
+
+
+def test_export_artifacts_on_card_launch_kernel_10(card, tmp_path):
+    """The serving export traced on the card (a tiny causal transducer at
+    d64 with `fused_ffn`): the loaded encoder_chunk gives the eager
+    `encode_chunk`'s outputs chunk after chunk (1e-6: the same kernels), and
+    the loaded process_chunk the eager `streaming_greedy_decode`'s tokens,
+    with #10 launched by the artifact, 2 FFNs x 2 blocks a chunk."""
+    from tpuasr_torch.config import Config
+    from tpuasr_torch.decode import streaming_greedy_decode
+    from tpuasr_torch.decode.rnnt_streaming import init_streaming_state
+    from tpuasr_torch.export import export_streaming, load_exported
+    from tpuasr_torch.models import Transducer, init_weights, stream_output_len
+    from tpuasr_torch.streaming import chunk_windows, num_chunks
+
+    cfg = Config()
+    m, e = cfg.model, cfg.model.encoder
+    m.vocab_size, m.blank_id = 64, 5
+    e.output_size, e.attention_heads, e.linear_units, e.num_blocks = 64, 2, 128, 2
+    e.cnn_module_kernel, e.causal, e.use_dynamic_chunk, e.static_chunk_size = 7, True, True, 4
+    e.fused_ffn = True
+    m.predictor.embed_size, m.predictor.hidden_size, m.predictor.output_size = 16, 16, 64
+    cfg.streaming.chunk_size, cfg.streaming.num_left_chunks, cfg.streaming.n_steps = 4, 2, 3
+    model = init_weights(Transducer(m, device=card), 0)
+    with torch.no_grad():
+        model.joint.ffn_out_bias[5] = 1.5
+    manifest = export_streaming(model, cfg, str(tmp_path), batch=2, max_tokens=30)
+    assert all(v["platforms"] == ["cuda"] for v in manifest["functions"].values())
+    fns = load_exported(str(tmp_path))
+    g = torch.Generator().manual_seed(7)
+    feats = torch.randn(2, 150, 80, generator=g).to(card)
+    lens = torch.tensor([150, 117], device=card)
+    n = num_chunks(150, 4, 4, 6)
+    windows = chunk_windows(feats, 4, 4, 6, n)
+    st_a, st_e = model.init_encoder_state(2, 4, 2), model.init_encoder_state(2, 4, 2)
+    for w in windows:
+        got, st_a = fns["encoder_chunk"](w, st_a)
+        want, st_e = model.encode_chunk(w, st_e)
+        assert float((got - want).abs().max()) <= 1e-6
+    state = init_streaming_state(model, 2, 4, 2, 5, 30, stream_output_len(e, lens))
+    before = LAUNCHES["ffn_fwd"]
+    for w in windows:
+        state = fns["process_chunk"](w, state)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ffn_fwd"] - before == 4 * n
+    ref_t, ref_l, _ = streaming_greedy_decode(model, feats, lens, 4, 2, 5, 3, 30)
+    assert torch.equal(state.dec.hyp[:, :30], ref_t) and torch.equal(state.dec.hyp_len, ref_l)
+    assert int(ref_l.min()) > 0

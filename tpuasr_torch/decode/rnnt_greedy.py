@@ -8,11 +8,13 @@ emitting; writes of non-emitting streams go to a trash slot at index
 `max_tokens`.
 
 The JAX package runs a `lax.while_loop` inside a `lax.scan`. Here the frame
-loop is a host loop and the emission loop stops as soon as no stream emits,
-which the host learns by reading one flag per emission step (one device
-sync each). A fixed `n_steps` of masked iterations would need no sync but
-does `n_steps` times the predictor work; both give identical tokens. CUDA
-graphs of the step are later work.
+loop is a host loop and, by default, the emission loop stops as soon as no
+stream emits, which the host learns by reading one flag per emission step
+(one device sync each). `sync_free=True` runs all `n_steps` masked emission
+steps instead: no host read, so `torch.export` can trace it (the exported
+`process_chunk`, `tpuasr_torch.export`), at `n_steps` times the predictor
+work a frame. Both give identical tokens. CUDA graphs of the step are later
+work.
 
 `GreedyCarry` is the decode state, so the same core drives offline decode
 (one call over a whole utterance) and chunk streaming (carried across
@@ -51,9 +53,10 @@ def init_greedy_carry(model, batch: int, blank_id: int, max_tokens: int) -> Gree
 @torch.no_grad()
 def greedy_frames(model, enc_frames: torch.Tensor, frame_valid: torch.Tensor,
                   carry: GreedyCarry, blank_id: int, n_steps: int,
-                  pad_id: int = 0) -> GreedyCarry:
+                  pad_id: int = 0, sync_free: bool = False) -> GreedyCarry:
     """Advance B streams over F encoder frames: enc_frames [B, F, D],
-    frame_valid [B, F] bool (per-stream frame validity)."""
+    frame_valid [B, F] bool (per-stream frame validity). `sync_free`: all
+    `n_steps` emission steps a frame, masked, with no early exit."""
     b = enc_frames.shape[0]
     max_tokens = carry.hyp.shape[1] - 1
     st_axis = predictor_state_axis(model)
@@ -66,9 +69,12 @@ def greedy_frames(model, enc_frames: torch.Tensor, frame_valid: torch.Tensor,
         enc_p_t, active = enc_proj[:, t], frame_valid[:, t]
         emitting = active
         for _ in range(n_steps):
-            if not bool(emitting.any()):
+            if not sync_free and not bool(emitting.any()):
                 break
-            pred_out, new_state = model.predict_step(last_token, pred_state)
+            # the predictor itself, not the no_grad-wrapped `predict_step`: the
+            # loop is under no_grad already, and torch.export would split its
+            # graph at each grad-mode switch (quadratic in the steps traced)
+            pred_out, new_state = model.predictor.forward_step(last_token, pred_state)
             logits = model.joint.head_from_projected(
                 enc_p_t + model.joint.project_pred(pred_out))
             tok = logits.argmax(dim=-1)

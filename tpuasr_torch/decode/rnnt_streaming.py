@@ -10,7 +10,8 @@ chunk's CTC log-probs fused into every frame when `ctc_weight > 0`.
 `streaming_greedy_decode` and `streaming_beam_decode` run a whole
 utterance chunk by chunk.
 
-The encoder state's offset counts full-rate encoder frames; a chunk's
+The encoder state's offset counts full-rate encoder frames (a 0-d tensor
+on the device for the conformer, an int for the families); a chunk's
 output frames are indexed `offset // stream_output_factor + j` (the
 efficient conformer's strides leave chunk / factor output frames a chunk,
 tpuasr/decode/rnnt_streaming.py:68-76), and each stream's decode is gated
@@ -68,10 +69,12 @@ def _chunk_frames(model, chunk_feats: torch.Tensor, enc, enc_lens: torch.Tensor)
 
 @torch.no_grad()
 def process_chunk(model, chunk_feats: torch.Tensor, state: StreamingState,
-                  blank_id: int, n_steps: int = 10) -> StreamingState:
-    """Encode one chunk window [B, window, F] and greedily decode its frames."""
+                  blank_id: int, n_steps: int = 10, sync_free: bool = False
+                  ) -> StreamingState:
+    """Encode one chunk window [B, window, F] and greedily decode its frames;
+    `sync_free` as `greedy_frames` (the exported `process_chunk`'s)."""
     ys, valid, enc_state = _chunk_frames(model, chunk_feats, state.enc, state.enc_lens)
-    dec = greedy_frames(model, ys, valid, state.dec, blank_id, n_steps)
+    dec = greedy_frames(model, ys, valid, state.dec, blank_id, n_steps, sync_free=sync_free)
     return StreamingState(enc=enc_state, dec=dec, enc_lens=state.enc_lens)
 
 

@@ -315,14 +315,17 @@ class EncoderStreamState:
 
     att_k/att_v: [L, B, A, H, dk] right-aligned (newest last), A = capacity.
     cnn:         [L, B, lorder, D] post-GLU left context per conv module.
-    offset:      encoder frames consumed so far (shared by the batch), kept
-                 on the host so PE windows and masks need no device sync.
+    offset:      [] int64 on the caches' device: encoder frames consumed so
+                 far (shared by the batch), as the JAX state holds it. The PE
+                 windows and the cache mask are gathered and compared at it
+                 on the device, so a chunk reads nothing back to the host,
+                 and `torch.export` traces it as an input, not a constant.
     """
 
     att_k: torch.Tensor
     att_v: torch.Tensor
     cnn: torch.Tensor
-    offset: int
+    offset: torch.Tensor
 
 
 class ConformerEncoder(nn.Module):
@@ -346,7 +349,7 @@ class ConformerEncoder(nn.Module):
         self.blocks = nn.ModuleList(ConformerBlock(c, device) for _ in range(c.num_blocks))
         self.after_norm = LayerNorm(c.output_size, device=device)
 
-    def _abs_pe_window(self, offset: int, size: int) -> torch.Tensor:
+    def _abs_pe_window(self, offset, size: int) -> torch.Tensor:
         """[1, size, D] rows offset .. offset+size-1 (clamped to the table) of
         the whisper or the learned table; both have xscale 1."""
         table = getattr(self, "learned_pe", None)
@@ -376,10 +379,10 @@ class ConformerEncoder(nn.Module):
             return ys + pe, pe
         return self.pe.add_abs(ys, 0)
 
-    def _chunk_positions(self, ys: torch.Tensor, offset: int, a: int):
+    def _chunk_positions(self, ys: torch.Tensor, offset: torch.Tensor, a: int):
         """forward_chunk's positional branch (tpuasr/nn/conformer.py:549-567)
-        for a chunk at `offset` behind a cache of capacity `a` -> (ys,
-        pos_emb)."""
+        for a chunk at `offset` (a 0-d tensor) behind a cache of capacity
+        `a` -> (ys, pos_emb)."""
         c, chunk = self.cfg, ys.shape[1]
         kind = attention_type_of(c)
         if kind == "firered_rel_pos":
@@ -452,7 +455,7 @@ class ConformerEncoder(nn.Module):
             att_v=torch.zeros(att, dtype=self.dtype, device=dev),
             cnn=torch.zeros((c.num_blocks, batch, lorder, c.output_size), dtype=self.dtype,
                             device=dev),
-            offset=0,
+            offset=torch.zeros((), dtype=torch.long, device=dev),
         )
 
     def forward_chunk(self, xs: torch.Tensor, state: EncoderStreamState
@@ -464,7 +467,7 @@ class ConformerEncoder(nn.Module):
         ys = self.embed(xs.to(self.dtype))
         b, chunk, _ = ys.shape
         ys, pos_emb = self._chunk_positions(ys, state.offset, a)
-        valid = min(state.offset, a)
+        valid = state.offset.clamp(max=a)
         j = torch.arange(a + chunk, device=ys.device)
         att_mask = (j >= a - valid)[None, None, :].expand(b, chunk, a + chunk)
 

@@ -50,11 +50,16 @@ class PositionalEncodingTable:
         below zero clamp to 0 (callers mask those slots). When the window's
         span would end past `max_len`, it is rebased to end at the table
         top, so the relative geometry inside the window stays exact for
-        arbitrarily long streams (tpuasr/nn/embedding.py:51-81)."""
+        arbitrarily long streams (tpuasr/nn/embedding.py:51-81). `offset` is
+        an int or a 0-d integer tensor on the table's device (the streaming
+        conformer's), which selects the rows without reading the device."""
         span = (size - 1) * stride + 1  # the window's extent in table rows
-        if 0 <= offset and offset + span <= self.max_len:
-            return self.table[offset:offset + span:stride][None]
-        shift = max(offset + span - self.max_len, 0)
+        if isinstance(offset, int):
+            if 0 <= offset and offset + span <= self.max_len:
+                return self.table[offset:offset + span:stride][None]
+            shift = max(offset + span - self.max_len, 0)
+        else:  # a 0-d tensor on the table's device: the same rows by a gather
+            shift = (offset + span - self.max_len).clamp(min=0)
         pos = torch.arange(size, device=self.table.device) * stride + (offset - shift)
         return self.table[pos.clamp(0, self.max_len - 1)][None]
 
@@ -89,8 +94,7 @@ class PositionalEncodingTable:
         half = head_dim // 2
         inv = 1.0 / (theta ** (np.arange(0, half, dtype=np.float64) * 2 / head_dim))
         inv = torch.from_numpy(inv.astype(np.float32)).to(self.table.device)
-        pos = torch.arange(offset, offset + size, device=self.table.device,
-                           dtype=torch.float32)
+        pos = torch.arange(size, device=self.table.device, dtype=torch.float32) + offset
         ang = pos[:, None] * inv[None, :]
         ang = torch.cat([ang, ang], dim=-1)
         return ang.cos()[None], ang.sin()[None]

@@ -22,7 +22,10 @@ and rounds once. The wrappers run the kernels for tensors on the card and
 the plain versions for tensors on the CPU; a CUDA tensor never takes the
 plain path. On the card the kernels tile the rows and slices of the hidden
 dimension as `_ffn_plan` says and sum across blocks in a fixed order: two
-calls on the same inputs give the same bits.
+calls on the same inputs give the same bits. The forward also stands as a
+registered operator, `torch.ops.tpuasr.ffn_fwd` (`ffn_fwd_op`), which the
+autograd Function calls, so `torch.export` keeps kernel #10 inside an
+exported graph (`tpuasr_torch.export`).
 """
 
 from __future__ import annotations
@@ -263,13 +266,35 @@ def ffn_bwd(x, ln_scale, ln_bias, w1, b1, w2, b2, mask1, mask2, dout, rate: floa
     return dx, dg, db, dw1, db1, dw2, db2
 
 
+@torch.library.custom_op(
+    "tpuasr::ffn_fwd", mutates_args=(), device_types="cuda",
+    schema="(Tensor x, Tensor ln_scale, Tensor ln_bias, Tensor w1, Tensor b1, Tensor w2, "
+           "Tensor b2, Tensor? mask1, Tensor? mask2, float rate, float ff_scale) -> Tensor")
+def ffn_fwd_op(x, ln_scale, ln_bias, w1, b1, w2, b2, mask1, mask2, rate, ff_scale):
+    """Kernel #10 as a registered operator, `torch.ops.tpuasr.ffn_fwd`, so
+    that `torch.export` keeps the kernel inside an exported graph (a ctypes
+    call on raw pointers cannot be traced). Its CUDA implementation is
+    `ffn_fwd`, which launches the kernel and counts it; its CPU
+    implementation is `ffn_fwd_plain`; its fake one gives the output's
+    shape and type."""
+    return ffn_fwd(x, ln_scale, ln_bias, w1, b1, w2, b2, mask1, mask2, rate, ff_scale)
+
+
+ffn_fwd_op.register_kernel("cpu")(ffn_fwd_plain)
+
+
+@ffn_fwd_op.register_fake
+def _ffn_fwd_fake(x, ln_scale, ln_bias, w1, b1, w2, b2, mask1, mask2, rate, ff_scale):
+    return torch.empty_like(x)
+
+
 class _FusedFFN(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, ln_scale, ln_bias, w1, b1, w2, b2, mask1, mask2, rate, ff_scale):
         # x, the parameters and the masks; the hidden activation is recomputed
         ctx.save_for_backward(x, ln_scale, ln_bias, w1, b1, w2, b2, mask1, mask2)
         ctx.rate, ctx.ff_scale = rate, ff_scale
-        return ffn_fwd(x, ln_scale, ln_bias, w1, b1, w2, b2, mask1, mask2, rate, ff_scale)
+        return ffn_fwd_op(x, ln_scale, ln_bias, w1, b1, w2, b2, mask1, mask2, rate, ff_scale)
 
     @staticmethod
     def backward(ctx, dout):

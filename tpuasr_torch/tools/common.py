@@ -24,18 +24,19 @@ def add_config_args(ap) -> None:
     ap.add_argument("--device", default=None, help=DEVICE_HELP)
 
 
-def eval_config(checkpoint: str, config_path: str | None, sets, device):
-    """-> the Config to evaluate `checkpoint` with: the yaml at `config_path`,
-    else the one saved beside the checkpoint, else the defaults; the dotted
-    --set pairs and `resolve` on top. An auto-loaded yaml evaluated on the
-    CPU computes in fp32 with the fused attention and joint-loss routes off
-    (what the JAX CLIs' adapt_to_backend does off the TPU)."""
+def eval_config(checkpoint: str | None, config_path: str | None, sets, device):
+    """-> the Config to evaluate `checkpoint` (None: seeded weights) with:
+    the yaml at `config_path`, else the one saved beside the checkpoint,
+    else the defaults; the dotted --set pairs and `resolve` on top. An
+    auto-loaded yaml evaluated on the CPU computes in fp32 with the fused
+    attention and joint-loss routes off (what the JAX CLIs'
+    adapt_to_backend does off the TPU)."""
     from tpuasr_torch.config import Config, load_yaml, override, resolve
     from tpuasr_torch.tools.train import parse_overrides
     from tpuasr_torch.train import find_effective_config
 
     auto = config_path is None
-    if auto:
+    if auto and checkpoint:
         # the loop saves the resolved config beside its checkpoints, so
         # evaluation needs no architecture flags
         config_path = find_effective_config(checkpoint)
