@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (`tpuasr_torch`) through its serving path, its
 training step, its trainer, its CTC, AED, Paraformer and Whisper
-workloads, the transducer's model options, its encoder families and its
-serving export on one NVIDIA card, and hold its hand-written kernels
-against their plain versions.
+workloads, the transducer's model options, its encoder families, its
+serving export and its parallel layer on one NVIDIA card, and hold its
+hand-written kernels against their plain versions.
 
     python3 chip_smoke.py
 
@@ -367,12 +367,34 @@ Phases (any failure exits non-zero):
    the artifact gave it; the per-chunk latency of the artifact against
    the eager paths; `tools/export_stream --verify` on the card at one
    block, d64.
+17. The parallel layer (`tpuasr_torch.parallel`). Two ranks of this script
+   (`--parallel-rank`) on cuda:0 over gloo (NCCL refuses two ranks on one
+   device; with two cards the same run also goes over NCCL on cuda:0 and
+   cuda:1), each probing which collectives gloo takes on CUDA tensors, then,
+   with every count reset before and read after (the parallel run): one
+   fp32 step of phase 6a's flagship on bench.py's 12 rows, 6 a rank, at
+   ZeRO stages none, zero1 and zero3 (the fused joint loss: #1-#9 must
+   launch) and with `model.shard_joint` on a 1 x 2 mesh (the materialized
+   loss, the vocabulary split: #8/#9 and not #4/#5), each held against the
+   same step at one rank on the card by 6a's rule (losses 1e-4 relative,
+   every gradient leaf 1e-3 of its max, GuardedAdam alone on the ranks'
+   reduced gradients and end to end); streaming greedy of the fp32
+   flagship on the 16 fixture requests split over the ranks
+   (`make_sharded_streaming_decode`): tokens identical to one rank's. Every
+   wrapper call on the card must be a launch (no plain fallback); rank 0
+   holds each kernel against its plain version on the run's own inputs;
+   `tools/tp_joint_bench.analyze` prints each rank's peak memory for the
+   joint, loss and gradients at B8 T512 U128 V4096 (8.66 GB of logits)
+   unsharded and at tp 2. Then `python -m torch.distributed.run
+   --standalone --nproc_per_node 1 -m tpuasr_torch.tools.train` trains
+   an epoch under NCCL at world size 1.
 7. The kernels line: one JSON object with an entry per kernel and run
    (the serving run of phases 4-5b, the training runs of phases 6b, 6c and
    6d, the trainer run of phase 8, the corpus run of phase 9, the CTC run
    of phase 10, the AED run of phase 11, the zoo run of phase 12, the
    families run of phase 13, the paraformer run of phase 14, the whisper
-   run of phase 15, the export run of phase 16; counts
+   run of phase 15, the export run of phase 16, the parallel run of phase
+   17, whose launches are both ranks' and records rank 0's; counts
    reset just before each and read just after): that run's launches
    (fbank's: those of the route the record times, the FFT for serving,
    which takes that route alone, and the tensor-core route for training,
@@ -410,7 +432,7 @@ PEAK_BF16 = 989e12   # H100 SXM dense bf16 tensor cores, FLOP/s
 PEAK_TF32 = 494.7e12  # H100 SXM dense TF32 tensor cores, FLOP/s (3xTF32: three passes)
 HBM_BPS = 3.35e12    # H100 SXM HBM3, bytes/s
 SEED = 0
-SLEEP_CYCLES = 200_000_000  # ~0.1 s of GPU clock: longer than any timed enqueue
+SLEEP_CYCLES = 50_000_000  # ~25 ms of GPU clock, the floor; sized up from one timed enqueue
 CHUNK, LEFT = 32, 6
 
 
@@ -646,6 +668,14 @@ def main() -> dict:
                      "surface)", t_phase)
     export, runs["export"], export_records = _export_phase(torch, dev, data, blank_bias)
 
+    # ---------------------------------------------------------------- 17
+    t_phase = _phase("17: the parallel layer (2 ranks over gloo on the card against one rank; "
+                     "the trainer under torchrun, NCCL)", t_phase)
+    parallel, runs["parallel"], parallel_records = _parallel_phase(torch, dev, data, bench,
+                                                                   blank_bias)
+    print(f"launches on the parallel run (both ranks): "
+          f"{ {k: v for k, v in runs['parallel'].items() if v} }")
+
     # ---------------------------------------------------------------- 7
     # one entry per kernel and run that launches it, with the record taken
     # at the shape that run gives it: 6b, 6c and 6d give the same shapes
@@ -684,6 +714,9 @@ def main() -> dict:
     # run (phase 16's loaded process_chunk) #10 alone
     plan += [(name, ("whisper",), name) for name in KERNELS if runs["whisper"][name] > 0]
     plan += [("ffn_fwd", ("export",), "ffn_fwd")]
+    # the parallel run (phase 17's ranks) launches #1-#9: its records are
+    # rank 0's, its launches both ranks'
+    plan += [(name, ("parallel",), name) for name in KERNELS if runs["parallel"][name] > 0]
     kernels = []
     for name, run_names, check, *count in plan:
         count = count[0] if count else name
@@ -693,7 +726,7 @@ def main() -> dict:
             own = {"trainer": trainer_records, "corpus": corpus_records, "ctc": ctc_records,
                    "aed": aed_records, "zoo": zoo_records, "families": families_records,
                    "paraformer": para_records, "whisper": whisper_records,
-                   "export": export_records}
+                   "export": export_records, "parallel": parallel_records}
             rec = own[run][name] if run in own else checks[check]
             entry = dict(rec, run=run, launches=launches,
                          **{f"launches_{r}": runs[r][count] for r in runs})
@@ -717,6 +750,7 @@ def main() -> dict:
     print(json.dumps({"paraformer": para}))
     print(json.dumps({"whisper": whisper}))
     print(json.dumps({"export": export}))
+    print(json.dumps({"parallel": parallel}))
     print(json.dumps({"kernels": kernels}))
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}
@@ -3384,8 +3418,8 @@ def _timed_steps(torch, step_home, step_attr: str):
     the list of (wall ms, audio seconds) a step, filled as the run goes."""
     walls, make = [], getattr(step_home, step_attr)
 
-    def timed_step(model, tx, cfg):
-        step = make(model, tx, cfg)
+    def timed_step(model, tx, cfg, mesh=None):
+        step = make(model, tx, cfg, mesh)
 
         def run(state, batch, seed):
             out, ms = _synced_ms(torch, lambda: step(state, batch, seed))
@@ -4979,7 +5013,330 @@ def _export_phase(torch, dev, data, blank_bias: float) -> tuple[dict, dict, dict
     return out, launches, records
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the parallel layer
+# ---------------------------------------------------------------------------
+
+PARALLEL_CASES = ("none", "zero1", "zero3", "shard_joint")
+PARALLEL_RANKS = 2
+PARALLEL_WAIT_S = 420  # the ranks' whole run, kernels held against plain included
+PARALLEL_PG_S = 300    # the bound of every collective of a rank
+TP_SHAPE = (8, 512, 128, 4096, 256)  # B, T, U, V, D: fp32 logits of 8.66 GB (tp_joint_bench)
+COLLECTIVES = ("all_reduce_sum", "all_reduce_max", "all_reduce_min", "all_gather",
+               "all_gather_into_tensor", "reduce_scatter_tensor", "broadcast", "barrier")
+
+
+def _parallel_cfg(case: str):
+    """Phase 6a's fp32 flagship (no dropout, the static chunk) for a phase 17
+    case: the fused joint loss at ZeRO stage `case`, or with "shard_joint"
+    the materialized loss with the vocabulary split over 2 model ranks."""
+    cfg = _train_cfg("float32", dropout=False, fused_joint_loss=case != "shard_joint")
+    if case == "shard_joint":
+        cfg.model.shard_joint = True
+        cfg.mesh.model_parallel_size = PARALLEL_RANKS
+    else:
+        cfg.mesh.zero_stage = case
+    return cfg
+
+
+def _parallel_side(torch, cfg, dev, batch, mesh=None) -> dict:
+    """One train step of `cfg` from seed-0 weights through `make_train_step`
+    (with a `mesh`: this rank's rows, in the ZeRO layout of cfg.mesh) -> a
+    `_step_side` record: the global losses and gradient norm, the reduced
+    gradient, the weights before and after and the whole Adam state."""
+    from tpuasr_torch.models import Transducer, init_weights
+    from tpuasr_torch.parallel import (
+        assert_sharded, shard_batch, shard_train_state, whole_state,
+    )
+    from tpuasr_torch.train import GuardedAdam, TrainState, make_train_step
+    from tpuasr_torch.train.optim import flatten, unflatten
+
+    class Keep(GuardedAdam):
+        def update_guarded(self, grads, state, params, finite, lr_scale=1.0, grad_norm=None,
+                           zero=None):
+            self.kept = flatten(grads).clone()
+            return super().update_guarded(grads, state, params, finite, lr_scale, grad_norm,
+                                          zero)
+
+    model = init_weights(Transducer(cfg.model, device=dev), SEED)
+    named = list(model.named_parameters())
+    p0 = [p.detach().cpu().clone() for _, p in named]
+    tx = Keep(cfg.optim)
+    state = TrainState.create(model, tx)
+    if mesh is not None:
+        state = shard_train_state(state, mesh, cfg.mesh.zero_stage)
+        batch = shard_batch(batch, mesh)
+    state, m = make_train_step(model, tx, cfg, mesh)(state, batch, 1)
+    if mesh is not None and mesh.data_size > 1:
+        assert_sharded(state, mesh, cfg.mesh.zero_stage)
+    with whole_state(state) as whole:
+        p1 = [p.detach().cpu().clone() for p in model.parameters()]
+        st = [None if x is None else x.cpu() for x in whole.opt_state]
+    return {"losses": {k: float(m[k]) for k in ("loss", "loss_rnnt", "loss_ctc")},
+            "gn": float(m["grad_norm"]),
+            "grads": [g.cpu() for g in unflatten(tx.kept, [p for _, p in named])],
+            "p0": p0, "p1": p1, "state": st, "names": [n for n, _ in named]}
+
+
+def _parallel_decode(torch, dev, data, blank_bias: float, mesh=None):
+    """Streaming greedy (chunk 32, 6 left chunks) of the fp32 flagship with
+    phase 4's blank bias on the 16 fixture requests: one rank's whole batch,
+    or with a `mesh` each data rank's block, gathered."""
+    from tpuasr_torch.audio import fbank_batch
+    from tpuasr_torch.decode import streaming_greedy_decode
+    from tpuasr_torch.parallel import make_sharded_streaming_decode
+
+    cfg = _flagship("float32")
+    s = cfg.streaming
+    model = _model(torch, cfg, dev, blank_bias)
+    feats, flens = fbank_batch(*data["fixture"], cfg.feature, device=dev)
+    if mesh is None:
+        return streaming_greedy_decode(model, feats, flens, CHUNK, LEFT, cfg.model.blank_id,
+                                       s.n_steps)[:2]
+    return make_sharded_streaming_decode(model, mesh, "greedy", chunk_size=CHUNK,
+                                         num_left_chunks=LEFT, blank_id=cfg.model.blank_id,
+                                         n_steps=s.n_steps)(feats, flens)
+
+
+def _probe_collectives(torch, dev) -> dict:
+    """Which collectives this process group takes on tensors on `dev`: each
+    is tried once on every rank alike -> {name: "ok" or the error}."""
+    import torch.distributed as dist
+
+    n = dist.get_world_size()
+    x = torch.arange(4.0, device=dev) + dist.get_rank()
+    tries = {
+        "all_reduce_sum": lambda: dist.all_reduce(x.clone()),
+        "all_reduce_max": lambda: dist.all_reduce(x.clone(), op=dist.ReduceOp.MAX),
+        "all_reduce_min": lambda: dist.all_reduce(x.clone(), op=dist.ReduceOp.MIN),
+        "all_gather": lambda: dist.all_gather([torch.empty_like(x) for _ in range(n)], x),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(4 * n, device=dev), x),
+        "reduce_scatter_tensor": lambda: dist.reduce_scatter_tensor(
+            torch.empty(4, device=dev), torch.arange(4.0 * n, device=dev)),
+        "broadcast": lambda: dist.broadcast(x.clone(), 0),
+        "barrier": lambda: dist.barrier(),
+    }
+    out = {}
+    for name in COLLECTIVES:
+        try:
+            tries[name]()
+            torch.cuda.synchronize(dev)
+            out[name] = "ok"
+        except (RuntimeError, ValueError, NotImplementedError) as e:  # refused on this device
+            out[name] = f"{type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    return out
+
+
+def _parallel_rank(argv) -> None:
+    """A phase 17 rank (`chip_smoke.py --parallel-rank RANK WORLD DIR BACKEND
+    DEVICE BLANK_BIAS`): the collectives probe, the four cases' steps and
+    the sharded greedy decode with every count reset before and read after,
+    its wrappers' calls against its launches (rank 0 also holds each kernel
+    against its plain version on the run's inputs), then tp_joint_bench's
+    memory analysis; the results into DIR/rank_RANK.pt."""
+    import torch
+    import torch.distributed as dist
+
+    rank, world, out_dir, backend, device, bias = (int(argv[0]), int(argv[1]), Path(argv[2]),
+                                                    argv[3], argv[4], float(argv[5]))
+    sys.path.insert(0, str(ROOT))
+    from tpuasr_torch.ops import KERNELS, LAUNCHES, build_all, reset_launch_counts
+    from tpuasr_torch.parallel import init_distributed, make_mesh
+    from tpuasr_torch.tools.tp_joint_bench import analyze
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _, _, dev = init_distributed(device, store_path=str(out_dir / "store"), rank=rank,
+                                 world_size=world, backend=backend, timeout_s=PARALLEL_PG_S)
+    try:
+        if dev.type == "cuda":
+            build_all()  # the parent built the libraries: this loads them
+        out = {"device": str(dev), "backend": backend}
+        out["collectives"] = _probe_collectives(torch, dev) if dev.type == "cuda" else {}
+        bench, data = _bench_batch(torch, dev), _requests()
+        meshes = {1: make_mesh(1, dev), PARALLEL_RANKS: make_mesh(PARALLEL_RANKS, dev)}
+        sides, parts = {}, {}
+        reset_launch_counts()
+        with _recording(torch) as seen:  # the parallel run: every count read after it
+            for case in PARALLEL_CASES:
+                cfg = _parallel_cfg(case)
+                sides[case] = _parallel_side(torch, cfg, dev, bench,
+                                             meshes[cfg.mesh.model_parallel_size])
+                parts[case] = dict(LAUNCHES)
+            out["decode"] = [x.cpu() for x in _parallel_decode(torch, dev, data, bias,
+                                                                 meshes[1])]
+        launches = dict(LAUNCHES)
+        before = {}
+        for case, name in (("fused", "zero3"), ("shard_joint", "shard_joint"),
+                           ("decode", None)):
+            now = launches if name is None else parts[name]
+            out.setdefault("launches_by_part", {})[case] = {
+                k: now[k] - before.get(k, 0) for k in now}
+            before = now
+        out["launches"] = launches
+        calls = {k: sum(c for c, _ in seen.get(k, {}).values()) for k in KERNELS}
+        require(all(calls[k] == launches[k] for k in KERNELS),
+                f"rank {rank}: wrapper calls on the card {calls} are not the launches "
+                f"{ {k: launches[k] for k in KERNELS} }: a call fell back to a plain version")
+        out["idle"] = seen.get("idle", {})
+        if rank == 0:
+            print("kernels against their plain versions on the parallel run's own inputs "
+                  "(rank 0):", flush=True)
+            out["records"] = _trainer_kernel_records(torch, seen, launches, "parallel",
+                                                     timed=1)
+        out["sides"] = sides
+        if dev.type == "cuda":
+            out["tp_memory"] = analyze(meshes[PARALLEL_RANKS], *TP_SHAPE, device=dev)
+        torch.save(out, out_dir / f"rank_{rank}.pt")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _launch_ranks(torch, backend: str, devices: list, blank_bias: float) -> list:
+    """Start PARALLEL_RANKS rank processes of this script, wait at most
+    PARALLEL_WAIT_S (killing every rank as soon as one fails), print their
+    output -> each rank's results."""
+    import tempfile
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="parallel-", dir=ROOT / "build") as tmp:
+        tmp = Path(tmp)
+        logs = [open(tmp / f"rank_{r}.log", "w+") for r in range(PARALLEL_RANKS)]
+        procs = [subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--parallel-rank", str(r),
+             str(PARALLEL_RANKS), str(tmp), backend, devices[r], repr(blank_bias)],
+            stdout=logs[r], stderr=subprocess.STDOUT, cwd=ROOT) for r in range(PARALLEL_RANKS)]
+        deadline = time.monotonic() + PARALLEL_WAIT_S
+        try:
+            while any(p.poll() is None for p in procs):
+                if any(p.poll() not in (None, 0) for p in procs) or time.monotonic() > deadline:
+                    break
+                time.sleep(0.5)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        for r, (p, f) in enumerate(zip(procs, logs)):
+            f.seek(0)
+            text = f.read()
+            f.close()
+            print(f"--- rank {r} of {PARALLEL_RANKS} ({backend}, {devices[r]}), exit "
+                  f"{p.returncode}:\n{text.rstrip()[-6000:]}")
+            require(p.returncode == 0, f"phase 17: rank {r} exited {p.returncode}")
+        # the ranks' own files: numpy values among the records
+        return [torch.load(tmp / f"rank_{r}.pt", weights_only=False)
+                for r in range(PARALLEL_RANKS)]
+
+
+def _parallel_phase(torch, dev, data, bench, blank_bias: float) -> tuple[dict, dict, dict]:
+    """17: 2 ranks on one card over gloo against the 1-rank steps and decode
+    on the card, taken first (rank 0 then times its kernels with the card to
+    itself, the other rank waiting at a barrier); NCCL across cards where
+    there are two; then the trainer CLI under torchrun at world size 1
+    (NCCL). -> (the records, the run's launches summed over the ranks, rank
+    0's kernel records)."""
+    import tempfile
+
+    from tpuasr_torch.ops import KERNELS
+    from tpuasr_torch.train import GuardedAdam
+
+    n_cards = torch.cuda.device_count()
+    runs = {"gloo": ("gloo", ["cuda:0"] * PARALLEL_RANKS)}
+    if n_cards >= PARALLEL_RANKS:
+        runs["nccl"] = ("nccl", [f"cuda:{r}" for r in range(PARALLEL_RANKS)])
+    print(f"17: {n_cards} card(s): 2 ranks on cuda:0 over gloo; NCCL across cards "
+          f"{'on cuda:0 and cuda:1' if 'nccl' in runs else 'not run (one card)'}; NCCL at "
+          f"world size 1 through the trainer CLI")
+
+    ref_steps = {case: _parallel_side(torch, _parallel_cfg(case), dev, bench)
+                 for case in ("none", "shard_joint")}
+    ref_toks, ref_lens = (x.cpu() for x in _parallel_decode(torch, dev, data, blank_bias))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out, launches, records = {"cards": n_cards}, {}, {}
+    for label, (backend, devices) in runs.items():
+        t0 = time.perf_counter()
+        ranks = _launch_ranks(torch, backend, devices, blank_bias)
+        res = out[label] = {"wall_s": time.perf_counter() - t0}
+        if backend == "gloo":
+            res["collectives_on_cuda"] = ranks[0]["collectives"]
+            print(f"17 gloo, collectives on CUDA tensors: {ranks[0]['collectives']}")
+            launches = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+            records = ranks[0]["records"]
+        for r, rk in enumerate(ranks):
+            by_part = {part: {k: v for k, v in c.items() if v and k in KERNELS}
+                       for part, c in rk["launches_by_part"].items()}
+            print(f"17 {label} rank {r}: launches by part {by_part}; wrapper calls that "
+                  f"launched nothing {rk['idle']}")
+            for name in KERNELS[:9]:  # #1-#9: fbank .. rnnt_beta_grad
+                require(rk["launches_by_part"]["fused"][name] > 0,
+                        f"17 rank {r}: the fused-route steps never launched {name}")
+            lat = rk["launches_by_part"]["shard_joint"]
+            require(lat["rnnt_alpha"] > 0 and lat["rnnt_beta_grad"] > 0
+                    and lat["rnnt_fused_fwd"] == lat["rnnt_fused_bwd"] == 0,
+                    f"17 rank {r}: the shard_joint step did not run #8/#9 alone of the "
+                    f"RNN-T kernels")
+            for case in PARALLEL_CASES:
+                cfg = _parallel_cfg(case)
+                base = ref_steps["shard_joint" if case == "shard_joint" else "none"]
+                res.setdefault(case, []).append(_step_card_vs_cpu(
+                    torch, GuardedAdam(cfg.optim), {"card": rk["sides"][case], "cpu": base},
+                    f"17 {label} {case}: rank {r} of {PARALLEL_RANKS} ('card') against one "
+                    f"rank ('cpu'), both on the card, fp32, bench.py's 12 rows",
+                    "fp32 sums of half the rows and a reduction over ranks"
+                    + (", the vocabulary's log-softmax across 2 ranks" if case ==
+                       "shard_joint" else "")))
+            toks, lens = rk["decode"]
+            require(torch.equal(lens, ref_lens) and torch.equal(toks, ref_toks),
+                    f"17 {label} rank {r}: sharded streaming greedy differs from one "
+                    f"rank's")
+        print(f"17 {label}: sharded streaming greedy on the 16 fixture requests identical "
+              f"to one rank's on every rank ({int(ref_lens.sum())} tokens)")
+        mem = ranks[0].get("tp_memory")
+        if mem is not None:
+            res["tp_memory"] = mem
+            gib = lambda x: x / 2**30
+            print(f"17 {label} tp_joint_bench.analyze B{TP_SHAPE[0]} T{TP_SHAPE[1]} U"
+                  f"{TP_SHAPE[2]} V{TP_SHAPE[3]} D{TP_SHAPE[4]} fp32 (logits "
+                  f"{gib(mem['logits_bytes']):.2f} GiB): peak unsharded (rank 0) "
+                  f"{gib(mem['unsharded_peak_bytes_rank0']):.2f} GiB, at tp {mem['tp']} "
+                  f"per rank {[round(gib(x), 2) for x in mem['sharded_peak_bytes_per_rank']]}"
+                  f" GiB")
+            require(max(mem["sharded_peak_bytes_per_rank"])
+                    < mem["unsharded_peak_bytes_rank0"],
+                    "17: a rank of the split joint peaked above the unsharded one")
+    # the trainer under torchrun: NCCL at world size 1
+    with tempfile.TemporaryDirectory(prefix="torchrun-", dir=ROOT / "build") as save_dir:
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+             "1", "-m", "tpuasr_torch.tools.train", "--synthetic", "24", "--epochs", "1",
+             "--set", "data.synth_hard=True", f"train.save_dir={save_dir}", "train.log_dir=",
+             "train.log_every=1"], cwd=ROOT, capture_output=True, text=True,
+            timeout=PARALLEL_WAIT_S)
+        out["torchrun_trainer_s"] = time.perf_counter() - t0
+        text = proc.stdout + proc.stderr
+        lines = [ln for ln in text.rstrip().splitlines() if not ln.startswith("{")]
+        print(f"17 torchrun trainer (world size 1, {out['torchrun_trainer_s']:.1f} s):\n"
+              + "\n".join(lines[-12:]))
+        require(proc.returncode == 0, f"the trainer under torchrun exited {proc.returncode}")
+        require("world size 1 (nccl)" in proc.stdout,
+                "the trainer under torchrun did not take NCCL")
+        require((Path(save_dir) / "latest").exists(), "the torchrun trainer wrote no checkpoint")
+    return out, launches, records
+
+
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:  # a phase 17 rank, started by main()
+        try:
+            _parallel_rank(sys.argv[2:])
+        except SmokeFailure as e:
+            print(f"chip_smoke rank: FAILED: {e}", file=sys.stderr)
+            sys.exit(1)
+        sys.exit(0)
     try:
         device = main()
     except SmokeFailure as e:

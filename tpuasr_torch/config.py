@@ -7,8 +7,10 @@ optimizer, the data pipeline, streaming, the training loop), with the same
 field names and defaults, so a ``train.yaml`` written by the JAX package
 loads here unchanged: `from_dict` drops every key this copy does not hold
 (the JAX-only loop switches such as donation, the RNG implementation and
-the host-RSS watchdog, the mesh, and the scanned parameter layout, which
-`tpuasr_torch.convert` detects by itself). Values the port does not build
+the host-RSS watchdog, and the scanned parameter layout, which
+`tpuasr_torch.convert` detects by itself). The mesh block (`MeshConfig`)
+and `model.shard_joint` are held: the parallel layer
+(`tpuasr_torch.parallel`) reads them. Values the port does not build
 raise NotImplementedError where they are read (`check_supported` in the
 encoder, batch-norm training in the conv module).
 
@@ -199,6 +201,11 @@ class ModelConfig:
     # computation dtype of matmuls/activations (parameters stay float32;
     # layer norms and softmaxes compute their statistics in float32)
     compute_dtype: str = "float32"
+    # split the materialized route's [B, T, U+1, V] joint logits over the
+    # vocabulary on the mesh's model axis (mesh.model_parallel_size > 1;
+    # `tpuasr_torch.losses.rnnt_loss_sharded`). The fused and pruned routes
+    # never form the logits, so there the model axis only repeats work
+    shard_joint: bool = False
     # True: fused joint + log-softmax + lattice inputs (kernels in
     # tpuasr_torch/csrc/rnnt_fused.cu), [B, T, U+1, V] never exists; False:
     # the joint's full logits and `rnnt_loss_from_logits`. Both routes run
@@ -318,6 +325,29 @@ class StreamingConfig:
     beam_size: int = 4
 
 
+MESH_STAGES = ("none", "zero1", "zero3")
+
+
+@dataclass
+class MeshConfig:
+    """The ranks' (data x model) grid (tpuasr/config.py:372-383). data:
+    batch rows (data parallelism); model: the joint's vocabulary when
+    model.shard_joint is set. zero_stage shards state over the data axis:
+    none | zero1 (the optimizer's moments) | zero3 (the parameters too);
+    `tpuasr_torch.parallel.zero`."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    model_parallel_size: int = 1
+    zero_stage: str = "none"
+
+    def __post_init__(self):
+        if self.zero_stage not in MESH_STAGES:
+            raise ValueError(f"mesh.zero_stage {self.zero_stage!r} not in {MESH_STAGES}")
+        if int(self.model_parallel_size) < 1:
+            raise ValueError(f"mesh.model_parallel_size {self.model_parallel_size} < 1")
+
+
 @dataclass
 class Config:
     feature: FeatureConfig = field(default_factory=FeatureConfig)
@@ -328,6 +358,7 @@ class Config:
     data: DataConfig = field(default_factory=DataConfig)
     streaming: StreamingConfig = field(default_factory=StreamingConfig)
     train: TrainConfig = field(default_factory=TrainConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
 
 
 # ---------------------------------------------------------------------------

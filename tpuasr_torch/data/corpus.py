@@ -65,9 +65,11 @@ def _load(item, wire_dtype: str = "float32") -> Utterance:
     return Utterance(item.utt_id, wave, item.tokens, len(wave))
 
 
-def make_pipeline(items, cfg: Config) -> LengthBucketPipeline:
+def make_pipeline(items, cfg: Config, host_id: int = 0,
+                  num_hosts: int = 1) -> LengthBucketPipeline:
     """`Utterance`s or `UtteranceMeta`s -> the length-bucketed pipeline of
-    cfg.data."""
+    cfg.data over shard `host_id` of `num_hosts` (the items with index %
+    num_hosts == host_id: a data rank's rows)."""
     d = cfg.data
     return LengthBucketPipeline(
         items,
@@ -77,14 +79,18 @@ def make_pipeline(items, cfg: Config) -> LengthBucketPipeline:
         hop_length=cfg.feature.hop_length,
         pad_id=0,
         seed=d.shuffle_seed,
+        host_id=host_id,
+        num_hosts=num_hosts,
         loader=lambda item: _load(item, d.wire_dtype),
         batch_audio_frames=d.batch_audio_frames,
         batch_multiple=d.batch_multiple,
     )
 
 
-def synthetic_pipeline(cfg: Config, n_utts: int = 64, seed: int = 0) -> LengthBucketPipeline:
-    """The synthetic corpus (knobs: cfg.data.synth_*) as a pipeline."""
+def synthetic_pipeline(cfg: Config, n_utts: int = 64, seed: int = 0, host_id: int = 0,
+                       num_hosts: int = 1) -> LengthBucketPipeline:
+    """The synthetic corpus (knobs: cfg.data.synth_*) as a pipeline over
+    shard `host_id` of `num_hosts` (`make_pipeline`)."""
     d = cfg.data
     utts = synth_corpus(
         n_utts, cfg.model.vocab_size, seed=seed,
@@ -99,4 +105,4 @@ def synthetic_pipeline(cfg: Config, n_utts: int = 64, seed: int = 0) -> LengthBu
         # encoded once here, never per step on the prefetch thread
         utts = [Utterance(u.utt_id, wire_waves(u.wave, "int16"), u.tokens, u.wave_len)
                 for u in utts]
-    return make_pipeline(utts, cfg)
+    return make_pipeline(utts, cfg, host_id, num_hosts)

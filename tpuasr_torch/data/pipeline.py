@@ -158,29 +158,37 @@ class LengthBucketPipeline:
             return None
         return wb, tb
 
-    def batches(self, epoch: int = 0) -> Iterator[dict]:
+    def _plan(self, epoch: int) -> Iterator[tuple[tuple[int, int], list[int]]]:
+        """The epoch's batches as (bucket, item indices), from each item's
+        wave length and token count alone (an `UtteranceMeta` holds both, so
+        no WAV is read); sets `last_skipped` at the end."""
         rng = np.random.default_rng((self.seed, epoch))
         order = rng.permutation(len(self._items))
         pending: dict[tuple[int, int], list] = {}
         skipped = 0
         for idx in order:
-            u = self._loader(self._items[idx])
-            key = self._bucket_of(u.wave_len, len(u.tokens))
+            item = self._items[idx]
+            key = self._bucket_of(item.wave_len, len(item.tokens))
             if key is None:
                 skipped += 1
                 continue
-            pending.setdefault(key, []).append(u)
+            pending.setdefault(key, []).append(idx)
             if len(pending[key]) == self.batch_size_for(key[0]):
-                yield self._emit(pending.pop(key), key)
+                yield key, pending.pop(key)
         if not self.drop_remainder:
-            for key, utts in sorted(pending.items()):
-                if utts:
-                    yield self._emit(utts, key)
+            for key, idxs in sorted(pending.items()):
+                if idxs:
+                    yield key, idxs
         self.last_skipped = skipped
+
+    def batches(self, epoch: int = 0) -> Iterator[dict]:
+        for key, idxs in self._plan(epoch):
+            yield self._emit([self._loader(self._items[i]) for i in idxs], key)
 
     def _emit(self, utts: list[Utterance], key: tuple[int, int]) -> dict:
         spec = BatchSpec(self.batch_size_for(key[0]), key[0], key[1])
         return make_batch(utts, spec, self.pad_id)
 
     def steps_per_epoch(self, epoch: int = 0) -> int:
-        return sum(1 for _ in self.batches(epoch))
+        """The epoch's batch count, counted from the items' metadata."""
+        return sum(1 for _ in self._plan(epoch))

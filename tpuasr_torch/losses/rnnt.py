@@ -56,3 +56,118 @@ def rnnt_loss_from_logits(logits: torch.Tensor, labels: torch.Tensor, t_lens: to
     if reduction == "sum":
         return nll.sum()
     raise ValueError(reduction)
+
+
+class _ShardedJointLogProbs(torch.autograd.Function):
+    """The plain joint head over one model rank's vocabulary slice, with the
+    log-softmax taken across the model group: (enc_p [B, T, D], pred_p
+    [B, U+1, D], W [D, V], b [V], labels [B, U]) -> the whole vocabulary's
+    (blank_lp [B, T, U+1], label_lp [B, T, U]) in fp32, the same on every
+    rank of the group.
+
+    Forward: this rank's logits [B, T, U+1, V / tp] in the compute type (the
+    activation of enc_p + pred_p, times its columns of W, plus its b), their
+    max all-reduced (MAX), the exponentials' sums all-reduced (SUM), and the
+    blank and label logits from the rank that owns each column (one SUM).
+    Backward recomputes the slice: its logits' gradient stays local, and so
+    do the products to its columns of W and b; the gradients to enc_p and
+    pred_p are partial sums over the vocabulary and are summed over the
+    group, and the W and b gradients are gathered over it (a SUM of slices
+    zero elsewhere), so every rank of the group holds the whole head's."""
+
+    @staticmethod
+    def forward(ctx, enc_p, pred_p, w, b, labels, blank: int, act: str, shard):
+        from tpuasr_torch.nn.joint import ACT
+        from tpuasr_torch.parallel.mesh import all_reduce
+
+        v0, v1 = shard.range(w.shape[1])
+        u = labels.shape[1]
+        logits = _slice_logits(ACT[act](enc_p[:, :, None] + pred_p[:, None]), w, b, v0, v1)
+        lab = labels.long() - v0
+        own = (lab >= 0) & (lab < v1 - v0)
+        # the blank's logits [B, T, U+1] and the labels' [B, T, U] side by side,
+        # zero in the columns another rank owns
+        picked = torch.zeros(logits.shape[:2] + (2 * u + 1,), dtype=torch.float32,
+                             device=logits.device)
+        if v0 <= blank < v1:
+            picked[..., :u + 1] = logits[..., blank - v0]
+        idx = lab.clamp(0, v1 - v0 - 1)[:, None, :, None].expand(-1, logits.shape[1], -1, 1)
+        picked[..., u + 1:] = torch.where(own[:, None], logits[:, :, :u].gather(3, idx)[..., 0],
+                                          0.0)
+        m = all_reduce(logits.amax(dim=-1), shard.group, "max")
+        s = all_reduce(logits.sub_(m[..., None]).exp_().sum(dim=-1), shard.group)
+        lse = m + torch.log(s)
+        all_reduce(picked, shard.group)
+        ctx.save_for_backward(enc_p, pred_p, w, b, labels, lse)
+        ctx.blank, ctx.act, ctx.shard = blank, act, shard
+        return picked[..., :u + 1] - lse, picked[..., u + 1:] - lse[:, :, :u]
+
+    @staticmethod
+    def backward(ctx, g_blank, g_label):
+        from tpuasr_torch.nn.joint import ACT
+        from tpuasr_torch.parallel.mesh import all_reduce
+
+        enc_p, pred_p, w, b, labels, lse = ctx.saved_tensors
+        shard, blank = ctx.shard, ctx.blank
+        v0, v1 = shard.range(w.shape[1])
+        bsz, t, u1, dim = enc_p.shape[0], enc_p.shape[1], pred_p.shape[1], enc_p.shape[2]
+        u = u1 - 1
+        dt = enc_p.dtype
+        with torch.enable_grad():
+            joined = (enc_p.detach()[:, :, None] + pred_p.detach()[:, None]).requires_grad_()
+            h = ACT[ctx.act](joined)
+        # d logit_v = g_blank [v = blank] + g_label [v = label] - p_v (g_blank + g_label)
+        g_label = g_label.float()
+        d = _slice_logits(h.detach(), w, b, v0, v1).sub_(lse[..., None]).exp_()
+        d.mul_(-(g_blank.float() + torch.nn.functional.pad(g_label, (0, 1)))[..., None])
+        if v0 <= blank < v1:
+            d[..., blank - v0] += g_blank.float()
+        lab = labels.long() - v0
+        own = (lab >= 0) & (lab < v1 - v0)
+        idx = lab.clamp(0, v1 - v0 - 1)[:, None, :, None].expand(-1, t, -1, 1)
+        d[:, :, :u].scatter_add_(3, idx, torch.where(own[:, None], g_label, 0.0)[..., None])
+        d = d.to(dt)
+        d_joined = torch.autograd.grad(h, joined, d @ w[:, v0:v1].to(dt).T)[0].float()
+        d_in = torch.cat([d_joined.sum(2).reshape(-1), d_joined.sum(1).reshape(-1)])
+        all_reduce(d_in, shard.group)
+        d_head = torch.zeros(dim + 1, w.shape[1], dtype=torch.float32, device=w.device)
+        d_head[:dim, v0:v1] = (h.detach().reshape(-1, dim).T @ d.reshape(-1, v1 - v0)).float()
+        d_head[dim, v0:v1] = d.sum(dim=(0, 1, 2)).float()
+        all_reduce(d_head, shard.group)
+        n_enc = bsz * t * dim
+        return (d_in[:n_enc].view_as(enc_p).to(enc_p.dtype),
+                d_in[n_enc:].view_as(pred_p).to(pred_p.dtype),
+                d_head[:dim], d_head[dim], None, None, None, None)
+
+
+def _slice_logits(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, v0: int, v1: int
+                  ) -> torch.Tensor:
+    """Columns [v0, v1) of the head's logits in fp32, computed in h's type
+    as the materialized route computes them (`TransducerJoint`)."""
+    dt = h.dtype
+    return (h @ w[:, v0:v1].to(dt) + b[v0:v1].to(dt)).float()
+
+
+def rnnt_loss_sharded(enc_p: torch.Tensor, pred_p: torch.Tensor, w: torch.Tensor,
+                      b: torch.Tensor, labels: torch.Tensor, t_lens: torch.Tensor,
+                      u_lens: torch.Tensor, blank: int, shard, activation: str = "tanh",
+                      reduction: str = "mean") -> torch.Tensor:
+    """The materialized route with the joint's logits split over the
+    vocabulary on the model axis (`model.shard_joint`,
+    tpuasr/models/transducer.py:282-288): each rank of `shard`'s group forms
+    [B, T, U+1, V / tp] (`_ShardedJointLogProbs`), and every rank runs the
+    lattice (kernels #8/#9 on the card) on the combined [B, T, U+1] inputs,
+    so every rank returns the same loss. enc_p / pred_p are the projected
+    encoder and predictor outputs in the compute type, W [D, V] and b [V]
+    the plain head's parameters (whole on every rank)."""
+    blank_lp, label_lp = _ShardedJointLogProbs.apply(enc_p, pred_p, w, b, labels, blank,
+                                                     activation, shard)
+    blank_m, label_m, _, _ = mask_lattice_inputs(blank_lp, label_lp, t_lens, u_lens)
+    nll = zero_infeasible(rnnt_lattice(blank_m, label_m, u_lens))
+    if reduction == "none":
+        return nll
+    if reduction == "mean":
+        return nll.mean()
+    if reduction == "sum":
+        return nll.sum()
+    raise ValueError(reduction)

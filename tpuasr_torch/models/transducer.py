@@ -18,7 +18,12 @@ The fused and the pruned routes compute the plain head alone (tanh . W +
 b): a HAT or post-join joint takes the materialized route whatever the two
 switches say (tpuasr/models/transducer.py:237, :260). The fused and the
 materialized routes run the lattice through kernels #8/#9 on the card and
-the plain lattice on the CPU.
+the plain lattice on the CPU. With `shard_joint` and a mesh's model axis
+of more than one rank (`vocab_shard`), the materialized route splits the
+logits over the vocabulary (`tpuasr_torch.losses.rnnt_loss_sharded`), as
+JAX constrains them to `P("data", None, None, "model")`
+(tpuasr/models/transducer.py:282-288); the fused and pruned routes return
+before that constraint in JAX and ignore the axis here too.
 
 The encoder comes from `build_encoder`, by `encoder.encoder_type`, as
 `tpuasr/models/transducer.py:30-96` builds it: the conformer; firered (the
@@ -44,7 +49,9 @@ from torch import nn
 
 from tpuasr_torch.config import EncoderConfig, ModelConfig
 from tpuasr_torch.device import resolve_device
-from tpuasr_torch.losses import ctc_loss_from_logits, rnnt_loss_from_logits, rnnt_loss_pruned
+from tpuasr_torch.losses import (
+    ctc_loss_from_logits, rnnt_loss_from_logits, rnnt_loss_pruned, rnnt_loss_sharded,
+)
 from tpuasr_torch.nn.attention import (
     FireRedRelPositionAttention, RelPositionMultiHeadedAttention,
 )
@@ -196,14 +203,15 @@ class Transducer(nn.Module):
 
     def forward(self, feats: torch.Tensor, feat_lens: torch.Tensor, texts: torch.Tensor,
                 text_lens: torch.Tensor, chunk_gen: torch.Generator | None = None,
-                dropout_gen: torch.Generator | None = None) -> dict:
+                dropout_gen: torch.Generator | None = None, vocab_shard=None) -> dict:
         """Hybrid loss forward -> {"loss", "loss_rnnt", "loss_ctc"}.
 
         loss = transducer_weight * rnnt(mean) + ctc_weight * ctc(sum)/B
         (model/component/transducer.py:122-128, 161-189). feats [B, T, F],
         texts [B, U] (padded), lengths [B]. chunk_gen: a CPU generator for
         the dynamic-chunk draw (none: full context). dropout_gen: a generator
-        on the model's device, used only in train() mode."""
+        on the model's device, used only in train() mode. vocab_shard: the
+        mesh's model axis (`Mesh.vocab_shard`), read with `shard_joint`."""
         c = self.cfg
         gen = dropout_gen if self.training else None
         if gen is None and self.training and self._has_dropout():
@@ -213,6 +221,12 @@ class Transducer(nn.Module):
         enc_lens = encoder_output_len(c.encoder, feat_lens)
         pred_out = self.predictor(add_blank(texts.long(), c.blank_id), gen=gen)
         plain = self.joint.plain_head
+        sharded = c.shard_joint and vocab_shard is not None and vocab_shard.size > 1
+        if sharded and not plain:
+            raise NotImplementedError(
+                "model.shard_joint with mesh.model_parallel_size > 1 splits the plain head "
+                "(activation . W + b) only; a HAT or post-join joint is not split yet "
+                "(ROADMAP.md section 1)")
         if plain and c.rnnt_prune_range > 0:
             w, b = self.joint.head_params()
             loss_rnnt = rnnt_loss_pruned(
@@ -223,6 +237,12 @@ class Transducer(nn.Module):
             loss_rnnt = rnnt_loss_fused_mean(
                 self.joint.project_enc(enc_out), self.joint.project_pred(pred_out), w, b,
                 texts, enc_lens, text_lens, c.blank_id)
+        elif sharded:
+            w, b = self.joint.head_params()
+            loss_rnnt = rnnt_loss_sharded(
+                self.joint.project_enc(enc_out), self.joint.project_pred(pred_out), w, b,
+                texts, enc_lens, text_lens, c.blank_id, vocab_shard, self.joint.cfg.activation,
+                "mean")
         else:
             loss_rnnt = rnnt_loss_from_logits(self.joint(enc_out, pred_out), texts, enc_lens,
                                               text_lens, c.blank_id, "mean")

@@ -6,6 +6,19 @@
         [--synthetic N | --data_root DIR] [--epochs E] [--resume SAVE_DIR/latest] \
         [--device cuda|cpu]
 
+On N ranks, under torchrun (or any launcher that sets RANK, WORLD_SIZE,
+LOCAL_RANK, MASTER_ADDR and MASTER_PORT):
+
+    python -m torch.distributed.run --standalone --nproc_per_node N \\
+        -m tpuasr_torch.tools.train ... [--set mesh.zero_stage=zero1 \\
+        mesh.model_parallel_size=2 model.shard_joint=True]
+
+Each rank trains on cuda:LOCAL_RANK over NCCL (with --device cpu, on the CPU
+over gloo); the ranks form the (data x model) mesh of cfg.mesh, each data
+rank reads its shard of the corpus (host_id = data rank, num_hosts = the
+data size; the ranks of one model group read the same rows), and rank 0
+alone prints, logs and writes checkpoints (`train_loop`).
+
 On the card the defaults are the JAX trainer's TPU fast path (bf16 compute
 with fp32 parameters, the fused joint loss, the rel-pos attention kernels,
 fbank precision "default"); a yaml or --set layers on top, and a
@@ -134,45 +147,69 @@ def main(argv=None):
     ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
     args = ap.parse_args(argv)
 
+    import torch.distributed as dist
+
+    from tpuasr_torch.parallel import init_distributed
+
+    created = not dist.is_initialized()
+    _, rank, device = init_distributed(args.device)
+    try:
+        return _train(args, rank, device)
+    finally:
+        if created and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _train(args, rank: int, device):
+    import torch.distributed as dist
+
     from tpuasr_torch.config import to_dict
     from tpuasr_torch.data import make_pipeline, scan_split, synthetic_pipeline
-    from tpuasr_torch.device import resolve_device
+    from tpuasr_torch.parallel import make_mesh
     from tpuasr_torch.text import Tokenizer
     from tpuasr_torch.train import (
         TrainState, find_effective_config, load_info, make_ctc_eval_step, make_ctc_train_step,
         make_optimizer, restore_checkpoint, train_loop,
     )
 
-    device = resolve_device(args.device)
+    say = print if rank == 0 else (lambda *a, **k: None)
     if args.resume and args.config is None:
         # continue with the numerics the checkpoint was trained with
         args.config = find_effective_config(args.resume)
         if args.config is not None:
-            print(f"resume: effective config {args.config}")
+            say(f"resume: effective config {args.config}")
     cfg = effective_config(device.type, args.config, args.set)
+    mesh = None
+    if dist.is_initialized():  # under a launcher, at any world size
+        mesh = make_mesh(cfg.mesh.model_parallel_size, device)
+        say(f"world size {mesh.world_size} ({dist.get_backend()}): a {mesh.data_size} x "
+            f"{mesh.model_parallel_size} (data x model) mesh, zero stage "
+            f"{cfg.mesh.zero_stage!r}, shard_joint {cfg.model.shard_joint}")
+    shard = {} if mesh is None else {"host_id": mesh.data_rank, "num_hosts": mesh.data_size}
 
     if args.synthetic:
-        train_pipe = synthetic_pipeline(cfg, args.synthetic, seed=0)
-        dev_pipe = synthetic_pipeline(cfg, max(args.synthetic // 8, 4), seed=1)
+        train_pipe = synthetic_pipeline(cfg, args.synthetic, seed=0, **shard)
+        dev_pipe = synthetic_pipeline(cfg, max(args.synthetic // 8, 4), seed=1, **shard)
     else:
         d = cfg.data
         tokenizer = Tokenizer(d.vocab_file if os.path.exists(d.vocab_file) else None)
         cfg.model.vocab_size = tokenizer.size
         train_pipe = make_pipeline(scan_split(d.train_wav_scp, d.train_text, tokenizer,
-                                              args.data_root), cfg)
+                                              args.data_root), cfg, **shard)
         dev_pipe = make_pipeline(scan_split(d.dev_wav_scp, d.dev_text, tokenizer,
-                                            args.data_root), cfg)
+                                            args.data_root), cfg, **shard)
 
     model = build_model(cfg, args.workload, device)
     # the effective config after the workload's changes (the loop saves it
     # as save_dir/train.yaml too)
-    print(json.dumps(to_dict(cfg), default=str))
+    say(json.dumps(to_dict(cfg), default=str))
     tx = make_optimizer(cfg.optim)
     step_fn = eval_fn = None
     if args.workload == "ctc":
-        print(f"ctc workload: CTCModel {to_dict(cfg.ctc_model)} in float32 (model.compute_dtype "
-              f"{cfg.model.compute_dtype!r} and the transducer's options are not read)")
-        step_fn, eval_fn = make_ctc_train_step(model, tx, cfg), make_ctc_eval_step(model, cfg)
+        say(f"ctc workload: CTCModel {to_dict(cfg.ctc_model)} in float32 (model.compute_dtype "
+            f"{cfg.model.compute_dtype!r} and the transducer's options are not read)")
+        step_fn = make_ctc_train_step(model, tx, cfg, mesh)
+        eval_fn = make_ctc_eval_step(model, cfg, mesh)
     state = TrainState.create(model, tx)
     start_epoch, plateau_init = 0, None
     if args.resume:
@@ -183,10 +220,11 @@ def main(argv=None):
             plateau_init = info.get("plateau")
         except FileNotFoundError:
             pass
-        print(f"resumed from {args.resume}: step {state.step}, starting at epoch {start_epoch}")
+        say(f"resumed from {args.resume}: step {state.step}, starting at epoch {start_epoch}")
     result = train_loop(cfg, model, state, train_pipe, dev_pipe, step_fn, eval_fn,
-                        epochs=args.epochs, start_epoch=start_epoch, plateau_init=plateau_init)
-    print("final train loss:", result.train_losses[-1] if result.train_losses else None)
+                        epochs=args.epochs, start_epoch=start_epoch, plateau_init=plateau_init,
+                        mesh=mesh)
+    say("final train loss:", result.train_losses[-1] if result.train_losses else None)
     return result
 
 

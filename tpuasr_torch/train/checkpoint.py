@@ -11,6 +11,11 @@ package writes one beside its orbax directory. The JAX package's orbax
 checkpoints need orbax, which imports JAX, to read, so their loader cannot
 live in this package (ROADMAP §1 item 1); `tpuasr_torch.convert` takes the
 flax tree such a loader returns.
+
+A checkpoint holds whole vectors whatever the world size that wrote it:
+`train_loop` gathers the ZeRO slices to rank 0 before a save
+(`parallel.zero.whole_state`), and a resumed run restores the whole state and
+slices it again for its own world size (`parallel.zero.shard_train_state`).
 """
 
 from __future__ import annotations

@@ -4,7 +4,8 @@ text log and, when `torch.utils.tensorboard` imports, TensorBoard scalars.
 Scalar names are the JAX package's: train/loss, train/loss_ctc,
 train/loss_rnnt, train/grad_norm, train/steps_per_second,
 train/audio_seconds_per_second, dev/loss, cv/loss,
-train/learning_rate_scale.
+train/learning_rate_scale. At several ranks only rank 0's writer is
+enabled (tpuasr/train/metrics.py:19): the others write and print nothing.
 """
 
 from __future__ import annotations
@@ -14,9 +15,12 @@ import time
 
 
 class MetricsWriter:
-    def __init__(self, log_dir: str, text_log: str | None = None):
+    def __init__(self, log_dir: str, text_log: str | None = None, enabled: bool = True):
+        self.enabled = enabled
         self.tb = None
         self.text = None
+        if not enabled:
+            return
         if log_dir:  # empty = console only (no event files)
             os.makedirs(log_dir, exist_ok=True)
             try:
@@ -41,6 +45,8 @@ class MetricsWriter:
                 pass
 
     def log(self, msg: str) -> None:
+        if not self.enabled:
+            return
         line = f"[{time.strftime('%Y-%m-%d %H:%M:%S')}] {msg}"
         print(line, flush=True)
         if self.text is not None:

@@ -24,7 +24,7 @@ JAX package's pure functions cannot do).
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple, Optional, Sequence
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import torch
 
@@ -74,16 +74,35 @@ class GuardedAdam:
     def update_guarded(self, grads: Sequence[torch.Tensor], state: FusedAdamState,
                        params: Sequence[torch.Tensor], finite: torch.Tensor,
                        lr_scale: float | torch.Tensor = 1.0,
-                       grad_norm: Optional[torch.Tensor] = None) -> FusedAdamState:
+                       grad_norm: Optional[torch.Tensor] = None, zero=None) -> FusedAdamState:
         """Apply one step in place to `params` (fp32 tensors) and to the
         state's moments; `finite` False leaves everything as it was. ->
-        the new state (the same moment tensors, a new count)."""
+        the new state (the same moment tensors, a new count). With `zero`
+        (a `tpuasr_torch.parallel.zero.ZeroShard`) the state holds this
+        rank's slice of the moments and the step updates that slice alone
+        (`ZeroShard.update`); `grad_norm` must then be the global norm."""
+        if zero is not None:
+            return zero.update(self, grads, state, params, finite, lr_scale, grad_norm)
+        p, state = self.update_flat(flatten(grads), flatten(params), state, finite, lr_scale,
+                                    grad_norm)
+        torch._foreach_copy_(list(params), unflatten(p, params))
+        return state
+
+    @torch.no_grad()
+    def update_flat(self, g: torch.Tensor, p: torch.Tensor, state: FusedAdamState,
+                    finite: torch.Tensor, lr_scale: float | torch.Tensor = 1.0,
+                    grad_norm: Optional[torch.Tensor] = None,
+                    norm: Callable = torch.linalg.vector_norm
+                    ) -> tuple[torch.Tensor, FusedAdamState]:
+        """The update on flat fp32 vectors (the whole parameter vector, or
+        one rank's slice of it with the state's moments sliced alike): ->
+        (the new parameter vector, the new state); the moments are
+        overwritten in place. `norm` gives a vector's global norm (a
+        slice's needs the other ranks), read where `grad_norm` is None."""
         c = self.cfg
         b1, b2 = c.betas
-        g = flatten(grads)
-        p = flatten(params)
         if grad_norm is None:
-            grad_norm = torch.linalg.vector_norm(g)
+            grad_norm = norm(g)
         count = state.count
         t = (count + 1).float()  # bias-correction step
         bc1 = 1.0 - b1 ** t
@@ -107,8 +126,7 @@ class GuardedAdam:
         state.nu.copy_(nu)
         if nu_max is not None:
             state.nu_max.copy_(nu_max)
-        torch._foreach_copy_(list(params), unflatten(p, params))
-        return state._replace(count=count + finite.to(torch.int32))
+        return p, state._replace(count=count + finite.to(torch.int32))
 
 
 class AccumulatingAdam(GuardedAdam):
@@ -132,20 +150,21 @@ class AccumulatingAdam(GuardedAdam):
                            mini_step=torch.zeros((), dtype=torch.int32, device=st.mu.device))
 
     @torch.no_grad()
-    def update_guarded(self, grads: Sequence[torch.Tensor], state: FusedAdamState,
-                       params: Sequence[torch.Tensor], finite: torch.Tensor,
-                       lr_scale: float | torch.Tensor = 1.0,
-                       grad_norm: Optional[torch.Tensor] = None) -> FusedAdamState:
-        """One micro-step in place (`grad_norm`, the micro-step's own, is not
-        read: the update clips by the mean's norm) -> the new state."""
+    def update_flat(self, g: torch.Tensor, p: torch.Tensor, state: FusedAdamState,
+                    finite: torch.Tensor, lr_scale: float | torch.Tensor = 1.0,
+                    grad_norm: Optional[torch.Tensor] = None,
+                    norm: Callable = torch.linalg.vector_norm
+                    ) -> tuple[torch.Tensor, FusedAdamState]:
+        """One micro-step on flat vectors (`grad_norm`, the micro-step's own,
+        is not read: the update clips by the mean's norm, `norm(acc)`) ->
+        (the new parameter vector, the new state)."""
         k = self.cfg.accum_steps
         n = state.mini_step
-        acc = state.acc + (flatten(grads) - state.acc) / (n + 1).float()
+        acc = state.acc + (g - state.acc) / (n + 1).float()
         emit = n == k - 1
-        new = super().update_guarded(unflatten(acc, params), state, params, finite & emit,
-                                     lr_scale, torch.linalg.vector_norm(acc))
+        p, new = super().update_flat(acc, p, state, finite & emit, lr_scale, norm(acc))
         state.acc.copy_(torch.where(finite, torch.where(emit, 0.0, acc), state.acc))
-        return new._replace(mini_step=torch.where(finite, (n + 1) % k, n))
+        return p, new._replace(mini_step=torch.where(finite, (n + 1) % k, n))
 
 
 def make_optimizer(cfg: OptimConfig) -> GuardedAdam:
