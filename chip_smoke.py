@@ -132,8 +132,8 @@ Phases (any failure exits non-zero):
       them. Kernels #1-#9 must launch, fbank once a step and always by its
       tensor-core route (its route counts); then, outside the run's launch
       counts, a fresh model's profiled step's device busy ms with the CTC
-      lattice by its block route and by its warp route, in turns, and the
-      same for the RNN-T lattice;
+      lattice by its block route, then by its warp route, and the same for
+      the RNN-T lattice;
    c. the same with `fused_joint_loss=False` (the joint's full logits and
       the materialized loss), four steps: kernels #1-#3 and #6-#9 must
       launch;
@@ -154,20 +154,27 @@ Phases (any failure exits non-zero):
    buckets' shapes, the training steps and the dev pass) and counts the
    calls, which must equal the run's launches; then each kernel is held
    against its plain version on those arguments, with phase 3's
-   tolerances, bound and library call, and timed.
+   tolerances, bound and library call, and timed at the signature it
+   launched most.
 9. The corpus on disk and the serving CLIs, each called in this process
    through its `main(argv)`: a BZNSYP-layout corpus written to a temporary
    directory under build/ (a ProsodyLabeling transcript and Wave/*.wav,
    48 kHz 16-bit mono: 64 utterances of 8-12 syllables spoken by the
    synthetic corpus' chord encoding, 406 syllables, all in the 48 train
-   utterances, 16 dev); `split_data` and `gen_vocab` (406 syllables, so
-   412 tokens); the trainer with --data_root for one epoch at its card
-   defaults plus `fused_ffn=True`; the checkpoint's blank logits (joint and
+   utterances, 16 dev), and a 24-bit PCM copy of its WAVs (samples v *
+   256), read by the native host runtime (`tpuasr_torch.utils.native`):
+   every train and dev batch of the copy is the 16-bit corpus's bit for
+   bit; `split_data` and `gen_vocab` (406 syllables, so 412 tokens); the
+   trainer with --data_root on the 24-bit copy for one epoch at its card
+   defaults plus `fused_ffn=True` (finite losses); host ms to read the
+   trainer's batch by `read_wav`, native `wav_read` and `BatchLoader(8)`
+   (recorded, no gate); the checkpoint's blank logits (joint and
    CTC head) fitted on the CPU as phases 4 and 4b fit them and written back;
    `evaluate` on the dev split in the five transducer modes and
    `eval_streaming`, each on the card and with `--device cpu`, both in
    fp32 over the checkpoint's fbank precision ("default"): rnnt_greedy,
    ctc_greedy and streaming greedy give the same hypotheses and S/D/I/N,
+   as do rnnt_greedy and ctc_greedy on the card over the 24-bit copy,
    each beam mode follows phase 4b's 2d rule on the n-best lists its
    searches returned inside the CLI calls, and the CPU's hypotheses are the
    best of its own lists; `decode_stream` on a dev WAV whose encoder frames
@@ -375,7 +382,9 @@ Phases (any failure exits non-zero):
    fp32 step of phase 6a's flagship on bench.py's 12 rows, 6 a rank, at
    ZeRO stages none, zero1 and zero3 (the fused joint loss: #1-#9 must
    launch) and with `model.shard_joint` on a 1 x 2 mesh (the materialized
-   loss, the vocabulary split: #8/#9 and not #4/#5), each held against the
+   loss, the vocabulary split: #8/#9 and not #4/#5) for the plain head, the
+   HAT (`joint.hat_joint`) and a post-join linear (`joint.postjoin_linear`),
+   each held against the
    same step at one rank on the card by 6a's rule (losses 1e-4 relative,
    every gradient leaf 1e-3 of its max, GuardedAdam alone on the ranks'
    reduced gradients and end to end); streaming greedy of the fp32
@@ -385,9 +394,15 @@ Phases (any failure exits non-zero):
    holds each kernel against its plain version on the run's own inputs;
    `tools/tp_joint_bench.analyze` prints each rank's peak memory for the
    joint, loss and gradients at B8 T512 U128 V4096 (8.66 GB of logits)
-   unsharded and at tp 2. Then `python -m torch.distributed.run
-   --standalone --nproc_per_node 1 -m tpuasr_torch.tools.train` trains
-   an epoch under NCCL at world size 1.
+   unsharded and at tp 2. Each step records its collectives
+   (`parallel.scaling.record_collectives`): the "none" step's gradient
+   all-reduce must carry the flat gradient's bytes plus the metrics
+   vector's, and `parallel.scaling` costs every case's records laid over 8
+   GPUs a host at 1, 2 and 4 hosts (a split case with the "none" step's
+   data-axis collectives added), against 6b's median step and its device
+   busy ms, at the assumed NVLink and NIC rates. Then `python -m
+   torch.distributed.run --standalone --nproc_per_node 1 -m
+   tpuasr_torch.tools.train` trains an epoch under NCCL at world size 1.
 7. The kernels line: one JSON object with an entry per kernel and run
    (the serving run of phases 4-5b, the training runs of phases 6b, 6c and
    6d, the trainer run of phase 8, the corpus run of phase 9, the CTC run
@@ -566,7 +581,7 @@ def main() -> dict:
             and runs["trainer"]["fbank_fft"] == 0,
             "the trainer did not take fbank's tensor-core route (precision \"default\") alone")
     print("kernels against their plain versions on the trainer's own inputs:")
-    trainer_records = _trainer_kernel_records(torch, seen, runs["trainer"])
+    trainer_records = _trainer_kernel_records(torch, seen, runs["trainer"], timed=1)
 
     # ---------------------------------------------------------------- 9
     t_phase = _phase("9: the corpus on disk and the serving CLIs", t_phase)
@@ -671,8 +686,9 @@ def main() -> dict:
     # ---------------------------------------------------------------- 17
     t_phase = _phase("17: the parallel layer (2 ranks over gloo on the card against one rank; "
                      "the trainer under torchrun, NCCL)", t_phase)
-    parallel, runs["parallel"], parallel_records = _parallel_phase(torch, dev, data, bench,
-                                                                   blank_bias)
+    parallel, runs["parallel"], parallel_records = _parallel_phase(
+        torch, dev, data, bench, blank_bias, card, training["bench"]["step_ms_median"],
+        training["bench"]["profiled_step_device_busy_ms"])
     print(f"launches on the parallel run (both ranks): "
           f"{ {k: v for k, v in runs['parallel'].items() if v} }")
 
@@ -2807,9 +2823,10 @@ def _profiled_step(torch, step, state, batch) -> tuple:
 def _lattice_route_ab(torch, dev, batch, kind) -> dict:
     """6b's training step's device busy ms with a lattice (`kind` "ctc" or
     "rnnt") by its block route and by its warp route (the plan fixed to
-    each), in turns (block, warp, warp, block), after the training runs'
-    launches are read; -> {route: [ms, ms], "lattice_ms": {route: [the
-    lattice kernels' own ms, ...]}}."""
+    each), one profiled step each (block, then warp: two turns of a route
+    read within 0.1% of each other), after the training runs' launches
+    are read; -> {route: [ms], "lattice_ms": {route: [the lattice kernels'
+    own ms]}}."""
     from tpuasr_torch.models import Transducer, init_weights
     from tpuasr_torch.train import TrainState, make_optimizer, make_train_step
 
@@ -2819,15 +2836,15 @@ def _lattice_route_ab(torch, dev, batch, kind) -> dict:
     tx = make_optimizer(cfg.optim)
     state, step = TrainState.create(model, tx), make_train_step(model, tx, cfg)
     busy, own = {"block": [], "warp": []}, {"block": [], "warp": []}
-    for route in ("block", "warp", "warp", "block"):
+    for route in ("block", "warp"):
         with _plan_as(kind, route=route):
             state, ms, _, kern = _profiled_step(torch, step, state, batch)
         busy[route].append(ms)
         own[route].append(sum(e.self_device_time_total for e in kern
                               if re.search(LATTICES[kind][3], e.key)) / 1e3)
     mean = {k: sum(v) / len(v) for k, v in busy.items()}
-    print(f"6b's step, device busy ms by {kind.upper()} lattice route (in turns block, warp, "
-          f"warp, block): block {busy['block']}, warp {busy['warp']}; means "
+    print(f"6b's step, device busy ms by {kind.upper()} lattice route (block, then warp): "
+          f"block {busy['block']}, warp {busy['warp']}; means "
           f"{mean['block']:.3f} / {mean['warp']:.3f}, change "
           f"{mean['warp'] - mean['block']:+.3f} ms; the {kind.upper()} lattice kernels' own "
           f"ms: block {own['block']}, warp {own['warp']}")
@@ -2987,6 +3004,8 @@ def _corpus(torch, card_name: str, card: str = "cuda", sets=()) -> tuple[dict, d
     with tempfile.TemporaryDirectory(prefix="corpus-", dir=ROOT / "build") as root:
         transcripts = _corpus_transcripts(np)
         text = write_bznsyp_corpus(root, transcripts, 48000, 24 * 512, seed=SEED)
+        root24 = f"{root}/pcm24"  # the same corpus as 24-bit PCM, read natively
+        _write_pcm24(np, f"{root}/Wave", f"{root24}/Wave")
         split, vocab, exp = f"{root}/split", f"{root}/vocab.txt", f"{root}/exp"
         data = [f"data.{s}_{k}={split}/{s}/{f}" for s in ("train", "dev", "test")
                 for k, f in (("wav_scp", "wav.scp"), ("text", "pinyin"))]
@@ -3006,7 +3025,7 @@ def _corpus(torch, card_name: str, card: str = "cuda", sets=()) -> tuple[dict, d
                 "--out", vocab])
             require(n_vocab == CORPUS_SYLLABLES, f"gen_vocab wrote {n_vocab} syllables")
             trained = run("train", train_tool, [
-                "--workload", "online_rnnt", "--data_root", root, "--epochs", "1", "--set",
+                "--workload", "online_rnnt", "--data_root", root24, "--epochs", "1", "--set",
                 "model.encoder.fused_ffn=True", f"train.save_dir={exp}", "train.log_dir=",
                 *data, *sets, *on_card])
             cfg = load_yaml(f"{exp}/train.yaml")
@@ -3018,8 +3037,10 @@ def _corpus(torch, card_name: str, card: str = "cuda", sets=()) -> tuple[dict, d
             require(all(math.isfinite(x) for x in trained.train_losses + trained.dev_losses),
                     "a loss of the trainer is not finite")
             out["train"] = {"steps": trained.state.step, "train_losses": trained.train_losses,
-                            "dev_losses": trained.dev_losses}
+                            "dev_losses": trained.dev_losses, "corpus": "24-bit PCM"}
         parts["trainer"] = (seen, dict(LAUNCHES))
+        out["pcm24"] = _pcm24_batches(np, cfg, root, root24)
+        out["host_ms_per_batch"] = _host_read_ms(np, cfg, root, root24, card_name)
         with _recording(torch) as seen:  # serving from the checkpoint
             out["blank_logit_bias"] = _fit_corpus_blanks(torch, ckpt, root)
 
@@ -3031,6 +3052,10 @@ def _corpus(torch, card_name: str, card: str = "cuda", sets=()) -> tuple[dict, d
                             "--checkpoint", ckpt, "--workload", "online_rnnt", "--mode", mode,
                             "--data_root", root, "--max_samples", "16", *fp32, *dev])
                     nbest[mode, side] = got.get(mode)
+            pcm24 = {mode: run(f"evaluate {mode} card 24-bit", evaluate, [
+                "--checkpoint", ckpt, "--workload", "online_rnnt", "--mode", mode,
+                "--data_root", root24, "--max_samples", "16", *fp32, *on_card])
+                for mode in DECODE_MODES[:2]}
             streams = {side: run(f"eval_streaming {side}", eval_streaming, [
                 "--checkpoint", ckpt, "--data_root", root, "--max_samples", "16", *fp32, *dev])
                 for side, dev in sides}
@@ -3060,6 +3085,14 @@ def _corpus(torch, card_name: str, card: str = "cuda", sets=()) -> tuple[dict, d
                 or card != "cuda", "evaluate --mode rnnt_rescoring never launched #8")
         valid = [int(b["num_valid"]) for b in pipe.batches(0)]
         out["agreement"] = _corpus_agreement(torch, evals, nbest, valid, tok)
+        for mode, res in pcm24.items():
+            ref = evals[mode, "card"]
+            require(res.counts == ref.counts and res.samples == ref.samples,
+                    f"evaluate --mode {mode} on the card: the 24-bit corpus's hypotheses or "
+                    f"counts differ from the 16-bit corpus's")
+            print(f"evaluate {mode} card, 24-bit corpus == 16-bit corpus on "
+                  f"{len(res.samples)} utterances, {vars(res.counts)}")
+        out["pcm24"]["evaluate_identical"] = list(pcm24)
         same = [a[2] == b[2] for a, b in zip(streams["card"].samples, streams["cpu"].samples)]
         require(len(same) == len(metas) and all(same) and
                 streams["card"].greedy == streams["cpu"].greedy,
@@ -3077,6 +3110,93 @@ def _corpus(torch, card_name: str, card: str = "cuda", sets=()) -> tuple[dict, d
             {s[0]: s for s in streams["card"].samples}[utt])
         out["cer"] = {f"{m} {s}": vars(r.counts) for (m, s), r in evals.items()}
     return out, launches, parts
+
+
+def _write_pcm24(np, src: str, dst: str) -> None:
+    """Every 16-bit WAV of `src` rewritten into `dst` as 24-bit PCM with
+    samples v * 256 (the same values: v / 32768 == v * 256 / 8388608)."""
+    import os
+    import wave
+
+    os.makedirs(dst, exist_ok=True)
+    for name in sorted(os.listdir(src)):
+        with wave.open(f"{src}/{name}", "rb") as r:
+            require(r.getsampwidth() == 2, f"{name} is not 16-bit PCM")
+            params, raw = r.getparams(), r.readframes(r.getnframes())
+        pcm = np.zeros((len(raw) // 2, 3), np.uint8)
+        pcm[:, 1:] = np.frombuffer(raw, np.uint8).reshape(-1, 2)  # little-endian v << 8
+        with wave.open(f"{dst}/{name}", "wb") as w:
+            w.setnchannels(params.nchannels)
+            w.setsampwidth(3)
+            w.setframerate(params.framerate)
+            w.writeframes(pcm.tobytes())
+
+
+def _pcm24_batches(np, cfg, root: str, root24: str) -> dict:
+    """Every train and dev batch of the 24-bit copy (read by the native
+    reader) against the 16-bit corpus's, bit for bit."""
+    from tpuasr_torch.data import make_pipeline, scan_split
+    from tpuasr_torch.tools.common import vocab_tokenizer
+
+    tok, d, out = vocab_tokenizer(cfg, None), cfg.data, {}
+    for split, scp, txt in (("train", d.train_wav_scp, d.train_text),
+                            ("dev", d.dev_wav_scp, d.dev_text)):
+        pipes = [make_pipeline(scan_split(scp, txt, tok, r), cfg) for r in (root, root24)]
+        n = utts = 0
+        for a, b in zip(*(p.batches(0) for p in pipes), strict=True):
+            for k in a:
+                same = np.array_equal(a[k], b[k]) if isinstance(a[k], np.ndarray) \
+                    else a[k] == b[k]
+                require(same, f"{split}: the 24-bit corpus's batch {n} differs from the "
+                              f"16-bit corpus's in {k}")
+            n, utts = n + 1, utts + int(a["num_valid"])
+        out[split] = {"batches": n, "utterances": utts}
+    print(f"the 24-bit corpus's batches (native reader) == the 16-bit corpus's, bit for bit: "
+          f"{out}")
+    return out
+
+
+def _host_read_ms(np, cfg, root: str, root24: str, card_name: str, reps: int = 5) -> dict:
+    """Host ms to read the trainer's batch (its first cfg.data.batch_size
+    train utterances, files warm in the page cache) by `read_wav` (16-bit
+    only), the native `wav_read` (16- and 24-bit) and `BatchLoader(8)`,
+    the median of `reps` reads each. Recorded, no gate."""
+    import statistics
+
+    from tpuasr_torch.data import read_wav, scan_split
+    from tpuasr_torch.tools.common import vocab_tokenizer
+    from tpuasr_torch.utils.native import BatchLoader, wav_read
+
+    d = cfg.data
+    metas = scan_split(d.train_wav_scp, d.train_text, vocab_tokenizer(cfg, None),
+                       root)[:d.batch_size]
+    paths = {bits: [m.path if bits == 16 else m.path.replace(root, root24, 1) for m in metas]
+             for bits in (16, 24)}
+    longest = max(m.wave_len for m in metas)
+    loader = BatchLoader(8)
+
+    def median_ms(fn):
+        walls = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(walls)
+
+    try:
+        out = {"utterances": len(metas), "samples": int(sum(m.wave_len for m in metas)),
+               "read_wav_16bit": median_ms(lambda: [read_wav(p) for p in paths[16]]),
+               **{f"native_wav_read_{b}bit": median_ms(
+                   lambda b=b: [wav_read(p, m.wave_len) for p, m in zip(paths[b], metas)])
+                  for b in (16, 24)},
+               **{f"batch_loader_8_{b}bit": median_ms(
+                   lambda b=b: loader.load(paths[b], longest)) for b in (16, 24)}}
+    finally:
+        loader.close()
+    print(f"{card_name}: host ms to read the trainer's batch ({out['utterances']} WAVs, "
+          f"{out['samples']} samples, warm files, median of {reps}): " + ", ".join(
+              f"{k} {v:.3f}" for k, v in out.items() if k not in ("utterances", "samples")))
+    return out
 
 
 def _decode_stream_check(torch, ckpt, wav, lines, card, batch_hyp) -> dict:
@@ -3244,11 +3364,14 @@ def _corpus_agreement(torch, evals, nbest, valid, tok) -> dict:
 def _corpus_kernel_records(torch, parts) -> dict:
     """Phase 9's kernel records: each part of the run (the trainer, then
     serving from its checkpoint) held as phase 8's, the signature each part
-    launched most timed; -> {kernel: the serving part's record where the
-    kernel served, else the trainer's, with every signature of both parts
-    under "shapes"}."""
-    recs = {part: _trainer_kernel_records(torch, seen, launches, f"corpus {part}", timed=1)
-            for part, (seen, launches) in parts.items()}
+    launched most timed (the trainer's only for a kernel serving did not
+    launch); -> {kernel: the serving part's record where the kernel served,
+    else the trainer's, with every signature of both parts under
+    "shapes"}."""
+    recs = {"serving": _trainer_kernel_records(torch, *parts["serving"], "corpus serving",
+                                               timed=1)}
+    recs["trainer"] = _trainer_kernel_records(torch, *parts["trainer"], "corpus trainer",
+                                              timed=1, untimed=tuple(recs["serving"]))
     out = {}
     for name in WRAPPERS:
         have = [recs[p][name] for p in ("serving", "trainer") if name in recs[p]]
@@ -3334,14 +3457,14 @@ def _recording(torch, only=None):
 
 
 def _trainer_kernel_records(torch, seen, launches, run: str = "trainer",
-                            timed: int | None = None) -> dict:
+                            timed: int | None = None, untimed=()) -> dict:
     """Phase 8's (and 9's) kernel checks: every kernel the `run` launched,
     against its plain version on the arguments the run gave it at each
     signature (the buckets' shapes, training and dev pass, evaluation); the
     recorded calls must be the run's launches, no more and no fewer. With
     `timed` only the `timed` signatures launched most are timed, the others
-    only held. -> {kernel: the record at the signature launched most, with
-    "shapes": every signature's}."""
+    only held; kernels in `untimed` are only held. -> {kernel: the record at
+    the signature launched most, with "shapes": every signature's}."""
     out = {}
     for name in WRAPPERS:
         calls = seen.get(name, {})
@@ -3351,7 +3474,9 @@ def _trainer_kernel_records(torch, seen, launches, run: str = "trainer",
         require(n == launches[name], f"the {run} run launched {name} {launches[name]} times "
                                      f"but its wrapper was called {n} times")
         shapes = [dict(_hold(torch, name, args, f"{run}, {count} calls at",
-                             seen.get("ctc_inputs"), timed is None or i < timed), calls=count)
+                             seen.get("ctc_inputs"),
+                             name not in untimed and (timed is None or i < timed)),
+                       calls=count)
                   for i, (count, args) in enumerate(sorted(calls.values(),
                                                            key=lambda x: -x[0]))]
         out[name] = dict(shapes[0], shapes=[
@@ -5017,7 +5142,9 @@ def _export_phase(torch, dev, data, blank_bias: float) -> tuple[dict, dict, dict
 # phase 17: the parallel layer
 # ---------------------------------------------------------------------------
 
-PARALLEL_CASES = ("none", "zero1", "zero3", "shard_joint")
+PARALLEL_CASES = ("none", "zero1", "zero3", "shard_joint", "shard_joint_hat",
+                  "shard_joint_postjoin")
+SPLIT_CASES = PARALLEL_CASES[3:]
 PARALLEL_RANKS = 2
 PARALLEL_WAIT_S = 420  # the ranks' whole run, kernels held against plain included
 PARALLEL_PG_S = 300    # the bound of every collective of a rank
@@ -5028,12 +5155,16 @@ COLLECTIVES = ("all_reduce_sum", "all_reduce_max", "all_reduce_min", "all_gather
 
 def _parallel_cfg(case: str):
     """Phase 6a's fp32 flagship (no dropout, the static chunk) for a phase 17
-    case: the fused joint loss at ZeRO stage `case`, or with "shard_joint"
-    the materialized loss with the vocabulary split over 2 model ranks."""
-    cfg = _train_cfg("float32", dropout=False, fused_joint_loss=case != "shard_joint")
-    if case == "shard_joint":
+    case: the fused joint loss at ZeRO stage `case`, or with "shard_joint*"
+    the materialized loss with the vocabulary split over 2 model ranks (the
+    plain head, the HAT, a post-join linear)."""
+    split = case in SPLIT_CASES
+    cfg = _train_cfg("float32", dropout=False, fused_joint_loss=not split)
+    if split:
         cfg.model.shard_joint = True
         cfg.mesh.model_parallel_size = PARALLEL_RANKS
+        cfg.model.joint.hat_joint = case == "shard_joint_hat"
+        cfg.model.joint.postjoin_linear = case == "shard_joint_postjoin"
     else:
         cfg.mesh.zero_stage = case
     return cfg
@@ -5043,10 +5174,11 @@ def _parallel_side(torch, cfg, dev, batch, mesh=None) -> dict:
     """One train step of `cfg` from seed-0 weights through `make_train_step`
     (with a `mesh`: this rank's rows, in the ZeRO layout of cfg.mesh) -> a
     `_step_side` record: the global losses and gradient norm, the reduced
-    gradient, the weights before and after and the whole Adam state."""
+    gradient, the weights before and after, the whole Adam state, and with
+    a mesh the collectives the step issued."""
     from tpuasr_torch.models import Transducer, init_weights
     from tpuasr_torch.parallel import (
-        assert_sharded, shard_batch, shard_train_state, whole_state,
+        assert_sharded, record_collectives, shard_batch, shard_train_state, whole_state,
     )
     from tpuasr_torch.train import GuardedAdam, TrainState, make_train_step
     from tpuasr_torch.train.optim import flatten, unflatten
@@ -5066,7 +5198,8 @@ def _parallel_side(torch, cfg, dev, batch, mesh=None) -> dict:
     if mesh is not None:
         state = shard_train_state(state, mesh, cfg.mesh.zero_stage)
         batch = shard_batch(batch, mesh)
-    state, m = make_train_step(model, tx, cfg, mesh)(state, batch, 1)
+    with record_collectives() as colls:  # the step's alone, not the set-up's or the gather's
+        state, m = make_train_step(model, tx, cfg, mesh)(state, batch, 1)
     if mesh is not None and mesh.data_size > 1:
         assert_sharded(state, mesh, cfg.mesh.zero_stage)
     with whole_state(state) as whole:
@@ -5075,7 +5208,8 @@ def _parallel_side(torch, cfg, dev, batch, mesh=None) -> dict:
     return {"losses": {k: float(m[k]) for k in ("loss", "loss_rnnt", "loss_ctc")},
             "gn": float(m["grad_norm"]),
             "grads": [g.cpu() for g in unflatten(tx.kept, [p for _, p in named])],
-            "p0": p0, "p1": p1, "state": st, "names": [n for n, _ in named]}
+            "p0": p0, "p1": p1, "state": st, "names": [n for n, _ in named],
+            "collectives": [(c.op, c.payload, c.groups) for c in colls]}
 
 
 def _parallel_decode(torch, dev, data, blank_bias: float, mesh=None):
@@ -5168,7 +5302,7 @@ def _parallel_rank(argv) -> None:
                                                                  meshes[1])]
         launches = dict(LAUNCHES)
         before = {}
-        for case, name in (("fused", "zero3"), ("shard_joint", "shard_joint"),
+        for case, name in (("fused", "zero3"), *((c, c) for c in SPLIT_CASES),
                            ("decode", None)):
             now = launches if name is None else parts[name]
             out.setdefault("launches_by_part", {})[case] = {
@@ -5192,6 +5326,60 @@ def _parallel_rank(argv) -> None:
         dist.barrier()
     finally:
         dist.destroy_process_group()
+
+
+SCALING_CHIPS, SCALING_HOSTS = 8, (1, 2, 4)  # GPUs a host (a DGX H100's), hosts
+
+
+def _scaling_table(sides: dict, card: str, step_ms: float, busy_ms: float) -> dict:
+    """`parallel.scaling` over rank 0's recorded collectives of each case,
+    laid over SCALING_CHIPS GPUs a host at each of SCALING_HOSTS hosts
+    (`relayout`: a rank's payloads do not change with the data size; a
+    split case, recorded with one data rank, gets the "none" step's
+    data-axis collectives, which a dp x tp step adds); efficiency against
+    6b's median step (`step_ms`) and its device busy ms, at the assumed
+    link rates. The "none" step must have issued two all-reduces: the rows'
+    and targets' counts, then the flat gradient with the metrics vector
+    (loss, audio seconds, loss_rnnt, loss_ctc)."""
+    from tpuasr_torch.parallel.scaling import (
+        NIC_GBPS, NVLINK_GBPS, Collective, predict, relayout,
+    )
+
+    recs = {case: [Collective(*c) for c in side["collectives"]] for case, side in sides.items()}
+    n = sum(g.numel() for g in sides["none"]["grads"])
+    got = [(c.op, c.payload) for c in recs["none"]]
+    require(got == [("all-reduce", 8), ("all-reduce", 4 * (n + 4))],
+            f"17: the none step's collectives {got} are not the counts' all-reduce and one of "
+            f"the flat gradient ({n} fp32) with the metrics vector (4 fp32)")
+    print(f"17 the none step's gradient all-reduce: {4 * (n + 4)} bytes = the flat gradient "
+          f"({n} fp32) + the metrics vector (4 fp32)")
+    out = {"card": card, "step_ms": step_ms, "device_busy_ms": busy_ms,
+           "nvlink_gbps_assumed": NVLINK_GBPS, "nic_gbps_assumed": NIC_GBPS, "cases": {}}
+    print(f"17 scaling prediction ({card}; compute: 6b's median step {step_ms:.1f} ms, its "
+          f"device busy {busy_ms:.2f} ms; links ASSUMED: NVLink {NVLINK_GBPS} GB/s a GPU, NICs "
+          f"{NIC_GBPS} GB/s a host; {SCALING_CHIPS} GPUs a host). case hosts: ICI MB, DCN MB, "
+          f"t_ici + t_dcn ms, efficiency no overlap / full overlap at the step, no overlap at "
+          f"the device ms")
+    for case, colls in recs.items():
+        rows = []
+        for hosts in SCALING_HOSTS:
+            world = SCALING_CHIPS * hosts
+            if case in SPLIT_CASES:
+                lay = (relayout(colls, PARALLEL_RANKS, PARALLEL_RANKS, world)
+                       + relayout(recs["none"], PARALLEL_RANKS, 1, world, PARALLEL_RANKS))
+            else:
+                lay = relayout(colls, PARALLEL_RANKS, 1, world)
+            row = predict(lay, SCALING_CHIPS, hosts, step_ms)
+            row["eff_no_overlap_device_ms"] = predict(lay, SCALING_CHIPS, hosts,
+                                                      busy_ms)["eff_no_overlap"]
+            rows.append(row)
+            print(f"  {case:22s} {hosts}x{SCALING_CHIPS}: {row['ici_mb']:9.2f} "
+                  f"{row['dcn_mb']:9.2f} {row['t_ici_ms'] + row['t_dcn_ms']:8.3f}  "
+                  f"{row['eff_no_overlap']:7.2%} / {row['eff_full_overlap']:7.2%}  "
+                  f"{row['eff_no_overlap_device_ms']:7.2%}")
+        out["cases"][case] = {"collectives": len(colls), "payload_bytes":
+                              sum(c.payload for c in colls), "rows": rows}
+    return out
 
 
 def _launch_ranks(torch, backend: str, devices: list, blank_bias: float) -> list:
@@ -5231,13 +5419,16 @@ def _launch_ranks(torch, backend: str, devices: list, blank_bias: float) -> list
                 for r in range(PARALLEL_RANKS)]
 
 
-def _parallel_phase(torch, dev, data, bench, blank_bias: float) -> tuple[dict, dict, dict]:
+def _parallel_phase(torch, dev, data, bench, blank_bias: float, card: str,
+                    step_ms: float, busy_ms: float) -> tuple[dict, dict, dict]:
     """17: 2 ranks on one card over gloo against the 1-rank steps and decode
     on the card, taken first (rank 0 then times its kernels with the card to
     itself, the other rank waiting at a barrier); NCCL across cards where
-    there are two; then the trainer CLI under torchrun at world size 1
-    (NCCL). -> (the records, the run's launches summed over the ranks, rank
-    0's kernel records)."""
+    there are two; the cost model over the gloo ranks' recorded collectives
+    (`card`: the card's name and power limit; `step_ms` / `busy_ms`: 6b's
+    median step and its device busy ms); then the trainer CLI under
+    torchrun at world size 1 (NCCL). -> (the records, the run's launches
+    summed over the ranks, rank 0's kernel records)."""
     import tempfile
 
     from tpuasr_torch.ops import KERNELS
@@ -5252,7 +5443,7 @@ def _parallel_phase(torch, dev, data, bench, blank_bias: float) -> tuple[dict, d
           f"world size 1 through the trainer CLI")
 
     ref_steps = {case: _parallel_side(torch, _parallel_cfg(case), dev, bench)
-                 for case in ("none", "shard_joint")}
+                 for case in ("none",) + SPLIT_CASES}
     ref_toks, ref_lens = (x.cpu() for x in _parallel_decode(torch, dev, data, blank_bias))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -5266,6 +5457,7 @@ def _parallel_phase(torch, dev, data, bench, blank_bias: float) -> tuple[dict, d
             print(f"17 gloo, collectives on CUDA tensors: {ranks[0]['collectives']}")
             launches = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
             records = ranks[0]["records"]
+            res["scaling"] = _scaling_table(ranks[0]["sides"], card, step_ms, busy_ms)
         for r, rk in enumerate(ranks):
             by_part = {part: {k: v for k, v in c.items() if v and k in KERNELS}
                        for part, c in rk["launches_by_part"].items()}
@@ -5274,21 +5466,22 @@ def _parallel_phase(torch, dev, data, bench, blank_bias: float) -> tuple[dict, d
             for name in KERNELS[:9]:  # #1-#9: fbank .. rnnt_beta_grad
                 require(rk["launches_by_part"]["fused"][name] > 0,
                         f"17 rank {r}: the fused-route steps never launched {name}")
-            lat = rk["launches_by_part"]["shard_joint"]
-            require(lat["rnnt_alpha"] > 0 and lat["rnnt_beta_grad"] > 0
-                    and lat["rnnt_fused_fwd"] == lat["rnnt_fused_bwd"] == 0,
-                    f"17 rank {r}: the shard_joint step did not run #8/#9 alone of the "
-                    f"RNN-T kernels")
+            for case in SPLIT_CASES:
+                lat = rk["launches_by_part"][case]
+                require(lat["rnnt_alpha"] > 0 and lat["rnnt_beta_grad"] > 0
+                        and lat["rnnt_fused_fwd"] == lat["rnnt_fused_bwd"] == 0,
+                        f"17 rank {r}: the {case} step did not run #8/#9 alone of the "
+                        f"RNN-T kernels")
             for case in PARALLEL_CASES:
                 cfg = _parallel_cfg(case)
-                base = ref_steps["shard_joint" if case == "shard_joint" else "none"]
+                base = ref_steps[case if case in SPLIT_CASES else "none"]
                 res.setdefault(case, []).append(_step_card_vs_cpu(
                     torch, GuardedAdam(cfg.optim), {"card": rk["sides"][case], "cpu": base},
                     f"17 {label} {case}: rank {r} of {PARALLEL_RANKS} ('card') against one "
                     f"rank ('cpu'), both on the card, fp32, bench.py's 12 rows",
                     "fp32 sums of half the rows and a reduction over ranks"
-                    + (", the vocabulary's log-softmax across 2 ranks" if case ==
-                       "shard_joint" else "")))
+                    + (", the vocabulary's log-softmax across 2 ranks" if case in
+                       SPLIT_CASES else "")))
             toks, lens = rk["decode"]
             require(torch.equal(lens, ref_lens) and torch.equal(toks, ref_toks),
                     f"17 {label} rank {r}: sharded streaming greedy differs from one "

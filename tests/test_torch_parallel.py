@@ -20,8 +20,10 @@ ranks):
 - A step without a mesh is bit for bit the pre-parallel step (written out
   here from its parts), and so is a step on a mesh of one rank (dropout,
   SpecAugment and dynamic chunks on).
-- shard_joint at one model rank equals the materialized route; a HAT head
-  with two model ranks raises.
+- shard_joint at one model rank equals the materialized route, for the
+  plain head, a post-join linear and the HAT (also where the HAT's
+  1 - p_blank clip binds); a HAT head with two model ranks takes the split
+  route (it raised before the split heads were written).
 - `steps_per_epoch` reads no wave; a disabled `MetricsWriter` writes and
   prints nothing.
 """
@@ -40,7 +42,7 @@ from tpuasr.parallel import make_mesh as jax_make_mesh
 from tpuasr_torch.config import Config, MeshConfig, from_dict, load_yaml, override, save_yaml
 from tpuasr_torch.data import LengthBucketPipeline, Utterance
 from tpuasr_torch.eval.multihost import allreduce_cer_counts
-from tpuasr_torch.losses import rnnt_loss_from_logits, rnnt_loss_sharded
+from tpuasr_torch.losses import rnnt_loss_from_logits, rnnt_loss_sharded, rnnt_loss_sharded_joint
 from tpuasr_torch.models import Transducer, init_weights
 from tpuasr_torch.parallel import (
     Mesh, VocabShard, ZeroShard, assert_sharded, rank_grid, shard_batch, shard_train_state,
@@ -307,7 +309,42 @@ def test_shard_joint_at_one_model_rank_is_the_materialized_route():
         assert float((g - h).abs().max()) <= 1e-5 * float(h.abs().max()) + 1e-7
 
 
-def test_shard_joint_refuses_a_hat_head_on_two_model_ranks():
+@pytest.mark.parametrize("head", ["postjoin", "hat", "hat_clipped", "hat_postjoin"])
+def test_split_heads_at_one_model_rank_are_the_materialized_route(head):
+    from tpuasr_torch.config import JointConfig
+    from tpuasr_torch.nn.joint import TransducerJoint
+
+    r = np.random.default_rng(1)
+    b, t, u, v, d = 3, 9, 4, 30, 8
+    cfg = JointConfig(join_dim=d, prejoin_linear=False, hat_joint=head.startswith("hat"),
+                      postjoin_linear=head.endswith("postjoin"))
+    joint = init_weights(TransducerJoint(cfg, d, d, v, blank_id=5), 0)
+    if head == "hat_clipped":  # p_blank within 1e-6 of 1 on every cell: the clip binds
+        with torch.no_grad():
+            joint.blank_pred.bias.fill_(20.0)
+    enc, pred = (torch.tensor(r.normal(0, 1, shape), dtype=torch.float32, requires_grad=True)
+                 for shape in ((b, t, d), (b, u + 1, d)))
+    labels = torch.tensor(r.integers(0, v, (b, u)))
+    labels[0, 1] = 5  # a blank label reads the blank's column on both routes
+    t_lens, u_lens = torch.tensor([9, 6, 0]), torch.tensor([4, 2, 3])
+    leaves = [enc, pred, *joint.parameters()]
+    want = rnnt_loss_from_logits(joint(enc, pred), labels, t_lens, u_lens, 5)
+    got = rnnt_loss_sharded_joint(joint, enc, pred, labels, t_lens, u_lens, 5,
+                                  VocabShard(None, 0, 1))
+    assert abs(float(got.detach()) - float(want.detach())) <= 1e-5 * abs(float(want.detach()))
+    for g, h in zip(torch.autograd.grad(got, leaves), torch.autograd.grad(want, leaves)):
+        assert float((g - h).abs().max()) <= 1e-5 * float(h.abs().max()) + 1e-7
+
+
+def test_shard_joint_refuses_a_hat_head_on_two_model_ranks(monkeypatch):
+    """(Named for what the port did before the split heads: it raised.) A
+    HAT head on two model ranks now takes the split route, `_hat_log_probs`;
+    at one rank the materialized route."""
+    import tpuasr_torch.losses.rnnt as rnnt
+
+    calls = []
+    split = rnnt._hat_log_probs
+    monkeypatch.setattr(rnnt, "_hat_log_probs", lambda *a: calls.append(a) or split(*a))
     cfg = tiny_cfg()
     cfg.model.shard_joint = True
     cfg.model.joint.hat_joint = True
@@ -315,8 +352,9 @@ def test_shard_joint_refuses_a_hat_head_on_two_model_ranks():
     feats, lens = torch.randn(2, 40, 80), torch.tensor([40, 30])
     texts, tlens = torch.tensor([[6, 7], [8, 9]]), torch.tensor([2, 2])
     model(feats, lens, texts, tlens, vocab_shard=VocabShard(None, 0, 1))  # one rank: no split
-    with pytest.raises(NotImplementedError, match="plain head"):
-        model(feats, lens, texts, tlens, vocab_shard=VocabShard(None, 0, 2))
+    assert not calls
+    out = model(feats, lens, texts, tlens, vocab_shard=VocabShard(None, 0, 2))
+    assert len(calls) == 1 and torch.isfinite(out["loss"])
 
 
 # ---------------------------------------------------------------- loop pieces

@@ -23,13 +23,21 @@ writes its results to tmp_path and the parent, which has JAX, compares them:
   so both packages mask alike) against `jax.grad` of the JAX model's loss
   on the whole batch, on the same features and weights: loss atol 1e-4,
   each leaf 1e-4 of its max + 1e-6 (tests/test_torch_train.py's).
+- The recorded static step (`scaling.record_collectives` open) is the
+  unrecorded one bit for bit; its collectives are the counts' all-reduce
+  and one all-reduce of the flat gradient's bytes plus the metrics
+  vector's. `scaling_predict.record_layout` at each layout (dp, zero1,
+  zero3, dptp) records the collectives that layout's step issues.
 - `model.shard_joint` on a 2 x 2 mesh: `tp_joint_bench.execution_parity`
   (which holds the dp x tp route against the port's unsharded one) against
   the JAX tool's unsharded route on the same inputs: the loss 2e-4
   relative, each gradient 2e-4 of its largest entry (XLA's fp32 route
   itself lies 3.7e-4 from a float64 evaluation at W's blank column, whose
   largest entry is 8.0; the split route 6.5e-5); and a whole train step
-  with shard_joint against the 1-rank materialized step.
+  with shard_joint against the 1-rank materialized step, for the plain
+  head, the HAT and a post-join linear (the last two also against
+  `jax.grad` of the JAX model's loss: loss atol 1e-4, each leaf 1e-4 of
+  its max + 1e-6).
 - Sharded streaming greedy and beam (beam 3, CTC fusion 0.3) on 4 ranks
   against JAX's `make_sharded_streaming_decode` on test_sharded_decode.py's
   inputs and weights: tokens and lengths identical, on every rank.
@@ -54,6 +62,14 @@ LAUNCH_S = 420
 PG_TIMEOUT_S = 120
 LOSS_TOL, PARAM_TOL, GRAD_REL = 1e-5, 2e-5, 1e-4
 STAGES = ("none", "zero1", "zero3")
+HEADS = ("hat", "postjoin")
+# the scaling tool's rank side at a tiny width: 2 rows of 48 frames a rank
+TOOL_SETS = ("model.encoder.num_blocks=1", "model.encoder.output_size=32",
+             "model.encoder.attention_heads=2", "model.encoder.linear_units=64",
+             "model.encoder.cnn_module_kernel=7", "model.vocab_size=64",
+             "model.predictor.output_size=32", "model.predictor.embed_size=16",
+             "model.predictor.hidden_size=16", "model.joint.join_dim=32",
+             "model.compute_dtype=float32")
 CHUNK, LEFT, BLANK = 4, 2, 5  # tests/test_streaming.py's
 
 
@@ -62,11 +78,14 @@ CHUNK, LEFT, BLANK = 4, 2, 5  # tests/test_streaming.py's
 # ---------------------------------------------------------------------------
 
 
-def tiny_cfg(dynamic: bool = True, shard_joint: bool = False):
+def tiny_cfg(dynamic: bool = True, shard_joint: bool = False, head: str = "plain"):
     """test_zero.py's tiny transducer in the port's config: vocab 64, d32,
     2 causal blocks, no dropout; dynamic chunks (static 4) or the static
-    chunk 4; Adam at lr 1e-4 with warmup 1."""
-    from tpuasr_torch.config import Config, EncoderConfig, ModelConfig, PredictorConfig
+    chunk 4; the joint's head plain, "hat" or "postjoin"; Adam at lr 1e-4
+    with warmup 1."""
+    from tpuasr_torch.config import (
+        Config, EncoderConfig, JointConfig, ModelConfig, PredictorConfig,
+    )
 
     cfg = Config()
     cfg.model = ModelConfig(
@@ -75,7 +94,8 @@ def tiny_cfg(dynamic: bool = True, shard_joint: bool = False):
                               cnn_module_kernel=7, dropout_rate=0.0,
                               positional_dropout_rate=0.0, causal=True,
                               use_dynamic_chunk=dynamic, static_chunk_size=4),
-        predictor=PredictorConfig(embed_size=16, hidden_size=16, output_size=32))
+        predictor=PredictorConfig(embed_size=16, hidden_size=16, output_size=32),
+        joint=JointConfig(hat_joint=head == "hat", postjoin_linear=head == "postjoin"))
     cfg.feature.sample_rate = 16000
     cfg.optim.lr, cfg.optim.warmup_steps = 1e-4, 1
     return cfg
@@ -170,7 +190,10 @@ def _worker(job: str, rank: int, world: int, tmp: str) -> None:
 
 def _job_main4(rank: int, make_mesh, tmp: str) -> dict:
     from tpuasr_torch.models import Transducer
-    from tpuasr_torch.parallel import assert_sharded, make_sharded_streaming_decode
+    from tpuasr_torch.parallel import (
+        assert_sharded, make_sharded_streaming_decode, record_collectives,
+    )
+    from tpuasr_torch.tools.scaling_predict import LAYOUTS, base_config, record_layout
     from tpuasr_torch.tools.tp_joint_bench import execution_parity
 
     mesh, mesh22 = make_mesh(1), make_mesh(2)
@@ -181,9 +204,17 @@ def _job_main4(rank: int, make_mesh, tmp: str) -> dict:
         assert_sharded(state, mesh, stage)
         out["stages"][stage] = {"losses": losses, "grad": first, "params": params}
     out["static"] = run_steps(tiny_cfg(dynamic=False), batch, mesh, n_steps=1)[:2]
+    with record_collectives() as got:
+        out["static_recorded"] = run_steps(tiny_cfg(dynamic=False), batch, mesh, n_steps=1)[:2]
+    out["static_collectives"] = [(c.op, c.payload, c.groups) for c in got]
+    base = base_config(TOOL_SETS)
+    out["layouts"] = {layout: [(c.op, c.payload, c.groups) for c in
+                               record_layout(base, layout, "cpu", 2, 48, 6)]
+                      for layout in LAYOUTS}
     out["joint_parity"] = execution_parity(mesh22)
-    out["shard_joint"] = run_steps(tiny_cfg(dynamic=False, shard_joint=True), batch, mesh22,
-                                   n_steps=1)[:2]
+    for head in ("plain",) + HEADS:
+        out[f"shard_joint_{head}"] = run_steps(
+            tiny_cfg(dynamic=False, shard_joint=True, head=head), batch, mesh22, n_steps=1)[:2]
     # (written by this test's parent: a config dataclass beside the tensors)
     dec = torch.load(os.path.join(tmp, "decode_inputs.pt"), weights_only=False)
     model = Transducer(dec["cfg"], device="cpu")
@@ -339,14 +370,15 @@ def _jax_references(decode: dict) -> dict:
                                                                  "labels", "t_lens", "u_lens")))
     out["joint"] = {"loss": float(loss), **{k: np.asarray(g) for k, g in
                                            zip(("w", "b", "enc_p", "pred_p"), grads)}}
-    out["static"] = _jax_loss_and_grad()
+    for head in ("plain",) + HEADS:
+        out[head] = _jax_loss_and_grad(head)
     return out
 
 
-def _jax_loss_and_grad() -> dict:
-    """The JAX model's loss and gradient on the whole tiny batch, on the
-    port's features (fbank has no gradient) and the port's seeded weights
-    in the flax layout."""
+def _jax_loss_and_grad(head: str) -> dict:
+    """The JAX model's loss and gradient on the whole tiny batch (static
+    chunk, the joint's `head`), on the port's features (fbank has no
+    gradient) and the port's seeded weights in the flax layout."""
     import jax
 
     from tests.test_torch_zoo import flax_variables
@@ -357,7 +389,7 @@ def _jax_loss_and_grad() -> dict:
     from tpuasr_torch.config import to_dict
     from tpuasr_torch.convert import convert_params
 
-    cfg = tiny_cfg(dynamic=False)
+    cfg = tiny_cfg(dynamic=False, head=head)
     batch = tiny_batch()
     feats, feat_lens = fbank_batch(batch["waves"], batch["wave_lens"], cfg.feature,
                                    device="cpu")
@@ -407,7 +439,7 @@ def test_zero_stages_match_one_rank(main4, stage):
 def test_reduced_gradient_matches_jax(main4):
     ranks, ref = main4
     loss, grad = ranks[0]["static"]
-    want = ref["static"]
+    want = ref["plain"]
     assert abs(loss[0] - want["loss"]) <= 1e-4, (loss, want["loss"])
     cfg = tiny_cfg(dynamic=False)
     _leaves_close(grad, _flat(want["grads"], cfg), cfg)
@@ -426,14 +458,60 @@ def test_shard_joint_matches_jax(main4):
             assert err <= 2e-4 * float(np.abs(want[k]).max()) + 1e-6, (k, err)
 
 
-def test_shard_joint_step_matches_one_rank(main4):
-    ranks, _ = main4
-    cfg = tiny_cfg(dynamic=False)
+@pytest.mark.parametrize("head", ("plain",) + HEADS)
+def test_shard_joint_step_matches_one_rank(main4, head):
+    ranks, ref = main4
+    cfg = tiny_cfg(dynamic=False, head=head)
     losses, first, _, _ = run_steps(cfg, tiny_batch(), n_steps=1)
     for r in ranks:
-        loss, grad = r["shard_joint"]
+        loss, grad = r[f"shard_joint_{head}"]
         assert abs(loss[0] - losses[0]) <= 1e-5 * abs(losses[0]), (loss, losses)
         _leaves_close(grad, first, cfg)
+    if head in HEADS:  # and the JAX model's loss and gradient on the whole batch
+        loss, grad = ranks[0][f"shard_joint_{head}"]
+        want = ref[head]
+        assert abs(loss[0] - want["loss"]) <= 1e-4, (loss, want["loss"])
+        _leaves_close(grad, _flat(want["grads"], cfg), cfg)
+
+
+def test_recorded_step_and_its_collectives(main4):
+    ranks, _ = main4
+    n = sum(p.numel() for p in tiny_model(tiny_cfg(dynamic=False)).parameters())
+    for r in ranks:
+        (loss, grad), (loss_r, grad_r) = r["static"], r["static_recorded"]
+        assert loss == loss_r and torch.equal(grad, grad_r)  # recording changes no bit
+        # the rows' and targets' counts, then the flat gradient with the
+        # metrics (loss, audio seconds, loss_rnnt, loss_ctc), over all 4 ranks
+        assert r["static_collectives"] == [("all-reduce", 2 * 4, [[0, 1, 2, 3]]),
+                                           ("all-reduce", 4 * n + 4 * 4, [[0, 1, 2, 3]])]
+
+
+def test_scaling_tool_records_each_layout(main4):
+    from tpuasr_torch.parallel.scaling import Collective
+    from tpuasr_torch.tools.scaling_predict import base_config, prediction_rows
+
+    ranks, _ = main4
+    base = base_config(TOOL_SETS)
+    n = sum(p.numel() for p in tiny_model(base).parameters())
+    every, slice_ = [0, 1, 2, 3], -(-n // 4)
+    grads = ("all-reduce", 4 * n + 4 * 4, [every])
+    counts = ("all-reduce", 8, [every])
+    got = ranks[0]["layouts"]
+    assert got["dp"] == [counts, grads]
+    assert got["zero1"] == [counts, grads, ("all-gather", 4 * 4 * slice_, [every])]
+    assert got["zero3"] == [("all-gather", 4 * 4 * slice_, [every]), counts, grads]
+    # 2 data x 2 model ranks: the split joint's all-reduces over rank 0's model
+    # group (forward: max, sum, the owners' logits; backward: the activations'
+    # and the head's gradients), the counts and the gradient over its data group
+    tp = got["dptp"]
+    assert [c for c in tp if c[2] == [[0, 2]]] == [("all-reduce", 8, [[0, 2]]),
+                                                   ("all-reduce", 4 * n + 4 * 4, [[0, 2]])]
+    assert [c[0] for c in tp if c[2] == [[0, 1]]] == ["all-reduce"] * 5 and len(tp) == 7
+    rows = prediction_rows([Collective(*c) for c in got["dp"]], 2, 2, [2, 4], 100.0, 450.0,
+                           400.0)
+    p = (4 * n + 24) / 1e6
+    assert rows[0]["ici_mb"] == pytest.approx(p) and rows[0]["dcn_mb"] == pytest.approx(p)
+    assert rows[1]["dcn_mb"] == pytest.approx(1.5 * p)
 
 
 @pytest.mark.parametrize("mode", ["greedy", "beam"])

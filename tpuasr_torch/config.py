@@ -203,8 +203,9 @@ class ModelConfig:
     compute_dtype: str = "float32"
     # split the materialized route's [B, T, U+1, V] joint logits over the
     # vocabulary on the mesh's model axis (mesh.model_parallel_size > 1;
-    # `tpuasr_torch.losses.rnnt_loss_sharded`). The fused and pruned routes
-    # never form the logits, so there the model axis only repeats work
+    # `tpuasr_torch.losses.rnnt_loss_sharded_joint`, any joint head). The
+    # fused and pruned routes never form the logits, so there the model
+    # axis only repeats work
     shard_joint: bool = False
     # True: fused joint + log-softmax + lattice inputs (kernels in
     # tpuasr_torch/csrc/rnnt_fused.cu), [B, T, U+1, V] never exists; False:

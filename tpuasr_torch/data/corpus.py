@@ -3,8 +3,10 @@
 Bridges the BZNSYP readers (`tpuasr_torch.data.bznsyp`) to the static-shape
 `LengthBucketPipeline`: `scan_split` reads each utterance's metadata once
 (path, token ids, wave length from the WAV header); waveforms are decoded
-when the pipeline loads the utterance, every epoch, by the port's own
-`read_wav` (16-bit PCM passed through raw for the int16 wire format). The
+when the pipeline loads the utterance, every epoch: on the float32 wire by
+the native host runtime (`tpuasr_torch.utils.native.wav_read`: PCM
+8/16/24/32-bit and IEEE float32), on the int16 wire by `read_wav` (16-bit
+PCM passed through raw). The
 synthetic stand-in corpus is built in memory and, for the int16 wire
 format, encoded once at build time. `make_pipeline` takes either kind of
 item.
@@ -22,6 +24,7 @@ from tpuasr_torch.data.bznsyp import read_scp, read_text, read_wav
 from tpuasr_torch.data.pipeline import LengthBucketPipeline, Utterance, wire_waves
 from tpuasr_torch.data.synthetic import synth_corpus
 from tpuasr_torch.text.tokenizer import Tokenizer
+from tpuasr_torch.utils import native
 
 
 @dataclass
@@ -58,10 +61,14 @@ def scan_split(wav_scp: str, text_file: str, tokenizer: Tokenizer, root: str = "
 
 def _load(item, wire_dtype: str = "float32") -> Utterance:
     """An `Utterance` as it is, or a `UtteranceMeta`'s WAV decoded: float32
-    in [-1, 1], or for the int16 wire its raw 16-bit samples."""
+    in [-1, 1] by the native reader (at most its header's length), or for
+    the int16 wire its raw 16-bit samples."""
     if isinstance(item, Utterance):
         return item
-    wave, _ = read_wav(item.path, dtype="int16" if wire_dtype == "int16" else "float32")
+    if wire_dtype == "int16":
+        wave, _ = read_wav(item.path, dtype="int16")
+    else:
+        wave, _ = native.wav_read(item.path, max_samples=item.wave_len)
     return Utterance(item.utt_id, wave, item.tokens, len(wave))
 
 

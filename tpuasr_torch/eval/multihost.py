@@ -15,6 +15,8 @@ def allreduce_cer_counts(local: CerCounts, mesh=None) -> CerCounts:
     rows), or over every rank without a mesh. The identity at one rank."""
     import torch.distributed as dist
 
+    from tpuasr_torch.parallel.mesh import all_reduce
+
     if mesh is None:
         if not (dist.is_available() and dist.is_initialized()) or dist.get_world_size() == 1:
             return local
@@ -27,7 +29,7 @@ def allreduce_cer_counts(local: CerCounts, mesh=None) -> CerCounts:
     vec = torch.tensor([local.substitutions, local.deletions, local.insertions,
                         local.ref_len], dtype=torch.int64, device=dev)
     if mesh is None:
-        dist.all_reduce(vec)
+        all_reduce(vec, dist.group.WORLD)
     else:
         mesh.reduce(vec)
     s, d, i, n = (int(x) for x in vec.cpu())

@@ -20,10 +20,11 @@ switches say (tpuasr/models/transducer.py:237, :260). The fused and the
 materialized routes run the lattice through kernels #8/#9 on the card and
 the plain lattice on the CPU. With `shard_joint` and a mesh's model axis
 of more than one rank (`vocab_shard`), the materialized route splits the
-logits over the vocabulary (`tpuasr_torch.losses.rnnt_loss_sharded`), as
-JAX constrains them to `P("data", None, None, "model")`
-(tpuasr/models/transducer.py:282-288); the fused and pruned routes return
-before that constraint in JAX and ignore the axis here too.
+logits over the vocabulary (`tpuasr_torch.losses.rnnt_loss_sharded_joint`:
+the plain head, a post-join linear's and the HAT's), as JAX constrains them
+to `P("data", None, None, "model")` (tpuasr/models/transducer.py:282-288);
+the fused and pruned routes return before that constraint in JAX and ignore
+the axis here too.
 
 The encoder comes from `build_encoder`, by `encoder.encoder_type`, as
 `tpuasr/models/transducer.py:30-96` builds it: the conformer; firered (the
@@ -50,7 +51,7 @@ from torch import nn
 from tpuasr_torch.config import EncoderConfig, ModelConfig
 from tpuasr_torch.device import resolve_device
 from tpuasr_torch.losses import (
-    ctc_loss_from_logits, rnnt_loss_from_logits, rnnt_loss_pruned, rnnt_loss_sharded,
+    ctc_loss_from_logits, rnnt_loss_from_logits, rnnt_loss_pruned, rnnt_loss_sharded_joint,
 )
 from tpuasr_torch.nn.attention import (
     FireRedRelPositionAttention, RelPositionMultiHeadedAttention,
@@ -222,11 +223,6 @@ class Transducer(nn.Module):
         pred_out = self.predictor(add_blank(texts.long(), c.blank_id), gen=gen)
         plain = self.joint.plain_head
         sharded = c.shard_joint and vocab_shard is not None and vocab_shard.size > 1
-        if sharded and not plain:
-            raise NotImplementedError(
-                "model.shard_joint with mesh.model_parallel_size > 1 splits the plain head "
-                "(activation . W + b) only; a HAT or post-join joint is not split yet "
-                "(ROADMAP.md section 1)")
         if plain and c.rnnt_prune_range > 0:
             w, b = self.joint.head_params()
             loss_rnnt = rnnt_loss_pruned(
@@ -238,11 +234,9 @@ class Transducer(nn.Module):
                 self.joint.project_enc(enc_out), self.joint.project_pred(pred_out), w, b,
                 texts, enc_lens, text_lens, c.blank_id)
         elif sharded:
-            w, b = self.joint.head_params()
-            loss_rnnt = rnnt_loss_sharded(
-                self.joint.project_enc(enc_out), self.joint.project_pred(pred_out), w, b,
-                texts, enc_lens, text_lens, c.blank_id, vocab_shard, self.joint.cfg.activation,
-                "mean")
+            loss_rnnt = rnnt_loss_sharded_joint(
+                self.joint, self.joint.project_enc(enc_out), self.joint.project_pred(pred_out),
+                texts, enc_lens, text_lens, c.blank_id, vocab_shard, "mean")
         else:
             loss_rnnt = rnnt_loss_from_logits(self.joint(enc_out, pred_out), texts, enc_lens,
                                               text_lens, c.blank_id, "mean")

@@ -23,6 +23,11 @@ backward), each with its own C entry point. Every wrapper counts its calls of an
 so a run can show that its path went through the kernels; fbank's entry
 also counts each of its three routes there, and each lattice entry its
 two.
+
+The port's native host runtime (`csrc/tpuasr_native.cc`: the WAV reader,
+the thread-pool batch loader and the CER counts, `tpuasr_torch.utils.native`)
+takes the host route, `host_library`: the host C++ compiler builds it into
+the same directory, under the same source-hashed name and atomic rename.
 """
 
 from __future__ import annotations
@@ -40,6 +45,8 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "tpuasr_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+HOST_CXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC", "-pthread"]
 
 _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # each kernel's source, C entry point and argument types (pointers and the
@@ -91,6 +98,40 @@ def _nvcc() -> str:
             return cand
     raise RuntimeError("nvcc not found (set CUDA_HOME); the port's kernels are "
                        "built from tpuasr_torch/csrc at first use")
+
+
+def _cxx() -> str:
+    for cand in ("c++", "g++"):
+        path = shutil.which(cand)
+        if path:
+            return path
+    raise RuntimeError("no host C++ compiler (c++ or g++) on PATH; the native host runtime "
+                       "is built from tpuasr_torch/csrc at first use")
+
+
+def host_library(name: str) -> ctypes.CDLL:
+    """`csrc/<name>.cc` built by the host C++ compiler (HOST_CXX_FLAGS) at
+    first use into `BUILD_DIR/lib<name>-<hash of the source>.so` and loaded.
+    Processes that build it at once (test workers, ranks) each write their
+    own temporary file and rename it into place. A failed build raises with the
+    compiler's output."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            src = CSRC / f"{name}.cc"
+            out = BUILD_DIR / f"lib{name}-{hashlib.sha1(src.read_bytes()).hexdigest()[:12]}.so"
+            if not out.exists():
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+                cxx = _cxx()
+                proc = subprocess.run([cxx, *HOST_CXX_FLAGS, "-o", str(tmp), str(src)],
+                                      capture_output=True, text=True)
+                if proc.returncode != 0:
+                    tmp.unlink(missing_ok=True)
+                    raise RuntimeError(f"{cxx} failed for {name}.cc:\n{proc.stdout}{proc.stderr}")
+                os.replace(tmp, out)
+            lib = _libs[name] = ctypes.CDLL(str(out))
+        return lib
 
 
 def _sources(name: str) -> list[Path]:

@@ -12,6 +12,9 @@ different batch rows and reduce gradients; the ranks of one model group
 
 With no distributed environment `init_distributed` creates no group and
 everything runs as one rank: a world of one changes no number.
+
+Every collective the port's steps issue goes through `all_reduce` or
+`all_gather_flat`, so `scaling.record_collectives()` sees them all.
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+
+from tpuasr_torch.parallel import scaling
 
 # the default bound of every wait on another rank: a rank that stops
 # answering makes the others raise after this long instead of waiting forever
@@ -207,11 +212,15 @@ def shard_batch(batch: dict, mesh: Mesh) -> dict:
 
 def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     """In-place all-reduce over `group` (sum | max | min); the identity
-    without a group."""
+    without a group. One of the port's two collective choke points: an open
+    `scaling.record_collectives()` notes it."""
     if group is None:
         return t
     import torch.distributed as dist
 
+    if scaling.recording():
+        scaling.note("all-reduce", t.numel() * t.element_size(),
+                     dist.get_process_group_ranks(group))
     dist.all_reduce(t, op={"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
                            "min": dist.ReduceOp.MIN}[op], group=group)
     return t
@@ -221,13 +230,17 @@ def all_gather_flat(x: torch.Tensor, group, size: int,
                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Concatenate every rank's equal-length 1-D `x` in rank order -> [size *
     len(x)] (written into `out` when given); the list form of all_gather,
-    which NCCL and gloo both take on CUDA tensors."""
+    which NCCL and gloo both take on CUDA tensors. The other collective
+    choke point (payload: the gathered bytes)."""
     if out is None:
         out = torch.empty(size * x.numel(), dtype=x.dtype, device=x.device)
     if group is None:
         return out.copy_(x)
     import torch.distributed as dist
 
+    if scaling.recording():
+        scaling.note("all-gather", size * x.numel() * x.element_size(),
+                     dist.get_process_group_ranks(group))
     dist.all_gather(list(out.split(x.numel())), x.contiguous(), group=group)
     return out
 

@@ -35,7 +35,7 @@ import torch
 
 from tpuasr_torch.config import Config, save_yaml
 from tpuasr_torch.data.prefetch import prefetch_to_device
-from tpuasr_torch.parallel.mesh import barrier
+from tpuasr_torch.parallel.mesh import all_reduce, barrier
 from tpuasr_torch.train.checkpoint import epoch_path, latest_path, save_checkpoint
 from tpuasr_torch.train.metrics import MetricsWriter, StepTimer
 from tpuasr_torch.train.optim import PlateauTracker, make_optimizer
@@ -109,7 +109,7 @@ def agreed_steps(pipeline, epoch: int, mesh, writer: MetricsWriter) -> Optional[
 
     own = pipeline.steps_per_epoch(epoch)
     n = torch.tensor([own], dtype=torch.int64, device=mesh.device)
-    dist.all_reduce(n, op=dist.ReduceOp.MIN)
+    all_reduce(n, dist.group.WORLD, "min")
     n = int(n)
     if own > n:
         print(f"rank {mesh.rank}: epoch {epoch} drops {own - n} of its {own} batches "
