@@ -30,12 +30,14 @@ Phases (any failure exits non-zero):
    and [16, 63, 256] (the fixture requests), fp32 and bf16, with a fully
    masked row; the attention forward and backward (#2/#3) at the training
    shape ([12, 191, 256] bf16, a dynamic-chunk mask), at an fp32 ragged
-   shape with a fully masked row and with a [B, 1, S] mask (the bf16
-   forward writing its fp32 output and each row's log-sum-exp, held against
-   the plain ones; #3 timed alone on what the forward saved; at the
-   training shape both bf16 kernels and the plain bf16 versions against the
-   fp32 plain version on the same bf16 values, and #3's two kernels
-   profiled); the fused RNN-T
+   shape with a fully masked row, with a [B, 1, S] mask and at 6a's fp32
+   step ([2, 63, 256]) (the forward writing each row's log-sum-exp beside
+   its output, bf16 also its fp32 output, held against the plain ones; #3
+   timed alone on what the forward saved, fp32's two calls bit-identical;
+   at the training shape both bf16 kernels and the plain bf16 versions
+   against the fp32 plain version on the same bf16 values; #3's kernels
+   profiled at 6a's fp32 step; fp32's bound at the 3xTF32
+   floor, the CUDA-core figure beside it; the SDPA backend); the fused RNN-T
    joint forward and backward (#4/#5), the RNN-T lattice (#8/#9) and the
    CTC alpha and beta sweeps (#6/#7) at the training step's shapes (B 12,
    T' 191, U+1 33, S 65, D 256, V 412) and at a ragged shape with a
@@ -907,6 +909,7 @@ def _kernel_checks(torch, dev, data, bench) -> dict:
                 out["fbank_training"] = rec
 
     g = torch.Generator().manual_seed(SEED)
+    fp32 = {}
     for b, t, lens in ((4, 187, (187, 150, 187, 100)), (16, 63, None)):
         h, dk = 4, 64
         d = h * dk
@@ -925,8 +928,11 @@ def _kernel_checks(torch, dev, data, bench) -> dict:
             rec = _hold(torch, "relpos_attention", args, "serving")
             require(bool((relpos_attention(*args.values())[1, 5] == 0).all()),
                     "a fully masked query row did not give zeros")
-            if b == 4 and dtype == torch.bfloat16:  # the flagship's 8 s bf16 call
+            if dtype == torch.float32:  # phase 4's fp32 serving calls
+                fp32[f"[{b}, {t}, {d}]"] = rec
+            elif b == 4:  # the flagship's 8 s bf16 call
                 out["attention"] = rec
+    out["attention"]["fp32_serving"] = fp32
     return out
 
 
@@ -1052,8 +1058,10 @@ def _attention_train_checks(torch, dev, bench) -> dict:
     """Kernels #2 and #3 against their plain versions at the training shape
     (phase 6b's encoder: [12, 191, 256] bf16, its padding and a drawn
     dynamic chunk), at an fp32 ragged shape with a fully masked query row,
-    and with a [B, 1, S] padding mask; -> {"attention_training",
-    "attention_bwd"}: the records at the training shape."""
+    with a [B, 1, S] padding mask, and at 6a's fp32 step (the encoder of
+    [2, 256] feature frames, lengths 256 and 200, static chunk 32); ->
+    {"attention_training", "attention_bwd"}: the records at the training
+    shape, each with 6a's fp32 record under "fp32_step"."""
     import numpy as np
 
     from tpuasr_torch.nn.masks import chunk_mask, draw_dynamic_chunk, dynamic_chunk_size
@@ -1076,36 +1084,47 @@ def _attention_train_checks(torch, dev, bench) -> dict:
     ragged[1, 5] = False  # a fully masked query row
     bcast = torch.ones(4, 1, 60, dtype=torch.bool)
     bcast[3, 0, 41:] = False
+    t6a = int(_enc_len(np.array([255 * HOP]))[0])  # 256 feature frames
+    lens6a = torch.tensor([t6a, int(_enc_len(np.array([199 * HOP]))[0])])
+    step = (torch.arange(t6a)[None, None, :] < lens6a[:, None, None]) & chunk_mask(t6a, 32, -1)
     cases = (("training", torch.bfloat16, pad & chunk_mask(t_bench, cs, left)[None]),
-             ("ragged", torch.float32, ragged), ("broadcast", torch.bfloat16, bcast))
+             ("ragged", torch.float32, ragged), ("broadcast", torch.bfloat16, bcast),
+             ("step_fp32", torch.float32, step))
     print(f"training-shape mask: the encoder's padding and a dynamic chunk of {cs} frames "
           f"(left chunks {left})")
     g = torch.Generator().manual_seed(SEED + 5)
     for tag, dtype, mask in cases:
+        t0 = time.perf_counter()
         b, t = mask.shape[0], mask.shape[2]
         q, k, v, do = (torch.randn(b, t, d, generator=g).to(dev, dtype) for _ in range(4))
         p = torch.randn(1, t, d, generator=g).to(dev, dtype)
         u_, v_ = ((0.1 * torch.randn(d, generator=g)).to(dev, dtype) for _ in range(2))
         args = dict(q=q, k=k, p=p, v=v, u_bias=u_, v_bias=v_, mask=mask.to(dev),
                     scale=1.0 / math.sqrt(dk), n_head=h)
-        bf16 = dtype == torch.bfloat16
-        rec = _hold(torch, "relpos_attention", dict(args, saved=bf16), tag)
-        # #3 alone: the bf16 forward's saved fp32 output and log-sum-exp made
-        # once, as the autograd Function hands them over (fp32 saves nothing)
-        saved = _relpos_fwd(*args.values(), saved=True)[1:] if bf16 else (None, None)
+        rec = _hold(torch, "relpos_attention", dict(args, saved=True), tag)
+        # #3 alone: the forward's saved fp32 output and log-sum-exp made
+        # once, as the autograd Function hands them over
+        saved = _relpos_fwd(*args.values(), saved=True)[1:]
         bwd_args = dict(list(args.items())[:7] + [("do", do)] + list(args.items())[7:],
                         out=saved[0], lse=saved[1])
         rec_b = _hold(torch, "relpos_attention_bwd", bwd_args, tag)
         if tag == "ragged":
             dq = relpos_attention_bwd(*bwd_args.values())[0]
             require(bool((dq[1, 5] == 0).all()), "a fully masked query row got a gradient")
+        if tag == "step_fp32":  # the one profile: the fp32 route's two sides and its sum
+            t1 = time.perf_counter()
+            split = _device_split(torch, lambda: relpos_attention_bwd(*bwd_args.values()))
+            print(f"#3 at the {tag} shape, device ms a call by kernel (profiler, "
+                  f"{time.perf_counter() - t1:.1f} s): " + "; ".join(
+                      f"{ms:.4f} {key[:60]}"
+                      for key, ms in sorted(split.items(), key=lambda x: -x[1])))
+            rec_b["device_split_ms"] = split
         if tag == "training":
             rec["vs_fp32"], rec_b["vs_fp32"] = _vs_fp32(torch, args, do, saved)
-            split = _device_split(torch, lambda: relpos_attention_bwd(*bwd_args.values()))
-            print("#3 at the training shape, device ms a call by kernel (profiler): " + "; ".join(
-                f"{ms:.4f} {key[:60]}" for key, ms in sorted(split.items(), key=lambda x: -x[1])))
-            rec_b["device_split_ms"] = split
             out["attention_training"], out["attention_bwd"] = rec, rec_b
+        if tag == "step_fp32":
+            out["attention_training"]["fp32_step"], out["attention_bwd"]["fp32_step"] = rec, rec_b
+        print(f"(attention case {tag}: {time.perf_counter() - t0:.1f} s)")
     return out
 
 
@@ -1334,6 +1353,9 @@ def _held(torch, name, a, ctc_inputs, timed: bool = True) -> tuple[dict, str, bo
     torch.cuda.synchronize()
     ref = plain(*args)
     got, ref = ((x,) if isinstance(x, torch.Tensor) else tuple(x) for x in (got, ref))
+    # the fp32 attention backward sums in a fixed order: a second call gives its bits
+    same = name != "relpos_attention_bwd" or a["q"].dtype != torch.float32 or all(
+        torch.equal(x, y) for x, y in zip(got, kernel(*args)))
     stats_err = None
     if name == "relpos_attention" and len(got) == 3:  # saved=True: (out, out32, lse)
         stats_err = _stats_err(torch, got[1:], ref[1:])
@@ -1344,7 +1366,7 @@ def _held(torch, name, a, ctc_inputs, timed: bool = True) -> tuple[dict, str, bo
     inputs = ", ".join(f"{k} {str(v.dtype)[6:]}{list(v.shape)}" for k, v in a.items()
                        if isinstance(v, torch.Tensor) and v.dim() >= 2)
     inputs += "".join(f", {k} None" for k, v in a.items() if v is None)
-    library, plain_iters, timing, bound_fp32 = None, 30, "events", None
+    library, plain_iters, timing, bound_fp32, backend = None, 30, "events", None, None
 
     if name == "fbank":
         rows, n_fft = a["frames"].shape
@@ -1369,17 +1391,20 @@ def _held(torch, name, a, ctc_inputs, timed: bool = True) -> tuple[dict, str, bo
         s, dk, es = k.shape[1], d // h, q.element_size()
         fp32 = q.dtype == torch.float32
         pairs = int(mask.expand(b, t, s).sum())  # unmasked (query, key) pairs per head
-        peak = PEAK_FP32 if fp32 else PEAK_BF16
+        # fp32 runs 3xTF32 products: the bound at that floor (three TF32
+        # passes a product), the fp32 CUDA-core figure beside it
+        peak = PEAK_TF32 if fp32 else PEAK_BF16
         # library yardstick: SDPA on [q+u | q+v], [k | p], v
         heads = lambda x: x.view(x.shape[0], -1, h, dk).transpose(1, 2)
         sq = torch.cat([heads(q + a["u_bias"]), heads(q + a["v_bias"])], dim=-1)
         sk = torch.cat([heads(k), heads(p).expand(b, -1, -1, -1)], dim=-1)
         sdpa = dict(attn_mask=mask[:, None], scale=a["scale"])
+        backend = _sdpa_backend(torch, sq, sk, heads(v), **sdpa)
         if name == "relpos_attention":
             tol = 1e-5 if fp32 else 1e-2
             ok = all(bool((dd <= tol + tol * y.float().abs()).all()) for dd, y in zip(diffs, ref))
             why = f"{tol} + {tol}*|ref|: " + (
-                "fp32 sums in another order" if fp32 else
+                "3xTF32 products (about 21 bits) and fp32 sums in another order" if fp32 else
                 "bf16 roundings of the output and the probabilities at other points, 2**-8 each")
             flops = pairs * h * 6 * dk  # scores 4 dk, a.v 2 dk per pair
             nbytes = es * (2 * b * t * d + 2 * b * s * d + s * d + 2 * d) + mask.numel()
@@ -1387,16 +1412,19 @@ def _held(torch, name, a, ctc_inputs, timed: bool = True) -> tuple[dict, str, bo
                 ok = ok and stats_err[1]
                 why += (f"; saved fp32 output and lse max_abs_err {stats_err[0]:.3g} (tol 1e-4 + "
                         f"1e-5*|ref|, a fully masked row's lse -inf on both sides: fp32 sums "
-                        f"in another order, bf16 p in two bf16 parts, 16 bits)")
-                nbytes += 4 * (b * h * t + b * t * d)
+                        f"in another order, " + ("3xTF32 products)" if fp32 else
+                                                 "bf16 p in two bf16 parts, 16 bits)"))
+                # each row's lse out, and bf16's fp32 output beside its bf16 one
+                nbytes += 4 * (b * h * t + (0 if fp32 else b * t * d))
                 timing = "profiler"  # 30 plain calls with the logsumexp outlast the sleep
             library = lambda: F.scaled_dot_product_attention(sq, sk, heads(v), **sdpa)
         else:
             tol = 1e-4 if fp32 else 2.0 ** -6
             ok = max(rels) <= tol
             why = f"{tol:.3g} of each output's max|ref|: " + (
-                "fp32 sums in another order, dp/du/dvb added with atomics in an order that "
-                "changes between runs" if fp32 else
+                "3xTF32 products (about 21 bits) and fp32 sums in another order, the same "
+                "order in every run (two calls bit-identical: "
+                f"{'yes' if same else 'NO'})" if fp32 else
                 "ds rounds to bf16 before the products, a value on a rounding edge may round "
                 "the other way, and the outputs round to bf16")
             # scores 4 dk, da, dv and dq 2 dk each, dk|dp 4 dk; bytes: q, k, v,
@@ -1410,6 +1438,12 @@ def _held(torch, name, a, ctc_inputs, timed: bool = True) -> tuple[dict, str, bo
             lib_g = heads(a["do"])
             library = lambda: torch.autograd.grad(lib_out, lib_in, lib_g, retain_graph=True)
             plain_iters, timing = 10, "profiler"
+            ok = ok and same
+        if fp32:
+            bound_fp32 = max(flops / PEAK_FP32, nbytes / HBM_BPS) * 1e3
+            flops *= 3
+            why += f"; bound at the fp32 CUDA-core peak {bound_fp32:.6f} ms"
+        why += f"; SDPA backend {backend}"
     elif name in ("rnnt_fused_fwd", "rnnt_fused_bwd"):
         enc, pred, w = a["enc_p"], a["pred_p"], a["w"]
         b, t, d = enc.shape
@@ -1504,7 +1538,17 @@ def _held(torch, name, a, ctc_inputs, timed: bool = True) -> tuple[dict, str, bo
         rec["saved_max_abs_err"] = stats_err[0]
     if bound_fp32 is not None:
         rec["bound_fp32_ms"] = bound_fp32
+    if backend is not None:
+        rec["library_backend"] = backend
     return rec, why, bool(ok), inputs
+
+
+def _sdpa_backend(torch, *args, **kwargs) -> str:
+    """The backend `scaled_dot_product_attention` picks for these inputs
+    (torch's own dispatch choice), by name."""
+    from torch.nn.attention import SDPBackend
+
+    return SDPBackend(torch._fused_sdp_choice(*args, **kwargs)).name
 
 
 def _stats_err(torch, got, ref) -> tuple[float, bool]:
@@ -2563,8 +2607,8 @@ def _train_card_vs_cpu(torch, dev, fused_joint_loss: bool, fused_ffn: bool = Fal
     enc = cfg.model.encoder
     return _step_card_vs_cpu(
         torch, tx, res, f"fp32 training step ({label}), card vs CPU on [2, 256, 80] x 16 "
-        f"tokens", "fp32 sums in another order through 12 blocks, the attention backward's "
-        "atomics, the fused joint's 3xTF32 products, the lattice",
+        f"tokens", "fp32 sums in another order through 12 blocks, the attention kernels' "
+        "and the fused joint's 3xTF32 products, the lattice",
         rope=enc.attention_type == "rope", grouped=enc.encoder_type == "efficient_conformer")
 
 
@@ -3887,7 +3931,7 @@ def _aed_card_vs_cpu(torch, dev, bench) -> dict:
         torch, tx, res, f"AED training step (fp32, fused_attention) card vs CPU on "
         f"[{AED_B}, {t}, 80] features x labels {host[3].tolist()}",
         "fp32 sums in another order through 12 encoder and 6 decoder blocks, the attention "
-        "kernels' atomics, the CTC lattice")
+        "kernels' 3xTF32 products, the CTC lattice")
     print(f"11a: th_accuracy card {acc['card']:.6f} CPU {acc['cpu']:.6f} over {n_tok} "
           f"teacher-forced tokens (tol one token, {1 / n_tok:.4f})")
     require(abs(acc["card"] - acc["cpu"]) <= 1 / n_tok + 1e-6, "th_accuracy differs")
@@ -4605,7 +4649,7 @@ def _para_card_vs_cpu(torch, dev, stack: str, **extra) -> dict:
         label += f" ({', '.join(f'{k}={v}' for k, v in extra.items())})"
     return _step_card_vs_cpu(
         torch, tx, res, label, "fp32 sums in another order through 12 encoder and 6 decoder "
-        "blocks, the attention kernels' atomics, the CIF cumsum, the CTC lattice")
+        "blocks, the attention kernels' 3xTF32 products, the CIF cumsum, the CTC lattice")
 
 
 def _fit_cif_bias(torch, model, enc, elens, target: float) -> float:
@@ -4922,7 +4966,7 @@ def _whisper_phase(torch, dev, data) -> dict:
         f"fixture features x labels {text_lens.tolist()} (tasks {tasks[:b].tolist()}, "
         f"languages {langs[:b].tolist()})",
         "fp32 sums in another order through 12 encoder and 6 decoder blocks, the attention "
-        "kernels' atomics")
+        "kernels' 3xTF32 products")
     del res
 
     # 15b-15c: greedy and beam decoding of the fixture requests

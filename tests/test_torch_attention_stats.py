@@ -133,3 +133,17 @@ def test_forward_without_gradients_saves_nothing():
     out = relpos_attention(*x, SCALE, H)  # no input requires a gradient
     assert out.grad_fn is None
     assert torch.equal(out, relpos_attention_plain(*x, SCALE, H))
+
+
+def test_aligned_copies_only_what_is_off_16_bytes():
+    """The kernels move 16-byte vectors, so the wrappers hand them a copy of
+    an input that does not start on 16 bytes (ZeRO-3 packs the biases into
+    one flat buffer with no padding) and every other input as it is."""
+    from tpuasr_torch.ops.relpos_attention import _aligned
+
+    flat = torch.arange(1 + 2 * D, dtype=torch.float32)
+    whole, off = flat[:D], flat[1:1 + D]
+    assert off.data_ptr() % 16 == 4
+    a, b, none = _aligned(whole, off, None)
+    assert a is whole and none is None
+    assert b.data_ptr() % 16 == 0 and b.data_ptr() != off.data_ptr() and torch.equal(b, off)

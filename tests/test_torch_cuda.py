@@ -17,10 +17,11 @@ attention forward (#2) and backward (#3) in fp32 and bf16 at dk 16, 32 and
 64 with a fully masked row and a broadcast mask, and at bench.py's training
 shape (12 x 191, 4 heads of 64) and the trainer's (12 x 63) with the
 encoder's padding and a chunk mask; the forward's saved fp32 output and
-log-sum-exp (bf16) against the plain ones and torch.logsumexp of the plain
-scores (1e-4 + 1e-5*|ref|, -inf for a fully masked row); autograd through
-the Function in fp32 (which saves only the inputs) and in bf16 (one launch
-of #2 and one of #3); the RNN-T lattice
+log-sum-exp (fp32 and bf16) against the plain ones and torch.logsumexp of
+the plain scores (1e-4 + 1e-5*|ref|, -inf for a fully masked row);
+autograd through the Function in fp32 and in bf16 (each saving the output
+and log-sum-exp: one launch of #2 and one of #3), and two fp32 backwards
+bit-identical; the RNN-T lattice
 (#8/#9) by its warp route at U+1 = 1, 17, 33, 65 and 256 and its block
 route at 33, 256 and 257, with a t_len = 0 and a u_len = 0 row and two calls
 bit-identical, and the materialized RNN-T loss card against CPU; the fused FFN (#10/#11) at R = 1, 70, 130 and the main paths' 128
@@ -64,7 +65,8 @@ bf16 ulp of that max (2**-8). CTC: alpha and ll
 steps), gradients 2e-3*|ref| + 1e-5; the whole CTC loss card vs CPU,
 gradient w.r.t. the logits atol 1e-4 (alpha and beta ~ -100 carry an ulp
 of 7.6e-6 into the posterior). Attention backward: fp32 1e-4 of each
-output's max (sums in another order; dp, du and dvb added with atomics), bf16
+output's max (3xTF32 products and sums in another order, fixed between
+calls), bf16
 2**-6 of it (ds is rounded to bf16 before the products, and a value on a
 rounding edge may round the other way on the other side; the outputs round
 to bf16 too). RNN-T lattice: as CTC's (the block route repeats the plain
@@ -301,15 +303,16 @@ def test_relpos_attention_bwd_kernel_matches_plain(card, dtype, rel, b, t, s, h,
         assert torch.all(got[0][0, t - 1] == 0)  # fully masked row: no gradient
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,t,s,h,dk,mask_kind", ATTENTION_SHAPES)
-def test_relpos_attention_saved_statistics(card, b, t, s, h, dk, mask_kind):
-    """What the bf16 forward saves for the backward: each row's log-sum-exp,
+def test_relpos_attention_saved_statistics(card, dtype, b, t, s, h, dk, mask_kind):
+    """What the forward saves for the backward: each row's log-sum-exp,
     torch.logsumexp of the plain version's masked scaled scores (-inf for a
-    fully masked row), and the fp32 output a.v. Tolerance 1e-4 +
-    1e-5*|ref|: fp32 sums in another order, bf16 p in two bf16 parts (16
-    bits; an error of 1e-4 in L is 1e-4 relative in every probability the
-    backward rebuilds, far below bf16's 2**-8)."""
-    dtype = torch.bfloat16
+    fully masked row), and the fp32 output a.v (fp32: the output itself).
+    Tolerance 1e-4 + 1e-5*|ref|: fp32 sums in another order, 3xTF32
+    products (fp32) or bf16 p in two bf16 parts (16 bits; an error of 1e-4
+    in L is 1e-4 relative in every probability the backward rebuilds, far
+    below bf16's 2**-8)."""
     args, _ = _attention_inputs(card, dtype, b, t, s, h, dk, mask_kind)
     q, k, p, v, ub, vb, mask, scale, n_head = args
     before = LAUNCHES["relpos_attention"]
@@ -317,9 +320,12 @@ def test_relpos_attention_saved_statistics(card, b, t, s, h, dk, mask_kind):
     torch.cuda.synchronize()
     assert LAUNCHES["relpos_attention"] == before + 1
     assert out32.dtype == torch.float32 and torch.equal(out32.to(dtype), out)
-    # without the saved output p rounds to bf16 once (serving): another
-    # rounding point, within the forward's bf16 tolerance
-    torch.testing.assert_close(_relpos_fwd(*args).float(), out.float(), rtol=1e-2, atol=1e-2)
+    if dtype == torch.float32:  # the same kernel and products, lse or not
+        assert out32 is out and torch.equal(_relpos_fwd(*args), out)
+    else:  # without the saved output p rounds to bf16 once (serving): another
+        # rounding point, within the forward's bf16 tolerance
+        torch.testing.assert_close(_relpos_fwd(*args).float(), out.float(), rtol=1e-2,
+                                   atol=1e-2)
     _, ref32, _ = relpos_attention_plain(*args, saved=True)
     assert bool(((out32 - ref32).abs() <= 1e-4 + 1e-5 * ref32.abs()).all())
     heads = lambda x: x.float().reshape(x.shape[0], x.shape[1], n_head, dk)
@@ -354,6 +360,112 @@ def test_relpos_attention_bf16_autograd_launches_each_kernel_once(card, shape):
         assert err <= 2.0 ** -6 * float(y.float().abs().max()) + 1e-6, (name, err)
 
 
+@pytest.mark.parametrize("shape", [(12, 191, 191, 4, 64, "dynamic"), (3, 21, 21, 2, 16, "chunk")])
+def test_relpos_attention_fp32_autograd_launches_each_kernel_once(card, shape):
+    """fp32 autograd through `relpos_attention`: one launch of #2 (which
+    saves the log-sum-exp beside its output) and one of #3, and the plain
+    backward's gradients to q, k, p, v and both biases within 1e-4 of each
+    leaf's max."""
+    args, do = _attention_inputs(card, torch.float32, *shape)
+    leaves = [x.detach().clone().requires_grad_() for x in args[:6]]
+    before = (LAUNCHES["relpos_attention"], LAUNCHES["relpos_attention_bwd"])
+    relpos_attention(*leaves, *args[6:]).backward(do)
+    torch.cuda.synchronize()
+    assert (LAUNCHES["relpos_attention"], LAUNCHES["relpos_attention_bwd"]) == (before[0] + 1,
+                                                                              before[1] + 1)
+    dq, dk, dv, dp, du, dvb = relpos_attention_bwd_plain(*args[:7], do, *args[7:])
+    for name, x, y in zip(("q", "k", "p", "v", "u", "v_bias"), leaves, (dq, dk, dp, dv, du, dvb)):
+        assert x.grad.dtype == y.dtype, name
+        err = float((x.grad - y).abs().max())
+        assert err <= 1e-4 * float(y.abs().max()) + 1e-6, (name, err)
+
+
+@pytest.mark.parametrize("b,t,s,h,dk,mask_kind", ATTENTION_SHAPES)
+def test_relpos_attention_fp32_backward_repeats_bit_for_bit(card, b, t, s, h, dk, mask_kind):
+    """Two fp32 backwards on the same inputs give the same dq, dk, dv, dp,
+    du and dvb to the bit: dp, du and dvb are summed from per-block partials
+    in a fixed order, with no atomics."""
+    args, do = _attention_inputs(card, torch.float32, b, t, s, h, dk, mask_kind)
+    q, k, p, v, ub, vb, mask, scale, n_head = args
+    _, out, lse = _relpos_fwd(*args, saved=True)
+    first = relpos_attention_bwd(q, k, p, v, ub, vb, mask, do, scale, n_head, out, lse)
+    again = relpos_attention_bwd(q, k, p, v, ub, vb, mask, do, scale, n_head, out, lse)
+    for name, x, y in zip(("dq", "dk", "dv", "dp", "du", "dvb"), first, again):
+        assert torch.equal(x, y), name
+
+
+@pytest.mark.parametrize("t,left", [(191, -1), (256, -1), (256, 1)])
+def test_relpos_attention_fp32_blocks_whose_first_tiles_are_dead(card, t, left):
+    """Chunk masks of 32 frames leave a block's first tiles with no live
+    pair and a later tile with some: with every left chunk, the keys 128-190
+    are seen by no query before 128; with one left chunk at T 256, the
+    queries 192-255 see no key before 160. A later tile's loads then go into
+    a double buffer whose earlier loads were never consumed. The forward and
+    the backward hold their plain versions and repeat to the bit."""
+    b, h, dk = 4, 4, 64
+    args, do = _attention_inputs(card, torch.float32, b, t, t, h, dk, "chunk")
+    q, k, p, v, ub, vb, _, scale, n_head = args
+    mask = chunk_mask(t, 32, left)[None].repeat(b, 1, 1).to(card)
+    args = (q, k, p, v, ub, vb, mask, scale, n_head)
+    out, _, lse = _relpos_fwd(*args, saved=True)
+    torch.testing.assert_close(out, relpos_attention_plain(*args), rtol=1e-5, atol=1e-5)
+    first = relpos_attention_bwd(*args[:7], do, scale, n_head, out, lse)
+    ref = relpos_attention_bwd_plain(*args[:7], do, scale, n_head)
+    for name, x, y in zip(("dq", "dk", "dv", "dp", "du", "dvb"), first, ref):
+        err = float((x - y).abs().max())
+        assert err <= 1e-4 * float(y.abs().max()) + 1e-6, (name, err)
+    for _ in range(10):
+        assert torch.equal(_relpos_fwd(*args), out)
+        again = relpos_attention_bwd(*args[:7], do, scale, n_head, out, lse)
+        for name, x, y in zip(("dq", "dk", "dv", "dp", "du", "dvb"), first, again):
+            assert torch.equal(x, y), name
+
+
+def test_relpos_attention_under_zero3_with_an_odd_parameter_ahead(card):
+    """ZeRO-3 makes every parameter a view of one flat buffer, packed with
+    no padding: a parameter of 3 floats ahead of the attention leaves
+    pos_bias_u and pos_bias_v 12 bytes off a 16-byte boundary. The fused fp32
+    layer takes them (the wrapper copies what is not aligned) and gives the
+    plain layer's output (1e-5) and gradients (1e-4 of the largest)."""
+    import copy
+
+    from tpuasr_torch.nn.attention import RelPositionMultiHeadedAttention
+    from tpuasr_torch.parallel.mesh import Mesh
+    from tpuasr_torch.parallel.zero import ZeroShard
+
+    b, t, h, d = 2, 70, 4, 256
+    g = torch.Generator().manual_seed(3)
+    att = RelPositionMultiHeadedAttention(h, d, fused=True, device=card)
+    with torch.no_grad():
+        for prm in att.parameters():
+            prm.copy_(0.1 * torch.randn(prm.shape, generator=g))
+    plain = copy.deepcopy(att)
+    plain.fused = False
+    odd = torch.nn.Parameter(torch.randn(3, generator=g).to(card))
+    zero = ZeroShard(Mesh(1, 0, device=card), "zero3", [odd] + list(att.parameters()))
+    zero.materialize()
+    assert att.pos_bias_u.data_ptr() % 16 == 12 and att.pos_bias_v.data_ptr() % 16 == 12
+    x = torch.randn(b, t, d, generator=g).to(card)
+    pos = torch.randn(1, t, d, generator=g).to(card)
+    do = torch.randn(b, t, d, generator=g).to(card)
+    mask = chunk_mask(t, 16, 2)[None].repeat(b, 1, 1).to(card)
+    before = (LAUNCHES["relpos_attention"], LAUNCHES["relpos_attention_bwd"])
+    out, _ = att(x, mask, pos)
+    out.backward(do)
+    torch.cuda.synchronize()
+    assert (LAUNCHES["relpos_attention"], LAUNCHES["relpos_attention_bwd"]) == \
+        (before[0] + 1, before[1] + 1)
+    ref, _ = plain(x, mask, pos)
+    ref.backward(do)
+    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5)
+    # linear_k.bias's true gradient is 0 (a shift of every key moves a row's
+    # scores by one constant): each leaf is held to 1e-4 of the layer's largest
+    gmax = max(float(bp.grad.abs().max()) for bp in plain.parameters())
+    for (name, a), bp in zip(att.named_parameters(), plain.parameters()):
+        err = float((a.grad - bp.grad).abs().max())
+        assert err <= 1e-4 * gmax, (name, err)
+
+
 def test_relpos_attention_gradients_match_plain_backward(card):
     """Autograd through the wrapper runs kernel #3 and returns the plain
     backward's gradients to q, k, p, v and both biases."""
@@ -361,13 +473,11 @@ def test_relpos_attention_gradients_match_plain_backward(card):
     leaves = [x.detach().clone().requires_grad_() for x in args[:6]]
     before = LAUNCHES["relpos_attention_bwd"]
     out = relpos_attention(*leaves, *args[6:])
-    saved = out.grad_fn.saved_tensors  # fp32: the inputs only
-    assert saved[7] is None and saved[8] is None
+    saved = out.grad_fn.saved_tensors  # fp32: the output itself and each row's lse
+    assert torch.equal(saved[7], out) and saved[8].shape == (2, 4, 40)
     out.backward(do)
     torch.cuda.synchronize()
     assert LAUNCHES["relpos_attention_bwd"] == before + 1
-    with pytest.raises(ValueError, match="saves no statistics"):
-        _relpos_fwd(*args, saved=True)
     dq, dk, dv, dp, du, dvb = relpos_attention_bwd_plain(*args[:7], do, *args[7:])
     for x, y in zip(leaves, (dq, dk, dp, dv, du, dvb)):
         assert float((x.grad - y).abs().max()) <= 1e-4 * float(y.abs().max()) + 1e-6

@@ -15,18 +15,18 @@
 // a few microseconds of either; what a call really pays is latency: loads
 // that wait, and a grid of a few hundred small blocks.
 //
-// Two routes, one per input type.
+// Two routes, one per input type, both flash-attention-2 style on tensor
+// cores: a block takes 64 query rows of one (batch, head), 16 per warp
+// (`launch_fwd_tc` says why 64). It walks the keys in tiles of 64: the
+// tile's [k | p] rows (the JAX kernel's own concatenation, so the scores are
+// one product of depth 2 dk) and v rows are staged by cp.async into a double
+// buffer, so the next tile's loads run under this tile's products. The
+// online max and sum stay in registers.
 //
-// bf16 (training and bf16 serving): tensor cores, flash-attention-2 style.
-// `relpos_fwd_tc_kernel`: a block takes 64 query rows of one (batch, head),
-// 16 per warp (`launch_fwd_tc` says why 64), and forms [q+u | q+v] in bf16,
-// as the reference does, as mma.sync A fragments in registers. It walks the
-// keys in tiles of 64: the tile's [k | p] rows (the JAX kernel's own
-// concatenation, so the scores are one product of depth 2 dk) and v rows are
-// staged by cp.async into a double buffer, so the next tile's loads run
-// under this tile's products (mma.sync.m16n8k16, bf16 operands from
-// ldmatrix, fp32 accumulators). The online max and sum stay in registers;
-// out is divided by the sum at the end and rounded to bf16.
+// bf16 (training and bf16 serving): `relpos_fwd_tc_kernel` forms [q+u | q+v]
+// in bf16, as the reference does, as mma.sync A fragments in registers
+// (mma.sync.m16n8k16, bf16 operands from ldmatrix, fp32 accumulators); out
+// is divided by the sum at the end and rounded to bf16.
 // Rounding: the reference rounds the normalised a to bf16 before a.v. This
 // kernel never holds a normalised a: without `out32` (serving, any call with
 // no gradient to compute) it rounds the unnormalised probabilities
@@ -45,14 +45,36 @@
 // attend is never loaded, and a warp skips the products of a tile none of
 // its rows attends.
 //
-// fp32 (the card-vs-CPU checks: their tokens must equal the CPU's, and the
-// forward is held to 1e-5, which TF32 would not keep): `relpos_fwd_kernel`,
-// CUDA-core fp32 products. One block of 4 warps takes 16 query rows and
-// stages q+u and q+v in shared memory; it walks the keys in tiles of 32, one
-// key per lane ([k | p] with an odd row pitch, so the 32 lanes hit 32
-// banks). Each warp owns 4 query rows; a lane scores its key for all 4 rows,
-// the warp keeps an online fp32 max and sum per row, and the probabilities
-// are broadcast lane to lane to accumulate a.v in fp32 registers.
+// fp32 (the default compute type: the card-vs-CPU checks, whose tokens must
+// equal the CPU's, fp32 serving and training; the forward is held to 1e-5
+// and the gradients to 1e-4 of their max): `relpos_fwd_tf32_kernel`, the
+// same tile walk with every product in 3xTF32 (mma.sync.m16n8k8: each fp32
+// operand split into a TF32 hi and the TF32 of the rest, lo, and lo.hi +
+// hi.lo + hi.hi summed in fp32, about 21 bits; one TF32 pass keeps 10 and
+// misses 1e-5, tests/test_torch_attention_tf32.py). Each k-step's three
+// passes go into a zeroed partial that joins the accumulator by an fp32 add
+// (`mma3`): the tensor core truncates its sums, and chained through one
+// accumulator over a product's depth that left the forward 3x further from
+// the plain version than the CUDA-core kernel it replaced (on an H100,
+// 7e-6 against 2.3e-6 at [6, 191, 256]), enough to flip a ReLU in the AED
+// step card against CPU; with the partials 2.4e-6. A block is 8 warps: two on each 16 query rows,
+// each taking one half (32 keys) of every 64-key tile, their softmax states
+// merged once at the end (`pair_exchange`); one warp alone on a scheduler
+// waits out its own mma and shared loads, and these grids hold about one
+// block an SM. [q+u | q+v] is formed in fp32 into shared memory and each
+// fragment split as it is read (the A fragments of depth 2 dk in hi and lo
+// would take 128 registers). p.v takes p from the score accumulators in
+// registers: an accumulator holds keys 2c and 2c + 1 of its row where the A
+// fragment wants keys c and c + 4, so each 8-key step of p.v runs over its
+// keys in the order 0, 2, 4, 6, 1, 3, 5, 7 (slot c takes key 2c, slot c + 4
+// key 2c + 1), and the B fragment reads v's rows in that order. Tiles are
+// fp32 rows at a pitch of width + 4 floats, so every fragment read hits 32
+// banks. The first tile is asked for before its mask bits; each later
+// tile's bits are built during the one before (a ballot per row and 32
+// keys, each byte read once), and a barrier that ORs them skips the loads of
+// a tile no row of the block attends: no shared memory grows with S, so the
+// route has no length limit. With `lse` it writes each row's log-sum-exp as
+// the bf16 route does (the fp32 output is out itself).
 // Masked keys contribute nothing on both routes; a fully masked row gives
 // zeros.
 //
@@ -74,42 +96,43 @@
 // Design: the TPU kernel keeps a whole [T, S] score block in VMEM and
 // accumulates dp, du and dvb across a grid that runs in order over the
 // batch. A Hopper block holds neither, and blocks run in no order, so the
-// work splits flash-attention-2 style into two kernels on one stream.
-//
-// bf16 route, from the forward's fp32 output o and log-sum-exp L (one sweep
-// per side, tensor cores as the forward; recomputing s and dP on both sides
-// and dv's split p make 22 dk flops per pair against the function's 14):
-// - `relpos_bwd_q_tc_kernel`, a block per (batch, head, 64 query rows). Its
-//   prologue forms D = rowsum(do * o) in fp32 (= rowsum(da * a) to fp32
-//   precision, since o = a.v) and writes it, and [q+u | q+v] for the key side ([B, H, T,
-//   2 dk] bf16 scratch). One sweep over the keys recomputes s and
-//   dP = do.v^T, p = exp(s scale - L), ds = p (dP - D) scale rounded to bf16,
-//   and dq += ds.(k + p), k + p summed in bf16 (`_bwd_kernel` :118-119).
-// - `relpos_bwd_kv_tc_kernel`, a block per (batch, head, 64 keys), holding
-//   [k | p] and v as A fragments: one sweep over the query tiles recomputes
-//   s^T and dP^T and accumulates dv += p^T.do (p as hi + lo bf16 operands,
-//   as the forward's out32, so dv is the reference's fp32 a times do),
-//   [dk | dp] += ds^T.[q+u | q+v] (one product of width 2 dk, as :123-126)
-//   and each key's column sum of ds, rounded to bf16 for du and dvb
-//   (:128-132).
+// work splits flash-attention-2 style into two kernels on one stream, each
+// starting from the forward's output o (fp32) and log-sum-exp L, one sweep
+// per side; recomputing s and dP on both sides makes 22 dk flops per pair
+// against the function's 14:
+// - the query side, a block per (batch, head, 64 query rows). Its prologue
+//   forms D = rowsum(do * o) in fp32 (= rowsum(da * a) to fp32 precision,
+//   since o = a.v) and writes it, and [q+u | q+v] for the key side ([B, H,
+//   T, 2 dk] scratch in the input type). One sweep over the keys recomputes
+//   s and dP = do.v^T, p = exp(s scale - L), ds = p (dP - D) scale rounded
+//   to the input type, and dq += ds.(k + p), k + p summed in the input type
+//   (`_bwd_kernel` :118-119).
+// - the key side, a block per (batch, head, 64 keys), holding [k | p] and v:
+//   one sweep over the query tiles recomputes s^T and dP^T and accumulates
+//   dv += p^T.do, [dk | dp] += ds^T.[q+u | q+v] (one product of width 2 dk,
+//   as :123-126) and each key's column sum of ds, rounded to the input type
+//   for du and dvb (:128-132).
 // A fully masked row has L = -inf; its p is selected to 0 by the mask, never
 // computed from exp(s - L), so it gives exactly zero gradient.
-//
-// fp32 route (CUDA-core fp32, as the forward's fp32 route):
-// - `relpos_bwd_q_kernel`, a block per (batch, head, 16 query rows), laid
-//   out as the forward (lane = key): a first sweep over the keys keeps the
-//   online max, sum and rowsum(da * a) of each row and writes them to a
-//   [B, H, T, 3] buffer; a second sweep forms ds and accumulates dq.
-// - `relpos_bwd_kv_kernel`, a block per (batch, head, 16 keys), a warp per 4
-//   keys, lane = query row in tiles of 32: it recomputes a and ds from the
-//   row statistics, hands them lane to lane to accumulate dv, dk and this
-//   batch's share of dp in registers (lane = feature), and sums each key's
-//   ds column over all rows. A fully masked query row has a = 0 and gives
-//   exactly zero gradient.
-// On both routes dk and dv are written; dp, du and dvb, shared by the batch
-// (du, dvb by every key tile too), are added with fp32 atomics into zeroed
-// buffers (not per-batch buffers and a reduction), so their summation order,
-// and their last bits, change from run to run (a few ulps of fp32).
+// bf16 route (`relpos_bwd_q_tc_kernel`, `relpos_bwd_kv_tc_kernel`): bf16
+// mma.sync as the forward; dv's p enters as hi + lo bf16 operands, as the
+// forward's out32, so dv is the reference's fp32 a times do. dk and dv are
+// written; dp, du and dvb, shared by the batch (du, dvb by every key tile
+// too), are added with fp32 atomics into zeroed buffers, so their last bits
+// change from run to run.
+// fp32 route (`relpos_bwd_q_tf32_kernel`, `relpos_bwd_kv_tf32_kernel`,
+// `relpos_bwd_sum_kernel`): every product 3xTF32 with zeroed partials, as
+// the forward's, the accumulators turned into A fragments by the same key
+// (here: query) order, 8 warps a block, two on each 16 rows (query rows; on
+// the key side keys) splitting every tile's 64 keys (query rows) and summing
+// their halves at the end in a fixed order; the key side takes its half's 32
+// queries 16 at a time (32 at once put its dk = 64 instance at 255 registers
+// with 296 bytes of spill stores; 16, at 255 with 76). The key side writes
+// dk and dv, its batch's dp rows ([B, S, H*dk] partials) and its 64 keys'
+// share of du and dvb ([B, S tiles, 2 H*dk] partials); a third kernel sums
+// the partials over the batch (and the key tiles) in a fixed order, as #5
+// and #11 do. No atomics: two fp32 backwards on the same inputs give the
+// same bits.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -120,510 +143,7 @@
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kRowsPerWarp = 4;
-constexpr int kBQ = kWarps * kRowsPerWarp;  // query rows per block
-constexpr int kBK = 32;                     // keys per tile: one per lane
 constexpr unsigned kFull = 0xffffffffu;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// x rounded to T's precision (identity for fp32)
-template <typename T> __device__ __forceinline__ float round_to(float x) {
-  return to_f(from_f<T>(x));
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(kFull, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(kFull, x, o);
-  return x;
-}
-
-template <typename T, int DK>
-__global__ void __launch_bounds__(kWarps * 32)
-relpos_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ p, const T* __restrict__ v,
-                  const T* __restrict__ ubias, const T* __restrict__ vbias,
-                  const uint8_t* __restrict__ mask, T* __restrict__ out,
-                  int t_len, int s_len, int n_head, long long msb,
-                  long long mst, long long mss, float scale) {
-  constexpr int kPitch = 2 * DK + 1;  // odd pitch: conflict-free key rows
-  constexpr int kPerLane = (DK + 31) / 32;
-  __shared__ float s_qu[kBQ][DK];
-  __shared__ float s_qv[kBQ][DK];
-  __shared__ float s_kp[kBK][kPitch];  // [k | p] of the tile's keys
-  __shared__ float s_v[kBK][DK];
-
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBQ;
-  const int d_model = n_head * DK;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int row0 = warp * kRowsPerWarp;
-
-  for (int i = tid; i < kBQ * DK; i += blockDim.x) {
-    const int r = i / DK, d = i - r * DK, t = q0 + r;
-    float qu = 0.f, qv = 0.f;
-    if (t < t_len) {
-      const float x = to_f(q[((size_t)b * t_len + t) * d_model + h * DK + d]);
-      qu = round_to<T>(x + to_f(ubias[h * DK + d]));
-      qv = round_to<T>(x + to_f(vbias[h * DK + d]));
-    }
-    s_qu[r][d] = qu;
-    s_qv[r][d] = qv;
-  }
-
-  float m_run[kRowsPerWarp], l_run[kRowsPerWarp], acc[kRowsPerWarp][kPerLane];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    m_run[r] = -INFINITY;
-    l_run[r] = 0.f;
-#pragma unroll
-    for (int i = 0; i < kPerLane; ++i) acc[r][i] = 0.f;
-  }
-
-  for (int s0 = 0; s0 < s_len; s0 += kBK) {
-    __syncthreads();  // the previous tile is consumed (and q is staged)
-    for (int i = tid; i < kBK * DK; i += blockDim.x) {
-      const int j = i / DK, d = i - j * DK, s = s0 + j;
-      float kx = 0.f, px = 0.f, vx = 0.f;
-      if (s < s_len) {
-        const size_t off = ((size_t)b * s_len + s) * d_model + h * DK + d;
-        kx = to_f(k[off]);
-        vx = to_f(v[off]);
-        px = to_f(p[(size_t)s * d_model + h * DK + d]);
-      }
-      s_kp[j][d] = kx;
-      s_kp[j][DK + d] = px;
-      s_v[j][d] = vx;
-    }
-    __syncthreads();
-
-    // scores of key s0 + lane against this warp's rows
-    float sc[kRowsPerWarp];
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) sc[r] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < DK; ++d) {
-      const float kd = s_kp[lane][d], pd = s_kp[lane][DK + d];
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        sc[r] = fmaf(s_qu[row0 + r][d], kd, sc[r]);
-        sc[r] = fmaf(s_qv[row0 + r][d], pd, sc[r]);
-      }
-    }
-
-    const int s = s0 + lane;
-    float prob[kRowsPerWarp];
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int t = q0 + row0 + r;
-      const bool ok = s < s_len && t < t_len &&
-                      mask[b * msb + t * mst + s * mss] != 0;
-      const float x = ok ? sc[r] * scale : -INFINITY;
-      const float m_new = fmaxf(m_run[r], warp_max(x));
-      float pr = 0.f, corr = 1.f;
-      if (m_new != -INFINITY) {  // uniform over the warp
-        pr = ok ? expf(x - m_new) : 0.f;
-        corr = expf(m_run[r] - m_new);  // 0 while no key was valid yet
-        m_run[r] = m_new;
-      }
-      l_run[r] = l_run[r] * corr + warp_sum(pr);
-#pragma unroll
-      for (int i = 0; i < kPerLane; ++i) acc[r][i] *= corr;
-      prob[r] = round_to<T>(pr);
-    }
-
-    // a . v over the tile: lane j's probability is broadcast to the warp
-#pragma unroll 4
-    for (int j = 0; j < kBK; ++j) {
-      float vj[kPerLane];
-#pragma unroll
-      for (int i = 0; i < kPerLane; ++i)
-        vj[i] = lane + 32 * i < DK ? s_v[j][lane + 32 * i] : 0.f;
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float pj = __shfl_sync(kFull, prob[r], j);
-#pragma unroll
-        for (int i = 0; i < kPerLane; ++i) acc[r][i] = fmaf(pj, vj[i], acc[r][i]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int t = q0 + row0 + r;
-    if (t >= t_len) continue;
-    const float inv = l_run[r] > 0.f ? 1.f / l_run[r] : 0.f;  // all-masked row: 0
-#pragma unroll
-    for (int i = 0; i < kPerLane; ++i)
-      if (lane + 32 * i < DK)
-        out[((size_t)b * t_len + t) * d_model + h * DK + lane + 32 * i] =
-            from_f<T>(acc[r][i] * inv);
-  }
-}
-
-template <typename T, int DK>
-cudaError_t launch(const void* q, const void* k, const void* p, const void* v,
-                   const void* ub, const void* vb, const void* mask, void* out,
-                   int batch, int t_len, int s_len, int n_head, long long msb,
-                   long long mst, long long mss, float scale, cudaStream_t stream) {
-  const dim3 grid((t_len + kBQ - 1) / kBQ, n_head, batch);
-  relpos_fwd_kernel<T, DK><<<grid, kWarps * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(p),
-      static_cast<const T*>(v), static_cast<const T*>(ub), static_cast<const T*>(vb),
-      static_cast<const uint8_t*>(mask), static_cast<T*>(out), t_len, s_len,
-      n_head, msb, mst, mss, scale);
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------- backward
-
-constexpr int kBT = 32;          // query rows per tile of the key-side kernel
-constexpr int kKeysPerWarp = 4;
-constexpr int kBKV = kWarps * kKeysPerWarp;  // keys per key-side block
-
-template <typename T, int DK>
-__global__ void __launch_bounds__(kWarps * 32)
-relpos_bwd_q_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ p, const T* __restrict__ v,
-                    const T* __restrict__ ubias, const T* __restrict__ vbias,
-                    const uint8_t* __restrict__ mask, const T* __restrict__ dout,
-                    T* __restrict__ dq, float* __restrict__ stats, int t_len, int s_len,
-                    int n_head, long long msb, long long mst, long long mss, float scale) {
-  constexpr int kPitch = 2 * DK + 1;  // odd pitches: lane j reads key j's row
-  constexpr int kVPitch = DK + 1;
-  constexpr int kPerLane = (DK + 31) / 32;
-  __shared__ float s_qu[kBQ][DK];
-  __shared__ float s_qv[kBQ][DK];
-  __shared__ float s_do[kBQ][DK];
-  __shared__ float s_kp[kBK][kPitch];  // [k | p] of the tile's keys
-  __shared__ float s_v[kBK][kVPitch];
-  __shared__ float s_ks[kBK][DK];      // k + p, rounded to the input type
-
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBQ;
-  const int d_model = n_head * DK;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int row0 = warp * kRowsPerWarp;
-
-  for (int i = tid; i < kBQ * DK; i += blockDim.x) {
-    const int r = i / DK, d = i - r * DK, t = q0 + r;
-    float qu = 0.f, qv = 0.f, g = 0.f;
-    if (t < t_len) {
-      const size_t off = ((size_t)b * t_len + t) * d_model + h * DK + d;
-      const float x = to_f(q[off]);
-      qu = round_to<T>(x + to_f(ubias[h * DK + d]));
-      qv = round_to<T>(x + to_f(vbias[h * DK + d]));
-      g = to_f(dout[off]);
-    }
-    s_qu[r][d] = qu;
-    s_qv[r][d] = qv;
-    s_do[r][d] = g;
-  }
-
-  // scores x (scaled) and da of key s0 + lane against this warp's rows;
-  // ok: the pair is inside the arrays and unmasked
-  auto score = [&](int s0, float (&x)[kRowsPerWarp], float (&da)[kRowsPerWarp],
-                   bool (&ok)[kRowsPerWarp]) {
-    float sc[kRowsPerWarp];
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) sc[r] = da[r] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < DK; ++d) {
-      const float kd = s_kp[lane][d], pd = s_kp[lane][DK + d], vd = s_v[lane][d];
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        sc[r] = fmaf(s_qu[row0 + r][d], kd, sc[r]);
-        sc[r] = fmaf(s_qv[row0 + r][d], pd, sc[r]);
-        da[r] = fmaf(s_do[row0 + r][d], vd, da[r]);
-      }
-    }
-    const int s = s0 + lane;
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int t = q0 + row0 + r;
-      ok[r] = s < s_len && t < t_len && mask[b * msb + t * mst + s * mss] != 0;
-      x[r] = sc[r] * scale;
-    }
-  };
-  auto stage = [&](int s0, bool with_sum) {
-    __syncthreads();  // the previous tile is consumed (and q is staged)
-    for (int i = tid; i < kBK * DK; i += blockDim.x) {
-      const int j = i / DK, d = i - j * DK, s = s0 + j;
-      float kx = 0.f, px = 0.f, vx = 0.f;
-      if (s < s_len) {
-        const size_t off = ((size_t)b * s_len + s) * d_model + h * DK + d;
-        kx = to_f(k[off]);
-        vx = to_f(v[off]);
-        px = to_f(p[(size_t)s * d_model + h * DK + d]);
-      }
-      s_kp[j][d] = kx;
-      s_kp[j][DK + d] = px;
-      s_v[j][d] = vx;
-      if (with_sum) s_ks[j][d] = round_to<T>(kx + px);
-    }
-    __syncthreads();
-  };
-
-  // sweep 1: each row's max, sum and rowsum(da * a), online
-  float m_run[kRowsPerWarp], l_run[kRowsPerWarp], d_run[kRowsPerWarp];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    m_run[r] = -INFINITY;
-    l_run[r] = d_run[r] = 0.f;
-  }
-  for (int s0 = 0; s0 < s_len; s0 += kBK) {
-    stage(s0, false);
-    float x[kRowsPerWarp], da[kRowsPerWarp];
-    bool ok[kRowsPerWarp];
-    score(s0, x, da, ok);
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const float m_new = fmaxf(m_run[r], warp_max(ok[r] ? x[r] : -INFINITY));
-      float e = 0.f, corr = 1.f;
-      if (m_new != -INFINITY) {  // uniform over the warp
-        e = ok[r] ? expf(x[r] - m_new) : 0.f;
-        corr = expf(m_run[r] - m_new);
-        m_run[r] = m_new;
-      }
-      l_run[r] = l_run[r] * corr + warp_sum(e);
-      d_run[r] = d_run[r] * corr + warp_sum(ok[r] ? e * da[r] : 0.f);
-    }
-  }
-  float dsum[kRowsPerWarp];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    dsum[r] = l_run[r] > 0.f ? d_run[r] / l_run[r] : 0.f;
-    const int t = q0 + row0 + r;
-    if (lane == 0 && t < t_len) {
-      float* st = stats + (((size_t)b * n_head + h) * t_len + t) * 3;
-      st[0] = m_run[r];
-      st[1] = l_run[r];
-      st[2] = dsum[r];
-    }
-  }
-
-  // sweep 2: ds, rounded, against k + p
-  float acc[kRowsPerWarp][kPerLane];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r)
-#pragma unroll
-    for (int i = 0; i < kPerLane; ++i) acc[r][i] = 0.f;
-  for (int s0 = 0; s0 < s_len; s0 += kBK) {
-    stage(s0, true);
-    float x[kRowsPerWarp], da[kRowsPerWarp], dsc[kRowsPerWarp];
-    bool ok[kRowsPerWarp];
-    score(s0, x, da, ok);
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const float a = ok[r] ? expf(x[r] - m_run[r]) / l_run[r] : 0.f;
-      dsc[r] = ok[r] ? round_to<T>(a * (da[r] - dsum[r]) * scale) : 0.f;
-    }
-#pragma unroll 4
-    for (int j = 0; j < kBK; ++j) {
-      float kj[kPerLane];
-#pragma unroll
-      for (int i = 0; i < kPerLane; ++i)
-        kj[i] = lane + 32 * i < DK ? s_ks[j][lane + 32 * i] : 0.f;
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float dj = __shfl_sync(kFull, dsc[r], j);
-#pragma unroll
-        for (int i = 0; i < kPerLane; ++i) acc[r][i] = fmaf(dj, kj[i], acc[r][i]);
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int t = q0 + row0 + r;
-    if (t >= t_len) continue;
-#pragma unroll
-    for (int i = 0; i < kPerLane; ++i)
-      if (lane + 32 * i < DK)
-        dq[((size_t)b * t_len + t) * d_model + h * DK + lane + 32 * i] = from_f<T>(acc[r][i]);
-  }
-}
-
-template <typename T, int DK>
-__global__ void __launch_bounds__(kWarps * 32)
-relpos_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ p, const T* __restrict__ v,
-                     const T* __restrict__ ubias, const T* __restrict__ vbias,
-                     const uint8_t* __restrict__ mask, const T* __restrict__ dout,
-                     const float* __restrict__ stats, T* __restrict__ dk_out,
-                     T* __restrict__ dv_out, float* __restrict__ dp, float* __restrict__ du,
-                     float* __restrict__ dvb, int t_len, int s_len, int n_head,
-                     long long msb, long long mst, long long mss, float scale) {
-  constexpr int kQPitch = DK + 1;  // odd pitch: lane t reads row t
-  constexpr int kPerLane = (DK + 31) / 32;
-  __shared__ float s_qu[kBT][kQPitch];
-  __shared__ float s_qv[kBT][kQPitch];
-  __shared__ float s_do[kBT][kQPitch];
-  __shared__ float s_st[kBT][3];
-  __shared__ float s_k[kBKV][DK];
-  __shared__ float s_p[kBKV][DK];
-  __shared__ float s_v[kBKV][DK];
-
-  const int b = blockIdx.z, h = blockIdx.y, key0 = blockIdx.x * kBKV;
-  const int d_model = n_head * DK;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int kw = warp * kKeysPerWarp;  // this warp's first key in the block
-
-  for (int i = tid; i < kBKV * DK; i += blockDim.x) {
-    const int j = i / DK, d = i - j * DK, s = key0 + j;
-    float kx = 0.f, px = 0.f, vx = 0.f;
-    if (s < s_len) {
-      const size_t off = ((size_t)b * s_len + s) * d_model + h * DK + d;
-      kx = to_f(k[off]);
-      vx = to_f(v[off]);
-      px = to_f(p[(size_t)s * d_model + h * DK + d]);
-    }
-    s_k[j][d] = kx;
-    s_p[j][d] = px;
-    s_v[j][d] = vx;
-  }
-
-  float acc_dv[kKeysPerWarp][kPerLane], acc_dk[kKeysPerWarp][kPerLane],
-      acc_dp[kKeysPerWarp][kPerLane], col[kKeysPerWarp];
-#pragma unroll
-  for (int j = 0; j < kKeysPerWarp; ++j) {
-    col[j] = 0.f;
-#pragma unroll
-    for (int i = 0; i < kPerLane; ++i) acc_dv[j][i] = acc_dk[j][i] = acc_dp[j][i] = 0.f;
-  }
-
-  for (int t0 = 0; t0 < t_len; t0 += kBT) {
-    __syncthreads();  // the previous tile is consumed (and the keys are staged)
-    for (int i = tid; i < kBT * DK; i += blockDim.x) {
-      const int r = i / DK, d = i - r * DK, t = t0 + r;
-      float qu = 0.f, qv = 0.f, g = 0.f;
-      if (t < t_len) {
-        const size_t off = ((size_t)b * t_len + t) * d_model + h * DK + d;
-        const float x = to_f(q[off]);
-        qu = round_to<T>(x + to_f(ubias[h * DK + d]));
-        qv = round_to<T>(x + to_f(vbias[h * DK + d]));
-        g = to_f(dout[off]);
-      }
-      s_qu[r][d] = qu;
-      s_qv[r][d] = qv;
-      s_do[r][d] = g;
-    }
-    for (int i = tid; i < kBT * 3; i += blockDim.x) {
-      const int r = i / 3, c = i - r * 3, t = t0 + r;
-      s_st[r][c] = t < t_len ? stats[(((size_t)b * n_head + h) * t_len + t) * 3 + c]
-                             : (c == 1 ? 1.f : 0.f);
-    }
-    __syncthreads();
-
-    // lane = query row t0 + lane: a and ds against each of the warp's keys
-    const int t = t0 + lane;
-    const float m = s_st[lane][0], l = s_st[lane][1], dsum = s_st[lane][2];
-    float a[kKeysPerWarp], dsc[kKeysPerWarp];
-#pragma unroll
-    for (int j = 0; j < kKeysPerWarp; ++j) {
-      const int s = key0 + kw + j;
-      float sc = 0.f, da = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < DK; ++d) {
-        sc = fmaf(s_qu[lane][d], s_k[kw + j][d], sc);
-        sc = fmaf(s_qv[lane][d], s_p[kw + j][d], sc);
-        da = fmaf(s_do[lane][d], s_v[kw + j][d], da);
-      }
-      const bool ok = t < t_len && s < s_len && mask[b * msb + t * mst + s * mss] != 0;
-      a[j] = ok ? expf(sc * scale - m) / l : 0.f;
-      const float ds = ok ? a[j] * (da - dsum) * scale : 0.f;
-      col[j] += ds;
-      dsc[j] = round_to<T>(ds);
-    }
-    // the tile's rows, lane to lane: lane = feature d for the accumulators
-#pragma unroll 4
-    for (int r = 0; r < kBT; ++r) {
-      float qu[kPerLane], qv[kPerLane], g[kPerLane];
-#pragma unroll
-      for (int i = 0; i < kPerLane; ++i) {
-        const int d = lane + 32 * i;
-        qu[i] = d < DK ? s_qu[r][d] : 0.f;
-        qv[i] = d < DK ? s_qv[r][d] : 0.f;
-        g[i] = d < DK ? s_do[r][d] : 0.f;
-      }
-#pragma unroll
-      for (int j = 0; j < kKeysPerWarp; ++j) {
-        const float aj = __shfl_sync(kFull, a[j], r), dj = __shfl_sync(kFull, dsc[j], r);
-#pragma unroll
-        for (int i = 0; i < kPerLane; ++i) {
-          acc_dv[j][i] = fmaf(aj, g[i], acc_dv[j][i]);
-          acc_dk[j][i] = fmaf(dj, qu[i], acc_dk[j][i]);
-          acc_dp[j][i] = fmaf(dj, qv[i], acc_dp[j][i]);
-        }
-      }
-    }
-  }
-
-  float du_part[kPerLane], dvb_part[kPerLane];
-#pragma unroll
-  for (int i = 0; i < kPerLane; ++i) du_part[i] = dvb_part[i] = 0.f;
-#pragma unroll
-  for (int j = 0; j < kKeysPerWarp; ++j) {
-    const int s = key0 + kw + j;
-    const float c = round_to<T>(warp_sum(col[j]));  // the key's ds column sum
-    if (s >= s_len) continue;  // uniform over the warp
-#pragma unroll
-    for (int i = 0; i < kPerLane; ++i) {
-      const int d = lane + 32 * i;
-      if (d >= DK) continue;
-      const size_t off = ((size_t)b * s_len + s) * d_model + h * DK + d;
-      dk_out[off] = from_f<T>(acc_dk[j][i]);
-      dv_out[off] = from_f<T>(acc_dv[j][i]);
-      atomicAdd(dp + (size_t)s * d_model + h * DK + d, acc_dp[j][i]);
-      du_part[i] = fmaf(c, s_k[kw + j][d], du_part[i]);
-      dvb_part[i] = fmaf(c, s_p[kw + j][d], dvb_part[i]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < kPerLane; ++i) {
-    const int d = lane + 32 * i;
-    if (d >= DK) continue;
-    atomicAdd(du + h * DK + d, du_part[i]);
-    atomicAdd(dvb + h * DK + d, dvb_part[i]);
-  }
-}
-
-template <typename T, int DK>
-cudaError_t launch_bwd(const void* q, const void* k, const void* p, const void* v,
-                       const void* ub, const void* vb, const void* mask, const void* dout,
-                       void* dq, void* dk, void* dv, void* dp, void* du, void* dvb,
-                       void* stats, int batch, int t_len, int s_len, int n_head,
-                       long long msb, long long mst, long long mss, float scale,
-                       cudaStream_t stream) {
-  const dim3 qgrid((t_len + kBQ - 1) / kBQ, n_head, batch);
-  relpos_bwd_q_kernel<T, DK><<<qgrid, kWarps * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(p),
-      static_cast<const T*>(v), static_cast<const T*>(ub), static_cast<const T*>(vb),
-      static_cast<const uint8_t*>(mask), static_cast<const T*>(dout), static_cast<T*>(dq),
-      static_cast<float*>(stats), t_len, s_len, n_head, msb, mst, mss, scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const dim3 kgrid((s_len + kBKV - 1) / kBKV, n_head, batch);
-  relpos_bwd_kv_kernel<T, DK><<<kgrid, kWarps * 32, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(p),
-      static_cast<const T*>(v), static_cast<const T*>(ub), static_cast<const T*>(vb),
-      static_cast<const uint8_t*>(mask), static_cast<const T*>(dout),
-      static_cast<const float*>(stats), static_cast<T*>(dk), static_cast<T*>(dv),
-      static_cast<float*>(dp), static_cast<float*>(du), static_cast<float*>(dvb), t_len,
-      s_len, n_head, msb, mst, mss, scale);
-  return cudaGetLastError();
-}
 
 // ------------------------------------------------- bf16 route: tensor cores
 
@@ -1349,6 +869,830 @@ cudaError_t launch_bwd_tc(const void* q, const void* k, const void* p, const voi
   return cudaGetLastError();
 }
 
+
+// ------------------------------------------------ fp32 route: 3xTF32 tensor cores
+
+// A block of the fp32 route: 8 warps, two per group of 16 rows (the
+// forward's and the query side's query rows, the key side's keys), each of
+// the two taking one half of every 64-wide tile (32 keys; on the key side 32
+// query rows). The two halves' sums meet once, at the end, through shared
+// memory, in a fixed order. Two warps a row group keep two warps on each of
+// the SM's four schedulers: one warp alone waits out its mma and shared
+// loads, and these grids hold about one block an SM.
+constexpr int kTfWarps = 8;
+constexpr int kTfThreads = kTfWarps * 32;
+
+// fp32 tiles in shared memory keep a row of width W (a multiple of 16) at a
+// pitch of W + 4 floats: the fragment reads below, lane (g, c) at (row g,
+// column c) or (row 2c, column g), then hit 32 different banks
+template <int W> __host__ __device__ constexpr int pitch32() { return W + 4; }
+
+// the A fragment of rows r0..r0+15, depth k0..k0+7 of a row-major fp32 tile,
+// split into TF32 hi and lo as it is read (g = lane / 4, c = lane % 4)
+__device__ __forceinline__ void load_a32(const float* t, int pitch, int r0, int k0, int g, int c,
+                                         uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  const float* x = t + (r0 + g) * pitch + k0 + c;
+  split_tf32(x[0], hi[0], lo[0]);
+  split_tf32(x[8 * pitch], hi[1], lo[1]);
+  split_tf32(x[4], hi[2], lo[2]);
+  split_tf32(x[8 * pitch + 4], hi[3], lo[3]);
+}
+
+// the B fragment of the n-tile n0..n0+7 at depth k0..k0+7 of a tile stored
+// [n][k] (B = tile^T)
+__device__ __forceinline__ void load_b32(const float* t, int pitch, int n0, int k0, int g, int c,
+                                         uint32_t (&hi)[2], uint32_t (&lo)[2]) {
+  const float* x = t + (n0 + g) * pitch + k0 + c;
+  split_tf32(x[0], hi[0], lo[0]);
+  split_tf32(x[4], hi[1], lo[1]);
+}
+
+// the B fragment of the n-tile n0..n0+7 of a tile stored [k][n] (B = tile)
+// over the 8 rows from k0 in the order of `acc_a`: slot c is row k0 + 2c,
+// slot c + 4 row k0 + 2c + 1. With `off`, each element is the sum of the
+// tile's entries at columns n and n + off, rounded to fp32 (k + p).
+__device__ __forceinline__ void load_bt32(const float* t, int pitch, int n0, int k0, int g, int c,
+                                          uint32_t (&hi)[2], uint32_t (&lo)[2], int off = 0) {
+  const float* x = t + (k0 + 2 * c) * pitch + n0 + g;
+  split_tf32(off ? x[0] + x[off] : x[0], hi[0], lo[0]);
+  split_tf32(off ? x[pitch] + x[pitch + off] : x[pitch], hi[1], lo[1]);
+}
+
+// an accumulator of a 16x8 product ({(g, 2c), (g, 2c+1), (g+8, 2c), (g+8, 2c+1)})
+// as the A fragment of the next product over those 8 columns, in the order
+// slot c = column 2c, slot c + 4 = column 2c + 1
+__device__ __forceinline__ void acc_a(const float (&x)[4], uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+  split_tf32(x[0], hi[0], lo[0]);
+  split_tf32(x[2], hi[1], lo[1]);
+  split_tf32(x[1], hi[2], lo[2]);
+  split_tf32(x[3], hi[3], lo[3]);
+}
+
+// The mask bits of a warp's 16 rows i0..i0+15 (query rows; on the key side,
+// keys) against the 32 columns j0..j0+31 (keys; query rows), the element
+// (i, j) at mask[base + i * si + j * sj], set where i < ni, j < nj and the
+// byte is not 0: lane (g, c) gets rows g (m0) and g + 8 (m1), bit j - j0. A
+// lane reads a column, each byte once, a ballot per row. -> whether any of
+// the 16 rows has a bit (uniform over the warp)
+__device__ __forceinline__ bool warp_bits(const uint8_t* __restrict__ mask, long long base,
+                                          long long si, long long sj, int i0, int ni, int j0,
+                                          int nj, uint32_t& m0, uint32_t& m1) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, j = j0 + lane;
+  bool ok[16];
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    const int i = i0 + r;
+    ok[r] = i < ni && j < nj && mask[base + i * si + j * sj] != 0;
+  }
+  uint32_t any = 0;
+  m0 = m1 = 0;
+#pragma unroll
+  for (int r = 0; r < 16; ++r) {
+    const uint32_t bits = __ballot_sync(kFull, ok[r]);
+    any |= bits;
+    if (r == g) m0 = bits;
+    if (r == g + 8) m1 = bits;
+  }
+  return any != 0;
+}
+
+// [q + u | q + v] of BQ query rows from q0, formed in fp32, into s_q (pitch
+// 2 dk + 4); rows past T are 0. With qc, the rows inside T are also written
+// to qc ([T, 2 dk] of this (batch, head)). The trip count is known, so every
+// load is in flight at once.
+template <int DK, int BQ>
+__device__ __forceinline__ void stage_qc32(const float* __restrict__ q,
+                                           const float* __restrict__ ubias,
+                                           const float* __restrict__ vbias, int b, int h, int q0,
+                                           int t_len, int d_model, float* s_q,
+                                           float* __restrict__ qc) {
+  constexpr int QP = pitch32<2 * DK>(), CH = DK / 4;  // 16-byte chunks of a head's row
+  static_assert(BQ * CH % kTfThreads == 0, "whole rounds of the block's threads");
+#pragma unroll
+  for (int it = 0; it < BQ * CH / kTfThreads; ++it) {
+    const int i = it * kTfThreads + threadIdx.x;
+    const int r = i / CH, c4 = (i - r * CH) * 4, t = q0 + r;
+    float4 qu = make_float4(0.f, 0.f, 0.f, 0.f), qv = qu;
+    if (t < t_len) {
+      const float4 x =
+          *reinterpret_cast<const float4*>(q + ((size_t)b * t_len + t) * d_model + h * DK + c4);
+      const float4 u = *reinterpret_cast<const float4*>(ubias + h * DK + c4);
+      const float4 w = *reinterpret_cast<const float4*>(vbias + h * DK + c4);
+      qu = make_float4(x.x + u.x, x.y + u.y, x.z + u.z, x.w + u.w);
+      qv = make_float4(x.x + w.x, x.y + w.y, x.z + w.z, x.w + w.w);
+      if (qc != nullptr) {
+        *reinterpret_cast<float4*>(qc + (size_t)t * 2 * DK + c4) = qu;
+        *reinterpret_cast<float4*>(qc + (size_t)t * 2 * DK + DK + c4) = qv;
+      }
+    }
+    *reinterpret_cast<float4*>(s_q + r * QP + c4) = qu;
+    *reinterpret_cast<float4*>(s_q + r * QP + DK + c4) = qv;
+  }
+}
+
+// [k | p] (pitch 2 dk + 4) and v (pitch dk + 4) fp32 rows of the 64 keys at
+// s0 into shared memory, in flight; rows past S zero-filled
+template <int DK>
+__device__ __forceinline__ void load_keys32(const float* __restrict__ k,
+                                            const float* __restrict__ p,
+                                            const float* __restrict__ v, int b, int h, int s0,
+                                            int s_len, int d_model, float* s_kp, float* s_v) {
+  constexpr int QP = pitch32<2 * DK>(), VP = pitch32<DK>(), CH = DK / 4;
+#pragma unroll
+  for (int it = 0; it < kTile * CH / kTfThreads; ++it) {
+    const int i = it * kTfThreads + threadIdx.x;
+    const int r = i / CH, c4 = (i - r * CH) * 4, s = s0 + r;
+    const bool in = s < s_len;
+    const int sc = in ? s : 0;
+    const size_t off = ((size_t)b * s_len + sc) * d_model + h * DK + c4;
+    cp_async16(s_kp + r * QP + c4, k + off, in);
+    cp_async16(s_kp + r * QP + DK + c4, p + (size_t)sc * d_model + h * DK + c4, in);
+    cp_async16(s_v + r * VP + c4, v + off, in);
+  }
+}
+
+// the largest count of n-tiles, at most 4, whose B fragments a product step
+// holds at once (the three passes run over them, so consecutive mma are
+// independent)
+template <int N> __host__ __device__ constexpr int group() { return N < 4 ? N : 4; }
+
+// acc[0..G) += a . b[0..G) over one k-step in 3xTF32. The three passes go
+// into a zeroed partial, which joins acc by rounded fp32 adds: the tensor
+// core truncates its fp32 sums, so a long chain of mma into one accumulator
+// drifts toward zero (about 2**-24 of the sum a link), past fp32's rounding.
+template <int G>
+__device__ __forceinline__ void mma3(float (*acc)[4], const uint32_t (&ah)[4],
+                                     const uint32_t (&al)[4], const uint32_t (&bh)[G][2],
+                                     const uint32_t (&bl)[G][2]) {
+  float part[G][4];
+#pragma unroll
+  for (int i = 0; i < G; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) part[i][e] = 0.f;
+#pragma unroll
+  for (int t = 0; t < 3; ++t)
+#pragma unroll
+    for (int i = 0; i < G; ++i) mma1688_3xtf32(part[i], t, ah, al, bh[i], bl[i]);
+#pragma unroll
+  for (int i = 0; i < G; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] += part[i][e];
+}
+
+// The second warp of each row group hands its per-thread values x[0..N) to
+// the first through shared memory (xs: 4 groups x N x 32 floats), after a
+// barrier that ends every warp's use of the region; -> where the first warp
+// finds its partner's value i: at [i * 32].
+template <int N>
+__device__ __forceinline__ const float* pair_exchange(float* xs, const float (&x)[N]) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float* slot = xs + (warp & 3) * N * 32 + lane;
+  __syncthreads();
+  if (warp >= 4) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) slot[i * 32] = x[i];
+  }
+  __syncthreads();
+  return slot;
+}
+
+template <int DK>
+__global__ void __launch_bounds__(kTfThreads)
+relpos_fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ p, const float* __restrict__ v,
+                       const float* __restrict__ ubias, const float* __restrict__ vbias,
+                       const uint8_t* __restrict__ mask, float* __restrict__ out,
+                       float* __restrict__ lse, int t_len, int s_len, int n_head, long long msb,
+                       long long mst, long long mss, float scale) {
+  constexpr int BQ = 64, D2 = 2 * DK, QP = pitch32<D2>(), VP = pitch32<DK>();
+  constexpr int ND = DK / 8, GD = group<ND>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* s_q = reinterpret_cast<float*>(smem);  // [BQ][QP]  [q+u | q+v]
+  float* s_kp = s_q + BQ * QP;                  // [2][kTile][QP]  [k | p]
+  float* s_v = s_kp + 2 * kTile * QP;           // [2][kTile][VP]
+
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BQ;
+  const int d_model = n_head * DK;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int r0 = (warp & 3) * 16, k0 = (warp >> 2) * 32;  // this warp's rows, keys of a tile
+  const float sl2 = scale * kLog2e;  // scores in log2 units
+  const long long mb = b * msb;
+  const int n_tiles = cdiv(s_len, kTile);
+
+  // tile 0 is asked for at once, before its mask is known
+  if (n_tiles > 0) load_keys32<DK>(k, p, v, b, h, 0, s_len, d_model, s_kp, s_v);
+  cp_async_commit();
+  stage_qc32<DK, BQ>(q, ubias, vbias, b, h, q0, t_len, d_model, s_q, nullptr);
+  uint32_t m0 = 0, m1 = 0;  // this thread's rows' bits over the warp's keys of the tile
+  bool wlive = n_tiles > 0 && warp_bits(mask, mb, mst, mss, q0 + r0, t_len, k0, s_len, m0, m1);
+  bool live = __syncthreads_or(wlive);  // (and q is staged)
+
+  float m_run[2] = {-INFINITY, -INFINITY}, l_run[2] = {0.f, 0.f};
+  float o[ND][4];
+#pragma unroll
+  for (int nt = 0; nt < ND; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[nt][e] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int buf = j & 1;
+    uint32_t n0 = 0, n1 = 0;
+    bool wnext = false;
+    if (j + 1 < n_tiles)
+      wnext = warp_bits(mask, mb, mst, mss, q0 + r0, t_len, (j + 1) * kTile + k0, s_len, n0, n1);
+    // every warp is also done with the other buffer, tile j - 1's
+    const bool next = __syncthreads_or(wnext);
+    if (next)
+      load_keys32<DK>(k, p, v, b, h, (j + 1) * kTile, s_len, d_model,
+                      s_kp + (buf ^ 1) * kTile * QP, s_v + (buf ^ 1) * kTile * VP);
+    cp_async_commit();
+    // every iteration, live or not: tile j - 1's group into the other buffer
+    // must land before a later tile's copies target the same addresses
+    cp_async_wait<1>();  // tile j has landed
+    if (live) __syncthreads();
+    if (live && wlive) {
+      const float* kp = s_kp + buf * kTile * QP + k0 * QP;  // this warp's 32 keys
+      const float* vt = s_v + buf * kTile * VP + k0 * VP;
+      float s[4][4];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D2 / 8; ++kk) {
+        uint32_t ah[4], al[4], bh[4][2], bl[4][2];
+        load_a32(s_q, QP, r0, kk * 8, g, c, ah, al);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) load_b32(kp, QP, i * 8, kk * 8, g, c, bh[i], bl[i]);
+        mma3<4>(s, ah, al, bh, bl);
+      }
+      // masked scaled scores (log2 units) and each row's new max
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const uint32_t mm = e < 2 ? m0 : m1;
+          const float x = (mm >> (nt * 8 + 2 * c + (e & 1))) & 1 ? s[nt][e] * sl2 : -INFINITY;
+          s[nt][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      float corr[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+        const float m_new = fmaxf(m_run[r], mx[r]);
+        corr[r] = m_new == -INFINITY ? 1.f : exp2f(m_run[r] - m_new);  // 0 before a first key
+        m_run[r] = m_new;
+      }
+      // p = 2^(x - m): 0 where masked, and in a row with no key yet
+      float rs[2] = {0.f, 0.f};
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float mr = m_run[e >> 1];
+          const float pv = mr == -INFINITY ? 0.f : exp2f(s[nt][e] - mr);
+          s[nt][e] = pv;
+          rs[e >> 1] += pv;
+        }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l_run[r] = l_run[r] * corr[r] + rs[r];
+#pragma unroll
+      for (int nt = 0; nt < ND; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[nt][e] *= corr[e >> 1];
+      // o += p . v, 8 keys a step in the order of `acc_a`
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t ah[4], al[4];
+        acc_a(s[kk], ah, al);
+#pragma unroll
+        for (int n4 = 0; n4 < ND; n4 += GD) {
+          uint32_t bh[GD][2], bl[GD][2];
+#pragma unroll
+          for (int i = 0; i < GD; ++i) load_bt32(vt, VP, (n4 + i) * 8, kk * 8, g, c, bh[i], bl[i]);
+          mma3<GD>(o + n4, ah, al, bh, bl);
+        }
+      }
+    }
+    m0 = n0;
+    m1 = n1;
+    wlive = wnext;
+    live = next;
+  }
+
+  // the two halves of each row: (m, l, o) merged onto the first warp
+  float x[4 * ND + 4];
+#pragma unroll
+  for (int nt = 0; nt < ND; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[4 * nt + e] = o[nt][e];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    x[4 * ND + r] = m_run[r];
+    x[4 * ND + 2 + r] = l_run[r];
+  }
+  cp_async_wait<0>();
+  const float* y = pair_exchange(s_kp, x);
+  if (warp >= 4) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m2 = y[(4 * ND + r) * 32], m = fmaxf(m_run[r], m2);
+    const float ca = m == -INFINITY ? 0.f : exp2f(m_run[r] - m);
+    const float cb = m == -INFINITY ? 0.f : exp2f(m2 - m);
+    l_run[r] = l_run[r] * ca + y[(4 * ND + 2 + r) * 32] * cb;
+    m_run[r] = m;
+#pragma unroll
+    for (int nt = 0; nt < ND; ++nt)
+#pragma unroll
+      for (int e = 2 * r; e < 2 * r + 2; ++e)
+        o[nt][e] = o[nt][e] * ca + y[(4 * nt + e) * 32] * cb;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l_run[r] += __shfl_xor_sync(kFull, l_run[r], 1);
+    l_run[r] += __shfl_xor_sync(kFull, l_run[r], 2);
+    const int t = q0 + r0 + g + 8 * r;
+    if (t >= t_len) continue;
+    const float inv = l_run[r] > 0.f ? 1.f / l_run[r] : 0.f;  // all-masked row: 0
+    float* row = out + ((size_t)b * t_len + t) * d_model + h * DK + 2 * c;
+#pragma unroll
+    for (int nt = 0; nt < ND; ++nt)
+      *reinterpret_cast<float2*>(row + nt * 8) =
+          make_float2(o[nt][2 * r] * inv, o[nt][2 * r + 1] * inv);
+    if (lse != nullptr && c == 0)
+      lse[((size_t)b * n_head + h) * t_len + t] =
+          l_run[r] > 0.f ? (m_run[r] + log2f(l_run[r])) * kLn2 : -INFINITY;
+  }
+}
+
+template <int DK>
+cudaError_t launch_fwd_tf32(const void* q, const void* k, const void* p, const void* v,
+                            const void* ub, const void* vb, const void* mask, void* out, void* lse,
+                            int batch, int t_len, int s_len, int n_head, long long msb,
+                            long long mst, long long mss, float scale, cudaStream_t stream) {
+  constexpr int BQ = 64, QP = pitch32<2 * DK>(), VP = pitch32<DK>();
+  const size_t smem = sizeof(float) * (BQ * QP + 2 * kTile * (QP + VP));
+  cudaError_t err = allow_smem(relpos_fwd_tf32_kernel<DK>, smem);
+  if (err != cudaSuccess) return err;
+  relpos_fwd_tf32_kernel<DK><<<dim3(cdiv(t_len, BQ), n_head, batch), kTfThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(p),
+      static_cast<const float*>(v), static_cast<const float*>(ub), static_cast<const float*>(vb),
+      static_cast<const uint8_t*>(mask), static_cast<float*>(out), static_cast<float*>(lse),
+      t_len, s_len, n_head, msb, mst, mss, scale);
+  return cudaGetLastError();
+}
+
+template <int DK>
+__global__ void __launch_bounds__(kTfThreads)
+relpos_bwd_q_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ p, const float* __restrict__ v,
+                         const float* __restrict__ ubias, const float* __restrict__ vbias,
+                         const uint8_t* __restrict__ mask, const float* __restrict__ dout,
+                         const float* __restrict__ out, const float* __restrict__ lse,
+                         float* __restrict__ dq, float* __restrict__ dsum, float* __restrict__ qc,
+                         int t_len, int s_len, int n_head, long long msb, long long mst,
+                         long long mss, float scale) {
+  constexpr int BQ = 64, D2 = 2 * DK, QP = pitch32<D2>(), VP = pitch32<DK>();
+  constexpr int ND = DK / 8, GD = group<ND>(), CH = DK / 4;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* s_q = reinterpret_cast<float*>(smem);  // [BQ][QP]  [q+u | q+v]
+  float* s_do = s_q + BQ * QP;                  // [BQ][VP]
+  float* s_kp = s_do + BQ * VP;                 // [2][kTile][QP]  [k | p]
+  float* s_v = s_kp + 2 * kTile * QP;           // [2][kTile][VP]
+  float* s_l = s_v + 2 * kTile * VP;            // [BQ] L in log2 units
+  float* s_d = s_l + BQ;                        // [BQ] D
+
+  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BQ;
+  const int d_model = n_head * DK;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int r0 = (warp & 3) * 16, k0 = (warp >> 2) * 32;  // this warp's rows, keys of a tile
+  const float sl2 = scale * kLog2e;
+  const long long mb = b * msb;
+  const size_t row0 = ((size_t)b * n_head + h) * t_len;  // this (batch, head) in [B, H, T]
+  const int n_tiles = cdiv(s_len, kTile);
+
+  load_keys32<DK>(k, p, v, b, h, 0, s_len, d_model, s_kp, s_v);  // tile 0, before its mask
+  cp_async_commit();
+  stage_qc32<DK, BQ>(q, ubias, vbias, b, h, q0, t_len, d_model, s_q, qc + row0 * D2);
+#pragma unroll
+  for (int it = 0; it < BQ * CH / kTfThreads; ++it) {
+    const int i = it * kTfThreads + tid;
+    const int r = i / CH, c4 = (i - r * CH) * 4, t = q0 + r;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (t < t_len)
+      x = *reinterpret_cast<const float4*>(dout + ((size_t)b * t_len + t) * d_model + h * DK + c4);
+    *reinterpret_cast<float4*>(s_do + r * VP + c4) = x;
+  }
+  // D = rowsum(do * o) in fp32, o the forward's output, and L: four lanes
+  // a row, dk / 4 features each, read from device memory beside the staging
+  {
+    const int r = tid >> 2, t = q0 + r, d0 = (tid & 3) * (DK / 4);
+    float acc = 0.f;
+    if (t < t_len) {
+      const size_t o0 = ((size_t)b * t_len + t) * d_model + h * DK + d0;
+#pragma unroll
+      for (int i = 0; i < DK / 4; i += 4) {
+        const float4 a = *reinterpret_cast<const float4*>(out + o0 + i);
+        const float4 z = *reinterpret_cast<const float4*>(dout + o0 + i);
+        acc = fmaf(a.x, z.x, acc);
+        acc = fmaf(a.y, z.y, acc);
+        acc = fmaf(a.z, z.z, acc);
+        acc = fmaf(a.w, z.w, acc);
+      }
+    }
+    acc += __shfl_xor_sync(kFull, acc, 1);
+    acc += __shfl_xor_sync(kFull, acc, 2);
+    if ((tid & 3) == 0) {
+      s_d[r] = acc;
+      s_l[r] = t < t_len ? lse[row0 + t] * kLog2e : 0.f;
+      if (t < t_len) dsum[row0 + t] = acc;
+    }
+  }
+
+  uint32_t m0, m1;
+  bool wlive = warp_bits(mask, mb, mst, mss, q0 + r0, t_len, k0, s_len, m0, m1);
+  bool live = __syncthreads_or(wlive);  // (and q, do, L and D are in shared memory)
+  const float lr[2] = {s_l[r0 + g], s_l[r0 + g + 8]};
+  const float dr[2] = {s_d[r0 + g], s_d[r0 + g + 8]};
+  float acc[ND][4];
+#pragma unroll
+  for (int nt = 0; nt < ND; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int buf = j & 1;
+    uint32_t n0 = 0, n1 = 0;
+    bool wnext = false;
+    if (j + 1 < n_tiles)
+      wnext = warp_bits(mask, mb, mst, mss, q0 + r0, t_len, (j + 1) * kTile + k0, s_len, n0, n1);
+    const bool next = __syncthreads_or(wnext);  // (and tile j - 1's buffer is free)
+    if (next)
+      load_keys32<DK>(k, p, v, b, h, (j + 1) * kTile, s_len, d_model,
+                      s_kp + (buf ^ 1) * kTile * QP, s_v + (buf ^ 1) * kTile * VP);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile j has landed, live or not (see the forward)
+    if (live) __syncthreads();
+    if (live && wlive) {
+      const float* kp = s_kp + buf * kTile * QP + k0 * QP;  // this warp's 32 keys
+      const float* vt = s_v + buf * kTile * VP + k0 * VP;
+      float s[4][4], dp[4][4];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
+      // s (depth 2 dk) and dP (depth dk) in one loop, a dP step after every
+      // second s step: twice the independent mma chains
+#pragma unroll
+      for (int kk = 0; kk < D2 / 8; ++kk) {
+        uint32_t ah[4], al[4], bh[4][2], bl[4][2];
+        load_a32(s_q, QP, r0, kk * 8, g, c, ah, al);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) load_b32(kp, QP, i * 8, kk * 8, g, c, bh[i], bl[i]);
+        mma3<4>(s, ah, al, bh, bl);
+        if (kk & 1) {
+          const int kd = kk >> 1;
+          load_a32(s_do, VP, r0, kd * 8, g, c, ah, al);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) load_b32(vt, VP, i * 8, kd * 8, g, c, bh[i], bl[i]);
+          mma3<4>(dp, ah, al, bh, bl);
+        }
+      }
+      // ds = p (dP - D) scale with p = 2^(s sl2 - L): 0 where masked
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const bool ok = ((r ? m1 : m0) >> (nt * 8 + 2 * c + (e & 1))) & 1;
+          const float pr = ok ? exp2f(s[nt][e] * sl2 - lr[r]) : 0.f;
+          s[nt][e] = pr * (dp[nt][e] - dr[r]) * scale;
+        }
+      // dq += ds . (k + p), 8 keys a step in the order of `acc_a`
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        uint32_t ah[4], al[4];
+        acc_a(s[kk], ah, al);
+#pragma unroll
+        for (int n4 = 0; n4 < ND; n4 += GD) {
+          uint32_t bh[GD][2], bl[GD][2];
+#pragma unroll
+          for (int i = 0; i < GD; ++i)
+            load_bt32(kp, QP, (n4 + i) * 8, kk * 8, g, c, bh[i], bl[i], DK);
+          mma3<GD>(acc + n4, ah, al, bh, bl);
+        }
+      }
+    }
+    m0 = n0;
+    m1 = n1;
+    wlive = wnext;
+    live = next;
+  }
+
+  // the two key halves' dq summed on the first warp of each row group
+  float x[4 * ND];
+#pragma unroll
+  for (int nt = 0; nt < ND; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[4 * nt + e] = acc[nt][e];
+  cp_async_wait<0>();
+  const float* y = pair_exchange(s_kp, x);
+  if (warp >= 4) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = q0 + r0 + g + 8 * r;
+    if (t >= t_len) continue;
+    float* row = dq + ((size_t)b * t_len + t) * d_model + h * DK + 2 * c;
+#pragma unroll
+    for (int nt = 0; nt < ND; ++nt)
+      *reinterpret_cast<float2*>(row + nt * 8) =
+          make_float2(acc[nt][2 * r] + y[(4 * nt + 2 * r) * 32],
+                      acc[nt][2 * r + 1] + y[(4 * nt + 2 * r + 1) * 32]);
+  }
+}
+
+template <int DK>
+__global__ void __launch_bounds__(kTfThreads)
+relpos_bwd_kv_tf32_kernel(const float* __restrict__ k, const float* __restrict__ p,
+                          const float* __restrict__ v, const uint8_t* __restrict__ mask,
+                          const float* __restrict__ dout, const float* __restrict__ lse,
+                          const float* __restrict__ dsum, const float* __restrict__ qc,
+                          float* __restrict__ dk_out, float* __restrict__ dv_out,
+                          float* __restrict__ dp_part, float* __restrict__ bias_part, int t_len,
+                          int s_len, int n_head, long long msb, long long mst, long long mss,
+                          float scale) {
+  constexpr int BK = 64, D2 = 2 * DK, QP = pitch32<D2>(), VP = pitch32<DK>();
+  constexpr int ND = DK / 8, GD = group<ND>(), GD2 = group<D2 / 8>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* s_kp = reinterpret_cast<float*>(smem);  // [BK][QP]  [k | p] of the block's keys
+  float* s_v = s_kp + BK * QP;                   // [BK][VP]
+  float* s_q = s_v + BK * VP;                    // [2][kTile][QP]  [q+u | q+v] of a query tile
+  float* s_do = s_q + 2 * kTile * QP;            // [2][kTile][VP]
+  float* s_l = s_do + 2 * kTile * VP;            // [2][kTile]
+  float* s_d = s_l + 2 * kTile;                  // [2][kTile]
+  float* s_col = s_d + 2 * kTile;                // [BK]
+
+  const int b = blockIdx.z, h = blockIdx.y, key0 = blockIdx.x * BK;
+  const int d_model = n_head * DK;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int r0 = (warp & 3) * 16, t0w = (warp >> 2) * 32;  // this warp's keys, queries of a tile
+  const float sl2 = scale * kLog2e;
+  const long long mb = b * msb;
+  const size_t row0 = ((size_t)b * n_head + h) * t_len;
+  const int n_tiles = cdiv(t_len, kTile);
+
+  // the query tile at t0 into buffer `buf`, in flight; rows past T zero
+  auto load_queries = [&](int t0, int buf) {
+    float* sq = s_q + buf * kTile * QP;
+    float* sg = s_do + buf * kTile * VP;
+    constexpr int CH = DK / 4;  // 16-byte chunks of a head's row
+    static_assert(kTile * 3 * CH % kTfThreads == 0, "whole rounds of the block's threads");
+#pragma unroll
+    for (int it = 0; it < kTile * 3 * CH / kTfThreads; ++it) {
+      const int i = it * kTfThreads + tid;
+      const int r = i / (3 * CH), c4 = (i - r * 3 * CH) * 4, t = t0 + r;
+      const bool in = t < t_len;
+      const int tc = in ? t : 0;
+      if (c4 < D2)
+        cp_async16(sq + r * QP + c4, qc + (row0 + tc) * D2 + c4, in);
+      else
+        cp_async16(sg + r * VP + c4 - D2,
+                   dout + ((size_t)b * t_len + tc) * d_model + h * DK + c4 - D2, in);
+    }
+    if (tid < kTile) {
+      const int t = t0 + tid;
+      const bool in = t < t_len;
+      cp_async4(s_l + buf * kTile + tid, lse + row0 + (in ? t : 0), in);
+      cp_async4(s_d + buf * kTile + tid, dsum + row0 + (in ? t : 0), in);
+    }
+  };
+
+  load_keys32<DK>(k, p, v, b, h, key0, s_len, d_model, s_kp, s_v);
+  load_queries(0, 0);  // query tile 0, before its mask is known
+  cp_async_commit();
+  // this thread's keys g and g + 8 of the warp, over the warp's queries of a tile
+  uint32_t m0, m1;
+  bool wlive = warp_bits(mask, mb, mss, mst, key0 + r0, s_len, t0w, t_len, m0, m1);
+  bool live = __syncthreads_or(wlive);
+
+  float dv[ND][4], dkp[D2 / 8][4], col[2] = {0.f, 0.f};
+#pragma unroll
+  for (int nt = 0; nt < ND; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dv[nt][e] = 0.f;
+#pragma unroll
+  for (int nt = 0; nt < D2 / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dkp[nt][e] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int buf = j & 1;
+    uint32_t n0 = 0, n1 = 0;
+    bool wnext = false;
+    if (j + 1 < n_tiles)
+      wnext = warp_bits(mask, mb, mss, mst, key0 + r0, s_len, (j + 1) * kTile + t0w, t_len, n0,
+                        n1);
+    const bool next = __syncthreads_or(wnext);  // (and tile j - 1's buffer is free)
+    if (next) load_queries((j + 1) * kTile, buf ^ 1);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile j (and the keys) have landed, live or not (see the forward)
+    if (live) __syncthreads();
+    if (live && wlive) {
+#pragma unroll 1
+      for (int q16 = t0w; q16 < t0w + 32; q16 += 16) {  // this warp's queries, 16 at a time
+        const float* sq = s_q + buf * kTile * QP + q16 * QP;
+        const float* sg = s_do + buf * kTile * VP + q16 * VP;
+        const float* sl = s_l + buf * kTile + q16;
+        const float* sd = s_d + buf * kTile + q16;
+        const uint32_t w0 = m0 >> (q16 - t0w), w1 = m1 >> (q16 - t0w);
+        float st[2][4], gt[2][4];  // s^T and dP^T: keys x queries
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) st[nt][e] = gt[nt][e] = 0.f;
+        // s^T (depth 2 dk) and dP^T (depth dk) in one loop, a dP^T step
+        // after every second s^T step: twice the independent mma chains
+#pragma unroll
+        for (int kk = 0; kk < D2 / 8; ++kk) {
+          uint32_t ah[4], al[4], bh[2][2], bl[2][2];
+          load_a32(s_kp, QP, r0, kk * 8, g, c, ah, al);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) load_b32(sq, QP, i * 8, kk * 8, g, c, bh[i], bl[i]);
+          mma3<2>(st, ah, al, bh, bl);
+          if (kk & 1) {
+            const int kd = kk >> 1;
+            load_a32(s_v, VP, r0, kd * 8, g, c, ah, al);
+#pragma unroll
+            for (int i = 0; i < 2; ++i) load_b32(sg, VP, i * 8, kd * 8, g, c, bh[i], bl[i]);
+            mma3<2>(gt, ah, al, bh, bl);
+          }
+        }
+        // p^T and ds^T; the column (query) statistics L and D
+#pragma unroll
+        for (int nt = 0; nt < 2; ++nt) {
+          const int qi = nt * 8 + 2 * c;
+          const float2 lq = *reinterpret_cast<const float2*>(sl + qi);
+          const float2 dq2 = *reinterpret_cast<const float2*>(sd + qi);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float l2 = (e & 1 ? lq.y : lq.x) * kLog2e, dd = e & 1 ? dq2.y : dq2.x;
+            const bool ok = ((e < 2 ? w0 : w1) >> (qi + (e & 1))) & 1;
+            const float pr = ok ? exp2f(st[nt][e] * sl2 - l2) : 0.f;
+            const float ds = pr * (gt[nt][e] - dd) * scale;
+            col[e >> 1] += ds;
+            st[nt][e] = pr;
+            gt[nt][e] = ds;
+          }
+        }
+        // dv += p^T . do and [dk | dp] += ds^T . [q+u | q+v], 8 queries a
+        // step in the order of `acc_a`
+#pragma unroll
+        for (int kq = 0; kq < 2; ++kq) {
+          uint32_t ph[4], pl[4], dh[4], dl[4];
+          acc_a(st[kq], ph, pl);
+          acc_a(gt[kq], dh, dl);
+#pragma unroll
+          for (int n4 = 0; n4 < ND; n4 += GD) {
+            uint32_t bh[GD][2], bl[GD][2];
+#pragma unroll
+            for (int i = 0; i < GD; ++i)
+              load_bt32(sg, VP, (n4 + i) * 8, kq * 8, g, c, bh[i], bl[i]);
+            mma3<GD>(dv + n4, ph, pl, bh, bl);
+          }
+#pragma unroll
+          for (int n4 = 0; n4 < D2 / 8; n4 += GD2) {
+            uint32_t bh[GD2][2], bl[GD2][2];
+#pragma unroll
+            for (int i = 0; i < GD2; ++i)
+              load_bt32(sq, QP, (n4 + i) * 8, kq * 8, g, c, bh[i], bl[i]);
+            mma3<GD2>(dkp + n4, dh, dl, bh, bl);
+          }
+        }
+      }
+    }
+    m0 = n0;
+    m1 = n1;
+    wlive = wnext;
+    live = next;
+  }
+
+  // the two query halves summed on the first warp of each key group: dk,
+  // dv, this batch's dp rows, and each key's ds column sum
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    col[r] += __shfl_xor_sync(kFull, col[r], 1);
+    col[r] += __shfl_xor_sync(kFull, col[r], 2);
+  }
+  float x[12 * ND + 2];
+#pragma unroll
+  for (int nt = 0; nt < ND; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[4 * nt + e] = dv[nt][e];
+#pragma unroll
+  for (int nt = 0; nt < D2 / 8; ++nt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) x[4 * ND + 4 * nt + e] = dkp[nt][e];
+  x[12 * ND] = col[0];
+  x[12 * ND + 1] = col[1];
+  cp_async_wait<0>();  // the keys, if no query tile was ever waited for
+  const float* y = pair_exchange(s_q, x);
+  if (warp < 4) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int kr = r0 + g + 8 * r, s = key0 + kr;
+      if (c == 0) s_col[kr] = col[r] + y[(12 * ND + r) * 32];  // keys past S: 0
+      if (s >= s_len) continue;
+      const size_t off = ((size_t)b * s_len + s) * d_model + h * DK + 2 * c;
+#pragma unroll
+      for (int nt = 0; nt < ND; ++nt) {
+        const int e = 2 * r, iv = (4 * nt + e) * 32, ik = iv + 4 * ND * 32, ip = ik + 4 * ND * 32;
+        *reinterpret_cast<float2*>(dv_out + off + nt * 8) =
+            make_float2(dv[nt][e] + y[iv], dv[nt][e + 1] + y[iv + 32]);
+        *reinterpret_cast<float2*>(dk_out + off + nt * 8) =
+            make_float2(dkp[nt][e] + y[ik], dkp[nt][e + 1] + y[ik + 32]);
+        *reinterpret_cast<float2*>(dp_part + off + nt * 8) =
+            make_float2(dkp[ND + nt][e] + y[ip], dkp[ND + nt][e + 1] + y[ip + 32]);
+      }
+    }
+  }
+  __syncthreads();
+  // this block's share of du | dvb: col . k | col . p over its keys, in order
+  float* part = bias_part + ((size_t)b * gridDim.x + blockIdx.x) * 2 * d_model;
+  for (int i = tid; i < D2; i += kTfThreads) {
+    const int which = i / DK, d = i - which * DK;
+    float acc = 0.f;
+    for (int kr = 0; kr < BK; ++kr) acc = fmaf(s_col[kr], s_kp[kr * QP + which * DK + d], acc);
+    part[which * d_model + h * DK + d] = acc;
+  }
+}
+
+// dp [S, H*dk] = the sum over the batch of dp_part [B, S, H*dk], and du |
+// dvb [H*dk each] = the sum over the batch and the key tiles of bias_part
+// [B * key tiles, 2 H*dk], each in ascending order
+__global__ void relpos_bwd_sum_kernel(const float* __restrict__ dp_part,
+                                      const float* __restrict__ bias_part, float* __restrict__ dp,
+                                      float* __restrict__ du, float* __restrict__ dvb, int batch,
+                                      int parts, int sd, int d) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  float x = 0.f;
+  if (i < sd) {
+    for (int n = 0; n < batch; ++n) x += dp_part[(size_t)n * sd + i];
+    dp[i] = x;
+  } else if (i < sd + 2 * d) {
+    const int j = i - sd;
+    for (int n = 0; n < parts; ++n) x += bias_part[(size_t)n * 2 * d + j];
+    (j < d ? du : dvb)[j < d ? j : j - d] = x;
+  }
+}
+
+template <int DK>
+cudaError_t launch_bwd_tf32(const void* q, const void* k, const void* p, const void* v,
+                            const void* ub, const void* vb, const void* mask, const void* dout,
+                            const void* out, const void* lse, void* dq, void* dk, void* dv,
+                            void* dp, void* du, void* dvb, void* dsum, void* qc, void* part,
+                            int batch, int t_len, int s_len, int n_head, long long msb,
+                            long long mst, long long mss, float scale, cudaStream_t stream) {
+  constexpr int B64 = 64, QP = pitch32<2 * DK>(), VP = pitch32<DK>();
+  const int d_model = n_head * DK, key_tiles = cdiv(s_len, B64);
+  size_t smem = sizeof(float) * (B64 * (QP + VP) + 2 * kTile * (QP + VP) + 2 * B64);
+  cudaError_t err = allow_smem(relpos_bwd_q_tf32_kernel<DK>, smem);
+  if (err != cudaSuccess) return err;
+  relpos_bwd_q_tf32_kernel<DK><<<dim3(cdiv(t_len, B64), n_head, batch), kTfThreads, smem,
+                                 stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(p),
+      static_cast<const float*>(v), static_cast<const float*>(ub), static_cast<const float*>(vb),
+      static_cast<const uint8_t*>(mask), static_cast<const float*>(dout),
+      static_cast<const float*>(out), static_cast<const float*>(lse), static_cast<float*>(dq),
+      static_cast<float*>(dsum), static_cast<float*>(qc), t_len, s_len, n_head, msb, mst, mss,
+      scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  float* dp_part = static_cast<float*>(part);  // [B, S, H*dk], then [B, key tiles, 2 H*dk]
+  float* bias_part = dp_part + (size_t)batch * s_len * d_model;
+  smem = sizeof(float) * (B64 * (QP + VP) + 2 * kTile * (QP + VP) + 4 * kTile + B64);
+  err = allow_smem(relpos_bwd_kv_tf32_kernel<DK>, smem);
+  if (err != cudaSuccess) return err;
+  relpos_bwd_kv_tf32_kernel<DK><<<dim3(key_tiles, n_head, batch), kTfThreads, smem, stream>>>(
+      static_cast<const float*>(k), static_cast<const float*>(p), static_cast<const float*>(v),
+      static_cast<const uint8_t*>(mask), static_cast<const float*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(dsum),
+      static_cast<const float*>(qc), static_cast<float*>(dk), static_cast<float*>(dv), dp_part,
+      bias_part, t_len, s_len, n_head, msb, mst, mss, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int sd = s_len * d_model;
+  relpos_bwd_sum_kernel<<<cdiv(sd + 2 * d_model, 256), 256, 0, stream>>>(
+      dp_part, bias_part, static_cast<float*>(dp), static_cast<float*>(du),
+      static_cast<float*>(dvb), batch, batch * key_tiles, sd, d_model);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -1358,11 +1702,12 @@ const char* tpuasr_cuda_error_string(int err) {
 }
 
 // q [B, T, H*dk], k/v [B, S, H*dk], p [1, S, H*dk], biases [H*dk], all of
-// one type (is_bf16: bf16, else fp32) and contiguous; mask bool read at
-// b*msb + t*mst + s*mss (element strides, 0 to broadcast). dk is 16, 32 or
-// 64. bf16 only (the fp32 kernel reads neither): out32 and lse, both null or
-// both set, fp32 [B, T, H*dk] for the output before its rounding to bf16 and
-// fp32 [B, H, T] for each row's log-sum-exp, what the backward reads.
+// one type (is_bf16: bf16, else fp32), contiguous and 16-byte aligned; mask
+// bool read at b*msb + t*mst + s*mss (element strides, 0 to broadcast). dk
+// is 16, 32 or 64. lse null, or fp32 [B, H, T] for each row's log-sum-exp,
+// what the backward reads beside the fp32 output; bf16 then also needs out32,
+// fp32 [B, T, H*dk] for the output before its rounding to bf16 (null
+// without lse; fp32 never reads it: out is that output).
 int relpos_attention_fwd(const void* q, const void* k, const void* p,
                          const void* v, const void* ub, const void* vb,
                          const void* mask, void* out, void* out32, void* lse, int batch,
@@ -1375,58 +1720,60 @@ int relpos_attention_fwd(const void* q, const void* k, const void* p,
 #define TPUASR_FWD_TC(DK)                                                                   \
   err = launch_fwd_tc<DK>(q, k, p, v, ub, vb, mask, out, out32, lse, batch, t_len, s_len, \
                           n_head, msb, mst, mss, scale, st)
-#define TPUASR_FWD(DK)                                                                    \
-  err = launch<float, DK>(q, k, p, v, ub, vb, mask, out, batch, t_len, s_len, n_head, \
-                          msb, mst, mss, scale, st)
+#define TPUASR_FWD_TF32(DK)                                                                  \
+  err = launch_fwd_tf32<DK>(q, k, p, v, ub, vb, mask, out, lse, batch, t_len, s_len, n_head, \
+                            msb, mst, mss, scale, st)
   if (is_bf16) {
     if (dk == 16) TPUASR_FWD_TC(16);
     if (dk == 32) TPUASR_FWD_TC(32);
     if (dk == 64) TPUASR_FWD_TC(64);
   } else {
-    if (dk == 16) TPUASR_FWD(16);
-    if (dk == 32) TPUASR_FWD(32);
-    if (dk == 64) TPUASR_FWD(64);
+    if (dk == 16) TPUASR_FWD_TF32(16);
+    if (dk == 32) TPUASR_FWD_TF32(32);
+    if (dk == 64) TPUASR_FWD_TF32(64);
   }
 #undef TPUASR_FWD_TC
-#undef TPUASR_FWD
+#undef TPUASR_FWD_TF32
   return static_cast<int>(err);
 }
 
-// The backward of relpos_attention_fwd: + do [B, T, H*dk] (q's type) ->
-// dq [B, T, H*dk], dk, dv [B, S, H*dk] in q's type; dp [1, S, H*dk], du,
-// dvb [H*dk] fp32, zeroed by the caller (the kernels add into them).
-// bf16: out (fp32 [B, T, H*dk], the output before rounding: out32) and lse
-// [B, H, T] as relpos_attention_fwd wrote them; stats fp32 [B, H, T]
-// scratch (each row's rowsum(do * out)), qc bf16 [B, H, T, 2 dk] scratch
-// ([q+u | q+v]). fp32: out, lse and qc unread,
-// stats [B, H, T, 3] fp32 scratch (each row's max, sum and rowsum(da * a)).
+// The backward of relpos_attention_fwd: + do [B, T, H*dk] (q's type), out
+// (fp32 [B, T, H*dk]: bf16's out32, fp32's out) and lse [B, H, T] as
+// relpos_attention_fwd wrote them -> dq [B, T, H*dk], dk, dv [B, S, H*dk]
+// in q's type; dp [1, S, H*dk], du, dvb [H*dk] fp32. Scratch: stats fp32
+// [B, H, T] (each row's rowsum(do * out)) and qc [B, H, T, 2 dk] in q's
+// type ([q+u | q+v]). bf16 adds into dp, du and dvb (zeroed by the caller)
+// and reads no part; fp32 writes them from part, fp32 scratch of
+// B*S*H*dk + B*ceil(S / 64)*2*H*dk floats (the key side's partial sums).
 // T, S >= 1.
 int relpos_attention_bwd(const void* q, const void* k, const void* p, const void* v,
                          const void* ub, const void* vb, const void* mask,
                          const void* dout, const void* out, const void* lse, void* dq, void* dk,
                          void* dv, void* dp, void* du, void* dvb, void* stats, void* qc,
-                         int batch, int t_len, int s_len, int n_head, int dk_, long long msb,
-                         long long mst, long long mss, float scale, int is_bf16, void* stream) {
+                         void* part, int batch, int t_len, int s_len, int n_head, int dk_,
+                         long long msb, long long mst, long long mss, float scale, int is_bf16,
+                         void* stream) {
   if (batch == 0 || t_len == 0 || s_len == 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
 #define TPUASR_BWD_TC(DK)                                                                    \
   err = launch_bwd_tc<DK>(q, k, p, v, ub, vb, mask, dout, out, lse, dq, dk, dv, dp, du, dvb, \
                           stats, qc, batch, t_len, s_len, n_head, msb, mst, mss, scale, st)
-#define TPUASR_BWD(DK)                                                                        \
-  err = launch_bwd<float, DK>(q, k, p, v, ub, vb, mask, dout, dq, dk, dv, dp, du, dvb, stats, \
-                              batch, t_len, s_len, n_head, msb, mst, mss, scale, st)
+#define TPUASR_BWD_TF32(DK)                                                                    \
+  err = launch_bwd_tf32<DK>(q, k, p, v, ub, vb, mask, dout, out, lse, dq, dk, dv, dp, du, dvb, \
+                            stats, qc, part, batch, t_len, s_len, n_head, msb, mst, mss, scale, \
+                            st)
   if (is_bf16) {
     if (dk_ == 16) TPUASR_BWD_TC(16);
     if (dk_ == 32) TPUASR_BWD_TC(32);
     if (dk_ == 64) TPUASR_BWD_TC(64);
   } else {
-    if (dk_ == 16) TPUASR_BWD(16);
-    if (dk_ == 32) TPUASR_BWD(32);
-    if (dk_ == 64) TPUASR_BWD(64);
+    if (dk_ == 16) TPUASR_BWD_TF32(16);
+    if (dk_ == 32) TPUASR_BWD_TF32(32);
+    if (dk_ == 64) TPUASR_BWD_TF32(64);
   }
 #undef TPUASR_BWD_TC
-#undef TPUASR_BWD
+#undef TPUASR_BWD_TF32
   return static_cast<int>(err);
 }
 

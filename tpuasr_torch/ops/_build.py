@@ -18,7 +18,7 @@ alpha and beta sweeps, each by a warp route and a block route;
 launch two and four kernels; `rnnt_lattice.cu`: the RNN-T alpha and beta
 sweeps, each by a warp route and a block route; `relpos_attention.cu`: the
 attention forward and its backward, whose one entry point launches two
-kernels; `ffn.cu`: the fused FFN forward and
+kernels in bf16 and three in fp32 (the third sums the partials); `ffn.cu`: the fused FFN forward and
 backward), each with its own C entry point. Every wrapper counts its calls of an entry point in `LAUNCHES`,
 so a run can show that its path went through the kernels; fbank's entry
 also counts each of its three routes there, and each lattice entry its
@@ -56,7 +56,7 @@ ENTRIES = {
     "relpos_attention": ("relpos_attention", "relpos_attention_fwd",
                          [_P] * 10 + [_I] * 5 + [_LL] * 3 + [_F, _I, _P]),
     "relpos_attention_bwd": ("relpos_attention", "relpos_attention_bwd",
-                             [_P] * 18 + [_I] * 5 + [_LL] * 3 + [_F, _I, _P]),
+                             [_P] * 19 + [_I] * 5 + [_LL] * 3 + [_F, _I, _P]),
     "rnnt_fused_fwd": ("rnnt_fused", "rnnt_fused_fwd", [_P] * 9 + [_LL] + [_I] * 9 + [_P]),
     "rnnt_fused_bwd": ("rnnt_fused", "rnnt_fused_bwd", [_P] * 13 + [_LL] + [_I] * 9 + [_P]),
     "ctc_alpha": ("ctc_lattice", "ctc_alpha", [_P] * 6 + [_I] * 5 + [_P]),

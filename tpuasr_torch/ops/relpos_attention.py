@@ -5,13 +5,15 @@ Counterpart of ``tpuasr/ops/attention_pallas.py`` (`fused_relpos_attention`):
 `relpos_attention` is a `torch.autograd.Function` whose forward is TPU kernel
 #2 (`_fused_fwd`) and whose backward is #3 (`_fused_bwd`,
 `relpos_attention_bwd`). The backward recomputes the scores rather than
-saving them. On the card bf16 runs the tensor-core kernels: there the
-forward also saves its output in fp32 (before the rounding to bf16) and
-each query row's log-sum-exp (fp32 [B, H, T]), which the backward starts
-from. fp32 runs the CUDA-core kernels (the source's note says why), whose
-backward rebuilds the row statistics itself, and the CPU the plain versions:
-both save only the inputs. The wrappers run the kernels for tensors on the
-card and the plain versions for tensors on the CPU; a CUDA tensor never
+saving them. On the card both input types run tensor-core kernels, bf16 on
+bf16 `mma.sync` and fp32 on 3xTF32 `mma.sync` (three TF32 products a
+product, about 21 bits: the forward keeps 1e-5); the forward there also
+saves its output in fp32 (bf16: before the rounding to bf16; fp32: the
+output itself) and each query row's log-sum-exp (fp32 [B, H, T]), which the
+backward starts from. The fp32 backward sums dp, du and dvb in a fixed order,
+so two calls give the same bits. The CPU runs the plain versions, and its
+Function saves only the inputs. The wrappers run the kernels for tensors on
+the card and the plain versions for tensors on the CPU; a CUDA tensor never
 takes the plain path.
 """
 
@@ -105,6 +107,13 @@ def relpos_attention_bwd_plain(q, k, p, v, u_bias, v_bias, mask, do, scale: floa
             dvb.reshape(d).to(v_bias.dtype))
 
 
+def _aligned(*xs):
+    """The kernels move 16-byte vectors: a tensor whose data does not start
+    on 16 bytes (a view into a packed buffer, as ZeRO-3's flat parameters
+    are) is copied into storage of its own; the others pass as they are."""
+    return tuple(x if x is None or x.data_ptr() % 16 == 0 else x.clone() for x in xs)
+
+
 def _check(q, k, p, v, u_bias, v_bias, mask, n_head, do=None, out32=None, lse=None):
     b, t, d = q.shape
     s = k.shape[1]
@@ -127,13 +136,12 @@ def _check(q, k, p, v, u_bias, v_bias, mask, n_head, do=None, out32=None, lse=No
         if x.device != q.device or x.dtype != q.dtype or not x.is_contiguous():
             raise ValueError(f"relpos_attention: {name} must be contiguous {q.dtype} "
                              f"on {q.device}")
-        if bf16 and x.data_ptr() % 16:  # the bf16 kernels move 16-byte vectors
-            raise ValueError(f"relpos_attention: bf16 {name} must be 16-byte aligned")
     for name, x, shape in (("out", out32, (b, t, d)), ("lse", lse, (b, n_head, t))):
         if x is not None and (tuple(x.shape) != shape or x.dtype != torch.float32
-                              or x.device != q.device or not x.is_contiguous()):
-            raise ValueError(f"relpos_attention: {name} must be contiguous fp32 {shape} "
-                             f"on {q.device}")
+                              or x.device != q.device or not x.is_contiguous()
+                              or x.data_ptr() % 16):
+            raise ValueError(f"relpos_attention: {name} must be contiguous 16-byte aligned "
+                             f"fp32 {shape} on {q.device}")
     if (mask.dtype != torch.bool or mask.device != q.device or mask.dim() != 3
             or mask.shape[0] != b or mask.shape[1] not in (1, t) or mask.shape[2] != s):
         raise ValueError(f"relpos_attention: mask must be bool [B, T|1, S] on {q.device}, "
@@ -145,18 +153,16 @@ def _check(q, k, p, v, u_bias, v_bias, mask, n_head, do=None, out32=None, lse=No
 def _relpos_fwd(q, k, p, v, u_bias, v_bias, mask, scale, n_head, saved: bool = False):
     """Kernel #2, or the plain version for CPU tensors; with `saved`, ->
     (out, out32, lse) as `relpos_attention_plain` returns them, what the
-    bf16 backward reads (the fp32 kernel saves nothing: ValueError)."""
+    backward reads (fp32: out32 is out)."""
     if q.device.type == "cpu":
         return relpos_attention_plain(q, k, p, v, u_bias, v_bias, mask, scale, n_head, saved)
+    q, k, p, v, u_bias, v_bias = _aligned(q, k, p, v, u_bias, v_bias)
     b, t, s, d, strides = _check(q, k, p, v, u_bias, v_bias, mask, n_head)
     bf16 = q.dtype == torch.bfloat16
-    if saved and not bf16:
-        raise ValueError("relpos_attention: the fp32 kernel saves no statistics "
-                         "(its backward rebuilds them)")
     out = torch.empty_like(q)
     out32 = lse = None
     if saved:
-        out32 = torch.empty(b, t, d, dtype=torch.float32, device=q.device)
+        out32 = torch.empty(b, t, d, dtype=torch.float32, device=q.device) if bf16 else out
         lse = torch.empty(b, n_head, t, dtype=torch.float32, device=q.device)
     if b and t:
         ptr = lambda x: None if x is None else x.data_ptr()
@@ -164,8 +170,8 @@ def _relpos_fwd(q, k, p, v, u_bias, v_bias, mask, scale, n_head, saved: bool = F
             stream = torch.cuda.current_stream().cuda_stream
             _build.launch("relpos_attention", q.data_ptr(), k.data_ptr(), p.data_ptr(),
                           v.data_ptr(), u_bias.data_ptr(), v_bias.data_ptr(), mask.data_ptr(),
-                          out.data_ptr(), ptr(out32), ptr(lse), b, t, s, n_head, d // n_head,
-                          *strides, float(scale), int(bf16), stream)
+                          out.data_ptr(), ptr(out32) if bf16 else None, ptr(lse), b, t, s,
+                          n_head, d // n_head, *strides, float(scale), int(bf16), stream)
     return (out, out32, lse) if saved else out
 
 
@@ -173,43 +179,43 @@ def relpos_attention_bwd(q, k, p, v, u_bias, v_bias, mask, do, scale: float, n_h
                          out=None, lse=None):
     """Kernel #3: -> (dq, dk, dv, dp, du, dvb) as `relpos_attention_bwd_plain`
     returns them, for the output's gradient do [B, T, D] in q's type. The
-    bf16 kernels start from the forward's fp32 output and log-sum-exp
-    (`out`, `lse`: out32 and lse of `_relpos_fwd(..., saved=True)`); without
-    them a bf16 call computes them first through kernel #2 (a launch of #2).
-    The fp32 kernels do not read them. CPU tensors take the plain version."""
+    kernels start from the forward's fp32 output and log-sum-exp (`out`,
+    `lse`: out32 and lse of `_relpos_fwd(..., saved=True)`); without them a
+    call computes them first through kernel #2 (a launch of #2). CPU tensors
+    take the plain version."""
     if q.device.type == "cpu":
         return relpos_attention_bwd_plain(q, k, p, v, u_bias, v_bias, mask, do, scale, n_head)
     if q.device.type != "cuda":
         raise ValueError(f"relpos_attention: unsupported device {q.device}")
     bf16 = q.dtype == torch.bfloat16
-    b, t, s, d, strides = _check(q, k, p, v, u_bias, v_bias, mask, n_head, do,
-                                 *((out, lse) if bf16 else ()))
+    q, k, p, v, u_bias, v_bias, do = _aligned(q, k, p, v, u_bias, v_bias, do)
+    b, t, s, d, strides = _check(q, k, p, v, u_bias, v_bias, mask, n_head, do, out, lse)
     empty = b == 0 or t == 0 or s == 0  # nothing attends: every gradient is 0
     dq, dk, dv = ((torch.zeros_like if empty else torch.empty_like)(x) for x in (q, k, v))
     f32 = dict(dtype=torch.float32, device=q.device)
-    # dp, du and dvb in one zeroed buffer (the kernels add into it): one fill
-    # and one cast to the inputs' type instead of three each
-    acc = torch.zeros(s * d + 2 * d, **f32)
+    # dp, du and dvb in one buffer: one cast to the inputs' type instead of
+    # three. The bf16 kernels add into it (zeroed); the fp32 ones sum their
+    # partials (`part`) into it in a fixed order.
+    acc = (torch.zeros if bf16 or empty else torch.empty)(s * d + 2 * d, **f32)
     dp, du, dvb = acc[:s * d], acc[s * d:-d], acc[-d:]
     if not empty:
-        qc = None
-        if bf16:
-            if out is None or lse is None:
-                _, out, lse = _relpos_fwd(q, k, p, v, u_bias, v_bias, mask, scale, n_head, True)
-            # each row's rowsum(do * out32), and [q+u | q+v] for the key side
-            stats = torch.empty(b, n_head, t, **f32)
-            qc = torch.empty(b, n_head, t, 2 * d // n_head, dtype=q.dtype, device=q.device)
-        else:
-            stats = torch.empty(b, n_head, t, 3, **f32)  # each row's max, sum, rowsum(da * a)
-        ptr = lambda x: None if x is None or not bf16 else x.data_ptr()
+        if out is None or lse is None:
+            _, out, lse = _relpos_fwd(q, k, p, v, u_bias, v_bias, mask, scale, n_head, True)
+        # each row's rowsum(do * out), and [q+u | q+v] for the key side
+        stats = torch.empty(b, n_head, t, **f32)
+        qc = torch.empty(b, n_head, t, 2 * d // n_head, dtype=q.dtype, device=q.device)
+        # fp32: the key side's dp rows of each batch, and du | dvb of each
+        # batch and tile of 64 keys
+        part = None if bf16 else torch.empty(b * s * d + b * -(-s // 64) * 2 * d, **f32)
+        ptr = lambda x: None if x is None else x.data_ptr()
         with torch.cuda.device(q.device):
             stream = torch.cuda.current_stream().cuda_stream
             _build.launch("relpos_attention_bwd", q.data_ptr(), k.data_ptr(), p.data_ptr(),
                           v.data_ptr(), u_bias.data_ptr(), v_bias.data_ptr(), mask.data_ptr(),
-                          do.data_ptr(), ptr(out), ptr(lse), dq.data_ptr(), dk.data_ptr(),
-                          dv.data_ptr(), dp.data_ptr(), du.data_ptr(), dvb.data_ptr(),
-                          stats.data_ptr(), ptr(qc), b, t, s, n_head, d // n_head, *strides,
-                          float(scale), int(bf16), stream)
+                          do.data_ptr(), out.data_ptr(), lse.data_ptr(), dq.data_ptr(),
+                          dk.data_ptr(), dv.data_ptr(), dp.data_ptr(), du.data_ptr(),
+                          dvb.data_ptr(), stats.data_ptr(), qc.data_ptr(), ptr(part), b, t, s,
+                          n_head, d // n_head, *strides, float(scale), int(bf16), stream)
     acc = acc.to(q.dtype)  # every input has q's type (_check)
     return dq, dk, dv, acc[:s * d].view(1, s, d), acc[s * d:-d], acc[-d:]
 
@@ -218,7 +224,7 @@ class _RelPosAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, p, v, u_bias, v_bias, mask, scale, n_head):
         args = (q, k, p, v, u_bias, v_bias, mask, scale, n_head)
-        if q.is_cuda and q.dtype == torch.bfloat16:  # what the bf16 backward starts from
+        if q.is_cuda:  # what the kernels' backward starts from
             out, out32, lse = _relpos_fwd(*args, saved=True)
         else:
             out, out32, lse = _relpos_fwd(*args), None, None
