@@ -257,7 +257,8 @@ Phases (any failure exits non-zero):
       (profiler); then a model with a 3-block R2L decoder (reverse
       weight 0.3) through attention_rescoring by the same rule.
 12. The transducer's other options, each the online_rnnt flagship with
-   only the fields of `ZOO` changed, seed-0 weights. The zoo run (counts
+   only the fields of `ZOO` changed (its depth among them: CUT_BLOCKS, 6
+   of the 12 blocks, at full width), seed-0 weights. The zoo run (counts
    reset before 12a, read after 12c) must launch every kernel, fbank by its
    FFT and tensor-core routes alone; each kernel is then held against its
    plain version on the run's own recorded inputs, the signature launched
@@ -402,23 +403,45 @@ Phases (any failure exits non-zero):
    vector's, and `parallel.scaling` costs every case's records laid over 8
    GPUs a host at 1, 2 and 4 hosts (a split case with the "none" step's
    data-axis collectives added), against 6b's median step and its device
-   busy ms, at the assumed NVLink and NIC rates. Then `python -m
+   busy ms, at the assumed NVLink and NIC rates. `python -m
    torch.distributed.run --standalone --nproc_per_node 1 -m
-   tpuasr_torch.tools.train` trains an epoch under NCCL at world size 1.
+   tpuasr_torch.tools.train` trains an epoch under NCCL at world size 1,
+   beside the one-rank reference steps (no timing reads them) and done
+   before the ranks start.
+18. A JAX-layout checkpoint on the card (every count reset before, read
+   after: the jax_checkpoint run). Phase 8's full-width checkpoint (after
+   its resume) written as the JAX package's `TrainState` tree
+   (`convert.flax_train_state`: the flax params, the Adam moments in their
+   layout, count, step, lr_scale, skipped) into the npz that
+   `tools/orbax_to_npz` writes of an orbax directory, with its info JSON
+   and train.yaml beside it. Restored through `train.restore_checkpoint`,
+   every tensor of the model and the optimizer state equals the port
+   checkpoint's bit for bit; `evaluate --mode rnnt_greedy` and
+   `eval_streaming` on phase 9's corpus print the same CER lines and
+   hypotheses given the npz as given the port checkpoint;
+   `tools/campaign_eval` over the npz exits 0; `tools/train --resume` for one
+   epoch from the npz and from the port checkpoint starts at the saved
+   epoch and step, first-step losses within 6a's 1e-4 relative; then the
+   profiling tools at bench.py's configuration: `profile_step`,
+   `batch_sweep` (batches 12 and 24) and `profile_trace` (5 steps,
+   --fused), whose Chrome trace must name every hand kernel that 6b's
+   profiled step ran (a plain version on that path fails the run).
 7. The kernels line: one JSON object with an entry per kernel and run
    (the serving run of phases 4-5b, the training runs of phases 6b, 6c and
    6d, the trainer run of phase 8, the corpus run of phase 9, the CTC run
    of phase 10, the AED run of phase 11, the zoo run of phase 12, the
    families run of phase 13, the paraformer run of phase 14, the whisper
    run of phase 15, the export run of phase 16, the parallel run of phase
-   17, whose launches are both ranks' and records rank 0's; counts
+   17, whose launches are both ranks' and records rank 0's, the
+   jax_checkpoint run of phase 18; counts
    reset just before each and read just after): that run's launches
    (fbank's: those of the route the record times, the FFT for serving,
    which takes that route alone, and the tensor-core route for training,
    which never takes the FFT), and the error, times and bound at the shape
    that run gives the kernel (phase 3's bench-shape records for 6b-6d; for
-   the trainer, the corpus, CTC, AED, zoo, families, paraformer, whisper
-   and export runs and #8 in serving the signature it launched most, with
+   the trainer, the corpus, CTC, AED, zoo, families, paraformer, whisper,
+   export and jax_checkpoint runs and #8 in serving the signature it
+   launched most, with
    every signature's
    record under "shapes"). The CTC and RNN-T lattice entries carry their
    run's launches by route under "routes": each run that launches a
@@ -439,6 +462,7 @@ import math
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -451,6 +475,9 @@ HBM_BPS = 3.35e12    # H100 SXM HBM3, bytes/s
 SEED = 0
 SLEEP_CYCLES = 50_000_000  # ~25 ms of GPU clock, the floor; sized up from one timed enqueue
 CHUNK, LEFT = 32, 6
+# phase 12 runs its models at full width and half the flagship's depth, so
+# that the script keeps inside its time limit with phase 18
+CUT_BLOCKS = 6
 
 
 class SmokeFailure(Exception):
@@ -508,8 +535,16 @@ def main() -> dict:
 
     # ---------------------------------------------------------------- 3
     t_phase = _phase("3: kernels against their plain versions", t0)
+    from tpuasr_torch.config import Config
+    from tpuasr_torch.tools.profile_trace import bench_batch
+
     data = _requests()
-    bench = _bench_batch(torch, dev)
+    # bench.py's batch (bench.py:83-90): 12 utterances of 24-30 content
+    # tokens plus SOS and EOS, padded to (768 - 1) * hop samples and 32 tokens
+    bench = bench_batch(Config(), dev, BENCH_B, BENCH_FRAMES, BENCH_TOKENS)
+    print(f"bench.py's batch: {BENCH_B} waves of {bench['waves'].shape[1]} samples, "
+          f"{float(bench['wave_lens'].sum()) / SR:.2f} s of audio, label lengths "
+          f"{bench['text_lens'].tolist()}")
     checks = _kernel_checks(torch, dev, data, bench)
     checks.update(_attention_train_checks(torch, dev, bench))
     train_checks, fwd_plans = _train_kernel_checks(torch, dev, bench)
@@ -575,7 +610,13 @@ def main() -> dict:
     # ---------------------------------------------------------------- 8
     t_phase = _phase("8: the trainer (tpuasr_torch.tools.train), 2 epochs and a resume",
                      t_phase)
-    training["trainer"], runs["trainer"], seen = _trainer(torch)
+    (ROOT / "build").mkdir(exist_ok=True)
+    # phase 8's checkpoint and phase 9's corpus, kept for phase 18
+    work = tempfile.TemporaryDirectory(prefix="smoke-", dir=ROOT / "build")
+    kept = {k: f"{work.name}/{k}" for k in ("trainer", "corpus")}
+    for d in kept.values():
+        Path(d).mkdir()
+    training["trainer"], runs["trainer"], seen = _trainer(torch, kept["trainer"])
     print(f"launches on the trainer run: {runs['trainer']}")
     for name in KERNELS:
         require(runs["trainer"][name] > 0, f"the trainer never launched {name}")
@@ -587,7 +628,7 @@ def main() -> dict:
 
     # ---------------------------------------------------------------- 9
     t_phase = _phase("9: the corpus on disk and the serving CLIs", t_phase)
-    corpus, runs["corpus"], parts = _corpus(torch, card)
+    corpus, runs["corpus"], parts = _corpus(torch, card, kept["corpus"])
     print(f"launches on the corpus run: {runs['corpus']}; wrapper calls on the card that "
           f"launched nothing: {[seen.get('idle', {}) for seen, _ in parts.values()]}")
     for name in KERNELS:
@@ -694,6 +735,23 @@ def main() -> dict:
     print(f"launches on the parallel run (both ranks): "
           f"{ {k: v for k, v in runs['parallel'].items() if v} }")
 
+    # ---------------------------------------------------------------- 18
+    t_phase = _phase("18: a JAX-layout checkpoint on the card (restore, serving CLIs, "
+                     "campaign_eval, resume, the profiling tools)", t_phase)
+    reset_launch_counts()
+    with _recording(torch) as seen:
+        jax_ckpt = _jax_checkpoint_phase(torch, dev, kept["trainer"], kept["corpus"],
+                                         training["bench"]["port_kernels_ms"])
+    runs["jax_checkpoint"] = dict(LAUNCHES)
+    work.cleanup()
+    print(f"launches on the jax_checkpoint run: {runs['jax_checkpoint']}")
+    for name in KERNELS:
+        require(runs["jax_checkpoint"][name] > 0, f"the jax_checkpoint run never launched {name}")
+    print("kernels against their plain versions on the jax_checkpoint run's own inputs:")
+    jax_records = _trainer_kernel_records(torch, seen, runs["jax_checkpoint"], "jax_checkpoint",
+                                          timed=1)
+    print(f"(phase 18: {time.perf_counter() - t_phase:.1f} s)")
+
     # ---------------------------------------------------------------- 7
     # one entry per kernel and run that launches it, with the record taken
     # at the shape that run gives it: 6b, 6c and 6d give the same shapes
@@ -735,6 +793,8 @@ def main() -> dict:
     # the parallel run (phase 17's ranks) launches #1-#9: its records are
     # rank 0's, its launches both ranks'
     plan += [(name, ("parallel",), name) for name in KERNELS if runs["parallel"][name] > 0]
+    # the jax_checkpoint run (phase 18) launches every kernel
+    plan += [(name, ("jax_checkpoint",), name) for name in KERNELS]
     kernels = []
     for name, run_names, check, *count in plan:
         count = count[0] if count else name
@@ -744,7 +804,8 @@ def main() -> dict:
             own = {"trainer": trainer_records, "corpus": corpus_records, "ctc": ctc_records,
                    "aed": aed_records, "zoo": zoo_records, "families": families_records,
                    "paraformer": para_records, "whisper": whisper_records,
-                   "export": export_records, "parallel": parallel_records}
+                   "export": export_records, "parallel": parallel_records,
+                   "jax_checkpoint": jax_records}
             rec = own[run][name] if run in own else checks[check]
             entry = dict(rec, run=run, launches=launches,
                          **{f"launches_{r}": runs[r][count] for r in runs})
@@ -769,6 +830,7 @@ def main() -> dict:
     print(json.dumps({"whisper": whisper}))
     print(json.dumps({"export": export}))
     print(json.dumps({"parallel": parallel}))
+    print(json.dumps({"jax_checkpoint": jax_ckpt}))
     print(json.dumps({"kernels": kernels}))
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}
@@ -1897,6 +1959,7 @@ def _serve_modes(torch, dev, data, m) -> dict:
     )
     from tpuasr_torch.decode.rnnt_beam import first_argmax
     from tpuasr_torch.eval import make_offline_decoder
+    from tpuasr_torch.tools.profile_trace import synced_ms
 
     t0 = time.perf_counter()
     print("== phase 4b: the other offline modes (make_offline_decoder)")
@@ -1982,11 +2045,11 @@ def _serve_modes(torch, dev, data, m) -> dict:
             for name, (mode, kw) in decoders.items():
                 dec = make_offline_decoder(model, cfg, mode, **kw)
                 dec(w, wl)
-                _, ms = _synced_ms(torch, lambda: dec(w, wl))
+                _, ms = synced_ms(dev, lambda: dec(w, wl))
                 lat[f"{name}_{label}_{src}"] = ms
             dec = graph_dec(model, cfg)
             dec(w, wl)
-            lat[f"ctc_prefix_beam_graph_{label}_{src}"] = _synced_ms(torch, lambda: dec(w, wl))[1]
+            lat[f"ctc_prefix_beam_graph_{label}_{src}"] = synced_ms(dev, lambda: dec(w, wl))[1]
     for k, v in lat.items():
         print(f"  offline latency {k}: {v:.1f} ms")
     out["latency_ms"] = lat
@@ -2029,6 +2092,7 @@ def _serve_stream_beam(torch, dev, data, m) -> dict:
     from tpuasr_torch.decode import rnnt_beam_decode, streaming_beam_decode
     from tpuasr_torch.eval import measure_first_token_delay, measure_rtf
     from tpuasr_torch.streaming import num_chunks
+    from tpuasr_torch.tools.profile_trace import synced_ms
 
     t0 = time.perf_counter()
     print(f"== phase 5b: streaming beam (chunk {CHUNK}, {LEFT} left chunks, beam 4)")
@@ -2045,7 +2109,7 @@ def _serve_stream_beam(torch, dev, data, m) -> dict:
         for n_steps, cw in ((1, 0.0), (cfg32.streaming.n_steps, 0.3)):
             off = rnnt_beam_decode(model, full, whole, c.blank_id, 4, 200, n_steps=n_steps,
                                    ctc_weight=cw, transducer_weight=c.transducer_weight)
-            (st_t, st_l, _), ms = _synced_ms(torch, lambda: streaming_beam_decode(
+            (st_t, st_l, _), ms = synced_ms(dev, lambda: streaming_beam_decode(
                 model, feats, whole * 4 + 3, CHUNK, LEFT, c.blank_id, 4, 200, n_steps, cw,
                 c.transducer_weight))
             ok = torch.equal(st_t, off[0]) and torch.equal(st_l, off[1])
@@ -2099,15 +2163,6 @@ def _serving_lattice_record(torch, seen, launches) -> dict:
     return dict(shapes[0], shapes=[
         {k: s[k] for k in ("inputs", "calls", "max_abs_err", "tol", "ms", "plain_ms",
                            "bound_ms", "bound_by", "library_ms")} for s in shapes])
-
-
-def _synced_ms(torch, fn):
-    """(fn(), host ms) with the device drained before and after."""
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = fn()
-    torch.cuda.synchronize()
-    return out, (time.perf_counter() - t0) * 1e3
 
 
 def _count_steps(model):
@@ -2171,14 +2226,16 @@ def _offline_stages(torch, model, cfg, waves, wave_lens, wall_ms) -> dict:
     from tpuasr_torch.audio import fbank_batch
     from tpuasr_torch.decode import rnnt_greedy_decode
     from tpuasr_torch.eval import make_offline_decoder
+    from tpuasr_torch.tools.profile_trace import synced_ms
 
     steps, restore = _count_steps(model)
     try:
-        (feats, flens), t_fb = _synced_ms(
-            torch, lambda: fbank_batch(waves, wave_lens, cfg.feature, device=model.device))
-        (enc, elens), t_enc = _synced_ms(torch, lambda: model.encode(feats, flens))
-        _, t_dec = _synced_ms(torch, lambda: rnnt_greedy_decode(model, enc, elens,
-                                                                cfg.model.blank_id))
+        (feats, flens), t_fb = synced_ms(
+            model.device, lambda: fbank_batch(waves, wave_lens, cfg.feature,
+                                              device=model.device))
+        (enc, elens), t_enc = synced_ms(model.device, lambda: model.encode(feats, flens))
+        _, t_dec = synced_ms(model.device, lambda: rnnt_greedy_decode(
+            model, enc, elens, cfg.model.blank_id))
     finally:
         restore()
     busy_ms, kern = _decode_busy(torch, make_offline_decoder(model, cfg, "rnnt_greedy"),
@@ -2197,6 +2254,7 @@ def _stream_stages(torch, model, cfg, feats) -> dict:
     """Per-chunk host ms of the chunk encoder and of greedy search."""
     from tpuasr_torch.decode import greedy_frames, init_streaming_state
     from tpuasr_torch.streaming import chunk_windows, num_chunks
+    from tpuasr_torch.tools.profile_trace import synced_ms
 
     chunk, left, blank = cfg.streaming.chunk_size, cfg.streaming.num_left_chunks, \
         cfg.model.blank_id
@@ -2208,10 +2266,10 @@ def _stream_stages(torch, model, cfg, feats) -> dict:
     steps, restore = _count_steps(model)
     try:
         for i in range(n):
-            (ys, enc_state), te = _synced_ms(torch, lambda: model.encode_chunk(windows[i],
+            (ys, enc_state), te = synced_ms(model.device, lambda: model.encode_chunk(windows[i],
                                                                                enc_state))
             valid = torch.ones(ys.shape[:2], dtype=torch.bool, device=ys.device)
-            dec, td = _synced_ms(torch, lambda: greedy_frames(model, ys, valid, dec, blank,
+            dec, td = synced_ms(model.device, lambda: greedy_frames(model, ys, valid, dec, blank,
                                                               cfg.streaming.n_steps))
             t_enc.append(te)
             t_dec.append(td)
@@ -2232,26 +2290,6 @@ def _stream_stages(torch, model, cfg, feats) -> dict:
 
 BENCH_B, BENCH_FRAMES, BENCH_TOKENS = 12, 768, 32  # bench.py:78-80
 HOP, SR = 512, 48000
-
-
-def _bench_batch(torch, dev) -> dict:
-    """bench.py's batch (bench.py:83-90) through the port's copies of
-    `synth_corpus` and `make_batch`: 12 utterances of 24-30 content tokens
-    plus SOS and EOS, (frames - 6) * hop // 30 samples per token, padded to
-    (frames - 1) * hop samples and 32 tokens; as tensors on `dev`."""
-    from tpuasr_torch.config import Config
-    from tpuasr_torch.data import BatchSpec, make_batch, synth_corpus, tensors
-
-    cfg = Config()
-    utts = synth_corpus(BENCH_B, cfg.model.vocab_size, seed=0, min_tokens=24, max_tokens=30,
-                        sample_rate=cfg.feature.sample_rate,
-                        samples_per_token=(BENCH_FRAMES - 6) * cfg.feature.hop_length // 30)
-    spec = BatchSpec(BENCH_B, (BENCH_FRAMES - 1) * cfg.feature.hop_length, BENCH_TOKENS)
-    batch = tensors(make_batch(utts, spec), dev)
-    print(f"bench.py's batch: {BENCH_B} waves of {spec.wave_samples} samples, "
-          f"{float(batch['wave_lens'].sum()) / SR:.2f} s of audio, label lengths "
-          f"{batch['text_lens'].tolist()}")
-    return batch
 
 
 def _enc_len(wave_lens):
@@ -2607,7 +2645,8 @@ def _train_card_vs_cpu(torch, dev, fused_joint_loss: bool, fused_ffn: bool = Fal
     enc = cfg.model.encoder
     return _step_card_vs_cpu(
         torch, tx, res, f"fp32 training step ({label}), card vs CPU on [2, 256, 80] x 16 "
-        f"tokens", "fp32 sums in another order through 12 blocks, the attention kernels' "
+        f"tokens", f"fp32 sums in another order through {enc.num_blocks} blocks, the "
+        "attention kernels' "
         "and the fused joint's 3xTF32 products, the lattice",
         rope=enc.attention_type == "rope", grouped=enc.encoder_type == "efficient_conformer")
 
@@ -2766,69 +2805,43 @@ def _adam_card_vs_cpu(torch, tx, card: dict, cpu: dict) -> dict:
 def _train_bench(torch, dev, batch, fused_joint_loss: bool, n_steps: int = 10,
                  warmup: int = 2, fused_ffn: bool = False) -> tuple[dict, dict]:
     """Phases 6b/6c/6d: bench.py's configuration (6c: the materialized loss;
-    6d: the fused FFN) on bench.py's batch through `make_train_step`; ->
-    (stats, kernel launches during the steps)."""
-    from tpuasr_torch.models import Transducer, init_weights
-    from tpuasr_torch.ops import LAUNCHES, reset_launch_counts
-    from tpuasr_torch.train import TrainState, make_optimizer, make_train_step
+    6d: the fused FFN) on bench.py's batch through `make_train_step`, timed
+    by `tools.batch_sweep.train_bench`, with every launch count set to 0
+    just before; -> (stats, kernel launches during the steps)."""
+    from tpuasr_torch.ops import reset_launch_counts
+    from tpuasr_torch.tools.batch_sweep import train_bench
 
     cfg = _train_cfg("bfloat16", dropout=True, fused_joint_loss=fused_joint_loss,
                      fused_ffn=fused_ffn)
     cfg.feature.fbank_precision = "default"
-    model = init_weights(Transducer(cfg.model, device=dev), SEED)
-    tx = make_optimizer(cfg.optim)
-    state = TrainState.create(model, tx)
-    step = make_train_step(model, tx, cfg)
-    audio_s = float(batch["wave_lens"].sum()) / SR
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     reset_launch_counts()
-    losses, ms = [], []
-    for i in range(warmup + n_steps):
-        (state, metrics), dt = _synced_ms(torch, lambda: step(state, batch, SEED))
-        require(bool(metrics["finite"]), f"training step {i} was not finite")
-        losses.append(float(metrics["loss"]))
-        if i >= warmup:
-            ms.append(dt)
-    launches = dict(LAUNCHES)
+    r = train_bench(cfg, batch, dev, n_steps, warmup, SEED)
+    for i, ok in enumerate(r.pop("finite")):
+        require(ok, f"training step {i} was not finite")
+    launches, state, own = r.pop("launches"), r.pop("state"), r.pop("port_kernels")
     require(launches["fbank_tc"] == warmup + n_steps and launches["fbank_fp32"] == 0
             and launches["fbank_fft"] == 0,
             f"{warmup + n_steps} steps launched fbank's tensor-core route "
             f"{launches['fbank_tc']} times, its dense fp32 route {launches['fbank_fp32']} times "
             f"and its FFT route {launches['fbank_fft']} times, not once a step and never")
-    peak = torch.cuda.max_memory_allocated()
-    state, busy, wall, kern = _profiled_step(torch, step, state, batch)
-    n_kern = sum(e.count for e in kern)
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:10]
-    ms_sorted = sorted(ms)
-    med = ms_sorted[len(ms) // 2]
-    stats = {"losses": losses, "step_ms": ms, "step_ms_median": med,
-             "audio_seconds_per_step": audio_s, "audio_s_per_s": audio_s / med * 1e3,
-             "max_memory_allocated": peak, "profiled_step_wall_ms": wall,
-             "profiled_step_device_busy_ms": busy, "profiled_step_device_ops": n_kern,
-             "skipped": int(state.skipped), "steps": state.step,
-             "top_device_items": [[e.key, e.count, e.self_device_time_total / 1e3] for e in top]}
+    stats = dict(r, skipped=int(state.skipped), steps=state.step)
+    stats["port_kernels_ms"] = {k: v[0] for k, v in own.items()}
+    ms_sorted, losses, med = sorted(r["step_ms"]), r["losses"], r["step_ms_median"]
+    busy, wall = r["profiled_step_device_busy_ms"], r["profiled_step_wall_ms"]
     route = "fused joint loss" if fused_joint_loss else "materialized loss (full logits)"
     route += ", fused FFN" if fused_ffn else ""
     print(f"bench.py's configuration, {route} (batch {BENCH_B} x {BENCH_FRAMES} frames, "
-          f"{audio_s:.2f} s of audio per step, bf16, dropout 0.1, dynamic chunk, fused "
-          f"attention): losses {[round(x, 4) for x in losses]}; step ms median {med:.1f} "
-          f"(min {ms_sorted[0]:.1f}, max {ms_sorted[-1]:.1f}, {n_steps} steps after {warmup}); "
-          f"{stats['audio_s_per_s']:.1f} audio-s/s; peak memory {peak / 2**30:.2f} GiB; "
-          f"profiled step: device busy {busy:.2f} ms of {wall:.1f} ms wall "
-          f"({100 * (1 - busy / wall):.0f}% idle), {n_kern} device operations")
-    for e in top:
-        print(f"  {e.self_device_time_total / 1e3:8.3f} ms  {e.count:6d}x  {e.key[:90]}")
+          f"{r['audio_seconds_per_step']:.2f} s of audio per step, bf16, dropout 0.1, dynamic "
+          f"chunk, fused attention): losses {[round(x, 4) for x in losses]}; step ms median "
+          f"{med:.1f} (min {ms_sorted[0]:.1f}, max {ms_sorted[-1]:.1f}, {n_steps} steps after "
+          f"{warmup}); {r['audio_s_per_s']:.1f} audio-s/s; peak memory "
+          f"{(r['max_memory_allocated'] or 0) / 2**30:.2f} GiB; profiled step: device busy "
+          f"{busy:.2f} ms of {wall:.1f} ms wall ({100 * (1 - busy / wall):.0f}% idle), "
+          f"{r['profiled_step_device_ops']} device operations")
+    for key, count, ms in r["top_device_items"]:
+        print(f"  {ms:8.3f} ms  {count:6d}x  {key[:90]}")
     # the port's own kernels in the step, by name (csrc/*.cu: anonymous
     # namespaces, names from the sources' prefixes)
-    own = {}  # name -> [ms, launches], template instances summed
-    for e in kern:
-        m = re.search(r"\(anonymous namespace\)::((?:fbank|relpos|rnnt|ctc|ffn)_\w+)", e.key)
-        if m:
-            tot = own.setdefault(m.group(1), [0.0, 0])
-            tot[0] += e.self_device_time_total / 1e3
-            tot[1] += e.count
-    stats["port_kernels_ms"] = {k: v[0] for k, v in own.items()}
     print("  the port's kernels in the step, ms: " + "; ".join(
         f"{k} {v[0]:.4f} ({v[1]}x)" for k, v in sorted(own.items(), key=lambda x: -x[1][0])))
     for name in ("fbank_pack_kernel", "fbank_tc_kernel"):
@@ -2839,31 +2852,6 @@ def _train_bench(torch, dev, batch, fused_joint_loss: bool, n_steps: int = 10,
     return stats, launches
 
 
-def _profiled_step(torch, step, state, batch) -> tuple:
-    """One training step under torch.profiler; -> (state, the device's busy
-    ms, the step's wall ms, the device items). One step under the
-    profiler's warm-up (traced, not kept), then the profiled step with 50 ms
-    of idle host on each side: the trace drops kernels that run near the
-    edges of its window (a window opened just before a step lost the step's
-    first kernels, fbank's, more often than not; with the warm-up alone it
-    still lost the first or the last ones now and then; with the gaps as
-    well, never in the trials)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, schedule
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-        for i in range(2):
-            time.sleep(0.05 * i)
-            (state, _), wall = _synced_ms(torch, lambda: step(state, batch, SEED))
-            time.sleep(0.05 * i)
-            prof.step()
-    # the schedule's step marker also shows on the device's timeline: not a kernel
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and not e.key.startswith("ProfilerStep")]
-    return state, sum(e.self_device_time_total for e in kern) / 1e3, wall, kern
-
-
 def _lattice_route_ab(torch, dev, batch, kind) -> dict:
     """6b's training step's device busy ms with a lattice (`kind` "ctc" or
     "rnnt") by its block route and by its warp route (the plan fixed to
@@ -2872,6 +2860,7 @@ def _lattice_route_ab(torch, dev, batch, kind) -> dict:
     are read; -> {route: [ms], "lattice_ms": {route: [the lattice kernels'
     own ms]}}."""
     from tpuasr_torch.models import Transducer, init_weights
+    from tpuasr_torch.tools.profile_trace import profiled_step
     from tpuasr_torch.train import TrainState, make_optimizer, make_train_step
 
     cfg = _train_cfg("bfloat16", dropout=True)
@@ -2882,7 +2871,7 @@ def _lattice_route_ab(torch, dev, batch, kind) -> dict:
     busy, own = {"block": [], "warp": []}, {"block": [], "warp": []}
     for route in ("block", "warp"):
         with _plan_as(kind, route=route):
-            state, ms, _, kern = _profiled_step(torch, step, state, batch)
+            state, ms, _, kern = profiled_step(step, state, batch, SEED)
         busy[route].append(ms)
         own[route].append(sum(e.self_device_time_total for e in kern
                               if re.search(LATTICES[kind][3], e.key)) / 1e3)
@@ -2906,26 +2895,25 @@ def _compare_steps(base: dict, fused: dict) -> None:
         f"{label} {fused[k]:.6g} vs {base[k]:.6g}" for k, label in keys))
 
 
-def _trainer(torch) -> tuple[dict, dict, dict]:
+def _trainer(torch, save_dir: str) -> tuple[dict, dict, dict]:
     """Phase 8: `tpuasr_torch.tools.train` on the card, 2 epochs, then a
     resume from "latest" for a third; -> (stats, kernel launches over both
-    runs, the kernels' recorded calls: `_recording`)."""
-    import tempfile
-
+    runs, the kernels' recorded calls: `_recording`). It saves to
+    `save_dir`, which phase 18 reads and the caller removes."""
     from tpuasr_torch.config import load_yaml
     from tpuasr_torch.data import synthetic_pipeline
     from tpuasr_torch.ops import LAUNCHES, reset_launch_counts
+    from tpuasr_torch.tools.profile_trace import synced_ms
     from tpuasr_torch.tools.train import main as train_main
     from tpuasr_torch.train import latest_path, load_info
 
-    (ROOT / "build").mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(prefix="trainer-", dir=ROOT / "build") as save_dir, \
-            _recording(torch) as seen:
+    dev = torch.device("cuda")  # the trainer's default
+    with _recording(torch) as seen:
         sets = ["model.encoder.fused_ffn=True", "specaug.enabled=True", "data.synth_hard=True",
                 "data.batch_size=12", "data.num_prefetch=2", f"train.save_dir={save_dir}",
                 "train.log_dir=", "train.log_every=1"]
         reset_launch_counts()
-        (first, ms_first) = _synced_ms(torch, lambda: train_main(
+        (first, ms_first) = synced_ms(dev, lambda: train_main(
             ["--workload", "online_rnnt", "--synthetic", "48", "--epochs", "2", "--set",
              *sets]))
         info = load_info(latest_path(save_dir))
@@ -2937,7 +2925,7 @@ def _trainer(torch) -> tuple[dict, dict, dict]:
                 f"the checkpoint after 2 epochs holds epoch {info['epoch']} step "
                 f"{info['step']}, the run ended at step {first.state.step}")
         steps_e2 = synthetic_pipeline(cfg, 48, seed=0).steps_per_epoch(2)
-        (second, ms_second) = _synced_ms(torch, lambda: train_main(
+        (second, ms_second) = synced_ms(dev, lambda: train_main(
             ["--workload", "online_rnnt", "--synthetic", "48", "--epochs", "3", "--resume",
              latest_path(save_dir)]))
         launches = dict(LAUNCHES)
@@ -2995,7 +2983,8 @@ def _sync(torch) -> None:
         torch.cuda.synchronize()
 
 
-def _corpus(torch, card_name: str, card: str = "cuda", sets=()) -> tuple[dict, dict, dict]:
+def _corpus(torch, card_name: str, root: str, card: str = "cuda",
+            sets=()) -> tuple[dict, dict, dict]:
     """Phase 9: a BZNSYP-layout corpus written to disk, then the port's CLIs
     in this process through their `main(argv)`: split_data, gen_vocab, the
     trainer with --data_root for one epoch (the card's defaults and
@@ -3004,10 +2993,11 @@ def _corpus(torch, card_name: str, card: str = "cuda", sets=()) -> tuple[dict, d
     WAV on the card. `card` and `sets` (extra --set pairs for the trainer)
     let the phase be rehearsed at a cut size on a machine without a card.
     -> (stats, the run's kernel launches, {part: (its recorded card calls,
-    its launches)} for its two parts, the trainer and serving)."""
+    its launches)} for its two parts, the trainer and serving). The
+    corpus, the run's checkpoint and its outputs go under `root`, which
+    phase 18 reads and the caller removes."""
     import contextlib
     import io
-    import tempfile
 
     import numpy as np
 
@@ -3044,115 +3034,113 @@ def _corpus(torch, card_name: str, card: str = "cuda", sets=()) -> tuple[dict, d
         print(f"{label}: {walls[label]:.2f} s, launches {deltas[label]}; " + " | ".join(head))
         return res
 
-    (ROOT / "build").mkdir(exist_ok=True)
-    with tempfile.TemporaryDirectory(prefix="corpus-", dir=ROOT / "build") as root:
-        transcripts = _corpus_transcripts(np)
-        text = write_bznsyp_corpus(root, transcripts, 48000, 24 * 512, seed=SEED)
-        root24 = f"{root}/pcm24"  # the same corpus as 24-bit PCM, read natively
-        _write_pcm24(np, f"{root}/Wave", f"{root24}/Wave")
-        split, vocab, exp = f"{root}/split", f"{root}/vocab.txt", f"{root}/exp"
-        data = [f"data.{s}_{k}={split}/{s}/{f}" for s in ("train", "dev", "test")
-                for k, f in (("wav_scp", "wav.scp"), ("text", "pinyin"))]
-        data.append(f"data.vocab_file={vocab}")
-        ckpt = f"{exp}/latest"
-        fp32 = ["--set", "model.compute_dtype=float32"]
-        reset_launch_counts()
-        parts = {}
-        with _recording(torch) as seen:  # the corpus and the trainer
-            counts = run("split_data", split_data, [
-                "--transcript", text, "--out_dir", split, "--train_max", str(CORPUS_TRAIN),
-                "--dev_max", str(CORPUS_UTTS)])
-            require(counts == {"train": CORPUS_TRAIN, "dev": CORPUS_UTTS - CORPUS_TRAIN,
-                               "test": 0}, f"split_data gave {counts}")
-            n_vocab = run("gen_vocab", gen_vocab, [
-                "--pinyin_files", *(f"{split}/{s}/pinyin" for s in ("train", "dev", "test")),
-                "--out", vocab])
-            require(n_vocab == CORPUS_SYLLABLES, f"gen_vocab wrote {n_vocab} syllables")
-            trained = run("train", train_tool, [
-                "--workload", "online_rnnt", "--data_root", root24, "--epochs", "1", "--set",
-                "model.encoder.fused_ffn=True", f"train.save_dir={exp}", "train.log_dir=",
-                *data, *sets, *on_card])
-            cfg = load_yaml(f"{exp}/train.yaml")
-            require(cfg.model.vocab_size == 412 and cfg.model.encoder.fused_ffn
-                    and (card != "cuda" or (cfg.model.compute_dtype == "bfloat16"
-                                            and cfg.feature.fbank_precision == "default")),
-                    "the trainer's effective config is not the card's defaults with fused_ffn "
-                    "over 412 tokens")
-            require(all(math.isfinite(x) for x in trained.train_losses + trained.dev_losses),
-                    "a loss of the trainer is not finite")
-            out["train"] = {"steps": trained.state.step, "train_losses": trained.train_losses,
-                            "dev_losses": trained.dev_losses, "corpus": "24-bit PCM"}
-        parts["trainer"] = (seen, dict(LAUNCHES))
-        out["pcm24"] = _pcm24_batches(np, cfg, root, root24)
-        out["host_ms_per_batch"] = _host_read_ms(np, cfg, root, root24, card_name)
-        with _recording(torch) as seen:  # serving from the checkpoint
-            out["blank_logit_bias"] = _fit_corpus_blanks(torch, ckpt, root)
+    transcripts = _corpus_transcripts(np)
+    text = write_bznsyp_corpus(root, transcripts, 48000, 24 * 512, seed=SEED)
+    root24 = f"{root}/pcm24"  # the same corpus as 24-bit PCM, read natively
+    _write_pcm24(np, f"{root}/Wave", f"{root24}/Wave")
+    split, vocab, exp = f"{root}/split", f"{root}/vocab.txt", f"{root}/exp"
+    data = [f"data.{s}_{k}={split}/{s}/{f}" for s in ("train", "dev", "test")
+            for k, f in (("wav_scp", "wav.scp"), ("text", "pinyin"))]
+    data.append(f"data.vocab_file={vocab}")
+    ckpt = f"{exp}/latest"
+    fp32 = ["--set", "model.compute_dtype=float32"]
+    reset_launch_counts()
+    parts = {}
+    with _recording(torch) as seen:  # the corpus and the trainer
+        counts = run("split_data", split_data, [
+            "--transcript", text, "--out_dir", split, "--train_max", str(CORPUS_TRAIN),
+            "--dev_max", str(CORPUS_UTTS)])
+        require(counts == {"train": CORPUS_TRAIN, "dev": CORPUS_UTTS - CORPUS_TRAIN,
+                           "test": 0}, f"split_data gave {counts}")
+        n_vocab = run("gen_vocab", gen_vocab, [
+            "--pinyin_files", *(f"{split}/{s}/pinyin" for s in ("train", "dev", "test")),
+            "--out", vocab])
+        require(n_vocab == CORPUS_SYLLABLES, f"gen_vocab wrote {n_vocab} syllables")
+        trained = run("train", train_tool, [
+            "--workload", "online_rnnt", "--data_root", root24, "--epochs", "1", "--set",
+            "model.encoder.fused_ffn=True", f"train.save_dir={exp}", "train.log_dir=",
+            *data, *sets, *on_card])
+        cfg = load_yaml(f"{exp}/train.yaml")
+        require(cfg.model.vocab_size == 412 and cfg.model.encoder.fused_ffn
+                and (card != "cuda" or (cfg.model.compute_dtype == "bfloat16"
+                                        and cfg.feature.fbank_precision == "default")),
+                "the trainer's effective config is not the card's defaults with fused_ffn "
+                "over 412 tokens")
+        require(all(math.isfinite(x) for x in trained.train_losses + trained.dev_losses),
+                "a loss of the trainer is not finite")
+        out["train"] = {"steps": trained.state.step, "train_losses": trained.train_losses,
+                        "dev_losses": trained.dev_losses, "corpus": "24-bit PCM"}
+    parts["trainer"] = (seen, dict(LAUNCHES))
+    out["pcm24"] = _pcm24_batches(np, cfg, root, root24)
+    out["host_ms_per_batch"] = _host_read_ms(np, cfg, root, root24, card_name)
+    with _recording(torch) as seen:  # serving from the checkpoint
+        out["blank_logit_bias"] = _fit_corpus_blanks(torch, ckpt, root)
 
-            evals, nbest = {}, {}
-            for mode in DECODE_MODES:
-                for side, dev in sides:
-                    with _nbest_capture() as got:
-                        evals[mode, side] = run(f"evaluate {mode} {side}", evaluate, [
-                            "--checkpoint", ckpt, "--workload", "online_rnnt", "--mode", mode,
-                            "--data_root", root, "--max_samples", "16", *fp32, *dev])
-                    nbest[mode, side] = got.get(mode)
-            pcm24 = {mode: run(f"evaluate {mode} card 24-bit", evaluate, [
-                "--checkpoint", ckpt, "--workload", "online_rnnt", "--mode", mode,
-                "--data_root", root24, "--max_samples", "16", *fp32, *on_card])
-                for mode in DECODE_MODES[:2]}
-            streams = {side: run(f"eval_streaming {side}", eval_streaming, [
-                "--checkpoint", ckpt, "--data_root", root, "--max_samples", "16", *fp32, *dev])
-                for side, dev in sides}
-            # a dev WAV whose encoder frames are not a whole number of chunks
-            chunk, hop = cfg.streaming.chunk_size, cfg.feature.hop_length
-            tok, pipe = eval_split(eval_config(ckpt, None, [], torch.device("cpu")), "dev", 0,
-                                   1, root)
-            metas = scan_split(cfg.data.dev_wav_scp, cfg.data.dev_text, tok, root)
-            frames = lambda m: ((m.wave_len // hop) // 2 - 1) // 2  # ((T - 1)//2 - 1)//2
-            utt = next(m for m in metas if frames(m) % chunk).utt_id
-            lines = run("decode_stream card", decode_stream, [
-                "--checkpoint", ckpt, "--wav", f"{root}/Wave/{utt}.wav", *fp32, *on_card])
-        launches = dict(LAUNCHES)
-        parts["serving"] = (seen, {k: n - parts["trainer"][1][k] for k, n in launches.items()})
+        evals, nbest = {}, {}
+        for mode in DECODE_MODES:
+            for side, dev in sides:
+                with _nbest_capture() as got:
+                    evals[mode, side] = run(f"evaluate {mode} {side}", evaluate, [
+                        "--checkpoint", ckpt, "--workload", "online_rnnt", "--mode", mode,
+                        "--data_root", root, "--max_samples", "16", *fp32, *dev])
+                nbest[mode, side] = got.get(mode)
+        pcm24 = {mode: run(f"evaluate {mode} card 24-bit", evaluate, [
+            "--checkpoint", ckpt, "--workload", "online_rnnt", "--mode", mode,
+            "--data_root", root24, "--max_samples", "16", *fp32, *on_card])
+            for mode in DECODE_MODES[:2]}
+        streams = {side: run(f"eval_streaming {side}", eval_streaming, [
+            "--checkpoint", ckpt, "--data_root", root, "--max_samples", "16", *fp32, *dev])
+            for side, dev in sides}
+        # a dev WAV whose encoder frames are not a whole number of chunks
+        chunk, hop = cfg.streaming.chunk_size, cfg.feature.hop_length
+        tok, pipe = eval_split(eval_config(ckpt, None, [], torch.device("cpu")), "dev", 0,
+                               1, root)
+        metas = scan_split(cfg.data.dev_wav_scp, cfg.data.dev_text, tok, root)
+        frames = lambda m: ((m.wave_len // hop) // 2 - 1) // 2  # ((T - 1)//2 - 1)//2
+        utt = next(m for m in metas if frames(m) % chunk).utt_id
+        lines = run("decode_stream card", decode_stream, [
+            "--checkpoint", ckpt, "--wav", f"{root}/Wave/{utt}.wav", *fp32, *on_card])
+    launches = dict(LAUNCHES)
+    parts["serving"] = (seen, {k: n - parts["trainer"][1][k] for k, n in launches.items()})
 
-        # card against CPU, outside the run's counts
-        print(f"{card_name}: walls of the CLIs in this process (s, synced; evaluate over "
-              f"{len(metas)} dev utterances): " + ", ".join(f"{k} {v:.2f}" for k, v in
-                                                            walls.items()))
-        out["walls_s"], out["launches_by_call"] = walls, deltas
-        served = {k: v for k, v in deltas.items() if k.startswith(("evaluate", "eval_streaming",
-                                                                   "decode_stream"))}
-        for name in ("fbank", "relpos_attention", "ffn_fwd"):
-            require(sum(d.get(name, 0) for d in served.values()) > 0 or card != "cuda",
-                    f"serving from the checkpoint never launched {name}")
-        require(deltas["evaluate rnnt_rescoring card"].get("rnnt_alpha", 0) > 0
-                or card != "cuda", "evaluate --mode rnnt_rescoring never launched #8")
-        valid = [int(b["num_valid"]) for b in pipe.batches(0)]
-        out["agreement"] = _corpus_agreement(torch, evals, nbest, valid, tok)
-        for mode, res in pcm24.items():
-            ref = evals[mode, "card"]
-            require(res.counts == ref.counts and res.samples == ref.samples,
-                    f"evaluate --mode {mode} on the card: the 24-bit corpus's hypotheses or "
-                    f"counts differ from the 16-bit corpus's")
-            print(f"evaluate {mode} card, 24-bit corpus == 16-bit corpus on "
-                  f"{len(res.samples)} utterances, {vars(res.counts)}")
-        out["pcm24"]["evaluate_identical"] = list(pcm24)
-        same = [a[2] == b[2] for a, b in zip(streams["card"].samples, streams["cpu"].samples)]
-        require(len(same) == len(metas) and all(same) and
-                streams["card"].greedy == streams["cpu"].greedy,
-                "eval_streaming's greedy hypotheses differ between the card and the CPU")
-        beam_same = sum(a[3] == b[3] for a, b in zip(streams["card"].samples,
-                                                     streams["cpu"].samples))
-        print(f"eval_streaming card vs CPU: greedy hypotheses identical on {len(same)} "
-              f"utterances ({streams['cpu'].greedy}); beam hypotheses identical on "
-              f"{beam_same}; greedy CER {streams['card'].greedy.cer:.4f}, beam "
-              f"{streams['card'].beam.cer:.4f}")
-        out["streaming"] = {"greedy": vars(streams["card"].greedy),
-                            "beam": vars(streams["card"].beam), "beam_same_as_cpu": beam_same}
-        out["decode_stream"] = _decode_stream_check(
-            torch, ckpt, f"{root}/Wave/{utt}.wav", lines, card,
-            {s[0]: s for s in streams["card"].samples}[utt])
-        out["cer"] = {f"{m} {s}": vars(r.counts) for (m, s), r in evals.items()}
+    # card against CPU, outside the run's counts
+    print(f"{card_name}: walls of the CLIs in this process (s, synced; evaluate over "
+          f"{len(metas)} dev utterances): " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                                        walls.items()))
+    out["walls_s"], out["launches_by_call"] = walls, deltas
+    served = {k: v for k, v in deltas.items() if k.startswith(("evaluate", "eval_streaming",
+                                                               "decode_stream"))}
+    for name in ("fbank", "relpos_attention", "ffn_fwd"):
+        require(sum(d.get(name, 0) for d in served.values()) > 0 or card != "cuda",
+                f"serving from the checkpoint never launched {name}")
+    require(deltas["evaluate rnnt_rescoring card"].get("rnnt_alpha", 0) > 0
+            or card != "cuda", "evaluate --mode rnnt_rescoring never launched #8")
+    valid = [int(b["num_valid"]) for b in pipe.batches(0)]
+    out["agreement"] = _corpus_agreement(torch, evals, nbest, valid, tok)
+    for mode, res in pcm24.items():
+        ref = evals[mode, "card"]
+        require(res.counts == ref.counts and res.samples == ref.samples,
+                f"evaluate --mode {mode} on the card: the 24-bit corpus's hypotheses or "
+                f"counts differ from the 16-bit corpus's")
+        print(f"evaluate {mode} card, 24-bit corpus == 16-bit corpus on "
+              f"{len(res.samples)} utterances, {vars(res.counts)}")
+    out["pcm24"]["evaluate_identical"] = list(pcm24)
+    same = [a[2] == b[2] for a, b in zip(streams["card"].samples, streams["cpu"].samples)]
+    require(len(same) == len(metas) and all(same) and
+            streams["card"].greedy == streams["cpu"].greedy,
+            "eval_streaming's greedy hypotheses differ between the card and the CPU")
+    beam_same = sum(a[3] == b[3] for a, b in zip(streams["card"].samples,
+                                                 streams["cpu"].samples))
+    print(f"eval_streaming card vs CPU: greedy hypotheses identical on {len(same)} "
+          f"utterances ({streams['cpu'].greedy}); beam hypotheses identical on "
+          f"{beam_same}; greedy CER {streams['card'].greedy.cer:.4f}, beam "
+          f"{streams['card'].beam.cer:.4f}")
+    out["streaming"] = {"greedy": vars(streams["card"].greedy),
+                        "beam": vars(streams["card"].beam), "beam_same_as_cpu": beam_same}
+    out["decode_stream"] = _decode_stream_check(
+        torch, ckpt, f"{root}/Wave/{utt}.wav", lines, card,
+        {s[0]: s for s in streams["card"].samples}[utt])
+    out["cer"] = {f"{m} {s}": vars(r.counts) for (m, s), r in evals.items()}
     return out, launches, parts
 
 
@@ -3585,13 +3573,15 @@ def _timed_steps(torch, step_home, step_attr: str):
     """While inside, each step made by the step factory `step_attr` of
     module `step_home` (what the trainer calls) is synced and timed; ->
     the list of (wall ms, audio seconds) a step, filled as the run goes."""
+    from tpuasr_torch.tools.profile_trace import synced_ms
+
     walls, make = [], getattr(step_home, step_attr)
 
     def timed_step(model, tx, cfg, mesh=None):
         step = make(model, tx, cfg, mesh)
 
         def run(state, batch, seed):
-            out, ms = _synced_ms(torch, lambda: step(state, batch, seed))
+            out, ms = synced_ms(batch["wave_lens"].device, lambda: step(state, batch, seed))
             walls.append((ms, float(batch["wave_lens"].sum()) / cfg.feature.sample_rate))
             return out
 
@@ -3619,6 +3609,7 @@ def _workload_trainer(torch, dev, workload: str, step_home, step_attr: str, cfg_
 
     from tpuasr_torch.config import load_yaml
     from tpuasr_torch.data import synthetic_pipeline, tensors
+    from tpuasr_torch.tools.profile_trace import profiled_step, synced_ms
     from tpuasr_torch.tools.train import main as train_main
     from tpuasr_torch.train import latest_path, load_info, make_optimizer
 
@@ -3630,7 +3621,7 @@ def _workload_trainer(torch, dev, workload: str, step_home, step_attr: str, cfg_
         with tempfile.TemporaryDirectory(prefix=f"{workload}-", dir=ROOT / "build") as save_dir:
             sets = ["data.synth_hard=True", "data.batch_size=12", "data.num_prefetch=2",
                     f"train.save_dir={save_dir}", "train.log_dir=", "train.log_every=1"]
-            first, ms_first = _synced_ms(torch, lambda: train_main(
+            first, ms_first = synced_ms(dev, lambda: train_main(
                 ["--workload", workload, "--synthetic", "48", "--epochs", "2", "--set", *sets]))
             info = load_info(latest_path(save_dir))
             cfg = load_yaml(str(Path(save_dir) / "train.yaml"))
@@ -3641,7 +3632,7 @@ def _workload_trainer(torch, dev, workload: str, step_home, step_attr: str, cfg_
                     f"{info['step']}, the run ended at step {first.state.step}")
             steps_e2 = synthetic_pipeline(cfg, 48, seed=0).steps_per_epoch(2)
             n_first = len(walls)
-            second, ms_second = _synced_ms(torch, lambda: train_main(
+            second, ms_second = synced_ms(dev, lambda: train_main(
                 ["--workload", workload, "--synthetic", "48", "--epochs", "3", "--resume",
                  latest_path(save_dir)]))
             info3 = load_info(latest_path(save_dir))
@@ -3650,8 +3641,8 @@ def _workload_trainer(torch, dev, workload: str, step_home, step_attr: str, cfg_
     med = ms[len(ms) // 2]
     audio = sorted(a for _, a in walls)[len(walls) // 2]
     batch = tensors(next(iter(synthetic_pipeline(cfg, 48, seed=0).batches(0))), dev)
-    state, busy, wall, kern = _profiled_step(
-        torch, make(second.state.model, make_optimizer(cfg.optim), cfg), second.state, batch)
+    state, busy, wall, kern = profiled_step(
+        make(second.state.model, make_optimizer(cfg.optim), cfg), second.state, batch, SEED)
     ops = sum(e.count for e in kern)
     print(f"{label}: 2 epochs of {first.state.step // 2} steps ({ms_first / 1e3:.1f} s), "
           f"train losses {first.train_losses}, dev losses {first.dev_losses}; resumed at epoch "
@@ -3832,6 +3823,7 @@ def _accum_check(torch, dev, bench) -> dict:
     the Adam count 2 at the end."""
     from tpuasr_torch.models import Transducer, init_weights
     from tpuasr_torch.ops import LAUNCHES
+    from tpuasr_torch.tools.profile_trace import synced_ms
     from tpuasr_torch.train import TrainState, make_optimizer, make_train_step
 
     cfg = _train_cfg("bfloat16", dropout=True)
@@ -3845,7 +3837,7 @@ def _accum_check(torch, dev, bench) -> dict:
     before, prev = dict(LAUNCHES), snap()
     losses, ms, moved = [], [], []
     for i in range(4):
-        (state, metrics), dt = _synced_ms(torch, lambda: step(state, bench, SEED))
+        (state, metrics), dt = synced_ms(dev, lambda: step(state, bench, SEED))
         losses.append(float(metrics["loss"]))
         ms.append(dt)
         now = snap()
@@ -4020,6 +4012,7 @@ def _aed_decode(torch, dev, data) -> dict:
     from tpuasr_torch.audio import fbank_batch
     from tpuasr_torch.decode.rnnt_beam import first_argmax
     from tpuasr_torch.eval import make_offline_decoder
+    from tpuasr_torch.tools.profile_trace import synced_ms
 
     waves, wave_lens = data["fixture"]
     out = {}
@@ -4070,7 +4063,7 @@ def _aed_decode(torch, dev, data) -> dict:
                 ref_t, ref_l = nb_t[rows, pick], nb_l[rows, pick]
             require(torch.equal(toks, ref_t) and torch.equal(lens, ref_l),
                     f"make_offline_decoder({mode!r}) differs from its search on the card")
-            lat[mode] = _synced_ms(torch, lambda: dec(waves, wave_lens))[1]
+            lat[mode] = synced_ms(dev, lambda: dec(waves, wave_lens))[1]
             print(f"  {label} {mode}: {lat[mode]:.1f} ms for the {len(wave_lens)} fixture "
                   f"requests (fp32, synced, after a warm-up call); best hypotheses "
                   f"{int(lens.sum())} tokens")
@@ -4104,19 +4097,19 @@ ZOO = {
     # 12a, icefall-style: the stateless embedding predictor (history 2, 4
     # heads, embed = output = 256) and the pruned loss over 5 label positions
     "stateless_pruned": {"model.predictor.predictor_type": "embedding",
-                         "model.rnnt_prune_range": 5},
+                         "model.rnnt_prune_range": 5, "model.encoder.num_blocks": CUT_BLOCKS},
     # 12b: RoPE with 2 K/V heads, no positional table, MoE FFNs (8 experts, 2
     # active), RMS-normed conv modules, the conv predictor and a HAT joint
     "zoo": {"model.encoder.attention_type": "rope", "model.encoder.n_kv_head": 2,
             "model.encoder.pos_enc_layer_type": "no_pos", "model.encoder.mlp_type": "moe",
             "model.encoder.n_expert": 8, "model.encoder.n_expert_activated": 2,
             "model.encoder.cnn_module_norm": "rms_norm", "model.predictor.predictor_type": "conv",
-            "model.joint.hat_joint": True},
+            "model.joint.hat_joint": True, "model.encoder.num_blocks": CUT_BLOCKS},
     # 12c, full context: FireRed's front end and attention, gated FFNs, batch
     # norm (evaluation, seeded running statistics) and a post-join linear
     "full_context": {"model.encoder.encoder_type": "firered", "model.encoder.mlp_type": "gated",
                      "model.encoder.cnn_module_norm": "batch_norm",
-                     "model.joint.postjoin_linear": True},
+                     "model.joint.postjoin_linear": True, "model.encoder.num_blocks": CUT_BLOCKS},
 }
 
 
@@ -4190,6 +4183,7 @@ def _zoo_serve(torch, dev, data, m, modes, streaming: bool, stream_beam: bool = 
     from tpuasr_torch.models.transducer import stream_output_factor
     from tpuasr_torch.nn.subsampling import subsampled_len
     from tpuasr_torch.streaming import num_chunks
+    from tpuasr_torch.tools.profile_trace import synced_ms
 
     cfg, c = m["cfg"], m["cfg"].model
     waves, wave_lens = data["fixture"]
@@ -4197,7 +4191,7 @@ def _zoo_serve(torch, dev, data, m, modes, streaming: bool, stream_beam: bool = 
             for side in ("card", "cpu")}
     same = all(torch.equal(a.cpu(), b) for a, b in zip(toks["card"], toks["cpu"]))
     dec = make_offline_decoder(m["card"], cfg, "rnnt_greedy")
-    entry, ms = _synced_ms(torch, lambda: dec(waves, wave_lens))
+    entry, ms = synced_ms(dev, lambda: dec(waves, wave_lens))
     print(f"rnnt_greedy card vs CPU: tokens identical {same} (emitted "
           f"{int(toks['cpu'][1].sum())}); make_offline_decoder on the card {ms:.1f} ms for the "
           f"{len(wave_lens)} requests")
@@ -4222,7 +4216,7 @@ def _zoo_serve(torch, dev, data, m, modes, streaming: bool, stream_beam: bool = 
     card, cpu = (searches(m[side], *m["enc"][side]) for side in ("card", "cpu"))
     for mode in modes:
         out["agreement"][mode] = _nbest_agreement(torch, mode, card[mode], cpu[mode])
-        out[f"{mode}_ms"] = _synced_ms(torch, lambda: make_offline_decoder(
+        out[f"{mode}_ms"] = synced_ms(dev, lambda: make_offline_decoder(
             m["card"], cfg, mode)(waves, wave_lens))[1]
         print(f"  {mode}: {out[f'{mode}_ms']:.1f} ms on the card")
     if streaming:
@@ -4287,6 +4281,7 @@ def _option_trainer(torch, dev, sets: dict, label: str, cfg_ok,
     import tpuasr_torch.train.loop as loop
     from tpuasr_torch.config import load_yaml
     from tpuasr_torch.data import synthetic_pipeline, tensors
+    from tpuasr_torch.tools.profile_trace import profiled_step
     from tpuasr_torch.tools.train import main as train_main
     from tpuasr_torch.train import make_optimizer
 
@@ -4311,8 +4306,8 @@ def _option_trainer(torch, dev, sets: dict, label: str, cfg_ok,
     ms = sorted(w for w, _ in walls)
     med, audio = ms[len(ms) // 2], sorted(a for _, a in walls)[len(walls) // 2]
     batch = tensors(next(iter(synthetic_pipeline(cfg, 48, seed=0).batches(0))), dev)
-    _, busy, wall, kern = _profiled_step(
-        torch, make(run.state.model, make_optimizer(cfg.optim), cfg), run.state, batch)
+    _, busy, wall, kern = profiled_step(
+        make(run.state.model, make_optimizer(cfg.optim), cfg), run.state, batch, SEED)
     print(f"{label}: {len(ms)} steps, train loss {run.train_losses}, dev loss "
           f"{run.dev_losses}; step wall (synced) median {med:.1f} ms (min {ms[0]:.1f}, max "
           f"{ms[-1]:.1f}), {audio / med * 1e3:.1f} audio-s/s; peak memory {peak:.3f} GiB; one "
@@ -4337,6 +4332,7 @@ def _loss_routes(torch, dev, bench) -> dict:
 
     from tpuasr_torch.losses import rnnt_loss_from_logits, rnnt_loss_pruned
     from tpuasr_torch.ops import rnnt_loss_fused_mean
+    from tpuasr_torch.tools.profile_trace import synced_ms
 
     b, t, u, d, v = BENCH_B, int(_enc_len(bench["wave_lens"]).max()), BENCH_TOKENS, 256, 412
     r = np.random.default_rng(SEED + 5)
@@ -4364,7 +4360,7 @@ def _loss_routes(torch, dev, bench) -> dict:
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
-        walls = sorted(_synced_ms(torch, call)[1] for _ in range(5))
+        walls = sorted(synced_ms(dev, call)[1] for _ in range(5))
         peak = (torch.cuda.max_memory_allocated() - base) / 2**20
         out[name] = {"ms": walls[2], "peak_mib": peak, "loss": float(call().detach())}
         print(f"12a loss route {name} at [{b}, {t}, {u + 1}, {v}]: forward + backward "
@@ -4376,9 +4372,10 @@ def _loss_routes(torch, dev, bench) -> dict:
 def _zoo_step_profile(torch, dev, bench) -> dict:
     """12b's training step at bench.py's configuration and batch (6b: bf16,
     dropout 0.1, dynamic chunks) with the zoo's options: one step, then a
-    profiled one (`_profiled_step`): its device busy ms, wall, device
-    operations, and the peak memory over both."""
+    profiled one (`tools.profile_trace.profiled_step`): its device busy ms,
+    wall, device operations, and the peak memory over both."""
     from tpuasr_torch.models import Transducer, init_weights
+    from tpuasr_torch.tools.profile_trace import profiled_step
     from tpuasr_torch.train import TrainState, make_optimizer, make_train_step
 
     cfg = _zoo(_train_cfg("bfloat16", dropout=True), "zoo")
@@ -4388,7 +4385,7 @@ def _zoo_step_profile(torch, dev, bench) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     state, metrics = step(TrainState.create(model, tx), bench, SEED)
-    state, busy, wall, kern = _profiled_step(torch, step, state, bench)
+    state, busy, wall, kern = profiled_step(step, state, bench, SEED)
     peak = torch.cuda.max_memory_allocated() / 2**30
     ops = sum(e.count for e in kern)
     require(math.isfinite(float(metrics["loss"])), "12b's bf16 step gave a non-finite loss")
@@ -4713,6 +4710,7 @@ def _para_serve(torch, dev, data, stack: str) -> dict:
     from tpuasr_torch.nn.cif import cif_peaks
     from tpuasr_torch.nn.masks import make_pad_mask
     from tpuasr_torch.tools import evaluate
+    from tpuasr_torch.tools.profile_trace import synced_ms
     from tpuasr_torch.train import TrainState, make_optimizer, save_checkpoint
 
     waves, wave_lens = data["fixture"]
@@ -4771,9 +4769,9 @@ def _para_serve(torch, dev, data, stack: str) -> dict:
         ref = (gc[0], gc[1]) if mode == "paraformer_greedy" else (bc[0][:, 0], bc[2])
         require(torch.equal(toks.cpu(), ref[0]) and torch.equal(lens.cpu(), ref[1]),
                 f"make_offline_decoder({mode!r}) differs from the model's search on the card")
-        lat[mode] = _synced_ms(torch, lambda: dec(waves, wave_lens))[1]
-    lat["greedy_decode_with_times"] = _synced_ms(
-        torch, lambda: models["card"].greedy_decode_with_times(*feats["card"]))[1]
+        lat[mode] = synced_ms(dev, lambda: dec(waves, wave_lens))[1]
+    lat["greedy_decode_with_times"] = synced_ms(
+        dev, lambda: models["card"].greedy_decode_with_times(*feats["card"]))[1]
     print(f"14c {stack} latency, fp32, the {n} fixture requests, synced after a warm-up call: "
           + ", ".join(f"{m} {v:.1f} ms" for m, v in lat.items()))
     out["latency_ms"] = lat
@@ -4785,7 +4783,7 @@ def _para_serve(torch, dev, data, stack: str) -> dict:
         save_checkpoint(ckpt, TrainState.create(models["card"], make_optimizer(cfg.optim)),
                         {"epoch": 0, "step": 0})
         for mode in ("paraformer_greedy", "paraformer_beam"):
-            res, walls[mode] = _synced_ms(torch, lambda: evaluate.main(
+            res, walls[mode] = synced_ms(dev, lambda: evaluate.main(
                 ["--checkpoint", ckpt, "--workload", "paraformer", "--mode", mode,
                  "--synthetic", "16", "--beam_size", str(PARA_BEAM), "--max_samples", "0"]))
             require(res.counts.ref_len > 0, f"evaluate --mode {mode} decoded nothing")
@@ -4940,6 +4938,7 @@ def _whisper_phase(torch, dev, data) -> dict:
     from tpuasr_torch.audio import fbank_batch
     from tpuasr_torch.config import Config
     from tpuasr_torch.models import whisper_beam_decode, whisper_greedy_decode
+    from tpuasr_torch.tools.profile_trace import synced_ms
     from tpuasr_torch.train import make_optimizer
 
     cfg = _whisper_cfg()
@@ -5000,10 +4999,10 @@ def _whisper_phase(torch, dev, data) -> dict:
     out["beam_agreement"] = _nbest_agreement(torch, f"15c: Whisper beam {WHISPER_BEAM}",
                                              found["card"], found["cpu"])
     card = models["card"]
-    lat = {"encode": _synced_ms(torch, lambda: card.encode(*fbank_batch(
+    lat = {"encode": synced_ms(dev, lambda: card.encode(*fbank_batch(
                waves, wave_lens, feature, device=dev)))[1],
-           "greedy": _synced_ms(torch, lambda: greedy("card"))[1],
-           "beam": _synced_ms(torch, lambda: beam("card"))[1]}
+           "greedy": synced_ms(dev, lambda: greedy("card"))[1],
+           "beam": synced_ms(dev, lambda: beam("card"))[1]}
     print(f"15c: Whisper latency, fp32, the {n} fixture requests, synced after a warm-up "
           f"call: fbank + encode {lat['encode']:.1f} ms, greedy {lat['greedy']:.1f} ms, beam "
           f"{WHISPER_BEAM} {lat['beam']:.1f} ms ({WHISPER_MAX_TOKENS} tokens at most)")
@@ -5069,6 +5068,7 @@ def _export_phase(torch, dev, data, blank_bias: float) -> tuple[dict, dict, dict
     from tpuasr_torch.ops import KERNELS, LAUNCHES, reset_launch_counts
     from tpuasr_torch.streaming import chunk_windows, num_chunks
     from tpuasr_torch.tools import export_stream
+    from tpuasr_torch.tools.profile_trace import synced_ms
 
     cfg = _flagship("float32", fused_ffn=True)
     s = cfg.streaming
@@ -5096,7 +5096,7 @@ def _export_phase(torch, dev, data, blank_bias: float) -> tuple[dict, dict, dict
         st = init_streaming_state(model, b, CHUNK, LEFT, blank, EXPORT_MAX_TOKENS, enc_lens)
         times = []
         for w in windows:
-            st, ms = _synced_ms(torch, lambda: step(w, st))
+            st, ms = synced_ms(dev, lambda: step(w, st))
             times.append(ms)
         return st, times
 
@@ -5173,7 +5173,7 @@ def _export_phase(torch, dev, data, blank_bias: float) -> tuple[dict, dict, dict
                 "model.encoder.attention_heads=2", "model.encoder.linear_units=128",
                 "model.encoder.cnn_module_kernel=3", "model.encoder.static_chunk_size=4",
                 "model.encoder.fused_ffn=True", "streaming.chunk_size=4", "streaming.n_steps=2"]
-        cli, wall = _synced_ms(torch, lambda: export_stream.main(argv))
+        cli, wall = synced_ms(dev, lambda: export_stream.main(argv))
         require(all(v["platforms"] == ["cuda"] for v in cli["functions"].values()),
                 "export_stream --device cuda traced for another device")
         print(f"16: tools/export_stream --verify on the card (1 block, d64, fused_ffn): "
@@ -5319,8 +5319,10 @@ def _parallel_rank(argv) -> None:
     rank, world, out_dir, backend, device, bias = (int(argv[0]), int(argv[1]), Path(argv[2]),
                                                     argv[3], argv[4], float(argv[5]))
     sys.path.insert(0, str(ROOT))
+    from tpuasr_torch.config import Config
     from tpuasr_torch.ops import KERNELS, LAUNCHES, build_all, reset_launch_counts
     from tpuasr_torch.parallel import init_distributed, make_mesh
+    from tpuasr_torch.tools.profile_trace import bench_batch
     from tpuasr_torch.tools.tp_joint_bench import analyze
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -5332,7 +5334,8 @@ def _parallel_rank(argv) -> None:
             build_all()  # the parent built the libraries: this loads them
         out = {"device": str(dev), "backend": backend}
         out["collectives"] = _probe_collectives(torch, dev) if dev.type == "cuda" else {}
-        bench, data = _bench_batch(torch, dev), _requests()
+        bench = bench_batch(Config(), dev, BENCH_B, BENCH_FRAMES, BENCH_TOKENS)
+        data = _requests()
         meshes = {1: make_mesh(1, dev), PARALLEL_RANKS: make_mesh(PARALLEL_RANKS, dev)}
         sides, parts = {}, {}
         reset_launch_counts()
@@ -5470,9 +5473,9 @@ def _parallel_phase(torch, dev, data, bench, blank_bias: float, card: str,
     itself, the other rank waiting at a barrier); NCCL across cards where
     there are two; the cost model over the gloo ranks' recorded collectives
     (`card`: the card's name and power limit; `step_ms` / `busy_ms`: 6b's
-    median step and its device busy ms); then the trainer CLI under
-    torchrun at world size 1 (NCCL). -> (the records, the run's launches
-    summed over the ranks, rank 0's kernel records)."""
+    median step and its device busy ms); the trainer CLI under torchrun at
+    world size 1 (NCCL) beside the one-rank steps. -> (the records, the
+    run's launches summed over the ranks, rank 0's kernel records)."""
     import tempfile
 
     from tpuasr_torch.ops import KERNELS
@@ -5486,9 +5489,35 @@ def _parallel_phase(torch, dev, data, bench, blank_bias: float, card: str,
           f"{'on cuda:0 and cuda:1' if 'nccl' in runs else 'not run (one card)'}; NCCL at "
           f"world size 1 through the trainer CLI")
 
-    ref_steps = {case: _parallel_side(torch, _parallel_cfg(case), dev, bench)
-                 for case in ("none",) + SPLIT_CASES}
-    ref_toks, ref_lens = (x.cpu() for x in _parallel_decode(torch, dev, data, blank_bias))
+    # the trainer under torchrun (NCCL at world size 1) runs beside the
+    # one-rank reference steps, which no timing reads, and is awaited before
+    # the ranks start (rank 0 times its kernels with the card to itself)
+    save_dir = tempfile.TemporaryDirectory(prefix="torchrun-", dir=ROOT / "build")
+    t_trainer = time.perf_counter()
+    trainer = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
+         "1", "-m", "tpuasr_torch.tools.train", "--synthetic", "24", "--epochs", "1",
+         "--set", "data.synth_hard=True", f"train.save_dir={save_dir.name}", "train.log_dir=",
+         "train.log_every=1"], cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    try:
+        ref_steps = {case: _parallel_side(torch, _parallel_cfg(case), dev, bench)
+                     for case in ("none",) + SPLIT_CASES}
+        ref_toks, ref_lens = (x.cpu() for x in _parallel_decode(torch, dev, data, blank_bias))
+        stdout, stderr = trainer.communicate(timeout=PARALLEL_WAIT_S)
+    finally:
+        if trainer.poll() is None:
+            trainer.kill()
+            trainer.wait()
+    trainer_s = time.perf_counter() - t_trainer
+    lines = [ln for ln in (stdout + stderr).rstrip().splitlines() if not ln.startswith("{")]
+    print(f"17 torchrun trainer (world size 1, {trainer_s:.1f} s beside the one-rank "
+          f"reference steps):\n" + "\n".join(lines[-12:]))
+    require(trainer.returncode == 0, f"the trainer under torchrun exited {trainer.returncode}")
+    require("world size 1 (nccl)" in stdout, "the trainer under torchrun did not take NCCL")
+    require((Path(save_dir.name) / "latest").exists(),
+            "the torchrun trainer wrote no checkpoint")
+    save_dir.cleanup()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     out, launches, records = {"cards": n_cards}, {}, {}
@@ -5545,25 +5574,214 @@ def _parallel_phase(torch, dev, data, bench, blank_bias: float, card: str,
             require(max(mem["sharded_peak_bytes_per_rank"])
                     < mem["unsharded_peak_bytes_rank0"],
                     "17: a rank of the split joint peaked above the unsharded one")
-    # the trainer under torchrun: NCCL at world size 1
-    with tempfile.TemporaryDirectory(prefix="torchrun-", dir=ROOT / "build") as save_dir:
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node",
-             "1", "-m", "tpuasr_torch.tools.train", "--synthetic", "24", "--epochs", "1",
-             "--set", "data.synth_hard=True", f"train.save_dir={save_dir}", "train.log_dir=",
-             "train.log_every=1"], cwd=ROOT, capture_output=True, text=True,
-            timeout=PARALLEL_WAIT_S)
-        out["torchrun_trainer_s"] = time.perf_counter() - t0
-        text = proc.stdout + proc.stderr
-        lines = [ln for ln in text.rstrip().splitlines() if not ln.startswith("{")]
-        print(f"17 torchrun trainer (world size 1, {out['torchrun_trainer_s']:.1f} s):\n"
-              + "\n".join(lines[-12:]))
-        require(proc.returncode == 0, f"the trainer under torchrun exited {proc.returncode}")
-        require("world size 1 (nccl)" in proc.stdout,
-                "the trainer under torchrun did not take NCCL")
-        require((Path(save_dir) / "latest").exists(), "the torchrun trainer wrote no checkpoint")
+    out["torchrun_trainer_s"] = trainer_s
     return out, launches, records
+
+
+# ---------------------------------------------------------------------------
+# phase 18: a JAX-layout checkpoint on the card
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def _step_losses(step_home, attr: str):
+    """While inside, each step made by the factory `attr` of `step_home`
+    records its loss (a host read a step); -> the list, filled as the run
+    goes."""
+    losses, make = [], getattr(step_home, attr)
+
+    def recording(model, tx, cfg, mesh=None):
+        step = make(model, tx, cfg, mesh)
+
+        def run(state, batch, seed):
+            state, metrics = step(state, batch, seed)
+            losses.append(float(metrics["loss"]))
+            return state, metrics
+
+        return run
+
+    setattr(step_home, attr, recording)
+    try:
+        yield losses
+    finally:
+        setattr(step_home, attr, make)
+
+
+def _jax_npz(torch, dev, ckpt: str, out: str) -> dict:
+    """The port checkpoint `ckpt` as the JAX package's TrainState tree in
+    the npz route's file `out` (with `ckpt`'s info JSON as out.json and its
+    train.yaml beside it); restored from `out`, every tensor of the model
+    and optimizer state must equal `ckpt`'s bit for bit."""
+    import shutil
+
+    from tpuasr_torch.config import load_yaml
+    from tpuasr_torch.convert import flax_train_state
+    from tpuasr_torch.tools.train import build_model
+    from tpuasr_torch.train import TrainState, make_optimizer, restore_checkpoint
+    from tpuasr_torch.train.orbax import flatten_tree, read_npz, write_npz
+
+    cfg = load_yaml(str(Path(ckpt).parent / "train.yaml"))
+
+    def restored(path):
+        tx = make_optimizer(cfg.optim)
+        return restore_checkpoint(path, TrainState.create(build_model(cfg, "online_rnnt", dev),
+                                                           tx))
+
+    t0 = time.perf_counter()
+    port = restored(ckpt)
+    tree = flax_train_state(port)
+    write_npz(out, tree)
+    shutil.copyfile(ckpt + ".json", out + ".json")
+    shutil.copyfile(Path(ckpt).parent / "train.yaml", Path(out).parent / "train.yaml")
+    t_write = time.perf_counter() - t0
+    leaves = flatten_tree(read_npz(out))
+    require(set(leaves) == set(flatten_tree(tree)), "the npz's keys are not the tree's")
+    require(any(k.startswith("params/params/encoder/block") for k in leaves)
+            and any(k.startswith("opt_state/nu_max/") for k in leaves),
+            "the npz is not a JAX TrainState tree (unrolled blocks, amsgrad moments)")
+    t0 = time.perf_counter()
+    jax = restored(out)
+    t_read = time.perf_counter() - t0
+    a, b = port.model.state_dict(), jax.model.state_dict()
+    require(a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a),
+            "the npz's model differs from the port checkpoint's")
+    for k in ("count", "mu", "nu", "nu_max"):
+        x, y = getattr(port.opt_state, k), getattr(jax.opt_state, k)
+        require(x.dtype == y.dtype and torch.equal(x, y),
+                f"the npz's optimizer state {k} differs from the port checkpoint's")
+    require((port.step, port.lr_scale, int(port.skipped)) == (jax.step, jax.lr_scale,
+                                                             int(jax.skipped)),
+            "the npz's step, lr_scale or skipped differ from the port checkpoint's")
+    size = Path(out).stat().st_size
+    print(f"phase 8's checkpoint as a JAX TrainState npz: {len(leaves)} arrays, {size / 2**20:.1f} "
+          f"MiB, written in {t_write:.1f} s (the port checkpoint's restore included), restored in "
+          f"{t_read:.1f} s; model ({len(a)} tensors) and optimizer state (count, mu, nu, nu_max; "
+          f"{port.opt_state.mu.numel()} entries each), step {jax.step}, lr_scale "
+          f"{jax.lr_scale}, skipped {int(jax.skipped)}: identical to the port checkpoint's")
+    return {"arrays": len(leaves), "bytes": size, "write_s": t_write, "restore_s": t_read,
+            "step": jax.step}
+
+
+def _cli_lines(cli, argv) -> tuple:
+    """(cli.main(argv), its printed lines but the effective-config one)."""
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = cli.main(argv)
+    return res, [ln for ln in buf.getvalue().splitlines()
+                 if not ln.startswith("effective config")]
+
+
+def _jax_checkpoint_phase(torch, dev, save_dir: str, corpus: str, bench_kernels) -> dict:
+    """Phase 18 (see the module's docstring). `save_dir`: phase 8's, `corpus`:
+    phase 9's root, `bench_kernels`: the port kernels 6b's profiled step
+    ran."""
+    import io
+    import tempfile
+
+    from tpuasr_torch.ops import KERNELS, LAUNCHES
+    from tpuasr_torch.tools import (
+        batch_sweep, campaign_eval, eval_streaming, evaluate, profile_step, profile_trace,
+    )
+    from tpuasr_torch.tools import train as train_tool
+    from tpuasr_torch.train import latest_path, load_info
+    from tpuasr_torch.train import loop as train_loop_mod
+
+    out, walls = {}, {}
+    ckpt = latest_path(save_dir)
+    with tempfile.TemporaryDirectory(prefix="jax-", dir=ROOT / "build") as work:
+        npz = f"{work}/ckpt/latest.npz"
+        t0 = time.perf_counter()
+        out["npz"] = _jax_npz(torch, dev, ckpt, npz)
+        walls["npz"] = time.perf_counter() - t0
+
+        # evaluate and eval_streaming on phase 9's corpus: the npz against the port's file
+        split = f"{corpus}/split"
+        data = [f"data.{s}_{k}={split}/{s}/{f}" for s in ("train", "dev", "test")
+                for k, f in (("wav_scp", "wav.scp"), ("text", "pinyin"))]
+        data.append(f"data.vocab_file={corpus}/vocab.txt")
+        common = ["--data_root", corpus, "--max_samples", "16", "--set", *data]
+        for label, cli, extra in (("evaluate rnnt_greedy", evaluate,
+                                   ["--workload", "online_rnnt", "--mode", "rnnt_greedy"]),
+                                  ("eval_streaming", eval_streaming, [])):
+            t0 = time.perf_counter()
+            r_port, l_port = _cli_lines(cli, ["--checkpoint", ckpt, *extra, *common])
+            r_jax, l_jax = _cli_lines(cli, ["--checkpoint", npz, *extra, *common])
+            walls[label] = time.perf_counter() - t0
+            require(l_port == l_jax and r_port.samples == r_jax.samples and len(l_jax) > 3,
+                    f"{label}: the npz's output differs from the port checkpoint's")
+            print(f"{label} on phase 9's corpus, given the npz and given the port checkpoint: "
+                  f"the same {len(l_jax)} lines ({len(r_jax.samples)} utterances); "
+                  f"{l_jax[0]}")
+            out[label] = l_jax[:3]
+
+        # every decode mode over the npz
+        t0 = time.perf_counter()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            swept = campaign_eval.main([npz, "32"])
+        walls["campaign_eval"] = time.perf_counter() - t0
+        cers = [ln for ln in buf.getvalue().splitlines() if "CER" in ln or "=====" in ln]
+        require(len(swept) == 9 and all(r is not None for r in swept),
+                "campaign_eval over the npz did not run its 9 modes")
+        print(f"campaign_eval over the npz (4 held-out and 4 held-in utterances a mode, "
+              f"{walls['campaign_eval']:.1f} s): exit 0; " + " | ".join(cers[-4:]))
+        out["campaign_eval"] = cers
+
+        # one epoch resumed from each, into its own save dir
+        info = load_info(ckpt)
+        firsts, results = {}, {}
+        for side, path in (("port", ckpt), ("npz", npz)):
+            t0 = time.perf_counter()
+            with _step_losses(train_loop_mod, "make_train_step") as losses, \
+                    contextlib.redirect_stdout(io.StringIO()):
+                res = train_tool.main(["--workload", "online_rnnt", "--synthetic", "48",
+                                       "--epochs", str(info["epoch"] + 2), "--resume", path,
+                                       "--set", f"train.save_dir={work}/resumed_{side}"])
+            walls[f"resume {side}"] = time.perf_counter() - t0
+            after = load_info(latest_path(f"{work}/resumed_{side}"))
+            require(len(res.train_losses) == 1 and after["epoch"] == info["epoch"] + 1
+                    and res.state.step == info["step"] + len(losses),
+                    f"the run resumed from the {side} checkpoint did not continue at epoch "
+                    f"{info['epoch'] + 1}, step {info['step']}: {after}, {len(losses)} steps")
+            firsts[side], results[side] = losses[0], res
+        rel = abs(firsts["npz"] - firsts["port"]) / abs(firsts["port"])
+        require(rel <= 1e-4, f"the first resumed step's loss: npz {firsts['npz']}, port "
+                             f"checkpoint {firsts['port']} ({rel:.2e} relative, over 1e-4)")
+        print(f"train --resume for one epoch (epoch {info['epoch'] + 1} from step "
+              f"{info['step']}): first-step loss npz {firsts['npz']:.6f}, port checkpoint "
+              f"{firsts['port']:.6f} ({rel:.2e} relative); epoch train loss "
+              f"{results['npz'].train_losses[0]:.4f} / {results['port'].train_losses[0]:.4f}")
+        out["resume"] = {"first_loss": firsts, "rel": rel, "epoch": info["epoch"] + 1,
+                         "from_step": info["step"]}
+
+        # the profiling tools at bench.py's configuration
+        t0 = time.perf_counter()
+        out["profile_step_ms"] = {k: v * 1e3 for k, v in profile_step.main(["--iters", "5"])
+                                  .items()}
+        walls["profile_step"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["batch_sweep"] = batch_sweep.main(["--batches", "12", "24", "--steps", "10"])
+        walls["batch_sweep"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        before = dict(LAUNCHES)
+        report = profile_trace.main(["--out", f"{work}/trace", "--steps", "5", "--fused"])
+        walls["profile_trace"] = time.perf_counter() - t0
+        traced = {k: LAUNCHES[k] - before[k] for k in KERNELS}
+        require(report is not None, "profile_trace's trace holds no device event")
+        missing = sorted(set(bench_kernels) - set(report["families"]))
+        require(not missing, f"profile_trace's trace lacks the hand kernels {missing} that "
+                             f"6b's step ran")
+        for name in ("fbank", "relpos_attention", "relpos_attention_bwd", "rnnt_fused_fwd",
+                     "rnnt_fused_bwd", "ctc_alpha", "ctc_beta_grad", "rnnt_alpha",
+                     "rnnt_beta_grad"):
+            require(traced[name] >= 6, f"profile_trace's 6 steps launched {name} "
+                                       f"{traced[name]} times")
+        out["profile_trace"] = {"device_ms_per_step": report["ms_per_step"],
+                                "launches": traced, "hand_kernels": sorted(bench_kernels)}
+    out["walls_s"] = walls
+    print("phase 18 walls (s): " + ", ".join(f"{k} {v:.1f}" for k, v in walls.items()))
+    return out
 
 
 if __name__ == "__main__":

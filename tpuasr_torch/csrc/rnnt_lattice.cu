@@ -49,8 +49,7 @@
 //   (the alpha tape; beta's two gradients, which reuse the step's two
 //   log-add terms as alpha + term - ll) straight to device memory, stores
 //   that nothing waits on. Beta is never stored. (The designs this was
-//   chosen over, timed by tpuasr_torch/tools/rnnt_lattice_designs.py: PERF.md
-//   §6.)
+//   chosen over, and their times: PERF.md §6.)
 // - block (beyond the warp route, up to U+1 1024): one block per utterance,
 //   one thread per
 //   column, a barrier per diagonal, the neighbour through a double-buffered

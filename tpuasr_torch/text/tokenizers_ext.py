@@ -9,11 +9,18 @@
 - `tokenize_mixed`: CJK characters as single tokens, every other run
   through an encoder;
 - `ParaformerTokenizer`: the seg-dict tokenizer
-  (wenet/text/paraformer_tokenizer.py).
+  (wenet/text/paraformer_tokenizer.py);
+- `HuggingFaceTokenizer` (transformers' AutoTokenizer,
+  wenet/text/hugging_face_tokenizer.py), `WhisperTokenizer` (tiktoken,
+  wenet/text/whisper_tokenizer.py, with the JAX module's offline byte-level
+  fallback) and `BpeTokenizer` (sentencepiece, wenet/text/bpe_tokenizer.py;
+  raises with the JAX module's message where sentencepiece is missing).
+  The first two import their package when first used and drop the built
+  backend when pickled, so worker processes rebuild it; none of these
+  packages is a dependency of the port (the card's machine has none of
+  them).
 
-The JAX module's HuggingFace, tiktoken (whisper) and sentencepiece backends
-are not copied: they need packages outside this port's dependencies. The
-pinyin and character tokenizers are `tpuasr_torch.text.tokenizer`'s.
+The pinyin and character tokenizers are `tpuasr_torch.text.tokenizer`'s.
 """
 
 from __future__ import annotations
@@ -221,3 +228,127 @@ class ParaformerTokenizer(BaseTokenizer):
     @property
     def symbol_table(self):
         return self._symbols
+
+
+class HuggingFaceTokenizer(BaseTokenizer):
+    def __init__(self, model: str, *args, **kwargs):
+        self.model = model
+        self.args = args
+        self.kwargs = kwargs
+        self.tokenizer = None
+
+    def _build(self):
+        if self.tokenizer is None:
+            from transformers import AutoTokenizer
+
+            self.tokenizer = AutoTokenizer.from_pretrained(self.model, *self.args,
+                                                           **self.kwargs)
+        return self.tokenizer
+
+    def text2tokens(self, line):
+        return self._build().tokenize(line)
+
+    def tokens2text(self, tokens):
+        t = self._build()
+        return t.decode(t.convert_tokens_to_ids(tokens))
+
+    def tokens2ids(self, tokens):
+        return self._build().convert_tokens_to_ids(tokens)
+
+    def ids2tokens(self, ids):
+        return self._build().convert_ids_to_tokens(ids)
+
+    def vocab_size(self):
+        return len(self._build())
+
+    @property
+    def symbol_table(self):
+        return self._build().get_vocab()
+
+    def __getstate__(self):
+        d = dict(self.__dict__)
+        d["tokenizer"] = None  # rebuilt in the worker
+        return d
+
+
+class WhisperTokenizer(BaseTokenizer):
+    def __init__(self, multilingual: bool = True, num_languages: int = 100):
+        self.multilingual = multilingual
+        self.num_languages = num_languages
+        self.tokenizer = None
+
+    def _build(self):
+        if self.tokenizer is None:
+            import tiktoken
+
+            try:
+                # the registry's bpe ranks (fetched once, then cached by tiktoken)
+                self.tokenizer = tiktoken.get_encoding("gpt2")
+            except Exception:
+                # offline: a merge-free byte-level Encoding (every byte a
+                # token), the same tiktoken API, round-trips any text
+                self.tokenizer = tiktoken.Encoding(
+                    name="byte_fallback",
+                    pat_str=r"""'s|'t|'re|'ve|'m|'ll|'d| ?\p{L}+| ?\p{N}+"""
+                    r"""| ?[^\s\p{L}\p{N}]+|\s+(?!\S)|\s+""",
+                    mergeable_ranks={bytes([i]): i for i in range(256)},
+                    special_tokens={},
+                )
+        return self.tokenizer
+
+    def text2tokens(self, line):
+        return [str(t) for t in self._build().encode(line)]
+
+    def tokens2text(self, tokens):
+        return self._build().decode([int(t) for t in tokens])
+
+    def tokens2ids(self, tokens):
+        return [int(t) for t in tokens]
+
+    def ids2tokens(self, ids):
+        return [str(i) for i in ids]
+
+    def vocab_size(self):
+        return self._build().n_vocab
+
+    @property
+    def symbol_table(self):
+        return {str(i): i for i in range(self.vocab_size())}
+
+    def __getstate__(self):
+        d = dict(self.__dict__)
+        d["tokenizer"] = None
+        return d
+
+
+class BpeTokenizer(BaseTokenizer):
+    def __init__(self, bpe_model: str):
+        try:
+            import sentencepiece as spm
+        except ImportError as e:
+            raise ImportError(
+                "BpeTokenizer requires sentencepiece, which is not installed "
+                "in this environment; use the char/pinyin tokenizer instead"
+            ) from e
+        self.sp = spm.SentencePieceProcessor()
+        self.sp.load(bpe_model)
+
+    def text2tokens(self, line):
+        # wenet tokenize_by_bpe_model: CJK characters single, upper-cased BPE runs
+        return tokenize_mixed(line.strip(), self.sp.encode_as_pieces, upper=True)
+
+    def tokens2text(self, tokens):
+        return self.sp.decode_pieces(list(tokens))
+
+    def tokens2ids(self, tokens):
+        return [self.sp.piece_to_id(t) for t in tokens]
+
+    def ids2tokens(self, ids):
+        return [self.sp.id_to_piece(int(i)) for i in ids]
+
+    def vocab_size(self):
+        return self.sp.get_piece_size()
+
+    @property
+    def symbol_table(self):
+        return {self.sp.id_to_piece(i): i for i in range(self.vocab_size())}

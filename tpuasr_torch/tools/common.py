@@ -1,7 +1,7 @@
 """What the evaluation CLIs (`evaluate`, `eval_streaming`, `decode_stream`)
 share: the config a checkpoint is evaluated with, the dev or test split (or
 the synthetic corpus) with its tokenizer, and the model restored from the
-port's checkpoint."""
+port's checkpoint, a JAX orbax directory or its npz."""
 
 from __future__ import annotations
 
@@ -84,10 +84,18 @@ def vocab_tokenizer(cfg, vocab: str | None):
 
 def restore_model(cfg, workload: str, device, checkpoint: str):
     """The workload's model (built as the trainer builds it) on `device`
-    with the weights of the port's checkpoint, in eval mode."""
+    with the weights of `checkpoint`, in eval mode: the port's file
+    (`train.restore_checkpoint`), or a JAX orbax directory or the npz of one,
+    of which only the params are read (strict)."""
+    from tpuasr_torch.convert import load_jax_params
     from tpuasr_torch.tools.train import build_model
     from tpuasr_torch.train import TrainState, make_optimizer, restore_checkpoint
+    from tpuasr_torch.train.orbax import read_checkpoint
 
     model = build_model(cfg, workload, device)
-    restore_checkpoint(checkpoint, TrainState.create(model, make_optimizer(cfg.optim)))
+    tree = read_checkpoint(checkpoint, only="params")
+    if tree is not None:
+        load_jax_params(model, tree["params"])
+    else:
+        restore_checkpoint(checkpoint, TrainState.create(model, make_optimizer(cfg.optim)))
     return model.eval()

@@ -10,8 +10,9 @@ samples.
         [--ctc_fusion_weight W] [--synthetic N --seed S] [--data_root DIR] \\
         [--config cfg.yaml] [--set k=v ...] [--device cuda|cpu]
 
-The checkpoint is the port's (`tpuasr_torch.tools.train`); its train.yaml
-gives the architecture unless --config is given. The transducer workloads
+The checkpoint is the port's (`tpuasr_torch.tools.train`), a JAX orbax
+directory or the npz of one (`tpuasr_torch.tools.orbax_to_npz`); the
+train.yaml beside it gives the architecture unless --config is given. The transducer workloads
 decode in the rnnt modes and the CTC ones; the aed workload (an `ASRModel`
 checkpoint) in ctc_greedy, ctc_prefix_beam, attention and
 attention_rescoring; the paraformer workload in paraformer_greedy and

@@ -5,8 +5,9 @@
         [--batch 16] [--max_tokens 200] [--verify] [--config cfg.yaml] \\
         [--set k=v ...] [--device cuda|cpu]
 
-Loads the port's checkpoint (or, without one, the online_rnnt model with
-seeded weights, a smoke run) with the config saved beside it, traces
+Loads the port's checkpoint, a JAX orbax directory or its npz (or, without
+one, the online_rnnt model with seeded weights, a smoke run) with the
+config saved beside it, traces
 encoder_chunk / predictor_step / joint_step / the fused process_chunk for
 `--batch` parallel streams on the device (`tpuasr_torch.export`), and writes
 one ``.pt2`` file each and manifest.json to --out. `--verify` reloads the
@@ -26,7 +27,8 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     ap.add_argument("--checkpoint", default=None,
-                    help="the port's checkpoint (omit for seeded weights, a smoke run)")
+                    help="the port's checkpoint, a JAX orbax directory or its npz (omit "
+                         "for seeded weights, a smoke run)")
     ap.add_argument("--out", required=True, help="output artifact directory")
     ap.add_argument("--batch", type=int, default=1,
                     help="number of parallel streams baked into the export")

@@ -8,7 +8,9 @@ card, over random features, beside the dispatch-and-sync probe.
 
 The model is the online_rnnt workload of `tpuasr_torch.tools.train`
 (`build_model`, seeded weights); `--checkpoint` loads the model weights of
-a checkpoint the port's trainer saved (`torch.save`). Both modes run with
+a checkpoint the port's trainer saved (`torch.save`), of a JAX orbax
+directory or of its npz (`tools/orbax_to_npz.py`), with the train.yaml
+beside it unless --config is given. Both modes run with
 `streaming.n_steps` emissions a frame.
 """
 
@@ -42,14 +44,19 @@ def main(argv=None) -> dict:
     from tpuasr_torch.config import Config, layer_yaml, override
     from tpuasr_torch.device import resolve_device
     from tpuasr_torch.eval import measure_rtf
+    from tpuasr_torch.tools.common import restore_model
     from tpuasr_torch.tools.train import build_model, parse_overrides
+    from tpuasr_torch.train import find_effective_config
 
-    cfg = layer_yaml(Config(), args.config) if args.config else Config()
+    config = args.config
+    if config is None and args.checkpoint:
+        config = find_effective_config(args.checkpoint)
+    cfg = layer_yaml(Config(), config) if config else Config()
     cfg = override(cfg, parse_overrides(args.set))
-    model = build_model(cfg, "online_rnnt", resolve_device(None))
     if args.checkpoint:
-        ck = torch.load(args.checkpoint, map_location="cpu", weights_only=True)
-        model.load_state_dict(ck["model"])
+        model = restore_model(cfg, "online_rnnt", resolve_device(None), args.checkpoint)
+    else:
+        model = build_model(cfg, "online_rnnt", resolve_device(None))
 
     rng = np.random.default_rng(0)
     t = int(args.seconds * cfg.feature.sample_rate / cfg.feature.hop_length)

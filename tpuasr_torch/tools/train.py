@@ -24,8 +24,11 @@ with fp32 parameters, the fused joint loss, the rel-pos attention kernels,
 fbank precision "default"); a yaml or --set layers on top, and a
 non-empty train.dtype then sets model.compute_dtype (`config.resolve`, as
 the JAX trainer applies it). `--resume`
-loads the config saved beside the checkpoint unless --config is given, and
-continues at the saved step and epoch with the saved plateau state. The
+takes the port's checkpoint, a JAX orbax directory (SAVE_DIR/latest or
+SAVE_DIR/epoch_NNNN of the JAX trainer) or the npz of one
+(`tpuasr_torch.tools.orbax_to_npz`); it loads the config saved beside the
+checkpoint unless --config is given, and continues at the saved step and
+epoch with the saved moments and plateau state. The
 workload online_rnnt makes the encoder causal with dynamic chunks (static
 chunk = streaming.chunk_size when unset). Without --synthetic it trains on
 the BZNSYP corpus on disk: the train and dev splits of cfg.data (wav.scp

@@ -7,10 +7,16 @@ middle of an accumulation cycle goes on exactly), the host step count, the
 plateau scale and the count of skipped steps, all as CPU tensors so a card
 checkpoint restores on the CPU and back; a JSON info file beside it
 (``<path>.json``) carries the epoch, losses and plateau state, as the JAX
-package writes one beside its orbax directory. The JAX package's orbax
-checkpoints need orbax, which imports JAX, to read, so their loader cannot
-live in this package (ROADMAP §1 item 1); `tpuasr_torch.convert` takes the
-flax tree such a loader returns.
+package writes one beside its orbax directory.
+
+`restore_checkpoint` also takes the JAX package's checkpoints: an orbax
+directory (``save_dir/latest``, ``save_dir/epoch_NNNN``; read with
+tensorstore, `tpuasr_torch.train.orbax`) or the ``.npz`` that
+``python -m tpuasr_torch.tools.orbax_to_npz`` writes of one where
+tensorstore is installed (read with numpy alone, as on the card), either
+layer layout; `tpuasr_torch.convert.convert_train_state` maps the tree.
+Their info JSON sits at ``<path>.json`` too, and `find_effective_config`
+finds their train.yaml.
 
 A checkpoint holds whole vectors whatever the world size that wrote it:
 `train_loop` gathers the ZeRO slices to rank 0 before a save
@@ -50,11 +56,19 @@ def save_checkpoint(path: str, state: TrainState, info: dict | None = None) -> N
 
 
 def restore_checkpoint(path: str, target: TrainState) -> TrainState:
-    """Load a checkpoint into `target`'s model (in place) and return a
-    TrainState with its optimizer state, step, plateau scale and skipped
-    count, on the model's device."""
-    ck = torch.load(path, map_location="cpu", weights_only=True)
+    """Load a checkpoint (the port's file, a JAX orbax directory or its
+    npz) into `target`'s model (in place) and return a TrainState with its
+    optimizer state, step, plateau scale and skipped count, on the model's
+    device."""
+    from tpuasr_torch.train.orbax import read_checkpoint
+
     model = target.model
+    tree = read_checkpoint(path)
+    if tree is not None:
+        from tpuasr_torch.convert import convert_train_state
+
+        return convert_train_state(tree, target)
+    ck = torch.load(path, map_location="cpu", weights_only=True)
     model.load_state_dict(ck["model"])
     dev = next(model.parameters()).device
     # a checkpoint written before gradient accumulation holds no acc / mini_step
